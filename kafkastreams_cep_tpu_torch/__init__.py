@@ -1,0 +1,27 @@
+"""kafkastreams-cep on PyTorch and CUDA: the SASE+ NFA engine of
+``kafkastreams_cep_tpu`` ported to one NVIDIA GPU.
+
+The same Query DSL goes in and the same ``Sequence`` matches come out, in
+the same emission order, with the same loss counters.  Entry points run on
+``device="cuda"`` by default and raise when there is no GPU;
+``device="cpu"`` runs the plain PyTorch path.
+"""
+
+from kafkastreams_cep_tpu_torch.engine.matcher import (
+    EngineConfig,
+    MatcherSession,
+    TPUMatcher,
+)
+from kafkastreams_cep_tpu_torch.parallel.batch import BatchMatcher
+from kafkastreams_cep_tpu_torch.pattern.query import Query
+from kafkastreams_cep_tpu_torch.runtime.processor import CEPProcessor, Record
+
+__all__ = [
+    "BatchMatcher",
+    "CEPProcessor",
+    "EngineConfig",
+    "MatcherSession",
+    "Query",
+    "Record",
+    "TPUMatcher",
+]

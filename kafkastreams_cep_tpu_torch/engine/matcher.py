@@ -1,0 +1,843 @@
+"""The array NFA engine in PyTorch — the per-event step over ``[K]`` lanes.
+
+The counterpart of ``kafkastreams_cep_tpu/engine/matcher.py`` (whose module
+note explains the representation and cites the reference line by line):
+``R`` run slots per lane stand for the reference's run queue
+(``NFA.java:75``), each slot holding the wrapper's identity and eval stage,
+a fixed-width Dewey version, its pointer event, window start, branch flag
+and fold state; one step evaluates every run's unrolled PROCEED chain,
+applies the folds innermost frame first, runs the shared-buffer phase
+(consuming puts, then all walks) and compacts the next queue in the order
+the reference appends it.
+
+Where the JAX package ``vmap``s a one-lane step, every tensor here carries
+the lane axis ``[K]`` in front and each run-level quantity is ``[K, R]``;
+lookups into the transition tables are real gathers.  The numeric formats
+are the JAX package's: time is rebased int32, fold states are stored as
+int32 (float32 states as their bit pattern), offsets stay below 2^24.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from kafkastreams_cep_tpu_torch.compiler.tables import (
+    OP_BEGIN,
+    OP_TAKE,
+    TYPE_BEGIN,
+    TransitionTables,
+    lower,
+)
+from kafkastreams_cep_tpu_torch.ops import dewey_ops
+from kafkastreams_cep_tpu_torch.ops import slab as slab_mod
+from kafkastreams_cep_tpu_torch.ops.walk_kernel import walk_pass
+from kafkastreams_cep_tpu_torch.utils.events import Event, Sequence
+from kafkastreams_cep_tpu_torch.utils.logging import get_logger
+
+logger = get_logger("engine")
+
+I32 = torch.int32
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Static shape/feature knobs for one matcher — the same fields and
+    defaults as the JAX package's ``EngineConfig``, so a config (or a
+    checkpoint header's copy of one) means the same thing on both sides.
+    The fields outside this port's slice are accepted but refused by the
+    engine (see :func:`check_config`)."""
+
+    max_runs: int = 16  # R — run-queue slots (overflow counted in run_drops)
+    slab_entries: int = 64  # E — shared-buffer slots per key
+    slab_hot_entries: int = 0  # two-tier hot window (not in this slice)
+    slab_preds: int = 8  # MP — predecessor pointers per buffer entry
+    dewey_depth: int = 12  # D — fixed Dewey width (overflow counted)
+    max_walk: int = 16  # W — buffer walk bound = max match length
+    walker_budget: int = 1  # walkers per batch; 1 = the reference's order
+    renorm_versions: bool = True  # Dewey renormalization at sweep time
+    enforce_windows: bool = False  # deviation: functional within() pruning
+    sequential_slab: bool = False  # per-op slab path (not in this slice)
+    lazy_extraction: bool = False  # handle ring + drain (not in this slice)
+    handle_ring: int = 16  # HB — handle-ring slots (state shape only here)
+    stage_attribution: bool = False  # per-stage tallies (not in this slice)
+    tiering: bool = False  # stencil prefix tier (not in this slice)
+    gate_chunk: int = 32  # tiered gating granularity (not in this slice)
+
+
+def check_config(cfg: EngineConfig) -> None:
+    """Refuse the configurations this port does not serve yet, rather than
+    silently running something else."""
+    off_slice = {
+        "slab_hot_entries": cfg.slab_hot_entries != 0,
+        "lazy_extraction": cfg.lazy_extraction,
+        "stage_attribution": cfg.stage_attribution,
+        "tiering": cfg.tiering,
+        "sequential_slab": cfg.sequential_slab,
+        "walker_budget": cfg.walker_budget != 1,
+    }
+    bad = [k for k, v in off_slice.items() if v]
+    if bad:
+        raise NotImplementedError(
+            f"EngineConfig {bad}: not ported to the PyTorch engine yet "
+            "(the JAX package serves them)"
+        )
+    if cfg.handle_ring <= 0 or cfg.handle_ring % 8:
+        raise ValueError(
+            f"handle_ring={cfg.handle_ring} must be a positive multiple of 8"
+        )
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; CUDA must really be there."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={device!r} but torch.cuda.is_available() is False; pass "
+            "device='cpu' to run the plain PyTorch path on the CPU"
+        )
+    return dev
+
+
+class EventBatch(NamedTuple):
+    """Events for ``[K]`` lanes (one step) or ``[K, T]`` (a scan).
+
+    ``value`` is a pytree (dict / list / tuple) of numeric tensors — the
+    object predicates receive.  ``valid`` masks padding steps."""
+
+    key: torch.Tensor
+    value: Any
+    ts: torch.Tensor
+    off: torch.Tensor
+    valid: torch.Tensor
+
+
+class EngineState(NamedTuple):
+    """Full per-lane engine state; every field has the lane axis ``[K]``
+    first and otherwise the JAX package's shape, dtype and name."""
+
+    alive: torch.Tensor  # [K, R] bool
+    id_pos: torch.Tensor  # [K, R] int32 — -1 = seed run
+    eval_pos: torch.Tensor  # [K, R] int32
+    ver: torch.Tensor  # [K, R, D] int32
+    vlen: torch.Tensor  # [K, R] int32
+    event_off: torch.Tensor  # [K, R] int32 — -1 = none
+    start_ts: torch.Tensor  # [K, R] int32
+    branching: torch.Tensor  # [K, R] bool
+    agg: torch.Tensor  # [K, R, NS] int32 — typed-encoded fold state
+    slab: slab_mod.SlabState
+    run_drops: torch.Tensor  # [K] int32 — queue-overflow drops
+    ver_overflows: torch.Tensor  # [K] int32 — Dewey add_stage overflows
+    # Lazy-extraction handle ring: carried so checkpoints cross-load with
+    # the JAX package; inert (never written) under the eager engine.
+    hr_stage: torch.Tensor  # [K, HB] int32
+    hr_off: torch.Tensor  # [K, HB] int32
+    hr_ver: torch.Tensor  # [K, HB, D] int32
+    hr_vlen: torch.Tensor  # [K, HB] int32
+    hr_ts: torch.Tensor  # [K, HB] int32
+    hr_seq: torch.Tensor  # [K, HB] int32
+    hr_row: torch.Tensor  # [K, HB] int32
+    hr_count: torch.Tensor  # [K] int32
+    step_seq: torch.Tensor  # [K] int32 — monotone per-lane step counter
+    handle_overflows: torch.Tensor  # [K] int32
+    stage_counts: torch.Tensor  # [K, 4, 0] int32 — attribution (off)
+
+
+class StepOutput(NamedTuple):
+    """Matches completed by one step (``[K, R, ...]``) or a scan
+    (``[K, T, R, ...]``): ``stage``/``off`` hold each run slot's backward
+    buffer walk (final stage first), ``count`` is 0 for slots that
+    completed nothing."""
+
+    stage: torch.Tensor
+    off: torch.Tensor
+    count: torch.Tensor
+
+
+# Offsets must stay below 2^24 (the JAX package packs pointer rows into
+# float32; the port keeps the same contract so states cross over).
+OFFSET_LIMIT = 1 << 24
+
+
+def check_offset(offset: int) -> int:
+    if offset < 0:
+        raise ValueError(
+            f"event offset {offset} is negative; -1 is the engine's "
+            "null-pointer sentinel, so offsets must be >= 0"
+        )
+    if offset >= OFFSET_LIMIT:
+        raise ValueError(
+            f"event offset {offset} >= 2^24; rebase source offsets to "
+            "per-lane log positions before feeding the engine"
+        )
+    return int(offset)
+
+
+COUNTER_NAMES = (
+    "run_drops",
+    "ver_overflows",
+    "slab_full_drops",
+    "slab_pred_drops",
+    "slab_missing",
+    "slab_trunc",
+    "walk_collisions",
+    "handle_overflows",
+)
+
+WALK_COUNTER_NAMES = ("walk_hops", "extract_hops", "drain_hops")
+
+
+def counter_values(state: EngineState):
+    """The counters of ``state`` in ``COUNTER_NAMES`` order (``[K]`` each)."""
+    return (
+        state.run_drops,
+        state.ver_overflows,
+        state.slab.full_drops,
+        state.slab.pred_drops,
+        state.slab.missing,
+        state.slab.trunc,
+        state.slab.collisions,
+        state.handle_overflows,
+    )
+
+
+def walk_counter_values(state: EngineState):
+    return (state.slab.walk_hops, state.slab.extract_hops, state.slab.drain_hops)
+
+
+def summed(names, values) -> Dict[str, int]:
+    """Lane-summed counters as host ints (one device read)."""
+    vals = torch.stack([v.reshape(-1).sum() for v in values]).tolist()
+    return dict(zip(names, (int(v) for v in vals)))
+
+
+class ArrayStates:
+    """Read-only fold-state view handed to predicates: each state is a
+    ``[K, R]`` tensor (``pattern/States.java:46-68``)."""
+
+    __slots__ = ("_values",)
+
+    def __init__(self, values: Dict[str, Any]):
+        self._values = values
+
+    def get(self, name: str):
+        return self._values[name]
+
+    def get_or_else(self, name: str, default):
+        if name in self._values:
+            return self._values[name]
+        return default
+
+    def __getitem__(self, name: str):
+        return self.get(name)
+
+
+def map_value(fn, value):
+    """Apply ``fn`` to every leaf of an event-value pytree."""
+    if isinstance(value, dict):
+        return {k: map_value(fn, v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(map_value(fn, v) for v in value)
+    return fn(value)
+
+
+class _ChainRecord(NamedTuple):
+    """Everything the runs' chains produced, consumed by the slab phase
+    and the queue compaction (``[K, R]`` / ``[K, R, H]``)."""
+
+    surv_alive: torch.Tensor
+    surv_final: torch.Tensor
+    surv_id: torch.Tensor
+    surv_eval: torch.Tensor
+    surv_ver: torch.Tensor
+    surv_vlen: torch.Tensor
+    surv_event: torch.Tensor
+    surv_start: torch.Tensor
+    surv_branching: torch.Tensor
+    put_en: torch.Tensor
+    put_cur: torch.Tensor
+    put_prev: torch.Tensor  # -1 = put_first
+    put_ver: torch.Tensor
+    put_vlen: torch.Tensor
+    br_en: torch.Tensor
+    br_prev: torch.Tensor  # walk origin stage
+    br_ver: torch.Tensor  # walk version (pre-add_run)
+    br_vlen: torch.Tensor
+    br_run_ver: torch.Tensor  # branch-run version (add_run)
+    br_run_vlen: torch.Tensor
+    br_id: torch.Tensor
+    br_eval: torch.Tensor
+    br_event: torch.Tensor
+    br_start: torch.Tensor
+    br_agg: torch.Tensor  # [K, R, H, NS]
+    final_agg: torch.Tensor  # [K, R, NS]
+    has_succ: torch.Tensor
+    dead: torch.Tensor
+    ovf: torch.Tensor  # [K, R] int32 — Dewey overflows in this chain
+
+
+class StepPhases(NamedTuple):
+    """The step's phase functions and static shapes (``[K]``-batched)."""
+
+    eval_chain: Callable
+    build_puts: Callable
+    build_walkers: Callable
+    finish: Callable
+    init_state: Callable
+    out_base: int
+    out_rows: int
+    max_walk: int
+
+
+def _build_step(tables: TransitionTables, cfg: EngineConfig, device) -> StepPhases:
+    """Compile one pattern's per-event step for ``device``."""
+    if isinstance(tables, (list, tuple)):
+        raise NotImplementedError(
+            "stacked query banks are not ported to the PyTorch engine yet"
+        )
+    check_config(cfg)
+    R, D, W = cfg.max_runs, cfg.dewey_depth, cfg.max_walk
+    HB = cfg.handle_ring
+    H = tables.max_hops
+    NS = max(tables.num_states, 1)
+    RH = R * H
+
+    def dev_table(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+
+    ident = dev_table(tables.ident)
+    types = dev_table(tables.types)
+    consume_op = dev_table(tables.consume_op)
+    consume_pred = dev_table(tables.consume_pred)
+    consume_target = dev_table(tables.consume_target)
+    ignore_pred = dev_table(tables.ignore_pred)
+    proceed_pred = dev_table(tables.proceed_pred)
+    proceed_target = dev_table(tables.proceed_target)
+    if tables.window_ms.max(initial=-1) > np.iinfo(np.int32).max:
+        raise ValueError(
+            f"window of {int(tables.window_ms.max())} ms exceeds int32 device "
+            "time; windows up to ~24.8 days are supported"
+        )
+    window_ms = dev_table(tables.window_ms)
+    final_pos = int(tables.final_pos)
+    begin_pos = int(tables.begin_pos)
+    is_float = [d == "float32" for d in tables.state_dtypes] + [False] * (
+        NS - tables.num_states
+    )
+
+    def _enc_host(x, flt):
+        if flt:
+            return int(np.float32(x).view(np.int32))
+        return int(np.int32(x))
+
+    inits = torch.tensor(
+        [
+            _enc_host(x, f)
+            for x, f in zip(
+                list(tables.state_inits) + [0] * (NS - tables.num_states),
+                is_float,
+            )
+        ],
+        dtype=I32,
+        device=device,
+    )  # [NS]
+
+    def dec(v, flt):
+        return v.view(torch.float32) if flt else v
+
+    def enc(v, flt):
+        v = torch.as_tensor(v, device=device)
+        return v.to(torch.float32).view(I32) if flt else v.to(I32)
+
+    def tbl(table, idx):
+        return table[idx.long()].to(I32)
+
+    def as_bool(x, shape):
+        return torch.as_tensor(x, device=device).to(torch.bool).expand(shape)
+
+    def eval_preds(state: EngineState, ev: EventBatch):
+        """Every predicate against every run: ``[K, R, G]`` bool.  Event
+        fields arrive as ``[K, 1]`` so they broadcast against the
+        ``[K, R]`` fold states."""
+        K = state.alive.shape[0]
+        if not tables.predicates:
+            return torch.zeros((K, R, 0), dtype=torch.bool, device=device)
+        key = ev.key[:, None]
+        value = map_value(lambda x: x[:, None], ev.value)
+        ts = ev.ts[:, None]
+        states = ArrayStates(
+            {
+                n: dec(state.agg[..., i], is_float[i])
+                for i, n in enumerate(tables.state_names)
+            }
+        )
+        return torch.stack(
+            [as_bool(p(key, value, ts, states), (K, R)) for p in tables.predicates],
+            dim=-1,
+        )
+
+    def pv(preds, pid):
+        """Predicate value by id; ``-1`` (absent edge) is False."""
+        if preds.shape[-1] == 0:
+            return torch.zeros(pid.shape, dtype=torch.bool, device=device)
+        got = preds.gather(-1, pid.clamp(min=0).long()[..., None]).squeeze(-1)
+        return got & (pid >= 0)
+
+    def eval_chain(state: EngineState, ev: EventBatch) -> _ChainRecord:
+        """Predicates plus every run's unrolled chain (``NFA.evaluate``,
+        recursion unrolled to the pattern depth)."""
+        K = state.alive.shape[0]
+        preds = eval_preds(state, ev)
+        ts = ev.ts[:, None]
+        off = ev.off[:, None]
+        alive, id_pos, eval_pos = state.alive, state.id_pos, state.eval_pos
+        ver, vlen, event_off = state.ver, state.vlen, state.event_off
+        start_ts0, branching = state.start_ts, state.branching
+        seed = id_pos < 0
+        idc = id_pos.clamp(min=0)
+        # getFirstPatternTimestamp (NFA.java:347-349): BEGIN-typed runs
+        # reset the window start to the current event's timestamp.
+        id_type_begin = seed | (tbl(types, idc) == TYPE_BEGIN)
+        start = torch.where(id_type_begin, ts, start_ts0)
+        if cfg.enforce_windows:
+            w = tbl(window_ms, eval_pos)
+            out_w = ~id_type_begin & (w != -1) & (ts - start_ts0 > w)
+            active = alive & ~out_w
+        else:
+            # Faithful: epsilon wrappers carry windowMs == -1
+            # (Stage.java:41-46), so no run is ever out of window.
+            active = alive
+
+        # Epsilon-hop stage digit (NFA.java:185-188).
+        do_add0 = active & ~seed & (tbl(ident, eval_pos) != idc) & ~branching
+        _, vlen_a, ovf0 = dewey_ops.add_stage(ver, vlen)
+        vl = torch.where(do_add0, vlen_a, vlen)
+        vv = ver
+        ovf = (do_add0 & ovf0).to(I32)
+        cur = eval_pos
+        prev = torch.where(seed, -1, id_pos)
+
+        zi = torch.zeros((K, R), dtype=I32, device=device)
+        zb = torch.zeros((K, R), dtype=torch.bool, device=device)
+        surv_alive, surv_final, surv_branching = zb, zb, zb
+        surv_id = surv_eval = surv_vlen = surv_event = surv_start = zi
+        surv_ver = torch.zeros_like(ver)
+        hops: Dict[str, List[torch.Tensor]] = {
+            f: [] for f in (
+                "put_en", "put_cur", "put_prev", "put_ver", "put_vlen",
+                "br_en", "br_prev", "br_ver", "br_vlen", "br_run_ver",
+                "br_run_vlen", "br_id", "br_eval", "br_event", "br_start",
+            )
+        }
+        consumed_h, frame_pos = [], []
+
+        for _h in range(H):
+            cs = cur.clamp(min=0)
+            cop = tbl(consume_op, cs)
+            cp = pv(preds, tbl(consume_pred, cs))
+            take_m = active & (cop == OP_TAKE) & cp
+            begin_m = active & (cop == OP_BEGIN) & cp
+            ig_m = active & pv(preds, tbl(ignore_pred, cs))
+            pr_m = active & pv(preds, tbl(proceed_pred, cs))
+            # The 4-pair nondeterministic branching rule (NFA.java:280-289).
+            branch_m = (
+                (pr_m & take_m) | (ig_m & take_m) | (ig_m & begin_m) | (ig_m & pr_m)
+            ) & (prev >= 0)
+            consumed = take_m | begin_m
+
+            # Survivor: at most one across the chain.
+            st = take_m & ~branch_m  # self-loop re-add (NFA.java:196-205)
+            sb = begin_m  # advance (NFA.java:210-222)
+            si = ig_m & ~branch_m  # unchanged re-add (NFA.java:223-227)
+            fire = st | sb | si
+            tgt = tbl(consume_target, cs)
+            ident_cs = tbl(ident, cs)
+            surv_id = torch.where(fire, torch.where(si, id_pos, ident_cs), surv_id)
+            surv_eval = torch.where(
+                fire,
+                torch.where(st, cs, torch.where(sb, tgt, eval_pos)),
+                surv_eval,
+            )
+            surv_ver = torch.where(fire[..., None], vv, surv_ver)
+            surv_vlen = torch.where(fire, vl, surv_vlen)
+            surv_event = torch.where(
+                fire, torch.where(si, event_off, off), surv_event
+            )
+            surv_start = torch.where(
+                fire, torch.where(si, start_ts0, start), surv_start
+            )
+            surv_branching = torch.where(fire, si & branching, surv_branching)
+            surv_final = torch.where(fire, sb & (tgt == final_pos), surv_final)
+            surv_alive = surv_alive | fire
+
+            # Consuming put; a branching TAKE records the event under the
+            # bumped version and emits no successor (NFA.java:206-208).
+            ident_prev = tbl(ident, prev.clamp(min=0))
+            run_ver = dewey_ops.add_run(vv, vl)
+            hops["put_en"].append(consumed)
+            hops["put_cur"].append(ident_cs)
+            hops["put_prev"].append(torch.where(prev >= 0, ident_prev, -1))
+            hops["put_ver"].append(
+                torch.where((take_m & branch_m)[..., None], run_ver, vv)
+            )
+            hops["put_vlen"].append(vl)
+            # Branch run (NFA.java:231-246).
+            hops["br_en"].append(branch_m)
+            hops["br_prev"].append(ident_prev)
+            hops["br_ver"].append(vv)
+            hops["br_vlen"].append(vl)
+            hops["br_run_ver"].append(run_ver)
+            hops["br_run_vlen"].append(vl)
+            hops["br_id"].append(ident_prev)
+            hops["br_eval"].append(cs)
+            hops["br_event"].append(torch.where(ig_m, event_off, off))
+            hops["br_start"].append(start)
+            consumed_h.append(consumed)
+            frame_pos.append(cs)
+
+            # PROCEED recursion (NFA.java:182-190).
+            ptc = tbl(proceed_target, cs).clamp(min=0)
+            do_add = pr_m & (tbl(ident, ptc) != ident_cs) & ~branching
+            _, vlen_b, ovf_b = dewey_ops.add_stage(vv, vl)
+            vl = torch.where(do_add, vlen_b, vl)
+            ovf = ovf + (do_add & ovf_b).to(I32)
+            prev = torch.where(pr_m, cs, prev)
+            cur = torch.where(pr_m, ptc, cur)
+            active = pr_m
+
+        # Folds, innermost frame first (they run on recursion unwind,
+        # NFA.java:248); a branch copies the state before its own frame's
+        # fold but after deeper frames' (NFA.java:243), restricted to the
+        # states declared at the branching stage.
+        key = ev.key[:, None]
+        value = map_value(lambda x: x[:, None], ev.value)
+        s = state.agg.clone()
+        br_agg: List[Any] = [None] * H
+        for h in range(H - 1, -1, -1):
+            copy_mask = torch.zeros((K, R, NS), dtype=torch.bool, device=device)
+            for slot in tables.aggs:
+                copy_mask[..., slot.state] |= frame_pos[h] == slot.stage
+            br_agg[h] = torch.where(copy_mask, s, inits)
+            for slot in tables.aggs:
+                cond = consumed_h[h] & (frame_pos[h] == slot.stage)
+                flt = is_float[slot.state]
+                val = enc(slot.fn(key, value, dec(s[..., slot.state], flt)), flt)
+                s[..., slot.state] = torch.where(cond, val, s[..., slot.state])
+
+        def stk(name):
+            return torch.stack(hops[name], dim=2)
+
+        br_en = stk("br_en")
+        any_br = br_en.any(dim=2) if H else zb
+        has_succ = surv_alive | any_br
+        return _ChainRecord(
+            surv_alive, surv_final, surv_id, surv_eval, surv_ver, surv_vlen,
+            surv_event, surv_start, surv_branching,
+            stk("put_en"), stk("put_cur"), stk("put_prev"), stk("put_ver"),
+            stk("put_vlen"),
+            br_en, stk("br_prev"), stk("br_ver"), stk("br_vlen"),
+            stk("br_run_ver"), stk("br_run_vlen"), stk("br_id"),
+            stk("br_eval"), stk("br_event"), stk("br_start"),
+            torch.stack(br_agg, dim=2), s, has_succ,
+            alive & ~seed & ~has_succ, ovf,
+        )
+
+    def build_puts(state: EngineState, rec: _ChainRecord) -> slab_mod.PutOps:
+        """The step's consuming puts, run-major and frame-ascending (the
+        reference's op order)."""
+        K = state.alive.shape[0]
+        return slab_mod.PutOps(
+            en=rec.put_en.reshape(K, RH),
+            first=rec.put_prev.reshape(K, RH) < 0,
+            cur_stage=rec.put_cur.reshape(K, RH),
+            prev_stage=rec.put_prev.reshape(K, RH),
+            prev_off=state.event_off.repeat_interleave(H, dim=1),
+            ver=rec.put_ver.reshape(K, RH, D),
+            vlen=rec.put_vlen.reshape(K, RH),
+        )
+
+    def build_walkers(state: EngineState, rec: _ChainRecord, ev: EventBatch):
+        """The step's candidate walker queue: branch frames deepest-first
+        per run ``[RH]``, dead-run removals ``[R]``, final extractions
+        ``[R]`` — ``out_base = RH + R``, ``out_rows = R``."""
+        K = state.alive.shape[0]
+        final_en = rec.surv_alive & rec.surv_final & ev.valid[:, None]
+
+        def rev(f):
+            return f.flip(2).reshape((K, RH) + f.shape[3:])
+
+        dead_en = rec.dead & (state.event_off >= 0)
+        remove = torch.zeros((K, RH + 2 * R), dtype=torch.bool, device=device)
+        remove[:, RH:] = True
+        out = torch.zeros_like(remove)
+        out[:, RH + R:] = True
+        return (
+            torch.cat([rev(rec.br_en), dead_en, final_en], dim=1),
+            torch.cat([rev(rec.br_prev), state.id_pos.clamp(min=0), rec.surv_id], dim=1),
+            torch.cat(
+                [
+                    state.event_off.repeat_interleave(H, dim=1),
+                    state.event_off,
+                    ev.off[:, None].expand(K, R),
+                ],
+                dim=1,
+            ),
+            torch.cat([rev(rec.br_ver), state.ver, rec.surv_ver], dim=1),
+            torch.cat([rev(rec.br_vlen), state.vlen, rec.surv_vlen], dim=1),
+            remove,
+            out,
+        )
+
+    S_CAND = 1 + H + 1  # survivor, branch per hop, re-seed
+    RS = R * S_CAND
+
+    def finish(state, ev, rec, slab, out_stage, out_off, out_count):
+        """Queue compaction and padding masking."""
+        K = state.alive.shape[0]
+        valid = ev.valid
+        seed_mask = state.alive & (state.id_pos < 0)
+        reseed_ver = torch.where(
+            rec.has_succ[..., None],
+            dewey_ops.add_run(state.ver, state.vlen),
+            state.ver,
+        )
+
+        def cand(surv, br, seed):
+            # [K, R] / [K, R, H, ...] / [K, R] -> [K, R, S_CAND, ...]
+            return torch.cat([surv[:, :, None], br.flip(2), seed[:, :, None]], dim=2)
+
+        def full(v):
+            return torch.full((K, R), v, dtype=I32, device=device)
+
+        c_alive = cand(rec.surv_alive & ~rec.surv_final, rec.br_en, seed_mask)
+        flat_alive = c_alive.reshape(K, RS)
+        idx = torch.cumsum(flat_alive.to(I32), dim=1) - 1
+        keep = flat_alive & (idx < R)
+        dropped = (flat_alive & (idx >= R)).sum(dim=1, dtype=I32)
+        dst = torch.where(keep, idx, R).long()
+
+        def compact(c, fill):
+            flat = c.reshape((K, RS) + c.shape[3:])
+            buf = torch.full(
+                (K, R + 1) + c.shape[3:], fill, dtype=c.dtype, device=device
+            )
+            i = dst.reshape(dst.shape + (1,) * (flat.dim() - 2)).expand(flat.shape)
+            return buf.scatter_(1, i, flat)[:, :R]
+
+        branch_flags = torch.ones((K, R, H), dtype=torch.bool, device=device)
+        new_state = EngineState(
+            alive=compact(c_alive, False),
+            id_pos=compact(cand(rec.surv_id, rec.br_id, full(-1)), -1),
+            eval_pos=compact(cand(rec.surv_eval, rec.br_eval, full(begin_pos)), 0),
+            ver=compact(cand(rec.surv_ver, rec.br_run_ver, reseed_ver), 0),
+            vlen=compact(cand(rec.surv_vlen, rec.br_run_vlen, state.vlen), 0),
+            event_off=compact(cand(rec.surv_event, rec.br_event, full(-1)), -1),
+            start_ts=compact(cand(rec.surv_start, rec.br_start, full(-1)), -1),
+            branching=compact(
+                cand(rec.surv_branching, branch_flags, torch.zeros_like(seed_mask)),
+                False,
+            ),
+            agg=compact(
+                cand(rec.final_agg, rec.br_agg, inits.expand(K, R, NS)), 0
+            ),
+            slab=slab,
+            run_drops=state.run_drops + dropped,
+            ver_overflows=state.ver_overflows + rec.ovf.sum(dim=1, dtype=I32),
+            hr_stage=state.hr_stage,
+            hr_off=state.hr_off,
+            hr_ver=state.hr_ver,
+            hr_vlen=state.hr_vlen,
+            hr_ts=state.hr_ts,
+            hr_seq=state.hr_seq,
+            hr_row=state.hr_row,
+            hr_count=state.hr_count,
+            step_seq=state.step_seq,
+            handle_overflows=state.handle_overflows,
+            stage_counts=state.stage_counts,
+        )
+        # Padding steps leave the state untouched and emit nothing; the
+        # step counter ticks on every step.
+        new_state = tree_where(valid, new_state, state)
+        new_state = new_state._replace(step_seq=state.step_seq + 1)
+        out = StepOutput(
+            stage=torch.where(valid[:, None, None], out_stage, -1),
+            off=torch.where(valid[:, None, None], out_off, -1),
+            count=torch.where(valid[:, None], out_count, 0),
+        )
+        return new_state, out
+
+    def init_state(num_lanes: int) -> EngineState:
+        K = int(num_lanes)
+
+        def full(shape, v, dtype=I32):
+            return torch.full(shape, v, dtype=dtype, device=device)
+
+        alive = full((K, R), False, torch.bool)
+        alive[:, 0] = True
+        ver = full((K, R, D), 0)
+        ver[:, 0, 0] = 1
+        vlen = full((K, R), 0)
+        vlen[:, 0] = 1
+        return EngineState(
+            alive=alive,
+            id_pos=full((K, R), -1),
+            eval_pos=full((K, R), begin_pos),
+            ver=ver,
+            vlen=vlen,
+            event_off=full((K, R), -1),
+            start_ts=full((K, R), -1),
+            branching=full((K, R), False, torch.bool),
+            agg=inits.expand(K, R, NS).clone(),
+            slab=slab_mod.make(
+                K, cfg.slab_entries, cfg.slab_preds, D, device=device
+            ),
+            run_drops=full((K,), 0),
+            ver_overflows=full((K,), 0),
+            hr_stage=full((K, HB), -1),
+            hr_off=full((K, HB), -1),
+            hr_ver=full((K, HB, D), 0),
+            hr_vlen=full((K, HB), 0),
+            hr_ts=full((K, HB), 0),
+            hr_seq=full((K, HB), 0),
+            hr_row=full((K, HB), 0),
+            hr_count=full((K,), 0),
+            step_seq=full((K,), 0),
+            handle_overflows=full((K,), 0),
+            stage_counts=full((K, 4, 0), 0),
+        )
+
+    return StepPhases(
+        eval_chain=eval_chain,
+        build_puts=build_puts,
+        build_walkers=build_walkers,
+        finish=finish,
+        init_state=init_state,
+        out_base=RH + R,
+        out_rows=R,
+        max_walk=W,
+    )
+
+
+def tree_where(valid, new, old):
+    """Per lane: ``new`` where ``valid [K]``, else ``old`` (every leaf)."""
+    if isinstance(new, tuple):
+        return type(new)(*(tree_where(valid, n, o) for n, o in zip(new, old)))
+    return torch.where(valid.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+
+def make_step(phases: StepPhases, walk_fn=walk_pass):
+    """The ``[K]``-batched step: chain, puts and walkers, the slab phase
+    through ``walk_fn`` (the kernel on CUDA tensors by default), then the
+    queue compaction."""
+    ph = phases
+
+    def step(state: EngineState, ev: EventBatch):
+        rec = ph.eval_chain(state, ev)
+        ops = ph.build_puts(state, rec)
+        wk = ph.build_walkers(state, rec, ev)
+        slab, out_stage, out_off, out_count = walk_fn(
+            state.slab, *wk, ph.max_walk, ph.out_base, ph.out_rows,
+            put_ops=ops, ev_off=ev.off,
+        )
+        return ph.finish(state, ev, rec, slab, out_stage, out_off, out_count)
+
+    return step
+
+
+class TPUMatcher:
+    """A compiled array matcher for one pattern, over any number of lanes.
+
+    ``step(state, ev)`` advances ``[K]``-batched state by one event per
+    lane; ``init_state(num_lanes)`` makes that state.  The name is kept
+    from the JAX package so each module finds its counterpart."""
+
+    def __init__(self, pattern, config: Optional[EngineConfig] = None,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.tables: TransitionTables = (
+            pattern if isinstance(pattern, TransitionTables) else lower(pattern)
+        )
+        self.config = config or EngineConfig()
+        logger.info(
+            "building matcher: %d stages %s, max_hops=%d, %s on %s",
+            self.tables.num_stages, self.tables.names,
+            self.tables.max_hops, self.config, self.device,
+        )
+        self.phases = _build_step(self.tables, self.config, self.device)
+        self.step = make_step(self.phases)
+
+    @property
+    def names(self) -> List[str]:
+        return self.tables.names
+
+    def init_state(self, num_lanes: int = 1) -> EngineState:
+        return self.phases.init_state(num_lanes)
+
+    def counters(self, state: EngineState) -> Dict[str, int]:
+        """Lane-summed overflow/drop counters."""
+        return summed(COUNTER_NAMES, counter_values(state))
+
+    def walk_counters(self, state: EngineState) -> Dict[str, int]:
+        """Lane-summed walk-cost counters (not loss indicators)."""
+        return summed(WALK_COUNTER_NAMES, walk_counter_values(state))
+
+
+def _leaf_tensor(x, device) -> torch.Tensor:
+    """A host scalar as a ``[1]`` tensor of the engine's event dtypes."""
+    a = np.asarray(x)
+    if np.issubdtype(a.dtype, np.floating):
+        a = a.astype(np.float32)
+    elif not np.issubdtype(a.dtype, np.bool_):
+        a = a.astype(np.int32)
+    return torch.as_tensor(a, device=device).reshape(1)
+
+
+class MatcherSession:
+    """One partition stepped one event at a time, with the oracle's
+    ``match()`` API: keeps the raw :class:`Event` objects keyed by offset
+    and decodes each step's matches into :class:`Sequence` objects."""
+
+    def __init__(self, matcher: TPUMatcher):
+        self.matcher = matcher
+        self.state = matcher.init_state(1)
+        self._events: Dict[int, Event] = {}
+        self._offset = 0
+
+    def match(self, key, value, timestamp: int, topic: str = "test",
+              partition: int = 0, offset: Optional[int] = None) -> List[Sequence]:
+        if offset is None:
+            offset = self._offset
+        check_offset(offset)
+        self._offset = max(self._offset, offset + 1)
+        self._events[offset] = Event(key, value, timestamp, topic, partition, offset)
+        dev = self.matcher.device
+        ev = EventBatch(
+            key=_leaf_tensor(0 if key is None else key, dev),
+            value=map_value(lambda x: _leaf_tensor(x, dev), value),
+            ts=torch.tensor([timestamp], dtype=I32, device=dev),
+            off=torch.tensor([offset], dtype=I32, device=dev),
+            valid=torch.ones((1,), dtype=torch.bool, device=dev),
+        )
+        self.state, out = self.matcher.step(self.state, ev)
+        return self.decode(out)
+
+    def decode(self, out: StepOutput) -> List[Sequence]:
+        """One step's matches of lane 0 as :class:`Sequence` objects."""
+        stage, off, count = (x[0].cpu().numpy() for x in out)
+        names = self.matcher.names
+        matches: List[Sequence] = []
+        for r in range(count.shape[0]):
+            n = int(count[r])
+            if n == 0:
+                continue
+            seq = Sequence()
+            for w in range(n):
+                seq.add(names[int(stage[r, w])], self._events[int(off[r, w])])
+            matches.append(seq)
+        return matches
+
+    def counters(self) -> Dict[str, int]:
+        return self.matcher.counters(self.state)

@@ -1,0 +1,232 @@
+"""The step's slab phase — consuming puts, then every buffer walk — as one
+hand-written CUDA kernel for Hopper, beside its plain PyTorch version.
+
+Replaces ``kafkastreams_cep_tpu/ops/walk_kernel.py: walk_pass_kernel`` (the
+Pallas kernel, default mode).  The kernel source is ``csrc/walk_pass.cu``;
+its header says how it maps lanes to warps, what bounds it on the H100
+(each lane's slab crosses device memory once in and once out; beyond that a
+lane is a chain of dependent hops, so latency, hidden by running many lanes
+per SM) and the contract it keeps.
+
+:func:`walk_pass` is the entry point the engine calls.  For tensors on the
+CPU it runs :func:`walk_pass_plain` (``puts_batched`` then
+``walks_compacted``, ``ops/slab.py``); for CUDA tensors it launches the
+kernel or raises — it never falls back.  Both give the same result bit for
+bit; ``chip_smoke.py`` holds them against each other on the card.
+
+The kernel builds at first use with ``nvcc`` for ``sm_90a`` into
+``kafkastreams_cep_tpu_torch/build/``, keyed by a hash of the source, and is
+bound with ``ctypes`` (a plain C entry point, no PyTorch headers).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from kafkastreams_cep_tpu_torch.ops import slab as slab_mod
+from kafkastreams_cep_tpu_torch.ops.slab import PutOps, SlabState
+from kafkastreams_cep_tpu_torch.utils.logging import get_logger
+
+logger = get_logger("ops.walk_kernel")
+
+I32 = torch.int32
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "walk_pass.cu"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+_PUT_COLS = 8  # scratch columns per put op (csrc/walk_pass.cu kPutCols)
+
+
+def walk_pass_plain(
+    slab: SlabState, en, stage, off, ver, vlen, is_remove, want_out,
+    max_walk: int, out_base: int, out_rows: int,
+    put_ops: Optional[PutOps] = None, ev_off=None,
+):
+    """The plain PyTorch slab phase: the step's consuming puts (when
+    ``put_ops`` is given), then its walkers one at a time in queue order.
+    Returns ``(slab, out_stage [K, OR, W], out_off, count [K, OR])``."""
+    if put_ops is not None:
+        slab = slab_mod.puts_batched(slab, put_ops, ev_off)
+    return slab_mod.walks_compacted(
+        slab, en, stage, off, ver, vlen, is_remove, want_out,
+        max_walk, out_base, out_rows,
+    )
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin): the walk-pass kernel builds "
+        "from csrc/walk_pass.cu at first use on a CUDA machine"
+    )
+
+
+class WalkPassKernel:
+    """The built kernel library plus its launch count.
+
+    ``launches`` goes up by one for each kernel launch and for nothing
+    else, so a run can show that it went through the kernel."""
+
+    def __init__(self):
+        self.launches = 0
+        self.build_log = ""
+        self.build_seconds = 0.0
+        self._lib = None
+
+    def build(self) -> Path:
+        """Compile the source (once per source hash) and load it."""
+        if self._lib is not None:
+            return self._path
+        blob = SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        tag = hashlib.sha256(blob).hexdigest()[:16]
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        out = BUILD_DIR / f"libwalkpass-{tag}.so"
+        if not out.exists():
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+                tmp_out = Path(tmp) / out.name
+                cmd = [_nvcc(), *NVCC_FLAGS, str(SOURCE), "-o", str(tmp_out)]
+                res = subprocess.run(cmd, capture_output=True, text=True)
+                self.build_log = res.stdout + res.stderr
+                if res.returncode:
+                    raise RuntimeError(
+                        f"nvcc failed ({res.returncode}):\n{self.build_log}"
+                    )
+                os.replace(tmp_out, out)  # atomic publish
+            self.build_seconds = time.perf_counter() - t0
+            logger.info("built %s in %.1f s", out.name, self.build_seconds)
+        lib = ctypes.CDLL(str(out))
+        lib.cep_walk_pass.argtypes = [
+            ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_void_p),
+            ctypes.c_void_p,
+        ]
+        lib.cep_walk_pass.restype = ctypes.c_int
+        self._lib, self._path = lib, out
+        return out
+
+    def __call__(
+        self, slab: SlabState, en, stage, off, ver, vlen, is_remove,
+        want_out, max_walk: int, out_base: int, out_rows: int,
+        put_ops: Optional[PutOps] = None, ev_off=None,
+    ):
+        K, E = slab.stage.shape
+        MP = slab.pstage.shape[2]
+        D = slab.pver.shape[3]
+        PW = en.shape[1]
+        W, OR = int(max_walk), int(out_rows)
+        dev = slab.stage.device
+        if dev.type != "cuda":
+            raise ValueError(f"walk-pass kernel needs CUDA tensors, got {dev}")
+        if MP > 32 or D > 32:
+            raise ValueError(f"kernel needs MP <= 32 and D <= 32, got {MP}, {D}")
+        if out_base < 0 or out_base + OR > PW:
+            raise ValueError(
+                f"output rows [{out_base}, {out_base + OR}) outside the "
+                f"{PW}-walker queue"
+            )
+
+        def arg(x, shape, name, dtype=I32):
+            if x.device != dev:
+                raise ValueError(f"{name} on {x.device}, slab on {dev}")
+            if tuple(x.shape) != tuple(shape):
+                raise ValueError(f"{name} shape {tuple(x.shape)} != {shape}")
+            if x.dtype != dtype:
+                raise ValueError(f"{name} dtype {x.dtype}, want {dtype}")
+            return x.contiguous()
+
+        def flag(x, shape, name):
+            # The kernel reads a bool as its one byte: a view, not a copy.
+            return arg(x, shape, name, torch.bool).view(torch.uint8)
+
+        slab_in = [
+            arg(slab.stage, (K, E), "stage"), arg(slab.off, (K, E), "off"),
+            arg(slab.refs, (K, E), "refs"), arg(slab.npreds, (K, E), "npreds"),
+            arg(slab.pstage, (K, E, MP), "pstage"),
+            arg(slab.poff, (K, E, MP), "poff"),
+            arg(slab.pvlen, (K, E, MP), "pvlen"),
+            arg(slab.pver, (K, E, MP, D), "pver"),
+        ] + [
+            arg(getattr(slab, c), (K,), c)
+            for c in ("missing", "trunc", "full_drops", "pred_drops",
+                      "walk_hops", "extract_hops")
+        ]
+        if put_ops is not None:
+            PP = put_ops.en.shape[1]
+            puts_in = [
+                flag(put_ops.en, (K, PP), "put en"),
+                flag(put_ops.first, (K, PP), "put first"),
+                arg(put_ops.cur_stage, (K, PP), "put cur_stage"),
+                arg(put_ops.prev_stage, (K, PP), "put prev_stage"),
+                arg(put_ops.prev_off, (K, PP), "put prev_off"),
+                arg(put_ops.vlen, (K, PP), "put vlen"),
+                arg(put_ops.ver, (K, PP, D), "put ver"),
+                arg(ev_off, (K,), "ev_off"),
+            ]
+        else:
+            PP = 0
+            puts_in = [torch.zeros((1,), dtype=I32, device=dev)] * 8
+        walk_in = [
+            flag(en, (K, PW), "en"), arg(stage, (K, PW), "stage"),
+            arg(off, (K, PW), "off"), arg(vlen, (K, PW), "vlen"),
+            arg(ver, (K, PW, D), "ver"), flag(is_remove, (K, PW), "is_remove"),
+            flag(want_out, (K, PW), "want_out"),
+        ]
+        outs = [torch.empty_like(x) for x in slab_in]
+        out_stage = torch.empty((K, OR, W), dtype=I32, device=dev)
+        out_off = torch.empty_like(out_stage)
+        count = torch.empty((K, OR), dtype=I32, device=dev)
+        scratch = torch.empty((max(K * PP, 1), _PUT_COLS), dtype=I32, device=dev)
+
+        self.build()
+        tensors = slab_in + puts_in + walk_in + outs + [out_stage, out_off, count, scratch]
+        dims = (ctypes.c_int * 10)(
+            K, E, MP, D, PP, PW, W, int(out_base), OR, int(put_ops is not None)
+        )
+        ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+        if K:
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = self._lib.cep_walk_pass(dims, ptrs, ctypes.c_void_p(stream))
+            if err:
+                raise RuntimeError(f"walk-pass kernel launch failed: CUDA error {err}")
+            self.launches += 1
+        fields = ("stage", "off", "refs", "npreds", "pstage", "poff", "pvlen",
+                  "pver", "missing", "trunc", "full_drops", "pred_drops",
+                  "walk_hops", "extract_hops")
+        new_slab = slab._replace(**dict(zip(fields, outs)))
+        return new_slab, out_stage, out_off, count
+
+
+#: The process's kernel library (built at first launch).
+walk_pass_kernel = WalkPassKernel()
+
+
+def walk_pass(
+    slab: SlabState, en, stage, off, ver, vlen, is_remove, want_out,
+    max_walk: int, out_base: int, out_rows: int,
+    put_ops: Optional[PutOps] = None, ev_off=None,
+):
+    """The step's slab phase for ``[K]``-batched lanes: the plain version
+    for CPU tensors, the CUDA kernel for CUDA tensors."""
+    fn = walk_pass_kernel if slab.stage.is_cuda else walk_pass_plain
+    return fn(
+        slab, en, stage, off, ver, vlen, is_remove, want_out,
+        max_walk, out_base, out_rows, put_ops=put_ops, ev_off=ev_off,
+    )

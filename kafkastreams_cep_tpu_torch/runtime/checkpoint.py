@@ -1,0 +1,190 @@
+"""Checkpoint / restore of processor state — the changelog-store analog.
+
+The reference persists its engine state in Kafka Streams changelog stores
+and never serializes code: runs reference stages by *name* and are
+rehydrated from the compiled topology on restore
+(``ComputationStageSerDe.java:40-46,66-78``).  Here a checkpoint is a host
+snapshot of the engine tensors plus the host bookkeeping (key-to-lane map,
+per-lane event store, offsets); restore compiles the pattern fresh from
+user code and refuses a topology whose stage names differ.
+
+The file format is the JAX package's (``kafkastreams_cep_tpu/runtime/
+checkpoint.py``, format 3): one pickled ``{header, arrays}`` dict whose
+``arrays`` is an ``.npz`` of the state leaves under the same names
+(``alive``, ..., ``slab/stage``, ...).  A snapshot written by either
+package restores into the other.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import io
+import pickle
+from typing import Any, Dict, Optional
+
+import numpy as np
+
+from kafkastreams_cep_tpu_torch.convert import state_arrays, state_from_arrays
+from kafkastreams_cep_tpu_torch.engine.matcher import EngineConfig
+from kafkastreams_cep_tpu_torch.runtime.processor import CEPProcessor
+from kafkastreams_cep_tpu_torch.utils.logging import get_logger
+
+logger = get_logger("runtime.checkpoint")
+
+FORMAT_VERSION = 3
+
+# Classes a snapshot's header may name, by module: the event type of either
+# package resolves to this package's copy, so restoring a snapshot written
+# by the JAX package imports nothing of it.
+_HEADER_CLASSES = {
+    ("kafkastreams_cep_tpu.utils.events", "Event"),
+    ("kafkastreams_cep_tpu_torch.utils.events", "Event"),
+}
+
+
+class CheckpointCorrupt(ValueError):
+    """The checkpoint's payload does not match its recorded digest."""
+
+
+class _Unpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if (module, name) in _HEADER_CLASSES:
+            from kafkastreams_cep_tpu_torch.utils.events import Event
+
+            return Event
+        return super().find_class(module, name)
+
+
+def save_checkpoint(
+    processor: CEPProcessor, path: str, extra: Optional[Dict[str, Any]] = None
+) -> None:
+    """Snapshot a processor's full state to ``path`` (a single file)."""
+    if processor._pending is not None:
+        raise ValueError(
+            "pipelined processor holds an undecoded batch; call flush() "
+            "before checkpointing (a snapshot cannot carry device outputs)"
+        )
+    tables = processor.batch.matcher.tables
+    header = {
+        "format_version": FORMAT_VERSION,
+        "extra": dict(extra or {}),
+        "stage_names": list(processor.batch.names),
+        "state_names": list(tables.state_names),
+        "state_dtypes": list(tables.state_dtypes),
+        "config": dataclasses.asdict(processor.batch.matcher.config),
+        "num_lanes": processor.num_lanes,
+        "topic": processor.topic,
+        "epoch": processor.epoch,
+        "gc_events": processor.gc_events,
+        "dedup": processor.dedup,
+        "gc_interval": processor.gc_interval,
+        "gc_events_interval": processor.gc_events_interval,
+        "decode_budget": processor.decode_budget,
+        "pipeline": processor.pipeline,
+        "drain_interval": 1,
+        "lane_of": dict(processor._lane_of),
+        "mesh_size": None,
+        "lane_shards": None,
+        "next_offset": processor._next_offset.copy(),
+        "off_base": processor._off_base.copy(),
+        "events": [dict(d) for d in processor._events],
+        "value_proto": processor._value_proto,
+        "ingest": None,
+        "latency": None,
+    }
+    buf = io.BytesIO()
+    np.savez(buf, **state_arrays(processor.state))
+    header["arrays_sha256"] = hashlib.sha256(buf.getvalue()).hexdigest()
+    with open(path, "wb") as f:
+        pickle.dump({"header": header, "arrays": buf.getvalue()}, f)
+    logger.info(
+        "checkpoint saved to %s: %d lanes, stages %s",
+        path, header["num_lanes"], header["stage_names"],
+    )
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    """Read a checkpoint file into ``{header, arrays}``; raises
+    :class:`CheckpointCorrupt` when it cannot be parsed or fails its
+    digest."""
+    try:
+        with open(path, "rb") as f:
+            blob = _Unpickler(f).load()
+        header = blob["header"]
+    except OSError:
+        raise
+    except (pickle.UnpicklingError, EOFError, KeyError, TypeError,
+            AttributeError, ImportError) as e:
+        raise CheckpointCorrupt(
+            f"checkpoint {path} is unreadable ({type(e).__name__}: {e})"
+        ) from e
+    if header["format_version"] != FORMAT_VERSION:
+        raise ValueError(f"checkpoint format {header['format_version']} unsupported")
+    want = header.get("arrays_sha256")
+    if want is not None and hashlib.sha256(blob["arrays"]).hexdigest() != want:
+        raise CheckpointCorrupt(
+            f"checkpoint {path} failed integrity check: array payload digest "
+            f"differs from the header's {want}"
+        )
+    with np.load(io.BytesIO(blob["arrays"])) as z:
+        arrays = {k: z[k] for k in z.files}
+    return {"header": header, "arrays": arrays}
+
+
+def restore_processor(
+    pattern, path: str, ckpt: Optional[Dict[str, Any]] = None, device="cuda"
+) -> CEPProcessor:
+    """Rebuild a processor from user code plus a checkpoint.
+
+    ``pattern`` is compiled fresh (predicates and folds come from code);
+    the checkpoint supplies only state, and a topology whose stage names,
+    fold-state names or fold dtypes differ is refused."""
+    if ckpt is None:
+        ckpt = load_checkpoint(path)
+    header = ckpt["header"]
+    if header.get("ingest") is not None:
+        raise NotImplementedError(
+            "checkpoint carries ingest-guard state; the PyTorch processor has "
+            "no ingest guard yet, and dropping held records is not a restore"
+        )
+    proc = CEPProcessor(
+        pattern,
+        header["num_lanes"],
+        EngineConfig(**header["config"]),
+        topic=header["topic"],
+        epoch=header["epoch"],
+        gc_events=header.get("gc_events", True),
+        dedup=header.get("dedup", True),
+        gc_interval=header.get("gc_interval", 0),
+        gc_events_interval=header.get("gc_events_interval", 8),
+        decode_budget=header.get("decode_budget", 131072),
+        pipeline=header.get("pipeline", False),
+        device=device,
+    )
+    tables = proc.batch.matcher.tables
+    if list(proc.batch.names) != list(header["stage_names"]):
+        raise ValueError(
+            "pattern topology does not match checkpoint: stages "
+            f"{proc.batch.names} vs checkpoint {header['stage_names']}"
+        )
+    if list(tables.state_names) != list(header["state_names"]):
+        raise ValueError("fold-state names do not match checkpoint")
+    if list(tables.state_dtypes) != list(header["state_dtypes"]):
+        raise ValueError(
+            "fold-state dtypes do not match checkpoint: "
+            f"{tables.state_dtypes} vs checkpoint {header['state_dtypes']} "
+            "(typed agg bit patterns are not translatable across dtypes)"
+        )
+    proc.state = state_from_arrays(ckpt["arrays"], proc.state)
+    proc._step_base = int(np.max(ckpt["arrays"]["step_seq"]))
+    proc._lane_of = dict(header["lane_of"])
+    proc._key_of = {v: k for k, v in proc._lane_of.items()}
+    proc._next_offset = np.asarray(header["next_offset"]).copy()
+    proc._off_base = np.asarray(header["off_base"]).copy()
+    proc._events = [dict(d) for d in header["events"]]
+    proc._value_proto = header["value_proto"]
+    logger.info(
+        "restored processor from %s: %d keys assigned", path, len(proc._lane_of)
+    )
+    return proc

@@ -1,0 +1,498 @@
+"""The stream processor: micro-batched host-to-device record pump.
+
+Reference: ``CEPProcessor.java:88-163``, which steps one NFA per record and
+forwards matches.  Here a micro-batch of records is grouped by key into
+device lanes (the partition analog), padded to a rectangular ``[K, T]``
+batch, scanned step by step on the device, and the completed matches are
+decoded and emitted in exact arrival order — the order the reference would
+have forwarded them.
+
+Each key owns one lane's run queue, slab and fold state for the
+processor's lifetime (``CEPProcessor.java:117-134``); checkpoints
+externalize those tensors (``runtime/checkpoint.py``).
+
+Time is int32 on the device.  Epoch-millisecond timestamps do not fit, so
+the processor subtracts a fixed ``epoch`` (default: the first record's
+timestamp) from every record; windows compare time differences, which
+rebasing preserves exactly.  Predicates therefore see rebased timestamps —
+pass ``epoch=0`` if a predicate matches on absolute time.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Dict, Hashable, List, NamedTuple, Optional, Sequence as Seq, Tuple
+
+import numpy as np
+import torch
+
+from kafkastreams_cep_tpu_torch.engine.matcher import (
+    OFFSET_LIMIT,
+    EngineConfig,
+    EventBatch,
+)
+from kafkastreams_cep_tpu_torch.ops.decode import compact_matches
+from kafkastreams_cep_tpu_torch.parallel.batch import BatchMatcher
+from kafkastreams_cep_tpu_torch.utils.events import Event, Sequence
+from kafkastreams_cep_tpu_torch.utils.logging import get_logger
+from kafkastreams_cep_tpu_torch.utils.metrics import Metrics
+
+logger = get_logger("runtime")
+
+_I32 = np.iinfo(np.int32)
+
+
+class InputRejected(ValueError):
+    """A batch refused by validation, before any lane bookkeeping or device
+    state changed (batch validation is atomic)."""
+
+
+class Record(NamedTuple):
+    """One input record, the host analog of a Kafka ``(key, value, ts)``.
+
+    ``offset`` is the record's log position within its key's lane: pass the
+    source offset to enable replay dedup, or leave ``None`` for
+    auto-assignment."""
+
+    key: Hashable
+    value: Any
+    timestamp: int
+    offset: Optional[int] = None
+
+
+def _bucket(t: int) -> int:
+    """Round a batch length up to the next power of two, so step shapes
+    repeat across batches."""
+    n = 1
+    while n < t:
+        n *= 2
+    return n
+
+
+def tree_flatten(value) -> Tuple[list, Any]:
+    """An event value's leaves and structure (dict keys sorted, like the
+    JAX package's pytrees, so schemas and checkpoints agree)."""
+    if isinstance(value, dict):
+        leaves, defs = [], []
+        keys = sorted(value)
+        for k in keys:
+            sub, d = tree_flatten(value[k])
+            leaves += sub
+            defs.append(d)
+        return leaves, ("dict", tuple(keys), tuple(defs))
+    if isinstance(value, (list, tuple)):
+        leaves, defs = [], []
+        for v in value:
+            sub, d = tree_flatten(v)
+            leaves += sub
+            defs.append(d)
+        return leaves, (type(value).__name__, len(value), tuple(defs))
+    return [value], None
+
+
+def tree_unflatten(treedef, leaves):
+    it = iter(leaves)
+
+    def build(d):
+        if d is None:
+            return next(it)
+        kind, keys, subs = d
+        if kind == "dict":
+            return {k: build(s) for k, s in zip(keys, subs)}
+        items = [build(s) for s in subs]
+        return tuple(items) if kind == "tuple" else items
+
+    return build(treedef)
+
+
+def _schema_dtype(leaf) -> np.dtype:
+    if np.issubdtype(np.asarray(leaf).dtype, np.floating):
+        return np.dtype(np.float32)
+    return np.dtype(np.int32)
+
+
+def queue_positions(lanes: np.ndarray, keep: np.ndarray, num_lanes: int):
+    """Each kept record's position in its lane queue (arrival order), the
+    queue lengths, and the longest queue; dropped records get -1."""
+    pos = np.full(lanes.shape[0], -1, dtype=np.int32)
+    idx = np.flatnonzero(keep)
+    if idx.size:
+        kl = lanes[idx]
+        order = np.argsort(kl, kind="stable")
+        sor = kl[order]
+        starts = np.r_[0, np.flatnonzero(np.diff(sor)) + 1]
+        ranks = np.arange(sor.size) - np.repeat(starts, np.diff(np.r_[starts, sor.size]))
+        pos[idx[order]] = ranks
+    qlen = np.bincount(lanes[idx], minlength=num_lanes).astype(np.int32)
+    return pos, qlen, int(qlen.max()) if qlen.size else 0
+
+
+def pack_column(dst, src, lanes, pos, keep) -> None:
+    """``dst[lanes[i], pos[i]] = src[i]`` for every kept record."""
+    m = keep.astype(bool)
+    dst[lanes[m], pos[m]] = np.asarray(src, dtype=dst.dtype)[m]
+
+
+class CEPProcessor:
+    """Micro-batching processor: records in, :class:`Sequence` matches out.
+
+    ``num_lanes`` bounds the number of distinct keys; a new key claims a
+    free lane and keeps it.  Values share one numeric pytree structure
+    (scalars or nested dicts of scalars); the first record fixes the
+    schema, and a later float in an int field is rejected.  Predicates
+    receive the key as a number: an int32-range integer key as itself, any
+    other key as its lane index.
+
+    **Replay dedup.**  Each lane keeps a high-water mark of explicit
+    offsets; a record below it is dropped (``metrics.duplicates_dropped``).
+    ``dedup=False`` keeps the reference's replay behaviour.
+
+    ``process(records)`` returns ``(key, Sequence)`` pairs in the order the
+    reference's per-record loop would forward them
+    (``CEPProcessor.java:154-163``): by arrival of the completing record,
+    then run-queue order.  With ``pipeline=True`` it returns the previous
+    batch's matches (the device works on batch N while the host decodes
+    N-1); ``flush()`` drains the last one.
+
+    ``device`` is where the engine runs: ``"cuda"`` by default (raises when
+    there is no GPU), ``"cpu"`` for the plain PyTorch path.
+    """
+
+    def __init__(
+        self,
+        pattern,
+        num_lanes: int,
+        config: Optional[EngineConfig] = None,
+        topic: str = "stream",
+        epoch: Optional[int] = None,
+        gc_events: bool = True,
+        dedup: bool = True,
+        gc_interval: int = 16,
+        gc_events_interval: int = 8,
+        decode_budget: int = 131072,
+        pipeline: bool = False,
+        device="cuda",
+    ):
+        self.batch = BatchMatcher(pattern, num_lanes, config, device)
+        self.device = self.batch.device
+        self.topic = topic
+        self.num_lanes = int(num_lanes)
+        # Maintenance sweep every N batches (0 = off): frees slab entries
+        # no future walk can reach and renormalizes Dewey versions.
+        self.gc_interval = int(gc_interval)
+        # Host-event GC cadence, in batches.
+        self.gc_events_interval = max(int(gc_events_interval), 1)
+        # Compacted match rows the decode pulls per batch (0 = always pull
+        # the raw [K, T, R, W] grid); more matches fall back to the full
+        # pull, counted in ``metrics.decode_fallbacks``.
+        self.decode_budget = int(decode_budget)
+        self.pipeline = bool(pipeline)
+        self._pending: Optional[tuple] = None
+        self.state = self.batch.init_state()
+        # Steps scanned so far; restored from ``step_seq`` on resume.
+        self._step_base = 0
+        self.epoch = epoch
+        self.gc_events = gc_events
+        self.dedup = dedup
+        self._lane_of: Dict[Hashable, int] = {}
+        self._key_of: Dict[int, Hashable] = {}
+        self._next_offset = np.zeros(self.num_lanes, dtype=np.int64)
+        # Per-lane offset base: the engine sees offsets rebased to log
+        # positions (< 2^24); the first record of a lane fixes its base.
+        self._off_base = np.full(self.num_lanes, -1, dtype=np.int64)
+        # Host event mirror, keyed by device (rebased) offset per lane.
+        self._events: List[Dict[int, Event]] = [dict() for _ in range(self.num_lanes)]
+        self._value_proto = None
+        self.metrics = Metrics()
+
+    # -- key -> lane assignment (partition-assignment analog) ---------------
+
+    def _key_code(self, key: Hashable, lane: int) -> int:
+        if isinstance(key, (int, np.integer)) and _I32.min <= key <= _I32.max:
+            return int(key)
+        return lane
+
+    def _rebased_ts(self, timestamp: int, rank: int, key) -> int:
+        rel = int(timestamp) - self.epoch
+        if not (_I32.min <= rel <= _I32.max):
+            raise InputRejected(
+                f"record {rank} (key {key!r}): timestamp {timestamp} is {rel} "
+                f"ms from the processor epoch {self.epoch}, outside int32 "
+                "device time (~±24.8 days); construct the processor with an "
+                "epoch near your stream's timestamps"
+            )
+        return rel
+
+    # -- the per-batch hot path --------------------------------------------
+
+    @contextlib.contextmanager
+    def _phase(self, name: str):
+        with self.metrics.timed(f"{name}_seconds"):
+            yield
+
+    def process(self, records: Seq[Record]) -> List[Tuple[Hashable, Sequence]]:
+        if not records:
+            return []
+        with self._phase("pack"):
+            packed = self._pack_records(records)
+        if packed is None:
+            return []
+        return self._dispatch(*packed)
+
+    def _pack_records(self, records: Seq[Record]):
+        """Validate, lane-assign and pad one record batch to ``[K, T]``
+        device columns; None when every record was a replay duplicate."""
+        K = self.num_lanes
+        if self.epoch is None:
+            self.epoch = int(records[0].timestamp)
+        if self._value_proto is None:
+            leaves0, treedef0 = tree_flatten(records[0].value)
+            self._value_proto = tree_unflatten(
+                treedef0, [_schema_dtype(l) for l in leaves0]
+            )
+        dtypes, treedef = tree_flatten(self._value_proto)
+
+        # Validate the whole batch before any bookkeeping moves: lane
+        # assignment and offsets are simulated, then committed.
+        lane_sim = dict(self._lane_of)
+        lanes = []
+        for rank, rec in enumerate(records):
+            lane = lane_sim.get(rec.key)
+            if lane is None:
+                lane = len(lane_sim)
+                if lane >= K:
+                    raise InputRejected(
+                        f"record {rank} (key {rec.key!r}): more than "
+                        f"num_lanes={K} distinct keys; size the processor "
+                        "for the key cardinality it serves"
+                    )
+                lane_sim[rec.key] = lane
+            lanes.append(lane)
+        rel_ts = [
+            self._rebased_ts(rec.timestamp, rank, rec.key)
+            for rank, rec in enumerate(records)
+        ]
+        next_sim = self._next_offset.copy()
+        base_sim = self._off_base.copy()
+        offsets: List[Optional[int]] = []
+        batch_leaves = []
+        for rank, rec in enumerate(records):
+            leaves, rec_def = tree_flatten(rec.value)
+            if rec_def != treedef:
+                raise InputRejected(
+                    f"record {rank} (key {rec.key!r}): value structure "
+                    "differs from the schema fixed by the first record"
+                )
+            for field_i, (leaf, dt) in enumerate(zip(leaves, dtypes)):
+                if np.issubdtype(np.asarray(leaf).dtype, np.floating) and not np.issubdtype(dt, np.floating):
+                    raise InputRejected(
+                        f"record {rank} (key {rec.key!r}): field #{field_i} "
+                        f"float value {leaf!r} in a field the schema (fixed "
+                        "by the first record) typed as int"
+                    )
+            batch_leaves.append(leaves)
+            lane = lanes[rank]
+            off = rec.offset if rec.offset is not None else int(next_sim[lane])
+            if self.dedup and off < next_sim[lane]:
+                offsets.append(None)  # duplicate: below the high-water mark
+                continue
+            if base_sim[lane] < 0:
+                base_sim[lane] = off  # the first record fixes the lane base
+            dev = off - int(base_sim[lane])
+            if dev < 0:
+                raise InputRejected(
+                    f"record {rank} (key {rec.key!r}): offset {off} is below "
+                    f"lane {lane}'s base {int(base_sim[lane])} (out-of-order "
+                    "replay below the first seen offset needs dedup=True)"
+                )
+            if dev >= OFFSET_LIMIT:
+                raise InputRejected(
+                    f"record {rank} (key {rec.key!r}): offset {off} is {dev} "
+                    f"past lane {lane}'s base — per-lane log positions must "
+                    "stay below 2^24"
+                )
+            offsets.append(off)
+            next_sim[lane] = max(next_sim[lane], off + 1)
+
+        for key, lane in lane_sim.items():
+            if key not in self._lane_of:
+                self._lane_of[key] = lane
+                self._key_of[lane] = key
+                logger.info("assigned key %r to lane %d", key, lane)
+
+        # Host-event mirror: events keep their source offsets, keyed by
+        # device offset.
+        self._off_base = base_sim
+        dropped = 0
+        for rank, rec in enumerate(records):
+            off = offsets[rank]
+            if off is None:
+                dropped += 1
+                continue
+            lane = lanes[rank]
+            self._next_offset[lane] = max(self._next_offset[lane], off + 1)
+            event = Event(rec.key, rec.value, int(rec.timestamp), self.topic, lane, off)
+            self._events[lane][off - int(self._off_base[lane])] = event
+        self.metrics.duplicates_dropped += dropped
+        if dropped:
+            logger.info("dropped %d replayed records (high-water mark)", dropped)
+        if all(off is None for off in offsets):
+            return None
+
+        n = len(records)
+        lanes_arr = np.asarray(lanes, dtype=np.int32)
+        keep = np.fromiter((o is not None for o in offsets), dtype=bool, count=n)
+        pos, _qlen, max_len = queue_positions(lanes_arr, keep, K)
+        T = _bucket(max_len)
+        key_col = np.fromiter(
+            (self._key_code(rec.key, lanes[r]) for r, rec in enumerate(records)),
+            dtype=np.int32, count=n,
+        )
+        off_col = np.fromiter(
+            (
+                o - int(self._off_base[lanes[r]]) if o is not None else 0
+                for r, o in enumerate(offsets)
+            ),
+            dtype=np.int32, count=n,
+        )
+        # Padding slots carry valid=False and leave lane state untouched.
+        key_arr = np.zeros((K, T), dtype=np.int32)
+        ts = np.zeros((K, T), dtype=np.int32)
+        off = np.zeros((K, T), dtype=np.int32)
+        valid = np.zeros((K, T), dtype=bool)
+        rank_of = np.full((K, T), -1, dtype=np.int64)
+        pack_column(key_arr, key_col, lanes_arr, pos, keep)
+        pack_column(ts, np.asarray(rel_ts, dtype=np.int32), lanes_arr, pos, keep)
+        pack_column(off, off_col, lanes_arr, pos, keep)
+        pack_column(rank_of, np.arange(n, dtype=np.int64), lanes_arr, pos, keep)
+        pack_column(valid, np.ones(n, dtype=bool), lanes_arr, pos, keep)
+        val_leaves = []
+        for i, dt in enumerate(dtypes):
+            col = np.zeros((K, T), dtype=dt)
+            pack_column(col, np.asarray([lv[i] for lv in batch_leaves], dtype=dt),
+                        lanes_arr, pos, keep)
+            val_leaves.append(col)
+
+        def dev(a):
+            return torch.as_tensor(a, device=self.device)
+
+        events = EventBatch(
+            key=dev(key_arr),
+            value=tree_unflatten(treedef, [dev(v) for v in val_leaves]),
+            ts=dev(ts),
+            off=dev(off),
+            valid=dev(valid),
+        )
+        return events, rank_of, n - dropped
+
+    def _dispatch(self, events, rank_of, n_records):
+        with self._phase("dispatch"):
+            self.state, out = self.batch.scan(self.state, events)
+            self._step_base += int(events.ts.shape[1])
+            if self.gc_interval and (self.metrics.batches + 1) % self.gc_interval == 0:
+                self.state = self.batch.sweep(self.state)
+        with self._phase("device"):
+            if not self.pipeline and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        gc_due = self.gc_events and (
+            (self.metrics.batches + 1) % self.gc_events_interval == 0
+        )
+        self.metrics.records_in += n_records
+        self.metrics.batches += 1
+        with self._phase("decode"):
+            if self.pipeline:
+                prev, self._pending = self._pending, (out, rank_of)
+                matches = self._decode(*prev) if prev is not None else []
+                if gc_due:
+                    # The event GC must not prune events the pending
+                    # decode still references: drain first.
+                    pend, self._pending = self._pending, None
+                    matches += self._decode(*pend)
+            else:
+                matches = self._decode(out, rank_of)
+        if gc_due:
+            with self._phase("gc"):
+                self._gc_events()
+        self.metrics.matches_out += len(matches)
+        return matches
+
+    def flush(self) -> List[Tuple[Hashable, Sequence]]:
+        """Decode the pipelined in-flight batch (a no-op in serial mode or
+        when nothing is pending).  Call before checkpointing a pipelined
+        processor."""
+        matches: List[Tuple[Hashable, Sequence]] = []
+        if self._pending is not None:
+            pend, self._pending = self._pending, None
+            with self._phase("decode"):
+                matches = self._decode(*pend)
+        self.metrics.matches_out += len(matches)
+        return matches
+
+    def _decode(self, out, rank_of) -> List[Tuple[Hashable, Sequence]]:
+        """Device walk outputs -> (key, Sequence), in arrival order.
+
+        The batch's match rows compact on the device into ``decode_budget``
+        rows (``ops/decode.py``), so the host pulls rows in proportion to
+        the match count; a batch with more matches falls back to the full
+        pull (counted in ``decode_fallbacks``)."""
+        K, T, R = out.count.shape
+        if self.decode_budget:
+            c_stage, c_off, c_count, c_k, c_t, c_r, c_n, _ovf = compact_matches(
+                out, self.decode_budget
+            )
+            n = int(c_n)
+            if n <= min(self.decode_budget, K * T * R):
+                if n == 0:
+                    return []
+                count, stage, off, k_arr, t_arr, r_arr = (
+                    x[:n].cpu().numpy()
+                    for x in (c_count, c_stage, c_off, c_k, c_t, c_r)
+                )
+                return self._emit(k_arr, t_arr, r_arr, count, stage, off, rank_of)
+            self.metrics.decode_fallbacks += 1
+        count = out.count.cpu().numpy()
+        ks, ts, rs = np.nonzero(count)
+        if ks.size == 0:
+            return []
+        stage = out.stage.cpu().numpy()
+        off = out.off.cpu().numpy()
+        return self._emit(
+            ks, ts, rs, count[ks, ts, rs], stage[ks, ts, rs], off[ks, ts, rs],
+            rank_of,
+        )
+
+    def _emit(self, ks, ts, rs, cnts, stages, offs, rank_of):
+        """Hit rows -> (key, Sequence) in arrival order (rank of the
+        completing record), then run-queue order."""
+        order = np.lexsort((rs, rank_of[ks, ts]))
+        names = self.batch.names
+        matches: List[Tuple[Hashable, Sequence]] = []
+        for i in order:
+            k = int(ks[i])
+            seq = Sequence()
+            for w in range(int(cnts[i])):
+                seq.add(names[int(stages[i, w])], self._events[k][int(offs[i, w])])
+            matches.append((self._key_of[k], seq))
+        return matches
+
+    def _gc_events(self) -> None:
+        """Drop host events no longer reachable from device state: only
+        events still in a lane's slab or pointed at by a live run can
+        appear in a future match."""
+        st = self.state
+        slab_stage = st.slab.stage.cpu().numpy()
+        slab_off = st.slab.off.cpu().numpy()
+        run_alive = st.alive.cpu().numpy()
+        run_off = st.event_off.cpu().numpy()
+        for k in range(self.num_lanes):
+            live = set(slab_off[k][slab_stage[k] >= 0].tolist())
+            live.update(run_off[k][run_alive[k]].tolist())
+            store = self._events[k]
+            for o in [o for o in store if o not in live]:
+                del store[o]
+
+    # -- diagnostics --------------------------------------------------------
+
+    def counters(self) -> Dict[str, int]:
+        """Lane-summed overflow/drop counters (all zero in healthy runs)."""
+        return self.batch.counters(self.state)

@@ -1,0 +1,48 @@
+"""The PyTorch port stands alone: no module of ``kafkastreams_cep_tpu_torch``
+and not ``chip_smoke.py`` imports ``jax`` or anything of the JAX package
+``kafkastreams_cep_tpu`` (the port keeps its own copies of what it needs).
+Only the tests import both."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "kafkastreams_cep_tpu_torch"
+FILES = sorted(
+    p.relative_to(ROOT).as_posix()
+    for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]
+    if (PKG / "build") not in p.parents  # build outputs, not sources
+)
+FORBIDDEN = ("jax", "jaxlib", "kafkastreams_cep_tpu")
+
+
+def imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif (
+            isinstance(node, ast.Call)
+            and getattr(node.func, "attr", getattr(node.func, "id", "")) in (
+                "import_module", "__import__")
+            and node.args and isinstance(node.args[0], ast.Constant)
+        ):
+            yield str(node.args[0].value)
+
+
+def test_files_found():
+    assert "chip_smoke.py" in FILES
+    assert "kafkastreams_cep_tpu_torch/ops/walk_kernel.py" in FILES
+
+
+@pytest.mark.parametrize("rel", FILES)
+def test_no_jax_import(rel):
+    bad = [
+        m for m in imported_modules(ROOT / rel)
+        if m.split(".")[0] in FORBIDDEN
+    ]
+    assert not bad, f"{rel} imports {bad}"

@@ -1,0 +1,160 @@
+"""The port's walk pass (the plain version of the CUDA walk-pass kernel)
+against the JAX package's walk pass and its Pallas kernel.
+
+* against ``jax.vmap(walks_compacted)`` (after ``jax.vmap(puts_batched)``
+  when puts are on): every slab leaf, counter and output bit for bit, on
+  several seeds of the synthetic inputs and of ``tests/test_walk_kernel.py``'s
+  walker sets;
+* against ``walk_pass_kernel(..., interpret=True)`` at K=128: the Pallas
+  kernel prunes pointers by shifting in place where the jnp pass compacts at
+  the walker's end, so the two differ only in storage behind ``npreds``;
+  the comparison masks that dead storage (``test_slab_batched.canon_slab``).
+
+The CUDA kernel itself runs only on a GPU: the ``cuda``-marked test holds
+it against the plain version there and skips on a machine without one.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_scenarios as ts
+from kafkastreams_cep_tpu.ops import slab as jslab
+from kafkastreams_cep_tpu.ops.walk_kernel import walk_pass_kernel as pallas_walk_pass
+from kafkastreams_cep_tpu_torch.convert import to_numpy, to_torch
+from kafkastreams_cep_tpu_torch.ops import walk_inputs, walk_kernel
+
+from test_slab_batched import assert_slab_equal, seed_slab
+from test_walk_kernel import OUT_BASE, OUT_ROWS, W, random_walkers
+
+CONFIGS = {
+    "test_walk_kernel": (16, 4, 6, 8, 4, 2),  # E, MP, D, W, R, H
+    "headline": (48, 8, 12, 12, 24, 3),
+}
+JAX_CLASSES = {"SlabState": jslab.SlabState, "PutOps": jslab.PutOps}
+
+
+def jax_walk_pass(slab, walkers, puts, ev_off, W, out_base, out_rows):
+    """``jax.vmap`` of the JAX package's puts then walks (budget 1)."""
+    s = to_numpy(slab, JAX_CLASSES)
+    if puts is not None:
+        s = jax.vmap(jslab.puts_batched)(s, to_numpy(puts, JAX_CLASSES), ev_off.numpy())
+    walks = jax.vmap(functools.partial(
+        jslab.walks_compacted, max_walk=W, budget=1, out_base=out_base,
+        out_rows=out_rows,
+    ))
+    return walks(s, *[w.numpy() for w in walkers])
+
+
+def assert_pass_equal(got, want, msg):
+    (slab_t, *out_t), (slab_j, *out_j) = got, want
+    for f, a, b in zip(slab_t._fields, slab_t, slab_j):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=f"{msg} {f}")
+    for a, b in zip(out_t, out_j):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=msg)
+
+
+@pytest.mark.parametrize("with_puts", [False, True])
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+@pytest.mark.parametrize("seed", range(3))
+def test_plain_pass_equals_jax_pass(seed, config, with_puts):
+    E, MP, D, W_, R, H = CONFIGS[config]
+    K = 9
+    arrs = walk_inputs.random_inputs(seed, K, E, MP, D, R, H)
+    slab, walkers, puts, ev_off = walk_inputs.as_tensors(arrs, "cpu")
+    if not with_puts:
+        puts = None
+    PW = walkers[0].shape[1]
+    got = walk_kernel.walk_pass(
+        slab, *walkers, W_, PW - R, R, put_ops=puts, ev_off=ev_off
+    )
+    want = jax_walk_pass(slab, walkers, puts, ev_off, W_, PW - R, R)
+    assert_pass_equal(got, want, f"seed={seed} {config} puts={with_puts}")
+
+
+def seeded_lanes(seed, K):
+    """``tests/test_walk_kernel.py``'s per-lane slabs and walker sets."""
+    rng = np.random.default_rng(400 + seed)
+    slabs = [seed_slab(rng) for _ in range(K)]
+    wks = [random_walkers(rng) for _ in range(K)]
+    slab = jax.tree_util.tree_map(lambda *xs: np.stack([np.asarray(x) for x in xs]), *slabs)
+    fields = ("en", "stage", "off", "ver", "vlen", "is_remove", "want_out")
+    return slab, [np.stack([w[f] for w in wks]) for f in fields]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_plain_pass_equals_jax_on_walk_kernel_sets(seed):
+    slab, walkers = seeded_lanes(seed, 8)
+    got = walk_kernel.walk_pass(
+        to_torch(slab), *[ts.to_t(w) for w in walkers], W, OUT_BASE, OUT_ROWS
+    )
+    want = jax.vmap(functools.partial(
+        jslab.walks_compacted, max_walk=W, budget=1, out_base=OUT_BASE,
+        out_rows=OUT_ROWS,
+    ))(slab, *walkers)
+    assert_pass_equal(got, want, f"seed={seed}")
+
+
+def test_plain_pass_matches_pallas_interpret():
+    """K=128 lanes (the Pallas lane block) through the interpret-mode
+    Pallas kernel, puts included, against the port's plain pass."""
+    E, MP, D, W_, R, H = CONFIGS["test_walk_kernel"]
+    K = 128
+    arrs = walk_inputs.random_inputs(3, K, E, MP, D, R, H)
+    slab, walkers, puts, ev_off = walk_inputs.as_tensors(arrs, "cpu")
+    PW = walkers[0].shape[1]
+    got = walk_kernel.walk_pass(
+        slab, *walkers, W_, PW - R, R, put_ops=puts, ev_off=ev_off
+    )
+    j_slab, j_st, j_of, j_ct = pallas_walk_pass(
+        to_numpy(slab, JAX_CLASSES), *[jnp.asarray(w.numpy()) for w in walkers],
+        max_walk=W_, out_base=PW - R, out_rows=R, interpret=True,
+        put_ops=to_numpy(puts, JAX_CLASSES), ev_off=jnp.asarray(ev_off.numpy()),
+    )
+    t_slab, t_st, t_of, t_ct = got
+    for k in range(K):
+        lane_t = jax.tree_util.tree_map(lambda x: x[k].numpy(), tuple(t_slab))
+        lane_j = jax.tree_util.tree_map(lambda x: np.asarray(x[k]), tuple(j_slab))
+        assert_slab_equal(
+            jslab.SlabState(*lane_j), jslab.SlabState(*lane_t), f"lane {k}"
+        )
+    for a, b in ((t_st, j_st), (t_of, j_of), (t_ct, j_ct)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    for c in ("walk_hops", "extract_hops", "trunc", "missing", "full_drops",
+              "pred_drops"):
+        np.testing.assert_array_equal(
+            getattr(t_slab, c).numpy(), np.asarray(getattr(j_slab, c)), err_msg=c
+        )
+
+
+def test_cpu_tensors_take_the_plain_pass():
+    E, MP, D, W_, R, H = CONFIGS["test_walk_kernel"]
+    arrs = walk_inputs.random_inputs(0, 2, E, MP, D, R, H)
+    slab, walkers, puts, ev_off = walk_inputs.as_tensors(arrs, "cpu")
+    before = walk_kernel.walk_pass_kernel.launches
+    walk_kernel.walk_pass(slab, *walkers, W_, walkers[0].shape[1] - R, R,
+                          put_ops=puts, ev_off=ev_off)
+    assert walk_kernel.walk_pass_kernel.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        walk_kernel.walk_pass_kernel(slab, *walkers, W_, walkers[0].shape[1] - R, R)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 37, 300])
+def test_cuda_kernel_equals_plain(K):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the walk-pass kernel has no CPU build")
+    E, MP, D, W_, R, H = CONFIGS["headline"]
+    arrs = walk_inputs.random_inputs(K, K, E, MP, D, R, H)
+    slab, walkers, puts, ev_off = walk_inputs.as_tensors(arrs, "cuda")
+    PW = walkers[0].shape[1]
+    before = walk_kernel.walk_pass_kernel.launches
+    got = walk_kernel.walk_pass(slab, *walkers, W_, PW - R, R, put_ops=puts, ev_off=ev_off)
+    want = walk_kernel.walk_pass_plain(slab, *walkers, W_, PW - R, R, put_ops=puts, ev_off=ev_off)
+    assert walk_kernel.walk_pass_kernel.launches == before + 1
+    for a, b in zip(list(got[0]) + list(got[1:]), list(want[0]) + list(want[1:])):
+        assert torch.equal(a, b)
