@@ -1,4 +1,4 @@
-"""Build the PyTorch port's CUDA kernels and drive its main path on one GPU.
+"""Build the PyTorch port's CUDA kernels and drive its main paths on one GPU.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -6,23 +6,36 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 Phases (any failure exits non-zero before the final line):
 
-1. build    — compile every kernel of the main path from the repo's sources
+1. build    — compile every kernel of the main paths from the repo's sources
               with nvcc for sm_90a;
 2. parity   — hold each kernel against its plain PyTorch version on the
               card, bit for bit, on random inputs made by numpy from a seed
               (K in {1, 37, 4096}, two slab configs, with and without puts);
+              then every mode of the walk-pass kernel — two-tier (E_hot 8
+              at E=16, 16 at E=48) x stage attribution x drain — on inputs
+              whose hot tier is full, so that puts demote;
 3. headline — ``BatchMatcher.scan`` at K=4096 lanes with the headline config
               (``bench.py``'s): the first 32 steps through the kernel and
               through the plain pass must agree bit for bit;
-4. main path — two paths, each with the launch count set to 0 just before
-              it and read just after: the stock demo through ``CEPProcessor``
-              on the card must print ``examples/stock_demo.py``'s four lines
-              byte for byte with all counters 0; then the K=4096 x T=256
-              headline scan is timed (CUDA events around a consumed
-              reduction) after an untimed warm-up scan;
-5. kernel timing — the walk-pass kernel and its plain version, timed on the
-              slab-phase inputs of a mid-scan headline step, beside the
-              kernel's bound.
+4. main path — each path with the launch counts set to 0 just before it and
+              read just after: the stock demo through ``CEPProcessor`` on the
+              card must print ``examples/stock_demo.py``'s four lines byte
+              for byte with all counters 0; the K=4096 x T=256 headline scan
+              is timed (CUDA events around a consumed reduction) after an
+              untimed warm-up scan; the stock demo again with the two-tier
+              slab and with stage attribution (each through its own kernel
+              instance), and under lazy extraction (``drain_interval`` 1,
+              and 3 plus ``flush``) through drain-mode launches, must print
+              the same four lines;
+5. lazy path — ``bench.py``'s lazy A/B configuration (the headline config at
+              E=96, E_hot=16, handle ring 512) plus stage attribution, K=4096
+              x T=256 in 64-step chunks with a drain after each: 32 steps
+              and one drain through the kernel and through the plain pass
+              agree bit for bit; the chunked run is timed; an eager run at
+              the same E and E_hot is compared with it; every walk hop is
+              attributed to one stage;
+6. kernel timing — each mode of the walk-pass kernel and its plain version,
+              timed on real mid-scan inputs, beside the kernel's bound.
 
 The last two lines of standard output are the kernel report (one JSON
 object) and the device line ``{"ok": true, "device": {...}}``; the card's
@@ -62,6 +75,22 @@ EXPECTED = [
 ]
 HEADLINE = dict(max_runs=24, slab_entries=48, slab_preds=8, dewey_depth=12,
                 max_walk=12)
+DEMO = dict(max_runs=32, slab_entries=64, slab_preds=8, dewey_depth=16,
+            max_walk=16)
+# bench.py's lazy A/B block (bench.py:612-630): the headline config at twice
+# its slab, a 16-row hot tier and a 512-handle ring, drained every 64 steps;
+# plus stage attribution.
+LAZY_PATH = dict(HEADLINE, slab_entries=96, slab_hot_entries=16,
+                 lazy_extraction=True, handle_ring=512, stage_attribution=True)
+LAZY_CHUNK = 64
+LAZY_CMP_STEPS = 32
+DEVICE = "cuda"
+LANES = 4096  # K of the headline and lazy paths
+STEPS = 256  # T
+CMP_STEPS = 32  # headline steps held against the plain path
+PARITY_LANES = (1, 37, 4096)
+SOURCE = "kafkastreams_cep_tpu_torch/csrc/walk_pass.cu"
+REPLACES = "kafkastreams_cep_tpu/ops/walk_kernel.py:734"
 
 
 def log(msg: str) -> None:
@@ -121,6 +150,14 @@ def make_batch(torch, EventBatch, K: int, T: int, seed: int, device):
     )
 
 
+def window(EventBatch, events, t0: int, t1: int):
+    """Steps ``[t0, t1)`` of a ``[K, T]`` batch."""
+    return EventBatch(
+        events.key[:, t0:t1], {k: v[:, t0:t1] for k, v in events.value.items()},
+        events.ts[:, t0:t1], events.off[:, t0:t1], events.valid[:, t0:t1],
+    )
+
+
 def max_abs_err(torch, got, want) -> int:
     """Max absolute difference over every tensor leaf of two nested tuples
     (0 = bit-identical; a shape or dtype mismatch is an error)."""
@@ -146,23 +183,90 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def nbytes(xs) -> int:
+    """Bytes of the tensors as the engine hands them over."""
+    return sum(x.numel() * x.element_size() for x in xs)
+
+
+def bound(slab_in, slab_out, leaves, other_in, other_out, E, MP, D):
+    """``(bound_ms, bound_by, MB moved, hops)`` of one kernel call: the slab
+    ``leaves`` it reads and writes and its other tensors, each crossing
+    device memory once, over the memory rate, against its hops' compares
+    over the 32-bit rate."""
+    moved = (nbytes(getattr(slab_in, f) for f in leaves)
+             + nbytes(getattr(slab_out, f) for f in leaves)
+             + nbytes(other_in) + nbytes(other_out))
+    hops = int(sum((getattr(slab_out, c) - getattr(slab_in, c)).sum()
+                   for c in ("walk_hops", "extract_hops", "drain_hops")))
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = hops * (2 * E + MP * 3 * D) / INT_OPS_PER_S * 1e3  # compares + compat
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations",
+            moved / 1e6, hops)
+
+
+def mode_parity(torch, kern, walk_kernel, walk_inputs, dev, max_err):
+    """Every mode of the walk-pass kernel against its plain version."""
+    demoted = 0
+    for name, (E, MP, D, W, R, H, EH) in {
+        "test_walk_kernel": (16, 4, 6, 8, 4, 2, 8),
+        "headline": (48, 8, 12, 12, 24, 3, 16),
+    }.items():
+        for hot in (0, EH):
+            for S in (0, walk_inputs.NUM_STAGES):
+                for drain in (False, True):
+                    if not (hot or S or drain):
+                        continue  # the default mode: phase 2's first cases
+                    mode = walk_kernel.mode_name(hot, S, drain)
+                    for K in PARITY_LANES:
+                        arrs = walk_inputs.random_inputs(K, K, E, MP, D, R, H,
+                                                         hot_entries=hot)
+                        slab, wk, puts, ev_off = walk_inputs.as_tensors(
+                            arrs, dev, stage_hops=S)
+                        PW = wk[0].shape[1]
+                        kw = dict(put_ops=puts, ev_off=ev_off, hot_entries=hot,
+                                  drain=drain)
+                        rows = (PW - R, R)
+                        if drain:  # the handle ring: no puts, all rows emit
+                            ones = torch.ones_like(wk[0])
+                            wk = (*wk[:5], ones, ones)
+                            kw.update(put_ops=None, ev_off=None)
+                            rows = (0, PW)
+                        got = kern(slab, *wk, W, *rows, **kw)
+                        want = walk_kernel.walk_pass_plain(slab, *wk, W, *rows, **kw)
+                        torch.cuda.synchronize()
+                        err = max_abs_err(torch, got, want)
+                        dem = int((got[0].demotions - slab.demotions).sum())
+                        demoted += dem
+                        max_err[mode] = max(max_err.get(mode, 0), err)
+                        log(f"parity: {name} {mode} K={K}: max_abs_err {err}"
+                            + (f", demotions {dem}" if hot else ""))
+                        if err:
+                            fail(f"walk_pass kernel != plain ({name}, {mode}, K={K})")
+    if not demoted:
+        fail("no two-tier parity case demoted an entry")
+    log(f"parity: every mode bit for bit; two-tier cases demoted {demoted} entries")
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
     from kafkastreams_cep_tpu_torch import BatchMatcher, CEPProcessor, EngineConfig, Query, Record
-    from kafkastreams_cep_tpu_torch.engine.matcher import EventBatch, make_step
+    from kafkastreams_cep_tpu_torch.engine.matcher import (
+        EventBatch, build_drain, make_step,
+    )
     from kafkastreams_cep_tpu_torch.parallel.batch import step_events
     from kafkastreams_cep_tpu_torch.ops import walk_inputs, walk_kernel
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     kern = walk_kernel.walk_pass_kernel
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t_start = time.perf_counter()
 
     # 1. build ---------------------------------------------------------------
     t0 = time.perf_counter()
@@ -173,12 +277,12 @@ def main() -> None:
             log(f"build: ptxas {line.strip()}")
 
     # 2. parity on random inputs --------------------------------------------
-    max_err = 0
+    max_err = {"default": 0}
     for name, (E, MP, D, W, R, H) in {
         "test_walk_kernel": (16, 4, 6, 8, 4, 2),
         "headline": (48, 8, 12, 12, 24, 3),
     }.items():
-        for K in (1, 37, 4096):
+        for K in PARITY_LANES:
             arrs = walk_inputs.random_inputs(K, K, E, MP, D, R, H)
             slab, wk, puts, ev_off = walk_inputs.as_tensors(arrs, dev)
             PW = wk[0].shape[1]
@@ -188,13 +292,16 @@ def main() -> None:
                 want = walk_kernel.walk_pass_plain(slab, *wk, W, PW - R, R, **kw)
                 torch.cuda.synchronize()
                 err = max_abs_err(torch, got, want)
-                max_err = max(max_err, err)
+                max_err["default"] = max(max_err["default"], err)
                 log(f"parity: {name} K={K} puts={with_puts}: max_abs_err {err}")
                 if err:
                     fail(f"walk_pass kernel != plain ({name}, K={K}, puts={with_puts})")
+    t0 = time.perf_counter()
+    mode_parity(torch, kern, walk_kernel, walk_inputs, dev, max_err)
+    log(f"parity: mode cases took {time.perf_counter() - t0:.1f} s")
 
     # 3. headline: kernel vs plain path, step by step -----------------------
-    K, T, T_CMP = 4096, 256, 32
+    K, T, T_CMP = LANES, STEPS, CMP_STEPS
     cfg = EngineConfig(**HEADLINE)
     bm = BatchMatcher(stock_pattern(Query), K, cfg, device=dev)
     events = make_batch(torch, EventBatch, K, T, 42, dev)
@@ -206,26 +313,22 @@ def main() -> None:
         s_k, o_k = bm.step(s_k, ev)
         s_p, o_p = plain_step(s_p, ev)
         err = max(max_abs_err(torch, s_k, s_p), max_abs_err(torch, o_k, o_p))
-        max_err = max(max_err, err)
+        max_err["default"] = max(max_err["default"], err)
         if err:
             fail(f"headline step {t}: kernel path != plain path (max_abs_err {err})")
     torch.cuda.synchronize()
     log(f"headline: {T_CMP} steps kernel path == plain path, bit for bit "
         f"({time.perf_counter() - t0:.1f} s); counters {bm.counters(s_k)}")
 
-    # 4. the main path, with launch counts from 0 ----------------------------
-    kern.launches = 0
-    proc = CEPProcessor(
-        stock_pattern(Query), num_lanes=1,
-        config=EngineConfig(max_runs=32, slab_entries=64, slab_preds=8,
-                            dewey_depth=16, max_walk=16),
-        topic="StockEvents", device=dev,
-    )
+    # 4. the main paths, with launch counts from 0 ---------------------------
     name_of = {i: ev["name"] for i, ev in enumerate(STOCK_EVENTS)}
     records = [
         Record("stocks", {"price": ev["price"], "volume": ev["volume"]}, 1000 + i)
         for i, ev in enumerate(STOCK_EVENTS)
     ]
+    kern.reset_counts()
+    proc = CEPProcessor(stock_pattern(Query), num_lanes=1,
+                        config=EngineConfig(**DEMO), topic="StockEvents", device=dev)
     lines = [format_match(seq, name_of) for _, seq in proc.process(records)]
     for line in lines:
         log(f"demo: {line}")
@@ -234,7 +337,7 @@ def main() -> None:
         fail(f"demo output differs from examples/stock_demo.py EXPECTED: {lines}")
     if any(counters.values()):
         fail(f"demo counters not all zero: {counters}")
-    demo_launches = kern.launches
+    demo_launches = kern.launches_by_mode.get("default", 0)
     if not demo_launches:
         fail("demo ran without launching the walk-pass kernel")
     log(f"demo: README parity OK, counters all 0, walk_pass launches {demo_launches}")
@@ -245,7 +348,7 @@ def main() -> None:
     total = int(out.count.sum())
     warm_s = time.perf_counter() - t0
     del state, out
-    kern.launches = 0
+    kern.reset_counts()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     state, out = bm.scan(state0, events)
@@ -254,10 +357,9 @@ def main() -> None:
     torch.cuda.synchronize()
     scan_ms = start.elapsed_time(end)
     n_hits = int(hits)
-    headline_launches = kern.launches
-    if headline_launches != T:
-        fail(f"walk_pass launches {headline_launches} in the timed scan, want {T}")
-    launches = demo_launches + headline_launches
+    headline_launches = kern.launches_by_mode.get("default", 0)
+    if headline_launches != T or kern.launches != T:
+        fail(f"walk_pass launches {kern.launches_by_mode} in the timed scan, want {T}")
     if int(out.count.sum()) != total or not n_hits:
         fail("timed headline scan disagrees with the warm-up scan or found no match")
     if int(out.count.min()) < 0 or int(out.count.max()) > cfg.max_walk:
@@ -266,28 +368,195 @@ def main() -> None:
         f"{scan_ms:.1f} ms = {scan_ms / T:.3f} ms/step, "
         f"{K * T / (scan_ms / 1e3):.0f} events/s, {n_hits} run-slot matches, "
         f"counters {bm.counters(state)} [{smi}]")
+    del state, out
 
-    # 5. kernel timing on a mid-scan headline step ---------------------------
+    mode_demo = {}
+    for mode, extra in (("two_tier", dict(slab_hot_entries=16)),
+                        ("attribution", dict(stage_attribution=True))):
+        kern.reset_counts()
+        proc = CEPProcessor(stock_pattern(Query), num_lanes=1,
+                            config=EngineConfig(**DEMO, **extra),
+                            topic="StockEvents", device=dev)
+        lines = [format_match(seq, name_of) for _, seq in proc.process(records)]
+        counters = proc.counters()
+        mode_demo[mode] = kern.launches_by_mode.get(mode, 0)
+        log(f"demo ({mode}): {lines == EXPECTED and 'EXPECTED byte for byte' or lines}; "
+            f"counters {counters}; launches {kern.launches_by_mode}")
+        if lines != EXPECTED or any(counters.values()):
+            fail(f"demo ({mode}) differs from EXPECTED or lost work: {lines} {counters}")
+        if not mode_demo[mode]:
+            fail(f"demo ({mode}) ran without {mode} launches")
+
+    lazy_demo = {"default": 0, "drain": 0}
+    for interval, chunks in ((1, [records]), (3, [records[i:i + 2] for i in range(0, 8, 2)])):
+        kern.reset_counts()
+        proc = CEPProcessor(
+            stock_pattern(Query), num_lanes=1,
+            config=EngineConfig(**DEMO, lazy_extraction=True), topic="StockEvents",
+            drain_interval=interval, device=dev,
+        )
+        got = []
+        for chunk in chunks:
+            got += proc.process(chunk)
+        got += proc.flush()
+        lines = [format_match(seq, name_of) for _, seq in got]
+        counters = proc.counters()
+        runs = dict(kern.launches_by_mode)
+        log(f"lazy demo (drain_interval={interval}, {len(chunks)} batches + flush): "
+            f"{lines == EXPECTED and 'EXPECTED byte for byte' or lines}; "
+            f"counters {counters}; launches {runs}")
+        if lines != EXPECTED:
+            fail(f"lazy demo (drain_interval={interval}) differs from EXPECTED: {lines}")
+        if any(counters.values()):
+            fail(f"lazy demo counters not all zero: {counters}")
+        if not runs.get("drain") or not runs.get("default"):
+            fail(f"lazy demo ran without step and drain-mode launches: {runs}")
+        for m in lazy_demo:
+            lazy_demo[m] += runs.get(m, 0)
+
+    # 5. the full-width lazy path --------------------------------------------
+    lcfg = EngineConfig(**LAZY_PATH)
+    lbm = BatchMatcher(stock_pattern(Query), K, lcfg, device=dev)
+    step_mode = walk_kernel.mode_name(lcfg.slab_hot_entries, 1, False)
+    drain_mode = walk_kernel.mode_name(lcfg.slab_hot_entries, 1, True)
+    for m in (step_mode, drain_mode):
+        max_err.setdefault(m, 0)
+    plain_lstep = make_step(lbm.phases, walk_kernel.walk_pass_plain)
+    plain_drain = build_drain(lcfg, walk_kernel.walk_pass_plain)
+    s_k = s_p = lbm.init_state()
+    t0 = time.perf_counter()
+    for t in range(LAZY_CMP_STEPS):
+        ev = step_events(events, t)
+        s_k, o_k = lbm.step(s_k, ev)
+        s_p, o_p = plain_lstep(s_p, ev)
+        err = max(max_abs_err(torch, s_k, s_p), max_abs_err(torch, o_k, o_p))
+        max_err[step_mode] = max(max_err[step_mode], err)
+        if err:
+            fail(f"lazy path step {t}: kernel path != plain path (max_abs_err {err})")
+    pending = int(s_k.hr_count.sum())
+    s_k, d_k = lbm.drain(s_k)
+    s_p, d_p = plain_drain(s_p)
+    err = max(max_abs_err(torch, s_k, s_p), max_abs_err(torch, d_k, d_p))
+    max_err[drain_mode] = max(max_err[drain_mode], err)
+    if err:
+        fail(f"lazy path drain: kernel != plain (max_abs_err {err})")
+    log(f"lazy path: {LAZY_CMP_STEPS} steps and one drain ({pending} handles) kernel "
+        f"path == plain path, bit for bit ({time.perf_counter() - t0:.1f} s)")
+
+    def chunked(batch, lazy: bool):
+        """``bench.py: _chunked_scan``'s cadence: a drain after each chunk
+        when lazy; the match-slot count stays on the device."""
+        state = batch.init_state()
+        n = torch.zeros((), dtype=torch.int64, device=dev)
+        drains = []
+        for c0 in range(0, T, LAZY_CHUNK):
+            state, out = batch.scan(state, window(EventBatch, events, c0, c0 + LAZY_CHUNK))
+            if lazy:
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                state, dout = batch.drain(state)
+                b.record()
+                drains.append((a, b))
+                n += (dout.count > 0).sum()
+            else:
+                n += (out.count > 0).sum()
+        return state, n, drains
+
+    t0 = time.perf_counter()
+    chunked(lbm, True)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    kern.reset_counts()
+    start.record()
+    l_state, l_slots, drains = chunked(lbm, True)  # l_slots: the reduction
+    end.record()
+    torch.cuda.synchronize()
+    lazy_ms = start.elapsed_time(end)
+    lazy_runs = dict(kern.launches_by_mode)
+    l_slots = int(l_slots)
+    drain_ms = sum(a.elapsed_time(b) for a, b in drains) / len(drains)
+    if lazy_runs.get(step_mode) != T or lazy_runs.get(drain_mode) != T // LAZY_CHUNK:
+        fail(f"lazy path launches {lazy_runs}, want {T} {step_mode} and "
+             f"{T // LAZY_CHUNK} {drain_mode}")
+    log(f"lazy path: K={K} T={T} (E=96, E_hot=16, ring 512, attribution, drain "
+        f"every {LAZY_CHUNK}): warm-up {warm_s:.2f} s; timed run {lazy_ms:.1f} ms = "
+        f"{lazy_ms / T:.3f} ms/step, {K * T / (lazy_ms / 1e3):.0f} events/s; drain "
+        f"{drain_ms:.3f} ms per pass ({len(drains)} passes); launches {lazy_runs} [{smi}]")
+
+    ecfg = EngineConfig(**dict(LAZY_PATH, lazy_extraction=False))
+    ebm = BatchMatcher(stock_pattern(Query), K, ecfg, device=dev)
+    e_state, e_slots, _ = chunked(ebm, False)
+    e_slots = int(e_slots)
+    cap = {}
+    for label, b, s in (("eager", ebm, e_state), ("lazy", lbm, l_state)):
+        c = b.counters(s)
+        c.pop("slab_missing")
+        cap[label] = c
+        log(f"lazy path vs eager: {label}: match slots "
+            f"{l_slots if label == 'lazy' else e_slots}; walk {b.walk_counters(s)}; "
+            f"hot {b.hot_counters(s)}; capacity {c}")
+    we, wl = ebm.walk_counters(e_state), lbm.walk_counters(l_state)
+    if not any(cap["eager"].values()) and not any(cap["lazy"].values()):
+        if e_slots != l_slots or wl["drain_hops"] != we["extract_hops"]:
+            fail("loss-free lazy and eager runs disagree on match slots or hops")
+        log("lazy path vs eager: loss-free; equal match slots, drain_hops == extract_hops")
+    else:
+        log(f"lazy path vs eager: capacity counters are not zero, so the two runs "
+            f"shed different work (match slots {l_slots} lazy, {e_slots} eager; "
+            f"drain_hops {wl['drain_hops']}, eager extract_hops {we['extract_hops']})")
+    for label, b, s in (("eager", ebm, e_state), ("lazy", lbm, l_state)):
+        if int(s.slab.stage_hops.sum()) != sum(b.walk_counters(s).values()):
+            fail(f"{label}: sum(stage_hops) != walk + extract + drain hops")
+    log("lazy path: sum(stage_hops) == walk_hops + extract_hops + drain_hops "
+        "in both runs")
+    del e_state, ebm
+
+    # 6. kernel timing on real mid-scan inputs -------------------------------
+    report = []
+
+    def entry(mode, launches, ms, plain_ms, bnd, by_path, timed_on):
+        bound_ms, bound_by, mb, hops = bnd
+        log(f"walk_pass[{mode}]: {ms:.3f} ms/launch (plain {plain_ms:.1f} ms) on "
+            f"{timed_on}: {mb:.1f} MB moved, {hops} hops -> bound {bound_ms:.4f} ms "
+            f"({bound_by}); launches {by_path} [{smi}]")
+        report.append({
+            "name": "walk_pass" if mode == "default" else f"walk_pass[{mode}]",
+            "route": "cuda", "source": SOURCE, "replaces": REPLACES,
+            "launches": launches, "launches_by_path": by_path,
+            "max_abs_err": max_err.get(mode, 0), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "timed_on": timed_on,
+        })
+
+    def timed(args, kw, mode, plain_reps=2):
+        got = kern(*args, **kw)
+        want = walk_kernel.walk_pass_plain(*args, **kw)
+        err = max_abs_err(torch, got, want)
+        max_err[mode] = max(max_err.get(mode, 0), err)
+        if err:
+            fail(f"{mode} on mid-scan inputs: kernel != plain (max_abs_err {err})")
+        ms = cuda_ms(torch, lambda: kern(*args, **kw), 20)
+        plain_ms = cuda_ms(torch, lambda: walk_kernel.walk_pass_plain(*args, **kw),
+                           plain_reps)
+        return got, ms, plain_ms
+
+    # The default mode on the headline step.
     ph = bm.phases
-    s_mid, _ = bm.scan(state0, EventBatch(
-        events.key[:, :T // 2], {k: v[:, :T // 2] for k, v in events.value.items()},
-        events.ts[:, :T // 2], events.off[:, :T // 2], events.valid[:, :T // 2],
-    ))
+    s_mid, _ = bm.scan(state0, window(EventBatch, events, 0, T // 2))
     ev = step_events(events, T // 2)
     rec = ph.eval_chain(s_mid, ev)
     ops = ph.build_puts(s_mid, rec)
     wk = ph.build_walkers(s_mid, rec, ev)
     args = (s_mid.slab, *wk, ph.max_walk, ph.out_base, ph.out_rows)
-    kw = dict(put_ops=ops, ev_off=ev.off)
-    got = kern(*args, **kw)
-    want = walk_kernel.walk_pass_plain(*args, **kw)
-    err = max_abs_err(torch, got, want)
-    if err:
-        fail(f"mid-scan step: kernel != plain (max_abs_err {err})")
-    ms = cuda_ms(torch, lambda: kern(*args, **kw), 50)
-    plain_ms = cuda_ms(torch, lambda: walk_kernel.walk_pass_plain(*args, **kw), 3)
-    # Where a step's time goes: the chain and queue builders, the kernel,
-    # the queue compaction (CUDA events around each, mean of 8 steps).
+    got, ms, plain_ms = timed(args, dict(put_ops=ops, ev_off=ev.off), "default")
+    E, MP, D = cfg.slab_entries, cfg.slab_preds, cfg.dewey_depth
+    bnd = bound(s_mid.slab, got[0], walk_kernel.mode_fields(0, 0, False),
+                list(wk) + list(ops) + [ev.off], got[1:], E, MP, D)
+    entry("default", demo_launches + headline_launches + lazy_demo["default"], ms,
+          plain_ms, bnd, {"demo": demo_launches, "headline": headline_launches,
+                          "lazy_demo": lazy_demo["default"]},
+          f"headline step {T // 2}, K={K}")
+    # Where a headline step's time goes (CUDA events around each phase).
     parts = {"chain+puts+walkers": 0.0, "walk_pass kernel": 0.0, "finish": 0.0}
     s = s_mid
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -308,38 +577,68 @@ def main() -> None:
             parts[name] += a.elapsed_time(b) / 8
     log("step breakdown (ms, mean of 8 headline steps): " + ", ".join(
         f"{k} {v:.3f}" for k, v in parts.items()))
-    def nbytes(xs):  # bytes of the tensors as the engine hands them over
-        return sum(x.numel() * x.element_size() for x in xs)
+    del s_mid, s
 
-    slab_bytes = nbytes(getattr(s_mid.slab, f) for f in (
-        "stage", "off", "refs", "npreds", "pstage", "poff", "pvlen", "pver",
-        "missing", "trunc", "full_drops", "pred_drops", "walk_hops", "extract_hops"))
-    in_bytes = slab_bytes + nbytes(wk) + nbytes(ops) + nbytes([ev.off])
-    out_bytes = slab_bytes + nbytes(got[1:])
-    hops = int((got[0].walk_hops + got[0].extract_hops - s_mid.slab.walk_hops
-                - s_mid.slab.extract_hops).sum())
-    E, MP, D = cfg.slab_entries, cfg.slab_preds, cfg.dewey_depth
-    ops_count = hops * (2 * E + MP * 3 * D)  # per hop: key compares + compat
-    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops_count / INT_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    log(f"walk_pass: {ms:.3f} ms/launch (plain {plain_ms:.1f} ms) at K={K}, "
-        f"{(in_bytes + out_bytes) / 1e6:.1f} MB moved -> bound {bound_ms:.4f} ms "
-        f"({hops} hops); launches on the main path: demo {demo_launches}, "
-        f"timed headline scan {headline_launches} [{smi}]")
+    # The lazy path's step and drain, mid-chunk: half way into the third
+    # chunk, so the ring holds half a chunk of pending handles.
+    lph = lbm.phases
+    mid = 2 * LAZY_CHUNK + LAZY_CHUNK // 2
+    s_mid, _ = lbm.scan(lbm.init_state(), window(EventBatch, events, 0, 2 * LAZY_CHUNK))
+    s_mid, _ = lbm.drain(s_mid)
+    s_mid, _ = lbm.scan(s_mid, window(EventBatch, events, 2 * LAZY_CHUNK, mid))
+    ev = step_events(events, mid)
+    rec = lph.eval_chain(s_mid, ev)
+    ops = lph.build_puts(s_mid, rec)
+    wk = lph.build_walkers(s_mid, rec, ev)
+    EL, EH = lcfg.slab_entries, lcfg.slab_hot_entries
+    no_sa = s_mid.slab._replace(stage_hops=s_mid.slab.stage_hops[:, :0])
+    for mode, slab_s, hot in ((step_mode, s_mid.slab, EH), ("two_tier", no_sa, EH),
+                              ("attribution", s_mid.slab, 0)):
+        args = (slab_s, *wk, lph.max_walk, lph.out_base, lph.out_rows)
+        kw = dict(put_ops=ops, ev_off=ev.off, hot_entries=hot)
+        got, ms, plain_ms = timed(args, kw, mode)
+        leaves = walk_kernel.mode_fields(hot, slab_s.stage_hops.shape[1], False)
+        bnd = bound(slab_s, got[0], leaves, list(wk) + list(ops) + [ev.off],
+                    got[1:], EL, MP, D)
+        if mode == step_mode:
+            launches, by_path = lazy_runs[mode], {"lazy_path": lazy_runs[mode]}
+            on = f"lazy-path step {mid}, K={K}"
+        else:
+            launches, by_path = mode_demo[mode], {"demo": mode_demo[mode]}
+            on = (f"lazy-path step {mid}, K={K}, "
+                  + ("without attribution" if hot else "single tier"))
+        entry(mode, launches, ms, plain_ms, bnd, by_path, on)
 
-    report = {"kernels": [{
-        "name": "walk_pass", "route": "cuda",
-        "source": "kafkastreams_cep_tpu_torch/csrc/walk_pass.cu",
-        "replaces": "kafkastreams_cep_tpu/ops/walk_kernel.py:734",
-        "launches": launches, "demo_launches": demo_launches,
-        "headline_launches": headline_launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,
-    }]}
+    HB = lcfg.handle_ring
+    pend = torch.arange(HB, device=dev)[None, :] < s_mid.hr_count[:, None]
+    unpin = ((s_mid.slab.stage[:, None, :] == s_mid.hr_stage[:, :, None])
+             & (s_mid.slab.off[:, None, :] == s_mid.hr_off[:, :, None])
+             & pend[:, :, None]).sum(dim=1, dtype=torch.int32)
+    dslab = s_mid.slab._replace(refs=torch.clamp(s_mid.slab.refs - unpin, min=0))
+    ones = torch.ones_like(pend)
+    ring = (pend, s_mid.hr_stage, s_mid.hr_off, s_mid.hr_ver, s_mid.hr_vlen, ones, ones)
+    log(f"drain inputs: {int(s_mid.hr_count.sum())} pending handles over {K} lanes "
+        f"(at most {int(s_mid.hr_count.max())} in a lane)")
+    for mode, slab_d, hot in (
+        (drain_mode, dslab, lcfg.slab_hot_entries),
+        ("drain", dslab._replace(stage_hops=dslab.stage_hops[:, :0]), 0),
+    ):
+        got, ms, plain_ms = timed((slab_d, *ring, lph.max_walk, 0, HB),
+                                  dict(hot_entries=hot, drain=True), mode,
+                                  plain_reps=1)
+        leaves = walk_kernel.mode_fields(hot, slab_d.stage_hops.shape[1], True)
+        bnd = bound(slab_d, got[0], leaves, ring, got[1:], EL, MP, D)
+        if mode == "drain":
+            launches, by_path = lazy_demo["drain"], {"lazy_demo": lazy_demo["drain"]}
+            on = f"the lazy path's mid-chunk ring, single tier, K={K}"
+        else:
+            launches, by_path = lazy_runs[drain_mode], {"lazy_path": lazy_runs[drain_mode]}
+            on = f"the lazy path's mid-chunk ring, K={K}"
+        entry(mode, launches, ms, plain_ms, bnd, by_path, on)
+
+    log(f"total: {time.perf_counter() - t_start:.1f} s after the card check")
     log(smi)
-    print(json.dumps(report), flush=True)
+    print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

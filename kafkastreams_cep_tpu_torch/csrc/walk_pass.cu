@@ -1,16 +1,34 @@
 // One engine step's slab phase on Hopper: the consuming puts, then every
-// branch, removal and extraction walk, for each lane.
+// branch, removal and extraction walk, for each lane; or the lazy drain
+// pass, which walks each lane's pending match handles.
 //
 // Replaces the Pallas kernel kafkastreams_cep_tpu/ops/walk_kernel.py:
-// walk_pass_kernel (default mode: puts on, single tier, no stage
-// attribution, eager extraction).  It computes exactly what the plain
-// PyTorch pass computes (ops/slab.py: puts_batched, then walks_compacted),
-// bit for bit on every slab leaf, counter and output:
+// walk_pass_kernel in its single-query modes.  The modes are compile-time
+// template parameters of one kernel, so the default instance (eager
+// extraction, single tier, no stage attribution) is the same code as
+// before the modes existed:
 //
-//   * puts follow puts_batched's closed form: predecessor lookups and
-//     target groups are fixed at step start, a group's first enabled op
-//     allocates, the last landing put_first of a group resets it, and only
-//     the final segment's appends are written;
+//   kTwoTier  (hot_entries > 0) two-tier slab: puts allocate hot first and
+//             demote the least-recent hot entry to the overflow tier; each
+//             hop is counted by the tier its entry lies in;
+//   kAttr     (stage_hops [K, S], S > 0) every active hop tallies at the
+//             walker's current stage;
+//   kDrain    (drain=True) emitting hops count to drain_hops instead of
+//             extract_hops (the walker queue is the handle ring).
+//
+// It computes exactly what the plain PyTorch pass computes (ops/slab.py:
+// puts_batched, then walks_compacted), bit for bit on every slab leaf,
+// counter and output:
+//
+//   * single-tier puts follow puts_batched's closed form: predecessor
+//     lookups and target groups are fixed at step start, a group's first
+//     enabled op allocates, the last landing put_first of a group resets
+//     it, and only the final segment's appends are written;
+//   * two-tier puts follow _puts_sequential, op by op in queue order: a
+//     put_first or a chained put, each allocating through _alloc_slot (the
+//     lowest free hot row; else the hot row with the least off, lowest
+//     index on ties, found by a warp min-reduce, moves its whole row to
+//     the lowest free overflow row and its slot is reused);
 //   * walkers run one at a time in queue order.  A walker tombstones the
 //     pointers it prunes and reads pointer lists as they stood when it
 //     started; when it ends, each pruned entry is compacted (survivors to
@@ -19,22 +37,39 @@
 // Mapping: one warp per lane, lanes independent.  A hop's entry lookup is
 // one compare per slab row spread over the warp, resolved to the first hit
 // with __ballot_sync/__ffs; the first compatible pointer is found the same
-// way over the MP pointer slots.  The warp first copies its lane's slab to
-// the output, then mutates the output in place.
+// way over the MP pointer slots.  The Pallas kernel's hot-first lookup
+// (which shrinks a TPU vector reduce from E to E_hot rows) is not needed:
+// a ballot covers 32 rows per instruction, and keys are unique, so a
+// full-slab lookup finds the same entry wherever it is placed.  The warp
+// first copies its lane's slab to the output, then mutates the output in
+// place.  A lane's per-stage tally is owned by its warp, so it needs no
+// atomics.
 //
-// What bounds it: the copy moves each lane's slab once in and once out
-// (4E + 3E*MP + E*MP*D int32 per lane), which is the least traffic the
-// step's slab phase needs.  Beyond that the work is a chain of dependent
-// hops per lane (lookup -> pointer row -> next lookup), so a lane's time is
-// latency, not bandwidth; the design hides it by running many lanes (warps)
-// per SM.  A lane with many walkers keeps its warp busy while its
+// What bounds each mode on the H100.  The least traffic is the copy: each
+// lane's slab (4E + 3E*MP + E*MP*D int32) crosses device memory once in and
+// once out, plus the walker queue, the puts and the outputs.  Beyond that
+// the work is a chain of dependent hops per lane (lookup -> pointer row ->
+// next lookup), so a lane's time is latency, not bandwidth; the design
+// hides it by running many lanes (warps) per SM.
+//
+//   default      the copy, then the step's few walkers per lane;
+//   kTwoTier     the same copy plus four counters; the put phase becomes
+//                serial per op (each op may move a whole row), so a lane
+//                with many puts is slower than under the closed form;
+//   kAttr        the copy plus [S] counters per lane, one add per hop;
+//   kDrain       the copy plus the handle ring in and its [HB, W] outputs
+//                out; a lane serves up to HB walkers one after another, so
+//                the busiest lane's ring sets the pass's time.
+//
+// In every mode a lane with many walkers keeps its warp busy while its
 // neighbours idle; that imbalance, not bytes, is what a later version
 // should attack.
 //
 // Contract (checked by the Python wrapper): contiguous tensors, the flags
 // (put en/first, walker en/is_remove/want_out) as the engine's one-byte
-// bools and everything else int32; MP <= 32, D <= 32; unique (stage, off)
-// keys per lane among live entries.
+// bools and everything else int32; MP <= 32, D <= 32; hot_entries a
+// multiple of 8 strictly inside (0, E) when set; unique (stage, off) keys
+// per lane among live entries.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,6 +81,7 @@ constexpr int kWarps = 4;  // lanes (warps) per block
 
 struct Args {
   int K, E, MP, D, PP, PW, W, out_base, out_rows, with_puts;
+  int EH, S, drain;  // hot rows, stage-tally width, drain pass
   // slab in
   const int *stage, *off, *refs, *npreds, *pstage, *poff, *pvlen, *pver;
   const int *missing, *trunc, *full_drops, *pred_drops, *walk_hops,
@@ -66,6 +102,11 @@ struct Args {
   int *out_stage, *out_off, *count;
   // put scratch, [K, PP, kPutCols]
   int *scratch;
+  // mode leaves in and out: tier counters, drain_hops, stage_hops [K, S]
+  const int *hot_hits, *hot_misses, *overflow_walks, *demotions, *drain_hops,
+      *stage_hops;
+  int *o_hot_hits, *o_hot_misses, *o_overflow_walks, *o_demotions,
+      *o_drain_hops, *o_stage_hops;
 };
 
 // Put scratch columns.
@@ -254,6 +295,125 @@ __device__ void put_phase(const Args& a, int k, int* st, int* of, int* rf,
   __syncwarp();
 }
 
+// First free row (stage < 0) in [lo, hi), or -1; warp-uniform result.
+__device__ int warp_first_free(const int* st, int lo, int hi) {
+  const int t = threadIdx.x;
+  for (int base = lo; base < hi; base += 32) {
+    const int i = base + t;
+    const unsigned m = __ballot_sync(kFull, i < hi && st[i] < 0);
+    if (m) return base + __ffs(m) - 1;
+  }
+  return -1;
+}
+
+// The demotion victim among hot rows [0, EH): least off over occupied rows,
+// lowest index on ties (_alloc_slot's argmin).  A min-reduce over the warp
+// under the total order (off, index), so every thread ends with the same
+// row.
+__device__ int warp_victim(const int* st, const int* of, int EH) {
+  const int t = threadIdx.x;
+  int best_off = 0x7fffffff, best_i = 0x7fffffff;
+  for (int i = t; i < EH; i += 32) {
+    const int o = st[i] >= 0 ? of[i] : (1 << 30);
+    if (o < best_off) { best_off = o; best_i = i; }
+  }
+  for (int m = 16; m > 0; m >>= 1) {
+    const int o = __shfl_xor_sync(kFull, best_off, m);
+    const int i = __shfl_xor_sync(kFull, best_i, m);
+    if (o < best_off || (o == best_off && i < best_i)) {
+      best_off = o;
+      best_i = i;
+    }
+  }
+  return best_i;
+}
+
+// _puts_sequential for one lane (two-tier slab): each op in queue order is
+// a put_first or a chained put, allocating through _alloc_slot.  The whole
+// warp runs every op; single values are written by thread 0 and rows by
+// all threads, with __syncwarp before anything written is read.
+__device__ void put_phase_two_tier(const Args& a, int k, int* st, int* of,
+                                   int* rf, int* np, int* ps, int* po,
+                                   int* pl, int* pv, int& missing,
+                                   int& full_drops, int& pred_drops,
+                                   int& demotions) {
+  const int t = threadIdx.x;
+  const int E = a.E, MP = a.MP, D = a.D, PP = a.PP, EH = a.EH;
+  const uint8_t* en = a.p_en + (size_t)k * PP;
+  const uint8_t* first = a.p_first + (size_t)k * PP;
+  const int* cur = a.p_cur + (size_t)k * PP;
+  const int* pst = a.p_pstage + (size_t)k * PP;
+  const int* pof = a.p_poff + (size_t)k * PP;
+  const int* pvl = a.p_vlen + (size_t)k * PP;
+  const int* pvr = a.p_ver + (size_t)k * PP * D;
+  const int off = a.ev_off[k];
+  for (int p = 0; p < PP; ++p) {
+    if (!en[p]) continue;
+    const bool fst = first[p] != 0;
+    // A chained put needs its predecessor (KVSharedVersionedBuffer.java:
+    // 86-89); a miss is counted and the op dropped.
+    if (!fst && warp_find(st, of, E, pst[p], pof[p]) < 0) {
+      ++missing;
+      continue;
+    }
+    int e = warp_find(st, of, E, cur[p], off);
+    const bool found = e >= 0;
+    if (!found) {
+      e = warp_first_free(st, 0, EH);
+      if (e < 0) {
+        const int fo = warp_first_free(st, EH, E);
+        if (fo < 0) {  // the whole slab is full
+          ++full_drops;
+          continue;
+        }
+        e = warp_victim(st, of, EH);
+        if (t == 0) {
+          st[fo] = st[e];
+          of[fo] = of[e];
+          rf[fo] = rf[e];
+          np[fo] = np[e];
+        }
+        for (int i = t; i < MP; i += 32) {
+          ps[fo * MP + i] = ps[e * MP + i];
+          po[fo * MP + i] = po[e * MP + i];
+          pl[fo * MP + i] = pl[e * MP + i];
+        }
+        for (int i = t; i < MP * D; i += 32)
+          pv[(size_t)fo * MP * D + i] = pv[(size_t)e * MP * D + i];
+        __syncwarp();
+        if (t == 0) {
+          st[e] = -1;
+          of[e] = -1;
+        }
+        ++demotions;
+      }
+    }
+    // put_first resets its entry (:117-128); a creation initializes it.
+    if (t == 0 && (fst || !found)) {
+      st[e] = cur[p];
+      of[e] = off;
+      rf[e] = 1;
+      np[e] = 0;
+    }
+    __syncwarp();
+    const int n = np[e];
+    __syncwarp();
+    if (n >= MP) {  // pointer list full
+      ++pred_drops;
+      continue;
+    }
+    const int c = e * MP + n;
+    if (t == 0) {
+      ps[c] = fst ? -1 : pst[p];
+      po[c] = fst ? -1 : pof[p];
+      pl[c] = pvl[p];
+      np[e] = n + 1;
+    }
+    for (int d = t; d < D; d += 32) pv[(size_t)c * D + d] = pvr[(size_t)p * D + d];
+    __syncwarp();
+  }
+}
+
 // dewey_ops.is_compatible of the query version (held one digit per thread:
 // thread d has q[d]) against one pointer version; called by every thread.
 __device__ bool compatible(int q_mine, int qlen, const int* p, int plen,
@@ -270,6 +430,7 @@ __device__ bool compatible(int q_mine, int qlen, const int* p, int plen,
   return (qlen > plen && full) || (qlen == plen && butlast && last_q >= last_p);
 }
 
+template <bool kTwoTier, bool kAttr, bool kDrain>
 __global__ void __launch_bounds__(32 * kWarps)
 walk_pass(Args a) {
   extern __shared__ unsigned dead_smem[];  // [kWarps][E] tombstone bits
@@ -310,11 +471,30 @@ walk_pass(Args a) {
   int missing = a.missing[k], trunc = a.trunc[k];
   int full_drops = a.full_drops[k], pred_drops = a.pred_drops[k];
   int walk_hops = a.walk_hops[k], extract_hops = a.extract_hops[k];
+  int hot_hits = 0, hot_misses = 0, overflow_walks = 0, demotions = 0;
+  int drain_hops = 0;
+  if constexpr (kTwoTier) {
+    hot_hits = a.hot_hits[k];
+    hot_misses = a.hot_misses[k];
+    overflow_walks = a.overflow_walks[k];
+    demotions = a.demotions[k];
+  }
+  if constexpr (kDrain) drain_hops = a.drain_hops[k];
+  int* sh = nullptr;  // this lane's stage tally, accumulated in place
+  if constexpr (kAttr) {
+    sh = a.o_stage_hops + (size_t)k * a.S;
+    for (int i = t; i < a.S; i += 32) sh[i] = a.stage_hops[(size_t)k * a.S + i];
+  }
   __syncwarp();
 
-  if (a.with_puts)
-    put_phase(a, k, st, of, rf, np, ps, po, pl, pv, missing, full_drops,
-              pred_drops);
+  if (a.with_puts) {
+    if constexpr (kTwoTier)
+      put_phase_two_tier(a, k, st, of, rf, np, ps, po, pl, pv, missing,
+                         full_drops, pred_drops, demotions);
+    else
+      put_phase(a, k, st, of, rf, np, ps, po, pl, pv, missing, full_drops,
+                pred_drops);
+  }
 
   const size_t wk = (size_t)k * PW;
   for (int p = 0; p < PW; ++p) {
@@ -329,8 +509,21 @@ walk_pass(Args a) {
     int cnt = 0;
     bool active = true;
     for (int h = 0; h < W && active; ++h) {
-      if (wot) ++extract_hops; else ++walk_hops;
+      if constexpr (kDrain) {
+        if (wot) ++drain_hops; else ++walk_hops;
+      } else {
+        if (wot) ++extract_hops; else ++walk_hops;
+      }
+      if constexpr (kAttr) {
+        if (t == 0 && cs >= 0 && cs < a.S) ++sh[cs];
+      }
       const int e = warp_find(st, of, E, cs, co);
+      if constexpr (kTwoTier) {
+        const bool hot = e >= 0 && e < a.EH;
+        hot_hits += hot;
+        hot_misses += !hot;
+        overflow_walks += e >= a.EH;
+      }
       if (e < 0) { ++missing; active = false; break; }
       const int refs_e = rf[e];
       const int newref = rem ? max(refs_e - 1, 0) : refs_e + 1;
@@ -418,7 +611,23 @@ walk_pass(Args a) {
     a.o_pred_drops[k] = pred_drops;
     a.o_walk_hops[k] = walk_hops;
     a.o_extract_hops[k] = extract_hops;
+    if constexpr (kTwoTier) {
+      a.o_hot_hits[k] = hot_hits;
+      a.o_hot_misses[k] = hot_misses;
+      a.o_overflow_walks[k] = overflow_walks;
+      a.o_demotions[k] = demotions;
+    }
+    if constexpr (kDrain) a.o_drain_hops[k] = drain_hops;
   }
+}
+
+template <bool kTwoTier, bool kAttr, bool kDrain>
+int launch(const Args& a, cudaStream_t stream) {
+  const dim3 block(32, kWarps);
+  const dim3 grid((a.K + kWarps - 1) / kWarps);
+  const size_t smem = sizeof(unsigned) * kWarps * a.E;
+  walk_pass<kTwoTier, kAttr, kDrain><<<grid, block, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -429,6 +638,7 @@ extern "C" int cep_walk_pass(const int* dims, void* const* ptrs,
   a.K = dims[0]; a.E = dims[1]; a.MP = dims[2]; a.D = dims[3];
   a.PP = dims[4]; a.PW = dims[5]; a.W = dims[6]; a.out_base = dims[7];
   a.out_rows = dims[8]; a.with_puts = dims[9];
+  a.EH = dims[10]; a.S = dims[11]; a.drain = dims[12];
   int i = 0;
 #define IN(f) a.f = static_cast<decltype(a.f)>(ptrs[i++])
 #define OUT(f) a.f = static_cast<int*>(ptrs[i++])
@@ -443,11 +653,21 @@ extern "C" int cep_walk_pass(const int* dims, void* const* ptrs,
   OUT(o_poff); OUT(o_pvlen); OUT(o_pver); OUT(o_missing); OUT(o_trunc);
   OUT(o_full_drops); OUT(o_pred_drops); OUT(o_walk_hops); OUT(o_extract_hops);
   OUT(out_stage); OUT(out_off); OUT(count); OUT(scratch);
+  IN(hot_hits); IN(hot_misses); IN(overflow_walks); IN(demotions);
+  IN(drain_hops); IN(stage_hops);
+  OUT(o_hot_hits); OUT(o_hot_misses); OUT(o_overflow_walks); OUT(o_demotions);
+  OUT(o_drain_hops); OUT(o_stage_hops);
 #undef IN
 #undef OUT
-  const dim3 block(32, kWarps);
-  const dim3 grid((a.K + kWarps - 1) / kWarps);
-  const size_t smem = sizeof(unsigned) * kWarps * a.E;
-  walk_pass<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((a.EH > 0) | (a.S > 0) << 1 | (a.drain != 0) << 2) {
+    case 0: return launch<false, false, false>(a, s);
+    case 1: return launch<true, false, false>(a, s);
+    case 2: return launch<false, true, false>(a, s);
+    case 3: return launch<true, true, false>(a, s);
+    case 4: return launch<false, false, true>(a, s);
+    case 5: return launch<true, false, true>(a, s);
+    case 6: return launch<false, true, true>(a, s);
+    default: return launch<true, true, true>(a, s);
+  }
 }

@@ -53,7 +53,10 @@ class EngineConfig:
 
     max_runs: int = 16  # R — run-queue slots (overflow counted in run_drops)
     slab_entries: int = 64  # E — shared-buffer slots per key
-    slab_hot_entries: int = 0  # two-tier hot window (not in this slice)
+    # E_hot — the two-tier slab's hot window (0 = single tier): new entries
+    # allocate hot and the least-recent hot entry demotes when it is full
+    # (ops/slab.py); a multiple of 8 strictly below slab_entries.
+    slab_hot_entries: int = 0
     slab_preds: int = 8  # MP — predecessor pointers per buffer entry
     dewey_depth: int = 12  # D — fixed Dewey width (overflow counted)
     max_walk: int = 16  # W — buffer walk bound = max match length
@@ -61,9 +64,14 @@ class EngineConfig:
     renorm_versions: bool = True  # Dewey renormalization at sweep time
     enforce_windows: bool = False  # deviation: functional within() pruning
     sequential_slab: bool = False  # per-op slab path (not in this slice)
-    lazy_extraction: bool = False  # handle ring + drain (not in this slice)
-    handle_ring: int = 16  # HB — handle-ring slots (state shape only here)
-    stage_attribution: bool = False  # per-stage tallies (not in this slice)
+    # Lazy extraction: a completed match leaves a handle in a per-lane ring
+    # (its root pinned) instead of walking in-step; ``drain`` walks every
+    # pending handle in one pass.
+    lazy_extraction: bool = False
+    handle_ring: int = 16  # HB — handle-ring slots (multiple of 8)
+    # Per-stage tallies: frames evaluated/accepted/ignored/rejected per stage
+    # (``stage_counts``) and walk hops by the walker's stage (``stage_hops``).
+    stage_attribution: bool = False
     tiering: bool = False  # stencil prefix tier (not in this slice)
     gate_chunk: int = 32  # tiered gating granularity (not in this slice)
 
@@ -72,9 +80,6 @@ def check_config(cfg: EngineConfig) -> None:
     """Refuse the configurations this port does not serve yet, rather than
     silently running something else."""
     off_slice = {
-        "slab_hot_entries": cfg.slab_hot_entries != 0,
-        "lazy_extraction": cfg.lazy_extraction,
-        "stage_attribution": cfg.stage_attribution,
         "tiering": cfg.tiering,
         "sequential_slab": cfg.sequential_slab,
         "walker_budget": cfg.walker_budget != 1,
@@ -84,6 +89,12 @@ def check_config(cfg: EngineConfig) -> None:
         raise NotImplementedError(
             f"EngineConfig {bad}: not ported to the PyTorch engine yet "
             "(the JAX package serves them)"
+        )
+    EH = cfg.slab_hot_entries
+    if EH and (EH % 8 or not 0 < EH < cfg.slab_entries):
+        raise ValueError(
+            f"slab_hot_entries={EH} must be a multiple of 8 strictly below "
+            f"slab_entries={cfg.slab_entries} (0 disables the two-tier layout)"
         )
     if cfg.handle_ring <= 0 or cfg.handle_ring % 8:
         raise ValueError(
@@ -131,8 +142,8 @@ class EngineState(NamedTuple):
     slab: slab_mod.SlabState
     run_drops: torch.Tensor  # [K] int32 — queue-overflow drops
     ver_overflows: torch.Tensor  # [K] int32 — Dewey add_stage overflows
-    # Lazy-extraction handle ring: carried so checkpoints cross-load with
-    # the JAX package; inert (never written) under the eager engine.
+    # Lazy-extraction handle ring (inert under the eager engine): slots
+    # [0, hr_count) hold pending match handles in completion order.
     hr_stage: torch.Tensor  # [K, HB] int32
     hr_off: torch.Tensor  # [K, HB] int32
     hr_ver: torch.Tensor  # [K, HB, D] int32
@@ -143,7 +154,8 @@ class EngineState(NamedTuple):
     hr_count: torch.Tensor  # [K] int32
     step_seq: torch.Tensor  # [K] int32 — monotone per-lane step counter
     handle_overflows: torch.Tensor  # [K] int32
-    stage_counts: torch.Tensor  # [K, 4, 0] int32 — attribution (off)
+    stage_counts: torch.Tensor  # [K, 4, S] int32 — STAGE_TALLY_NAMES rows
+    #   ([K, 4, 0] when attribution is off)
 
 
 class StepOutput(NamedTuple):
@@ -155,6 +167,21 @@ class StepOutput(NamedTuple):
     stage: torch.Tensor
     off: torch.Tensor
     count: torch.Tensor
+
+
+class DrainOutput(NamedTuple):
+    """One drain pass's matches, in ring (completion) order, ``[K, HB, ...]``.
+
+    ``count`` is 0 past each lane's pending prefix; ``seq`` (completing
+    step) and ``row`` (run-queue row) recover the eager emission order,
+    ``ts`` is the completing event's timestamp."""
+
+    stage: torch.Tensor  # [K, HB, W] int32
+    off: torch.Tensor  # [K, HB, W] int32
+    count: torch.Tensor  # [K, HB] int32
+    seq: torch.Tensor  # [K, HB] int32
+    row: torch.Tensor  # [K, HB] int32
+    ts: torch.Tensor  # [K, HB] int32
 
 
 # Offsets must stay below 2^24 (the JAX package packs pointer rows into
@@ -187,7 +214,23 @@ COUNTER_NAMES = (
     "handle_overflows",
 )
 
+# Two-tier residency telemetry: where walk hops resolved, not loss.
+HOT_COUNTER_NAMES = (
+    "slab_hot_hits",
+    "slab_hot_misses",
+    "slab_overflow_walks",
+    "slab_demotions",
+)
+
 WALK_COUNTER_NAMES = ("walk_hops", "extract_hops", "drain_hops")
+
+# Row order of ``EngineState.stage_counts``.
+STAGE_TALLY_NAMES = (
+    "stage_evals",
+    "stage_accepts",
+    "stage_ignores",
+    "stage_rejects",
+)
 
 
 def counter_values(state: EngineState):
@@ -204,8 +247,50 @@ def counter_values(state: EngineState):
     )
 
 
+def hot_counter_values(state: EngineState):
+    """The two-tier counters of ``state`` in ``HOT_COUNTER_NAMES`` order."""
+    return (
+        state.slab.hot_hits,
+        state.slab.hot_misses,
+        state.slab.overflow_walks,
+        state.slab.demotions,
+    )
+
+
 def walk_counter_values(state: EngineState):
     return (state.slab.walk_hops, state.slab.extract_hops, state.slab.drain_hops)
+
+
+def stage_counter_arrays(state: EngineState) -> Dict[str, np.ndarray]:
+    """The per-stage tallies as host int64 arrays ``[K, S]`` (the
+    ``STAGE_TALLY_NAMES`` rows plus ``stage_walk_hops``); empty when
+    attribution is off."""
+    if state.stage_counts.shape[-1] == 0:
+        return {}
+    sc = state.stage_counts.cpu().numpy().astype(np.int64)
+    out = {n: sc[..., i, :] for i, n in enumerate(STAGE_TALLY_NAMES)}
+    out["stage_walk_hops"] = state.slab.stage_hops.cpu().numpy().astype(np.int64)
+    return out
+
+
+def stage_report(arrays: Dict[str, np.ndarray], names) -> Dict[str, Dict[str, Any]]:
+    """``stage_counter_arrays`` output -> ``{stage_name: {tally: total,
+    ..., selectivity}}``, lanes summed; ``selectivity`` is accepts / evals
+    (rounded to 6 places, 0.0 for a stage never evaluated)."""
+    if not arrays:
+        return {}
+    S = next(iter(arrays.values())).shape[-1]
+    out: Dict[str, Dict[str, Any]] = {}
+    for s in range(S):
+        name = names[s] if s < len(names) else f"stage{s}"
+        row: Dict[str, Any] = {
+            metric: int(np.asarray(arr).reshape(-1, S)[:, s].sum())
+            for metric, arr in arrays.items()
+        }
+        ev = row.get("stage_evals", 0)
+        row["selectivity"] = round(row.get("stage_accepts", 0) / ev, 6) if ev else 0.0
+        out[name] = row
+    return out
 
 
 def summed(names, values) -> Dict[str, int]:
@@ -277,6 +362,7 @@ class _ChainRecord(NamedTuple):
     has_succ: torch.Tensor
     dead: torch.Tensor
     ovf: torch.Tensor  # [K, R] int32 — Dewey overflows in this chain
+    stage_tally: torch.Tensor  # [K, R, 4, S] int32 ([K, R, 4, 0] when off)
 
 
 class StepPhases(NamedTuple):
@@ -290,6 +376,7 @@ class StepPhases(NamedTuple):
     out_base: int
     out_rows: int
     max_walk: int
+    hot_entries: int
 
 
 def _build_step(tables: TransitionTables, cfg: EngineConfig, device) -> StepPhases:
@@ -304,6 +391,8 @@ def _build_step(tables: TransitionTables, cfg: EngineConfig, device) -> StepPhas
     H = tables.max_hops
     NS = max(tables.num_states, 1)
     RH = R * H
+    # Attribution width: the pattern's stage count, 0 (zero-size) when off.
+    S_AT = tables.num_stages if cfg.stage_attribution else 0
 
     def dev_table(a):
         return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
@@ -433,6 +522,8 @@ def _build_step(tables: TransitionTables, cfg: EngineConfig, device) -> StepPhas
             )
         }
         consumed_h, frame_pos = [], []
+        tally = torch.zeros((K, R, 4, S_AT), dtype=I32, device=device)
+        stage_ids = torch.arange(S_AT, device=device)
 
         for _h in range(H):
             cs = cur.clamp(min=0)
@@ -447,6 +538,14 @@ def _build_step(tables: TransitionTables, cfg: EngineConfig, device) -> StepPhas
                 (pr_m & take_m) | (ig_m & take_m) | (ig_m & begin_m) | (ig_m & pr_m)
             ) & (prev >= 0)
             consumed = take_m | begin_m
+            if S_AT:
+                # Every frame that ran predicate dispatch at stage ``cs``:
+                # one eval, plus an accept (consumed), an ignore, or a
+                # reject (nothing fired) as applicable.
+                rejected = active & ~consumed & ~ig_m & ~pr_m
+                rows = torch.stack([active, consumed, ig_m, rejected], dim=2)
+                oh = cs[..., None] == stage_ids
+                tally += (rows[..., None] & oh[:, :, None, :]).to(I32)
 
             # Survivor: at most one across the chain.
             st = take_m & ~branch_m  # self-loop re-add (NFA.java:196-205)
@@ -542,7 +641,7 @@ def _build_step(tables: TransitionTables, cfg: EngineConfig, device) -> StepPhas
             stk("br_run_ver"), stk("br_run_vlen"), stk("br_id"),
             stk("br_eval"), stk("br_event"), stk("br_start"),
             torch.stack(br_agg, dim=2), s, has_succ,
-            alive & ~seed & ~has_succ, ovf,
+            alive & ~seed & ~has_succ, ovf, tally,
         )
 
     def build_puts(state: EngineState, rec: _ChainRecord) -> slab_mod.PutOps:
@@ -565,6 +664,10 @@ def _build_step(tables: TransitionTables, cfg: EngineConfig, device) -> StepPhas
         ``[R]`` — ``out_base = RH + R``, ``out_rows = R``."""
         K = state.alive.shape[0]
         final_en = rec.surv_alive & rec.surv_final & ev.valid[:, None]
+        if cfg.lazy_extraction:
+            # Completed matches become ring handles (``finish``) instead of
+            # extraction walkers; the final segment keeps its rows.
+            final_en = torch.zeros_like(final_en)
 
         def rev(f):
             return f.flip(2).reshape((K, RH) + f.shape[3:])
@@ -628,6 +731,14 @@ def _build_step(tables: TransitionTables, cfg: EngineConfig, device) -> StepPhas
             return buf.scatter_(1, i, flat)[:, :R]
 
         branch_flags = torch.ones((K, R, H), dtype=torch.bool, device=device)
+        hr = dict(
+            hr_stage=state.hr_stage, hr_off=state.hr_off, hr_ver=state.hr_ver,
+            hr_vlen=state.hr_vlen, hr_ts=state.hr_ts, hr_seq=state.hr_seq,
+            hr_row=state.hr_row, hr_count=state.hr_count,
+            handle_overflows=state.handle_overflows,
+        )
+        if cfg.lazy_extraction:
+            slab, hr = append_handles(state, ev, rec, slab)
         new_state = EngineState(
             alive=compact(c_alive, False),
             id_pos=compact(cand(rec.surv_id, rec.br_id, full(-1)), -1),
@@ -646,17 +757,9 @@ def _build_step(tables: TransitionTables, cfg: EngineConfig, device) -> StepPhas
             slab=slab,
             run_drops=state.run_drops + dropped,
             ver_overflows=state.ver_overflows + rec.ovf.sum(dim=1, dtype=I32),
-            hr_stage=state.hr_stage,
-            hr_off=state.hr_off,
-            hr_ver=state.hr_ver,
-            hr_vlen=state.hr_vlen,
-            hr_ts=state.hr_ts,
-            hr_seq=state.hr_seq,
-            hr_row=state.hr_row,
-            hr_count=state.hr_count,
             step_seq=state.step_seq,
-            handle_overflows=state.handle_overflows,
-            stage_counts=state.stage_counts,
+            stage_counts=state.stage_counts + rec.stage_tally.sum(dim=1, dtype=I32),
+            **hr,
         )
         # Padding steps leave the state untouched and emit nothing; the
         # step counter ticks on every step.
@@ -668,6 +771,43 @@ def _build_step(tables: TransitionTables, cfg: EngineConfig, device) -> StepPhas
             count=torch.where(valid[:, None], out_count, 0),
         )
         return new_state, out
+
+    def append_handles(state, ev, rec, slab):
+        """Lazy extraction: each lane's completed matches, in run-queue
+        order, append to its handle ring, and each root entry is pinned
+        (refs + 1) so no removal walk deletes it before the drain.  A full
+        ring drops the match and counts ``handle_overflows``."""
+        K = state.alive.shape[0]
+        final_en = rec.surv_alive & rec.surv_final & ev.valid[:, None]
+        rank = torch.cumsum(final_en.to(I32), dim=1) - 1
+        dst = state.hr_count[:, None] + rank
+        fit = final_en & (dst < HB)
+        col = torch.where(fit, dst, HB).long()  # column HB: dropped
+
+        def ring_set(cur, val):
+            buf = torch.cat([cur, cur[:, :1]], dim=1)
+            idx = col.reshape(col.shape + (1,) * (val.dim() - 2)).expand(val.shape)
+            return buf.scatter_(1, idx, val)[:, :HB]
+
+        pin = (
+            (slab.stage[:, None, :] == rec.surv_id[:, :, None])
+            & (slab.off[:, None, :] == ev.off[:, None, None])
+            & fit[:, :, None]
+        ).sum(dim=1, dtype=I32)
+        slab = slab._replace(refs=slab.refs + pin)
+        rows = torch.arange(R, dtype=I32, device=device).expand(K, R)
+        return slab, dict(
+            hr_stage=ring_set(state.hr_stage, rec.surv_id),
+            hr_off=ring_set(state.hr_off, ev.off[:, None].expand(K, R)),
+            hr_ver=ring_set(state.hr_ver, rec.surv_ver),
+            hr_vlen=ring_set(state.hr_vlen, rec.surv_vlen),
+            hr_ts=ring_set(state.hr_ts, ev.ts[:, None].expand(K, R)),
+            hr_seq=ring_set(state.hr_seq, state.step_seq[:, None].expand(K, R)),
+            hr_row=ring_set(state.hr_row, rows),
+            hr_count=state.hr_count + fit.sum(dim=1, dtype=I32),
+            handle_overflows=state.handle_overflows
+            + (final_en & ~fit).sum(dim=1, dtype=I32),
+        )
 
     def init_state(num_lanes: int) -> EngineState:
         K = int(num_lanes)
@@ -692,7 +832,8 @@ def _build_step(tables: TransitionTables, cfg: EngineConfig, device) -> StepPhas
             branching=full((K, R), False, torch.bool),
             agg=inits.expand(K, R, NS).clone(),
             slab=slab_mod.make(
-                K, cfg.slab_entries, cfg.slab_preds, D, device=device
+                K, cfg.slab_entries, cfg.slab_preds, D, num_stages=S_AT,
+                device=device,
             ),
             run_drops=full((K,), 0),
             ver_overflows=full((K,), 0),
@@ -706,7 +847,7 @@ def _build_step(tables: TransitionTables, cfg: EngineConfig, device) -> StepPhas
             hr_count=full((K,), 0),
             step_seq=full((K,), 0),
             handle_overflows=full((K,), 0),
-            stage_counts=full((K, 4, 0), 0),
+            stage_counts=full((K, 4, S_AT), 0),
         )
 
     return StepPhases(
@@ -718,7 +859,58 @@ def _build_step(tables: TransitionTables, cfg: EngineConfig, device) -> StepPhas
         out_base=RH + R,
         out_rows=R,
         max_walk=W,
+        hot_entries=cfg.slab_hot_entries,
     )
+
+
+def build_drain(cfg: EngineConfig, walk_fn=walk_pass):
+    """The ``[K]``-batched drain pass for ``cfg``: ``drain(state) -> (state,
+    DrainOutput)``.
+
+    Unpins every pending handle's root (the emission-time refs + 1), walks
+    all handles through the walk pass in drain mode (``walk_fn``: the
+    kernel on CUDA tensors by default) with full removal semantics, in ring
+    order, and clears the ring.  A no-op on an empty ring, so callers may
+    drain unconditionally."""
+    HB, W, EH = cfg.handle_ring, cfg.max_walk, cfg.slab_hot_entries
+
+    def drain(state: EngineState):
+        dev = state.hr_count.device
+        pending = torch.arange(HB, device=dev)[None, :] < state.hr_count[:, None]
+        slab = state.slab
+        unpin = (
+            (slab.stage[:, None, :] == state.hr_stage[:, :, None])
+            & (slab.off[:, None, :] == state.hr_off[:, :, None])
+            & pending[:, :, None]
+        ).sum(dim=1, dtype=I32)
+        slab = slab._replace(refs=torch.clamp(slab.refs - unpin, min=0))
+        ones = torch.ones_like(pending)
+        slab, out_stage, out_off, count = walk_fn(
+            slab, pending, state.hr_stage, state.hr_off, state.hr_ver,
+            state.hr_vlen, ones, ones, W, 0, HB, hot_entries=EH, drain=True,
+        )
+        out = DrainOutput(
+            stage=out_stage,
+            off=out_off,
+            count=torch.where(pending, count, 0),
+            seq=torch.where(pending, state.hr_seq, -1),
+            row=torch.where(pending, state.hr_row, -1),
+            ts=torch.where(pending, state.hr_ts, -1),
+        )
+        state = state._replace(
+            slab=slab,
+            hr_stage=torch.full_like(state.hr_stage, -1),
+            hr_off=torch.full_like(state.hr_off, -1),
+            hr_ver=torch.zeros_like(state.hr_ver),
+            hr_vlen=torch.zeros_like(state.hr_vlen),
+            hr_ts=torch.zeros_like(state.hr_ts),
+            hr_seq=torch.zeros_like(state.hr_seq),
+            hr_row=torch.zeros_like(state.hr_row),
+            hr_count=torch.zeros_like(state.hr_count),
+        )
+        return state, out
+
+    return drain
 
 
 def tree_where(valid, new, old):
@@ -740,7 +932,7 @@ def make_step(phases: StepPhases, walk_fn=walk_pass):
         wk = ph.build_walkers(state, rec, ev)
         slab, out_stage, out_off, out_count = walk_fn(
             state.slab, *wk, ph.max_walk, ph.out_base, ph.out_rows,
-            put_ops=ops, ev_off=ev.off,
+            put_ops=ops, ev_off=ev.off, hot_entries=ph.hot_entries,
         )
         return ph.finish(state, ev, rec, slab, out_stage, out_off, out_count)
 
@@ -768,6 +960,7 @@ class TPUMatcher:
         )
         self.phases = _build_step(self.tables, self.config, self.device)
         self.step = make_step(self.phases)
+        self.drain = build_drain(self.config)
 
     @property
     def names(self) -> List[str]:
@@ -780,9 +973,19 @@ class TPUMatcher:
         """Lane-summed overflow/drop counters."""
         return summed(COUNTER_NAMES, counter_values(state))
 
+    def hot_counters(self, state: EngineState) -> Dict[str, int]:
+        """Lane-summed two-tier residency counters (all 0 single-tier; not
+        loss indicators)."""
+        return summed(HOT_COUNTER_NAMES, hot_counter_values(state))
+
     def walk_counters(self, state: EngineState) -> Dict[str, int]:
         """Lane-summed walk-cost counters (not loss indicators)."""
         return summed(WALK_COUNTER_NAMES, walk_counter_values(state))
+
+    def stage_counters(self, state: EngineState) -> Dict[str, Dict[str, Any]]:
+        """Per-stage tallies ``{stage_name: {tally: total, ...,
+        selectivity}}`` summed over lanes; empty when attribution is off."""
+        return stage_report(stage_counter_arrays(state), self.names)
 
 
 def _leaf_tensor(x, device) -> torch.Tensor:
@@ -822,11 +1025,23 @@ class MatcherSession:
             valid=torch.ones((1,), dtype=torch.bool, device=dev),
         )
         self.state, out = self.matcher.step(self.state, ev)
+        if self.matcher.config.lazy_extraction:
+            # Drain at every event, so that match() returns a match at the
+            # event that completes it, as the oracle does.
+            self.state, drained = self.matcher.drain(self.state)
+            return self.decode_drained(drained)
         return self.decode(out)
 
     def decode(self, out: StepOutput) -> List[Sequence]:
         """One step's matches of lane 0 as :class:`Sequence` objects."""
-        stage, off, count = (x[0].cpu().numpy() for x in out)
+        return self._sequences(out.stage, out.off, out.count)
+
+    def decode_drained(self, out: DrainOutput) -> List[Sequence]:
+        """A drain pass's matches of lane 0, in completion (ring) order."""
+        return self._sequences(out.stage, out.off, out.count)
+
+    def _sequences(self, stage, off, count) -> List[Sequence]:
+        stage, off, count = (x[0].cpu().numpy() for x in (stage, off, count))
         names = self.matcher.names
         matches: List[Sequence] = []
         for r in range(count.shape[0]):

@@ -32,6 +32,16 @@ package):
 * capacity limits (slab full, pointer list full, walk bound) are counted,
   never raised.
 
+Two-tier layout (``hot_entries > 0``, ``EngineConfig.slab_hot_entries``):
+slots ``[0, hot_entries)`` are the hot tier.  A new entry takes the lowest
+free hot slot; when the hot tier is full, the least-recent hot entry (least
+``off``, lowest index on ties) moves with its whole row to the lowest free
+overflow slot and its hot slot is reused (``demotions``).  An allocation
+fails only when the whole slab is full, so every drop counter equals the
+single tier's.  Lookups stay full-slab (keys are unique, so results do not
+depend on placement); each walk hop is only *counted* by tier
+(``hot_hits``, ``hot_misses``, ``overflow_walks``).
+
 Every function here is functional: it returns new tensors and leaves its
 arguments untouched (in-place updates only touch fresh clones).  Entry
 keys are assumed unique per lane, as every engine-built slab's are.
@@ -128,6 +138,65 @@ def _lanes(slab: SlabState) -> torch.Tensor:
     return torch.arange(slab.stage.shape[0], device=slab.stage.device)
 
 
+def _alloc_slot(slab: SlabState, hot_entries: int, want):
+    """Allocation slot for one new entry per lane: ``(e, ok)``.
+
+    Single tier: the lowest free slot.  Two-tier: the lowest free hot slot,
+    else the least-recent hot entry, which ``want`` lanes first demote to
+    the lowest free overflow slot (in place on ``slab``).  Pass ``want =
+    enable & ~found`` so that a put onto an existing entry never demotes."""
+    free = slab.stage < 0
+    if not hot_entries:
+        return _first(free), free.any(dim=1)
+    EH = hot_entries
+    ar = _lanes(slab)
+    E = slab.stage.shape[1]
+    is_hot = torch.arange(E, device=free.device) < EH
+    any_fh = (free & is_hot).any(dim=1)
+    any_fo = (free & ~is_hot).any(dim=1)
+    e_hot = _first(free & is_hot)
+    e_ov = _first(free & ~is_hot)
+    # The victim: least event offset among occupied hot rows, first index
+    # on ties (torch.argmin returns the first minimum).
+    okey = torch.where(~free & is_hot, slab.off, 1 << 30)
+    victim = okey.argmin(dim=1)
+    demote = want & ~any_fh & any_fo
+    for f in (slab.stage, slab.off, slab.refs, slab.npreds, slab.pstage,
+              slab.poff, slab.pvlen, slab.pver):
+        m = demote.reshape((-1,) + (1,) * (f.dim() - 2))
+        f[ar, e_ov] = torch.where(m, f[ar, victim], f[ar, e_ov])
+    for f in (slab.stage, slab.off):
+        f[ar, victim] = torch.where(demote, -1, f[ar, victim])
+    slab.demotions.add_(demote.to(I32))
+    return torch.where(any_fh, e_hot, victim), any_fh | any_fo
+
+
+def _hop_counts(slab: SlabState, active, stage, want_out=None,
+                kind: str = "walk", hot_entries: int = 0, hit=None):
+    """Count one hop of each lane's walker (in place on ``slab``).
+
+    ``want_out`` splits the walkers: emitting ones count to ``kind``
+    (``"extract"`` in-step, ``"drain"`` deferred), the others to
+    ``walk_hops``; without it every walker counts to ``kind``.  With
+    ``hot_entries`` the hop is also counted by the tier its entry (``hit
+    [K, E]``) lies in; with stage attribution on (``stage_hops [K, S]``,
+    ``S > 0``) it is tallied at the walker's current ``stage``."""
+    emit = active if want_out is None else active & want_out
+    if want_out is not None:
+        slab.walk_hops.add_((active & ~want_out).to(I32))
+    getattr(slab, f"{kind}_hops").add_(emit.to(I32))
+    if hot_entries:
+        found = hit.any(dim=1)
+        found_hot = hit[:, :hot_entries].any(dim=1)
+        slab.hot_hits.add_((active & found_hot).to(I32))
+        slab.hot_misses.add_((active & ~found_hot).to(I32))
+        slab.overflow_walks.add_((active & ~found_hot & found).to(I32))
+    S = slab.stage_hops.shape[1]
+    if S:
+        oh = stage[:, None] == torch.arange(S, device=stage.device)
+        slab.stage_hops.add_((oh & active[:, None]).to(I32))
+
+
 def _append_pointer(slab, e, pstage, poff, ver, vlen, enable):
     """Append a pointer to entry ``e`` of each lane (in place on ``slab``);
     drops (counted) when the list is full."""
@@ -147,43 +216,54 @@ def _append_pointer(slab, e, pstage, poff, ver, vlen, enable):
     slab.pred_drops.add_((enable & full).to(I32))
 
 
-def put_first(slab: SlabState, stage, off, ver, vlen, enable) -> SlabState:
+def put_first(slab: SlabState, stage, off, ver, vlen, enable,
+              hot_entries: int = 0) -> SlabState:
     """First-stage put: a fresh entry whose single null-predecessor pointer
     records the run version; overwrites any existing entry
     (``KVSharedVersionedBuffer.java:117-128``).  One op per lane."""
     slab = clone(slab)
+    _put_first_(slab, stage, off, ver, vlen, enable, hot_entries)
+    return slab
+
+
+def _put_first_(slab, stage, off, ver, vlen, enable, hot_entries):
     ar = _lanes(slab)
     existing, found = find(slab, stage, off)
-    free = slab.stage < 0
-    e = torch.where(found, existing, _first(free))
-    ok = enable & (found | free.any(dim=1))
+    free_e, has_free = _alloc_slot(slab, hot_entries, enable & ~found)
+    e = torch.where(found, existing, free_e)
+    ok = enable & (found | has_free)
     slab.stage[ar, e] = torch.where(ok, stage, slab.stage[ar, e])
     slab.off[ar, e] = torch.where(ok, off, slab.off[ar, e])
     slab.refs[ar, e] = torch.where(ok, 1, slab.refs[ar, e])
     slab.npreds[ar, e] = torch.where(ok, 0, slab.npreds[ar, e])
-    slab.full_drops.add_((enable & ~found & ~free.any(dim=1)).to(I32))
+    slab.full_drops.add_((enable & ~found & ~has_free).to(I32))
     null = torch.full_like(stage, -1)
     _append_pointer(slab, e, null, null, ver, vlen, ok)
-    return slab
 
 
 def put(
     slab: SlabState, cur_stage, cur_off, prev_stage, prev_off, ver, vlen,
-    enable,
+    enable, hot_entries: int = 0,
 ) -> SlabState:
     """Append a versioned predecessor pointer to ``(cur_stage, cur_off)``.
 
     The predecessor entry must exist (``KVSharedVersionedBuffer.java:86-89``);
     a miss is counted and the write dropped.  One op per lane."""
     slab = clone(slab)
+    _put_(slab, cur_stage, cur_off, prev_stage, prev_off, ver, vlen, enable,
+          hot_entries)
+    return slab
+
+
+def _put_(slab, cur_stage, cur_off, prev_stage, prev_off, ver, vlen, enable,
+          hot_entries):
     ar = _lanes(slab)
     _, prev_found = find(slab, prev_stage, prev_off)
     slab.missing.add_((enable & ~prev_found).to(I32))
     enable = enable & prev_found
     existing, found = find(slab, cur_stage, cur_off)
-    free = slab.stage < 0
-    has_free = free.any(dim=1)
-    e = torch.where(found, existing, _first(free))
+    free_e, has_free = _alloc_slot(slab, hot_entries, enable & ~found)
+    e = torch.where(found, existing, free_e)
     create = enable & ~found & has_free
     ok = enable & (found | has_free)
     slab.stage[ar, e] = torch.where(create, cur_stage, slab.stage[ar, e])
@@ -192,7 +272,6 @@ def put(
     slab.npreds[ar, e] = torch.where(create, 0, slab.npreds[ar, e])
     slab.full_drops.add_((enable & ~found & ~has_free).to(I32))
     _append_pointer(slab, e, prev_stage, prev_off, ver, vlen, ok)
-    return slab
 
 
 def _select_pointer(slab, e, qver, qlen, live):
@@ -206,7 +285,8 @@ def _select_pointer(slab, e, qver, qlen, live):
     return _first(ok), ok.any(dim=1)
 
 
-def branch(slab: SlabState, stage, off, ver, vlen, max_walk: int, enable):
+def branch(slab: SlabState, stage, off, ver, vlen, max_walk: int, enable,
+           hot_entries: int = 0):
     """Refcount-increment walk so shared prefixes survive sibling removal
     (``KVSharedVersionedBuffer.java:99-110``).  One walker per lane."""
     slab = clone(slab)
@@ -215,8 +295,9 @@ def branch(slab: SlabState, stage, off, ver, vlen, max_walk: int, enable):
     slots = torch.arange(MP, device=stage.device)
     active = enable.clone()
     for _ in range(max_walk):
-        e, found = find(slab, stage, off)
-        slab.walk_hops.add_(active.to(I32))
+        hit = (slab.stage == stage[:, None]) & (slab.off == off[:, None])
+        e, found = _first(hit), hit.any(dim=1)
+        _hop_counts(slab, active, stage, hot_entries=hot_entries, hit=hit)
         slab.missing.add_((active & ~found).to(I32))
         active = active & found
         slab.refs[ar, e] += active.to(I32)
@@ -235,7 +316,7 @@ def branch(slab: SlabState, stage, off, ver, vlen, max_walk: int, enable):
 
 def peek(
     slab: SlabState, stage, off, ver, vlen, max_walk: int, remove: bool,
-    enable, hop_kind: str = "extract",
+    enable, hop_kind: str = "extract", hot_entries: int = 0,
 ):
     """Backward pointer walk assembling a match, final stage first; one
     walker per lane.  With ``remove`` this is ``SharedVersionedBuffer.remove``
@@ -250,11 +331,12 @@ def peek(
     out_stage = torch.full((K, max_walk), -1, dtype=I32, device=stage.device)
     out_off = out_stage.clone()
     count = torch.zeros((K,), dtype=I32, device=stage.device)
-    hops = slab.extract_hops if hop_kind == "extract" else slab.walk_hops
     active = enable.clone()
     for i in range(max_walk):
-        e, found = find(slab, stage, off)
-        hops.add_(active.to(I32))
+        hit = (slab.stage == stage[:, None]) & (slab.off == off[:, None])
+        e, found = _first(hit), hit.any(dim=1)
+        _hop_counts(slab, active, stage, kind=hop_kind,
+                    hot_entries=hot_entries, hit=hit)
         slab.missing.add_((active & ~found).to(I32))
         active = active & found
         refs_left = torch.clamp(slab.refs[ar, e] - 1, min=0)
@@ -343,7 +425,8 @@ class PutOps(NamedTuple):
     vlen: torch.Tensor  # [K, P] int32
 
 
-def puts_batched(slab: SlabState, ops: PutOps, off) -> SlabState:
+def puts_batched(slab: SlabState, ops: PutOps, off,
+                 hot_entries: int = 0) -> SlabState:
     """All of one step's consuming puts in one pass, per lane.
 
     The closed form of ``kafkastreams_cep_tpu/ops/slab.py: puts_batched``:
@@ -354,7 +437,13 @@ def puts_batched(slab: SlabState, ops: PutOps, off) -> SlabState:
     op order.  Every put of a step targets the current event ``off [K]``,
     so groups are keyed by ``cur_stage``; predecessors are older events,
     so no op's predecessor lookup sees another op of the step.
+
+    Two-tier slabs (``hot_entries > 0``) take :func:`_puts_sequential`
+    instead: the closed form ranks creators onto free slots, while two-tier
+    allocation interleaves demotions between creations.
     """
+    if hot_entries:
+        return _puts_sequential(slab, ops, off, hot_entries)
     K, E = slab.stage.shape
     MP = slab.pstage.shape[2]
     P = ops.en.shape[1]
@@ -472,9 +561,28 @@ def puts_batched(slab: SlabState, ops: PutOps, off) -> SlabState:
     )
 
 
+def _puts_sequential(slab: SlabState, ops: PutOps, off,
+                     hot_entries: int) -> SlabState:
+    """One step's consuming puts one op at a time, in queue order: each op
+    is a ``put_first`` or a chained ``put``, allocating through
+    :func:`_alloc_slot` (``kafkastreams_cep_tpu/ops/slab.py:
+    _puts_sequential``)."""
+    slab = clone(slab)
+    for p in range(ops.en.shape[1]):
+        en, first = ops.en[:, p], ops.first[:, p]
+        if not bool(en.any()):
+            continue  # a no-op for every lane
+        cur, ver, vlen = ops.cur_stage[:, p], ops.ver[:, p], ops.vlen[:, p]
+        _put_first_(slab, cur, off, ver, vlen, en & first, hot_entries)
+        _put_(slab, cur, off, ops.prev_stage[:, p], ops.prev_off[:, p], ver,
+              vlen, en & ~first, hot_entries)
+    return slab
+
+
 def walks_compacted(
     slab: SlabState, en, stage, off, ver, vlen, is_remove, want_out,
-    max_walk: int, out_base: int, out_rows: int,
+    max_walk: int, out_base: int, out_rows: int, hot_entries: int = 0,
+    drain: bool = False,
 ):
     """The step's walk pass, per lane, one walker at a time in queue order.
 
@@ -489,7 +597,10 @@ def walks_compacted(
     compacted (surviving pointers to the front in order, zeros behind) —
     exactly the JAX pass's bookkeeping, so every slab leaf agrees bit for
     bit.  Only candidate rows ``[out_base, out_base + out_rows)`` may
-    emit.
+    emit.  Emitting hops count to ``drain_hops`` with ``drain`` (the lazy
+    drain pass), else to ``extract_hops``; ``hot_entries`` adds the tier
+    counts of each hop, and a slab with ``stage_hops [K, S > 0]`` tallies
+    each hop at the walker's current stage.
 
     Returns ``(slab, out_stage [K, OR, W], out_off [K, OR, W],
     count [K, OR])``.
@@ -525,8 +636,8 @@ def walks_compacted(
                 break
             hit = (slab.stage == cs[:, None]) & (slab.off == co[:, None])
             found = hit.any(dim=1)
-            slab.walk_hops.add_((active & ~wot).to(I32))
-            slab.extract_hops.add_((active & wot).to(I32))
+            _hop_counts(slab, active, cs, wot, "drain" if drain else "extract",
+                        hot_entries, hit)
             slab.missing.add_((active & ~found).to(I32))
             active = active & found
             e = _first(hit)

@@ -11,6 +11,11 @@ are full, so allocations drop.  The walker queue has the engine's
 segments: ``R*H`` branch walkers, ``R`` removals, ``R`` extractions
 (``out_base = R*H + R``, ``out_rows = R``); the puts are ``R*H`` ops on the
 current event.
+
+With ``hot_entries > 0`` about half the lanes hold a full hot tier
+(slots ``[0, hot_entries)``, the oldest offsets) beside free overflow
+rows, and their current event's offset lies above every live offset (the
+engine's invariant), so the step's creations demote hot entries.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ def _version(rng, D, n):
 
 
 def random_inputs(seed: int, K: int, E: int, MP: int, D: int, R: int,
-                  H: int) -> Dict[str, np.ndarray]:
+                  H: int, hot_entries: int = 0) -> Dict[str, np.ndarray]:
     """One step's slab-phase inputs for ``K`` lanes, as numpy arrays."""
     rng = np.random.default_rng(seed)
     i32 = np.int32
@@ -50,8 +55,14 @@ def random_inputs(seed: int, K: int, E: int, MP: int, D: int, R: int,
     }
     ev_off = np.zeros(K, i32)
     for k in range(K):
-        n_live = E if rng.random() < 0.15 else int(rng.integers(E // 4, E))
-        rows = rng.permutation(E)[:n_live]
+        hot_full = bool(hot_entries) and rng.random() < 0.5
+        if hot_full:
+            EH = hot_entries
+            n_live = EH + int(rng.integers(0, E - EH))  # overflow not full
+            rows = np.r_[np.arange(EH), EH + rng.permutation(E - EH)[:n_live - EH]]
+        else:
+            n_live = E if rng.random() < 0.15 else int(rng.integers(E // 4, E))
+            rows = rng.permutation(E)[:n_live]
         # Keys: two stages per offset, so offsets repeat but keys do not.
         offs = np.arange(n_live, dtype=i32) // 2
         stages = (np.arange(n_live, dtype=i32) % 2) + rng.integers(0, 2)
@@ -79,7 +90,7 @@ def random_inputs(seed: int, K: int, E: int, MP: int, D: int, R: int,
             out["pver"][k, e, :n] = ver
             out["pvlen"][k, e, :n] = vlen
         last = int(offs.max()) if n_live else 0
-        ev_off[k] = last if rng.random() < 0.3 else last + 1
+        ev_off[k] = last if not hot_full and rng.random() < 0.3 else last + 1
 
         def live_key():
             if n_live and rng.random() < 0.9:

@@ -2,11 +2,15 @@
 hand-written CUDA kernel for Hopper, beside its plain PyTorch version.
 
 Replaces ``kafkastreams_cep_tpu/ops/walk_kernel.py: walk_pass_kernel`` (the
-Pallas kernel, default mode).  The kernel source is ``csrc/walk_pass.cu``;
-its header says how it maps lanes to warps, what bounds it on the H100
-(each lane's slab crosses device memory once in and once out; beyond that a
-lane is a chain of dependent hops, so latency, hidden by running many lanes
-per SM) and the contract it keeps.
+Pallas kernel) in all of its single-query modes: the default (eager, single
+tier), the two-tier slab (``hot_entries > 0``), stage attribution (a slab
+whose ``stage_hops`` is ``[K, S > 0]``) and the lazy drain pass
+(``drain=True``), alone or together.  Each mode is a compile-time template
+instance of one kernel, ``csrc/walk_pass.cu``; its header says how it maps
+lanes to warps, what bounds each mode on the H100 (each lane's slab crosses
+device memory once in and once out; beyond that a lane is a chain of
+dependent hops, so latency, hidden by running many lanes per SM) and the
+contract it keeps.
 
 :func:`walk_pass` is the entry point the engine calls.  For tensors on the
 CPU it runs :func:`walk_pass_plain` (``puts_batched`` then
@@ -29,7 +33,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -49,20 +53,65 @@ NVCC_FLAGS = (
 _PUT_COLS = 8  # scratch columns per put op (csrc/walk_pass.cu kPutCols)
 
 
+#: Slab leaves every mode reads and writes, in the kernel's pointer order.
+_BASE_FIELDS = ("stage", "off", "refs", "npreds", "pstage", "poff", "pvlen",
+                "pver", "missing", "trunc", "full_drops", "pred_drops",
+                "walk_hops", "extract_hops")
+#: Leaves only some modes write, in the kernel's pointer order: the tier
+#: counters (two-tier), ``drain_hops`` (drain) and ``stage_hops``
+#: (attribution).
+_MODE_FIELDS = ("hot_hits", "hot_misses", "overflow_walks", "demotions",
+                "drain_hops", "stage_hops")
+
+
 def walk_pass_plain(
     slab: SlabState, en, stage, off, ver, vlen, is_remove, want_out,
     max_walk: int, out_base: int, out_rows: int,
-    put_ops: Optional[PutOps] = None, ev_off=None,
+    put_ops: Optional[PutOps] = None, ev_off=None, hot_entries: int = 0,
+    drain: bool = False,
 ):
     """The plain PyTorch slab phase: the step's consuming puts (when
-    ``put_ops`` is given), then its walkers one at a time in queue order.
-    Returns ``(slab, out_stage [K, OR, W], out_off, count [K, OR])``."""
+    ``put_ops`` is given; op by op under two-tier), then its walkers one at
+    a time in queue order.  Returns ``(slab, out_stage [K, OR, W], out_off,
+    count [K, OR])``."""
     if put_ops is not None:
-        slab = slab_mod.puts_batched(slab, put_ops, ev_off)
+        slab = slab_mod.puts_batched(slab, put_ops, ev_off, hot_entries)
     return slab_mod.walks_compacted(
         slab, en, stage, off, ver, vlen, is_remove, want_out,
-        max_walk, out_base, out_rows,
+        max_walk, out_base, out_rows, hot_entries=hot_entries, drain=drain,
     )
+
+
+def check_hot_entries(hot_entries: int, num_entries: int) -> None:
+    """The two-tier contract (``kafkastreams_cep_tpu/ops/walk_kernel.py:
+    782-786``): 0, or a multiple of 8 strictly inside ``(0, E)``."""
+    if hot_entries and (hot_entries % 8 or not 0 < hot_entries < num_entries):
+        raise ValueError(
+            f"hot_entries={hot_entries} must be a multiple of 8 strictly "
+            f"below slab_entries={num_entries}"
+        )
+
+
+def mode_name(hot_entries: int, stage_slots: int, drain: bool) -> str:
+    """The kernel instance a call runs: ``"default"`` or the ``+``-joined
+    modes (``"two_tier"``, ``"attribution"``, ``"drain"``)."""
+    modes = [m for m, on in (("two_tier", hot_entries), ("attribution", stage_slots),
+                             ("drain", drain)) if on]
+    return "+".join(modes) or "default"
+
+
+def mode_fields(hot_entries: int, stage_slots: int, drain: bool) -> List[str]:
+    """The slab leaves a kernel instance reads and writes: the base leaves,
+    plus the tier counters (two-tier), ``drain_hops`` (drain) and
+    ``stage_hops`` (attribution)."""
+    fields = list(_BASE_FIELDS)
+    if hot_entries:
+        fields += ["hot_hits", "hot_misses", "overflow_walks", "demotions"]
+    if drain:
+        fields.append("drain_hops")
+    if stage_slots:
+        fields.append("stage_hops")
+    return fields
 
 
 def _nvcc() -> str:
@@ -79,13 +128,15 @@ def _nvcc() -> str:
 
 
 class WalkPassKernel:
-    """The built kernel library plus its launch count.
+    """The built kernel library plus its launch counts.
 
     ``launches`` goes up by one for each kernel launch and for nothing
-    else, so a run can show that it went through the kernel."""
+    else, and ``launches_by_mode[mode_name(...)]`` with it, so a run can
+    show that it went through the kernel and in which modes."""
 
     def __init__(self):
         self.launches = 0
+        self.launches_by_mode: Dict[str, int] = {}
         self.build_log = ""
         self.build_seconds = 0.0
         self._lib = None
@@ -122,16 +173,22 @@ class WalkPassKernel:
         self._lib, self._path = lib, out
         return out
 
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.launches_by_mode = {}
+
     def __call__(
         self, slab: SlabState, en, stage, off, ver, vlen, is_remove,
         want_out, max_walk: int, out_base: int, out_rows: int,
-        put_ops: Optional[PutOps] = None, ev_off=None,
+        put_ops: Optional[PutOps] = None, ev_off=None, hot_entries: int = 0,
+        drain: bool = False,
     ):
         K, E = slab.stage.shape
         MP = slab.pstage.shape[2]
         D = slab.pver.shape[3]
+        S = slab.stage_hops.shape[1]
         PW = en.shape[1]
-        W, OR = int(max_walk), int(out_rows)
+        W, OR, EH = int(max_walk), int(out_rows), int(hot_entries)
         dev = slab.stage.device
         if dev.type != "cuda":
             raise ValueError(f"walk-pass kernel needs CUDA tensors, got {dev}")
@@ -142,6 +199,8 @@ class WalkPassKernel:
                 f"output rows [{out_base}, {out_base + OR}) outside the "
                 f"{PW}-walker queue"
             )
+        check_hot_entries(EH, E)
+        mode = mode_name(EH, S, drain)
 
         def arg(x, shape, name, dtype=I32):
             if x.device != dev:
@@ -156,18 +215,11 @@ class WalkPassKernel:
             # The kernel reads a bool as its one byte: a view, not a copy.
             return arg(x, shape, name, torch.bool).view(torch.uint8)
 
-        slab_in = [
-            arg(slab.stage, (K, E), "stage"), arg(slab.off, (K, E), "off"),
-            arg(slab.refs, (K, E), "refs"), arg(slab.npreds, (K, E), "npreds"),
-            arg(slab.pstage, (K, E, MP), "pstage"),
-            arg(slab.poff, (K, E, MP), "poff"),
-            arg(slab.pvlen, (K, E, MP), "pvlen"),
-            arg(slab.pver, (K, E, MP, D), "pver"),
-        ] + [
-            arg(getattr(slab, c), (K,), c)
-            for c in ("missing", "trunc", "full_drops", "pred_drops",
-                      "walk_hops", "extract_hops")
-        ]
+        shapes = dict(stage=(K, E), off=(K, E), refs=(K, E), npreds=(K, E),
+                      pstage=(K, E, MP), poff=(K, E, MP), pvlen=(K, E, MP),
+                      pver=(K, E, MP, D), stage_hops=(K, S))
+        slab_in = {f: arg(getattr(slab, f), shapes.get(f, (K,)), f)
+                   for f in _BASE_FIELDS + _MODE_FIELDS}
         if put_ops is not None:
             PP = put_ops.en.shape[1]
             puts_in = [
@@ -189,16 +241,28 @@ class WalkPassKernel:
             arg(ver, (K, PW, D), "ver"), flag(is_remove, (K, PW), "is_remove"),
             flag(want_out, (K, PW), "want_out"),
         ]
-        outs = [torch.empty_like(x) for x in slab_in]
+        # The mode's outputs; a leaf the mode does not write gets its input,
+        # which the kernel instance never touches.
+        written = mode_fields(EH, S, drain)
+        outs = {f: (torch.empty_like(slab_in[f]) if f in written else slab_in[f])
+                for f in _BASE_FIELDS + _MODE_FIELDS}
         out_stage = torch.empty((K, OR, W), dtype=I32, device=dev)
         out_off = torch.empty_like(out_stage)
         count = torch.empty((K, OR), dtype=I32, device=dev)
-        scratch = torch.empty((max(K * PP, 1), _PUT_COLS), dtype=I32, device=dev)
+        # Scratch of the closed-form put phase (the two-tier one needs none).
+        n_scratch = K * PP if PP and not EH else 1
+        scratch = torch.empty((max(n_scratch, 1), _PUT_COLS), dtype=I32, device=dev)
 
         self.build()
-        tensors = slab_in + puts_in + walk_in + outs + [out_stage, out_off, count, scratch]
-        dims = (ctypes.c_int * 10)(
-            K, E, MP, D, PP, PW, W, int(out_base), OR, int(put_ops is not None)
+        tensors = (
+            [slab_in[f] for f in _BASE_FIELDS] + puts_in + walk_in
+            + [outs[f] for f in _BASE_FIELDS]
+            + [out_stage, out_off, count, scratch]
+            + [slab_in[f] for f in _MODE_FIELDS] + [outs[f] for f in _MODE_FIELDS]
+        )
+        dims = (ctypes.c_int * 13)(
+            K, E, MP, D, PP, PW, W, int(out_base), OR, int(put_ops is not None),
+            EH, S, int(bool(drain)),
         )
         ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
         if K:
@@ -207,10 +271,8 @@ class WalkPassKernel:
             if err:
                 raise RuntimeError(f"walk-pass kernel launch failed: CUDA error {err}")
             self.launches += 1
-        fields = ("stage", "off", "refs", "npreds", "pstage", "poff", "pvlen",
-                  "pver", "missing", "trunc", "full_drops", "pred_drops",
-                  "walk_hops", "extract_hops")
-        new_slab = slab._replace(**dict(zip(fields, outs)))
+            self.launches_by_mode[mode] = self.launches_by_mode.get(mode, 0) + 1
+        new_slab = slab._replace(**{f: outs[f] for f in written})
         return new_slab, out_stage, out_off, count
 
 
@@ -221,12 +283,14 @@ walk_pass_kernel = WalkPassKernel()
 def walk_pass(
     slab: SlabState, en, stage, off, ver, vlen, is_remove, want_out,
     max_walk: int, out_base: int, out_rows: int,
-    put_ops: Optional[PutOps] = None, ev_off=None,
+    put_ops: Optional[PutOps] = None, ev_off=None, hot_entries: int = 0,
+    drain: bool = False,
 ):
-    """The step's slab phase for ``[K]``-batched lanes: the plain version
-    for CPU tensors, the CUDA kernel for CUDA tensors."""
+    """The step's (or the drain's) slab phase for ``[K]``-batched lanes: the
+    plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
     fn = walk_pass_kernel if slab.stage.is_cuda else walk_pass_plain
     return fn(
         slab, en, stage, off, ver, vlen, is_remove, want_out,
         max_walk, out_base, out_rows, put_ops=put_ops, ev_off=ev_off,
+        hot_entries=hot_entries, drain=drain,
     )

@@ -3,18 +3,21 @@
 The reference runs one NFA per Kafka partition (``CEPProcessor.java:
 117-134``); here each lane of the ``[K]`` axis is one such matcher (run
 queue + slab), and every step advances all lanes at once.  The step's slab
-phase is the hand-written walk-pass kernel when the state lives on a CUDA
-device (``ops/walk_kernel.py``), the plain PyTorch pass on the CPU.
+phase, and the lazy drain pass, are the hand-written walk-pass kernel when
+the state lives on a CUDA device (``ops/walk_kernel.py``), the plain
+PyTorch pass on the CPU.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
+from kafkastreams_cep_tpu_torch.compiler.tiering import build_conjunct_tally
 from kafkastreams_cep_tpu_torch.engine.matcher import (
     COUNTER_NAMES,
+    HOT_COUNTER_NAMES,
     WALK_COUNTER_NAMES,
     EngineConfig,
     EngineState,
@@ -22,7 +25,10 @@ from kafkastreams_cep_tpu_torch.engine.matcher import (
     StepOutput,
     TPUMatcher,
     counter_values,
+    hot_counter_values,
     map_value,
+    stage_counter_arrays,
+    stage_report,
     summed,
     walk_counter_values,
 )
@@ -35,7 +41,8 @@ def sweep_lanes(state: EngineState, depth: int, do_renorm: bool) -> EngineState:
     buffer op can reach), then, when enabled, Dewey version
     renormalization (``ops/renorm.py``).  Pending lazy-extraction handles
     are liveness roots and renormalize with the runs (inert under the
-    eager engine, where ``hr_count`` stays 0)."""
+    eager engine, where ``hr_count`` stays 0), so a sweep between a match's
+    completion and its drain keeps the match."""
     HB = state.hr_stage.shape[-1]
     R = state.alive.shape[-1]
     pending = (
@@ -90,6 +97,15 @@ class BatchMatcher:
         self.num_lanes = int(num_lanes)
         self.device = self.matcher.device
         self.step = self.matcher.step
+        # Under stage attribution every conjunct of every consuming-edge
+        # predicate is tallied over each scanned batch, on the device
+        # (``compiler/tiering.py``); ``conjunct_counters`` reads it.
+        self._conjunct_slots: list = []
+        self._conjunct_counts: Optional[torch.Tensor] = None
+        if self.matcher.config.stage_attribution:
+            self._conjunct_slots, self._conjunct_tally = build_conjunct_tally(
+                self.matcher.tables
+            )
 
     @property
     def names(self):
@@ -104,6 +120,13 @@ class BatchMatcher:
 
     def scan(self, state: EngineState, events: EventBatch):
         """Run a ``[K, T]`` batch; returns ``(state, StepOutput [K, T, ...])``."""
+        if self._conjunct_slots:
+            if self._conjunct_counts is None:
+                self._conjunct_counts = torch.zeros(
+                    (2, len(self._conjunct_slots)), dtype=torch.int32,
+                    device=self.device,
+                )
+            self._conjunct_counts = self._conjunct_tally(self._conjunct_counts, events)
         outs = []
         for t in range(events.ts.shape[1]):
             state, out = self.step(state, step_events(events, t))
@@ -117,10 +140,51 @@ class BatchMatcher:
         cfg = self.matcher.config
         return sweep_lanes(state, cfg.max_walk, cfg.renorm_versions)
 
+    def drain(self, state: EngineState):
+        """Walk every pending lazy-extraction handle of every lane in one
+        pass (the walk-pass kernel in drain mode on CUDA, the plain pass on
+        the CPU); returns ``(state, DrainOutput [K, HB, ...])``.  A no-op on
+        eager or already-drained state."""
+        return self.matcher.drain(state)
+
     def counters(self, state: EngineState) -> Dict[str, int]:
         """Overflow/drop counters summed over all lanes."""
         return summed(COUNTER_NAMES, counter_values(state))
 
+    def hot_counters(self, state: EngineState) -> Dict[str, int]:
+        """Two-tier residency counters summed over all lanes (all 0 when
+        ``slab_hot_entries == 0``)."""
+        return summed(HOT_COUNTER_NAMES, hot_counter_values(state))
+
     def walk_counters(self, state: EngineState) -> Dict[str, int]:
         """Walk-cost counters summed over all lanes (not loss indicators)."""
         return summed(WALK_COUNTER_NAMES, walk_counter_values(state))
+
+    def conjunct_counters(self) -> Dict[str, Dict[str, Dict[str, Any]]]:
+        """Measured per-conjunct tallies ``{stage: {conjunct_key: {evals,
+        accepts, selectivity}}}`` (``selectivity`` None before any batch);
+        empty unless ``stage_attribution`` is on."""
+        if not self._conjunct_slots:
+            return {}
+        if self._conjunct_counts is None:
+            counts = [[0] * len(self._conjunct_slots)] * 2
+        else:
+            counts = self._conjunct_counts.tolist()
+        report: Dict[str, Dict[str, Dict[str, Any]]] = {}
+        for i, (stage, key, _m) in enumerate(self._conjunct_slots):
+            ev, ac = int(counts[0][i]), int(counts[1][i])
+            report.setdefault(stage, {})[key] = {
+                "evals": ev,
+                "accepts": ac,
+                "selectivity": (ac / ev) if ev else None,
+            }
+        return report
+
+    def stage_counters(self, state: EngineState) -> Dict[str, Dict[str, Any]]:
+        """Per-stage tallies summed over all lanes (``{stage_name: {tally:
+        total, selectivity}}``), each stage with a ``"conjuncts"`` report of
+        its measured conjunct tallies; empty when attribution is off."""
+        report = stage_report(stage_counter_arrays(state), self.names)
+        for stage, rows in self.conjunct_counters().items():
+            report.setdefault(stage, {})["conjuncts"] = rows
+        return report

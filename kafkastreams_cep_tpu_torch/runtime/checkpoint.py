@@ -82,7 +82,7 @@ def save_checkpoint(
         "gc_events_interval": processor.gc_events_interval,
         "decode_budget": processor.decode_budget,
         "pipeline": processor.pipeline,
-        "drain_interval": 1,
+        "drain_interval": processor.drain_interval,
         "lane_of": dict(processor._lane_of),
         "mesh_size": None,
         "lane_shards": None,
@@ -160,6 +160,7 @@ def restore_processor(
         gc_events_interval=header.get("gc_events_interval", 8),
         decode_budget=header.get("decode_budget", 131072),
         pipeline=header.get("pipeline", False),
+        drain_interval=header.get("drain_interval", 1),
         device=device,
     )
     tables = proc.batch.matcher.tables

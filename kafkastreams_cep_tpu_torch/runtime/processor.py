@@ -31,7 +31,7 @@ from kafkastreams_cep_tpu_torch.engine.matcher import (
     EngineConfig,
     EventBatch,
 )
-from kafkastreams_cep_tpu_torch.ops.decode import compact_matches
+from kafkastreams_cep_tpu_torch.ops.decode import compact_drained, compact_matches
 from kafkastreams_cep_tpu_torch.parallel.batch import BatchMatcher
 from kafkastreams_cep_tpu_torch.utils.events import Event, Sequence
 from kafkastreams_cep_tpu_torch.utils.logging import get_logger
@@ -154,6 +154,12 @@ class CEPProcessor:
     batch's matches (the device works on batch N while the host decodes
     N-1); ``flush()`` drains the last one.
 
+    **Lazy extraction** (``EngineConfig.lazy_extraction``): completed
+    matches wait on the device as handles until the batched drain pass
+    walks them, every ``drain_interval`` batches (1 = each batch's matches
+    leave with it); ``flush()`` drains whatever is still pending.  The
+    emission order is the eager engine's.
+
     ``device`` is where the engine runs: ``"cuda"`` by default (raises when
     there is no GPU), ``"cpu"`` for the plain PyTorch path.
     """
@@ -171,6 +177,7 @@ class CEPProcessor:
         gc_events_interval: int = 8,
         decode_budget: int = 131072,
         pipeline: bool = False,
+        drain_interval: int = 1,
         device="cuda",
     ):
         self.batch = BatchMatcher(pattern, num_lanes, config, device)
@@ -188,6 +195,8 @@ class CEPProcessor:
         self.decode_budget = int(decode_budget)
         self.pipeline = bool(pipeline)
         self._pending: Optional[tuple] = None
+        self.lazy = bool(self.batch.matcher.config.lazy_extraction)
+        self.drain_interval = max(int(drain_interval), 1)
         self.state = self.batch.init_state()
         # Steps scanned so far; restored from ``step_seq`` on resume.
         self._step_base = 0
@@ -386,11 +395,17 @@ class CEPProcessor:
         return events, rank_of, n - dropped
 
     def _dispatch(self, events, rank_of, n_records):
+        base = self._step_base
         with self._phase("dispatch"):
             self.state, out = self.batch.scan(self.state, events)
             self._step_base += int(events.ts.shape[1])
             if self.gc_interval and (self.metrics.batches + 1) % self.gc_interval == 0:
+                # Pending handles are sweep roots (parallel/batch.py).
                 self.state = self.batch.sweep(self.state)
+        drain_out = None
+        if self.lazy and (self.metrics.batches + 1) % self.drain_interval == 0:
+            with self._phase("drain"):
+                self.state, drain_out = self.batch.drain(self.state)
         with self._phase("device"):
             if not self.pipeline and self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
@@ -401,7 +416,7 @@ class CEPProcessor:
         self.metrics.batches += 1
         with self._phase("decode"):
             if self.pipeline:
-                prev, self._pending = self._pending, (out, rank_of)
+                prev, self._pending = self._pending, (out, rank_of, drain_out, base)
                 matches = self._decode(*prev) if prev is not None else []
                 if gc_due:
                     # The event GC must not prune events the pending
@@ -409,7 +424,7 @@ class CEPProcessor:
                     pend, self._pending = self._pending, None
                     matches += self._decode(*pend)
             else:
-                matches = self._decode(out, rank_of)
+                matches = self._decode(out, rank_of, drain_out, base)
         if gc_due:
             with self._phase("gc"):
                 self._gc_events()
@@ -418,17 +433,80 @@ class CEPProcessor:
 
     def flush(self) -> List[Tuple[Hashable, Sequence]]:
         """Decode the pipelined in-flight batch (a no-op in serial mode or
-        when nothing is pending).  Call before checkpointing a pipelined
-        processor."""
+        when nothing is pending) and, under lazy extraction, drain the
+        handles still pending on the device.  Call before checkpointing a
+        pipelined processor."""
         matches: List[Tuple[Hashable, Sequence]] = []
         if self._pending is not None:
             pend, self._pending = self._pending, None
             with self._phase("decode"):
                 matches = self._decode(*pend)
+        if self.lazy:
+            with self._phase("drain"):
+                self.state, dout = self.batch.drain(self.state)
+            with self._phase("decode"):
+                # Everything pending predates "now": ordered by (completion
+                # step, lane, run row).
+                matches += self._decode_drained(dout, None, self._step_base)
         self.metrics.matches_out += len(matches)
         return matches
 
-    def _decode(self, out, rank_of) -> List[Tuple[Hashable, Sequence]]:
+    def _decode(self, out, rank_of, drain_out,
+                base: int) -> List[Tuple[Hashable, Sequence]]:
+        """One batch's matches: the eager ``StepOutput`` grid (empty under
+        lazy extraction) plus, when a drain ran, the drained handles."""
+        matches = [] if self.lazy else self._decode_eager(out, rank_of)
+        if drain_out is not None:
+            matches += self._decode_drained(drain_out, rank_of, base)
+        return matches
+
+    def _decode_drained(self, dout, rank_of, base: int):
+        """Drained handles -> (key, Sequence) in the eager emission order.
+
+        Handles completed in this batch (``seq >= base``) order as the
+        eager decode does: by arrival rank of the completing record, then
+        run-queue row.  Handles deferred from earlier batches (a
+        ``drain_interval > 1``, or a restore) come first, by (completion
+        step, lane, run row).  The hit rows compact on the device first
+        (``ops/decode.py: compact_drained``)."""
+        K, HB = dout.count.shape
+        if self.decode_budget:
+            c_stage, c_off, c_count, c_seq, c_row, c_k, c_n, _ovf = compact_drained(
+                dout, self.decode_budget
+            )
+            n = int(c_n)
+            if n <= min(self.decode_budget, K * HB):
+                if n == 0:
+                    return []
+                cnts, stages, offs, seqs, rows, ks = (
+                    x[:n].cpu().numpy()
+                    for x in (c_count, c_stage, c_off, c_seq, c_row, c_k)
+                )
+                return self._emit_drained(ks, cnts, stages, offs, seqs, rows,
+                                          rank_of, base)
+            self.metrics.decode_fallbacks += 1
+        count = dout.count.cpu().numpy()
+        ks, hs = np.nonzero(count)
+        if ks.size == 0:
+            return []
+        stage, off, seqa, rowa = (
+            x.cpu().numpy() for x in (dout.stage, dout.off, dout.seq, dout.row)
+        )
+        return self._emit_drained(ks, count[ks, hs], stage[ks, hs], off[ks, hs],
+                                  seqa[ks, hs], rowa[ks, hs], rank_of, base)
+
+    def _emit_drained(self, ks, cnts, stages, offs, seqs, rows, rank_of, base):
+        if rank_of is not None:
+            cur = seqs >= base
+            t_idx = np.clip(seqs - base, 0, rank_of.shape[1] - 1)
+            key2 = np.where(cur, rank_of[ks, t_idx], seqs)
+        else:
+            cur = np.zeros(ks.shape, bool)
+            key2 = seqs
+        order = np.lexsort((rows, np.where(cur, 0, ks), key2, cur.astype(np.int8)))
+        return self._build_matches(ks[order], cnts[order], stages[order], offs[order])
+
+    def _decode_eager(self, out, rank_of) -> List[Tuple[Hashable, Sequence]]:
         """Device walk outputs -> (key, Sequence), in arrival order.
 
         The batch's match rows compact on the device into ``decode_budget``
@@ -465,13 +543,17 @@ class CEPProcessor:
         """Hit rows -> (key, Sequence) in arrival order (rank of the
         completing record), then run-queue order."""
         order = np.lexsort((rs, rank_of[ks, ts]))
+        return self._build_matches(ks[order], cnts[order], stages[order], offs[order])
+
+    def _build_matches(self, ks, cnts, stages, offs):
+        """Ordered hit rows -> ``(key, Sequence)`` pairs."""
         names = self.batch.names
         matches: List[Tuple[Hashable, Sequence]] = []
-        for i in order:
-            k = int(ks[i])
+        for k, n, st, of in zip(ks, cnts, stages, offs):
+            k = int(k)
             seq = Sequence()
-            for w in range(int(cnts[i])):
-                seq.add(names[int(stages[i, w])], self._events[k][int(offs[i, w])])
+            for w in range(int(n)):
+                seq.add(names[int(st[w])], self._events[k][int(of[w])])
             matches.append((self._key_of[k], seq))
         return matches
 
@@ -496,3 +578,7 @@ class CEPProcessor:
     def counters(self) -> Dict[str, int]:
         """Lane-summed overflow/drop counters (all zero in healthy runs)."""
         return self.batch.counters(self.state)
+
+    def hot_counters(self) -> Dict[str, int]:
+        """Lane-summed two-tier residency counters (not loss indicators)."""
+        return self.batch.hot_counters(self.state)

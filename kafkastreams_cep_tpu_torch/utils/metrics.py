@@ -27,6 +27,7 @@ SECONDS_ATTRS = (
     "decode_seconds",
     "pack_seconds",
     "dispatch_seconds",
+    "drain_seconds",
     "gc_seconds",
 )
 

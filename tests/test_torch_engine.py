@@ -30,6 +30,15 @@ CONFIG = dict(max_runs=12, slab_entries=32, slab_preds=6, dewey_depth=10,
 
 
 def step_both(name, K=4, T=16, seed=0, **cfg):
+    """``run_both``'s port side: ``(port BatchMatcher, port state)``."""
+    tb, tst, _, _ = run_both(name, K, T, seed, **cfg)
+    return tb, tst
+
+
+def run_both(name, K=4, T=16, seed=0, **cfg):
+    """One scenario through both packages' ``BatchMatcher`` step by step,
+    states and outputs compared after every step; returns ``(port batch,
+    port state, JAX batch, JAX state)``."""
     builder, kind = ts.SCENARIOS[name]
     jpat, tpat = ts.both(builder)
     conf = dict(CONFIG, **cfg)
@@ -62,7 +71,7 @@ def step_both(name, K=4, T=16, seed=0, **cfg):
         for a, b in zip(jout, tout):
             np.testing.assert_array_equal(np.asarray(a), b.numpy(),
                                           err_msg=f"{name} step {t} output")
-    return tb, tst
+    return tb, tst, jb, js
 
 
 @pytest.mark.parametrize("name", sorted(ts.SCENARIOS))
@@ -142,14 +151,24 @@ def test_oracle_differential_random_letters():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("lazy_extraction", True), ("tiering", True), ("slab_hot_entries", 8),
-    ("stage_attribution", True), ("sequential_slab", True),
-    ("walker_budget", 2),
+    ("tiering", True), ("sequential_slab", True), ("walker_budget", 2),
 ])
 def test_out_of_slice_configs_raise(field, value):
     with pytest.raises(NotImplementedError):
         TPUMatcher(ts.strict3(ts.TQuery), EngineConfig(**{field: value}),
                    device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("lazy_extraction", True), ("slab_hot_entries", 8),
+    ("stage_attribution", True),
+])
+def test_ported_configs_build_as_jax(field, value):
+    """The modes this port serves build, with the JAX engine's state."""
+    conf = dict(CONFIG, **{field: value})
+    tb = BatchMatcher(ts.strict3(ts.TQuery), 3, EngineConfig(**conf), device="cpu")
+    jb = JBatch(ts.strict3(ts.JQuery), 3, JConfig(**conf))
+    ts.assert_states_equal(jb.init_state(), tb.init_state(), field)
 
 
 def test_entry_points_need_cuda_or_cpu():

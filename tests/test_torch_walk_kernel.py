@@ -10,6 +10,11 @@ against the JAX package's walk pass and its Pallas kernel.
   the walker's end, so the two differ only in storage behind ``npreds``;
   the comparison masks that dead storage (``test_slab_batched.canon_slab``).
 
+Both comparisons run in each of the kernel's modes too: the two-tier slab
+(``hot_entries``, on inputs whose hot tier is full so that puts demote),
+stage attribution (``stage_hops [K, S]``), the lazy drain (``drain=True``,
+the handle ring as the walker queue) and all three together.
+
 The CUDA kernel itself runs only on a GPU: the ``cuda``-marked test holds
 it against the plain version there and skips on a machine without one.
 """
@@ -38,16 +43,44 @@ CONFIGS = {
 JAX_CLASSES = {"SlabState": jslab.SlabState, "PutOps": jslab.PutOps}
 
 
-def jax_walk_pass(slab, walkers, puts, ev_off, W, out_base, out_rows):
+def jax_walk_pass(slab, walkers, puts, ev_off, W, out_base, out_rows,
+                  hot_entries=0, drain=False):
     """``jax.vmap`` of the JAX package's puts then walks (budget 1)."""
     s = to_numpy(slab, JAX_CLASSES)
     if puts is not None:
-        s = jax.vmap(jslab.puts_batched)(s, to_numpy(puts, JAX_CLASSES), ev_off.numpy())
+        s = jax.vmap(functools.partial(jslab.puts_batched, hot_entries=hot_entries))(
+            s, to_numpy(puts, JAX_CLASSES), ev_off.numpy())
     walks = jax.vmap(functools.partial(
         jslab.walks_compacted, max_walk=W, budget=1, out_base=out_base,
-        out_rows=out_rows,
+        out_rows=out_rows, hot_entries=hot_entries, drain=drain,
     ))
     return walks(s, *[w.numpy() for w in walkers])
+
+
+MODES = ("two_tier", "attribution", "drain", "all")
+
+
+def mode_inputs(seed, config, mode, K, device="cpu"):
+    """One mode's slab-phase inputs and arguments: ``(slab, walkers, kw)``
+    where ``kw`` holds ``max_walk, out_base, out_rows, put_ops, ev_off,
+    hot_entries, drain``.  A drain's queue is the handle ring: every walker
+    removes and emits, and all rows are output rows."""
+    E, MP, D, W_, R, H = CONFIGS[config]
+    EH = (8 if E == 16 else 16) if mode in ("two_tier", "all") else 0
+    S = walk_inputs.NUM_STAGES if mode in ("attribution", "all") else 0
+    drain = mode in ("drain", "all")
+    arrs = walk_inputs.random_inputs(seed, K, E, MP, D, R, H, hot_entries=EH)
+    slab, walkers, puts, ev_off = walk_inputs.as_tensors(arrs, device, stage_hops=S)
+    PW = walkers[0].shape[1]
+    kw = dict(max_walk=W_, out_base=PW - R, out_rows=R, put_ops=puts,
+              ev_off=ev_off, hot_entries=EH, drain=drain)
+    if drain:
+        ones = torch.ones_like(walkers[0])
+        walkers = (*walkers[:5], ones, ones)
+        kw.update(out_base=0, out_rows=PW)
+        if mode == "drain":
+            kw.update(put_ops=None, ev_off=None)
+    return slab, walkers, kw
 
 
 def assert_pass_equal(got, want, msg):
@@ -74,6 +107,56 @@ def test_plain_pass_equals_jax_pass(seed, config, with_puts):
     )
     want = jax_walk_pass(slab, walkers, puts, ev_off, W_, PW - R, R)
     assert_pass_equal(got, want, f"seed={seed} {config} puts={with_puts}")
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+@pytest.mark.parametrize("seed", range(2))
+def test_plain_pass_modes_equal_jax(seed, config, mode):
+    slab, walkers, kw = mode_inputs(seed, config, mode, 9)
+    got = walk_kernel.walk_pass(slab, *walkers, **kw)
+    want = jax_walk_pass(slab, walkers, kw["put_ops"], kw["ev_off"],
+                         kw["max_walk"], kw["out_base"], kw["out_rows"],
+                         kw["hot_entries"], kw["drain"])
+    assert_pass_equal(got, want, f"seed={seed} {config} {mode}")
+    new = got[0]
+    if kw["hot_entries"] and kw["put_ops"] is not None:
+        assert int((new.demotions - slab.demotions).sum()) > 0
+    if kw["drain"]:
+        assert int(new.drain_hops.sum()) > int(slab.drain_hops.sum())
+        assert torch.equal(new.extract_hops, slab.extract_hops)
+    if new.stage_hops.shape[1]:
+        hops = sum(int((getattr(new, c) - getattr(slab, c)).sum())
+                   for c in ("walk_hops", "extract_hops", "drain_hops"))
+        assert int(new.stage_hops.sum()) <= hops  # out-of-range stages drop
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_plain_pass_modes_match_pallas_interpret(mode):
+    """One K=128 case per mode through the interpret-mode Pallas kernel."""
+    slab, walkers, kw = mode_inputs(5, "test_walk_kernel", mode, 128)
+    t_slab, *t_out = walk_kernel.walk_pass(slab, *walkers, **kw)
+    puts = kw["put_ops"]
+    j_slab, *j_out = pallas_walk_pass(
+        to_numpy(slab, JAX_CLASSES), *[jnp.asarray(w.numpy()) for w in walkers],
+        max_walk=kw["max_walk"], out_base=kw["out_base"],
+        out_rows=kw["out_rows"], interpret=True,
+        put_ops=None if puts is None else to_numpy(puts, JAX_CLASSES),
+        ev_off=None if puts is None else jnp.asarray(kw["ev_off"].numpy()),
+        hot_entries=kw["hot_entries"], drain=kw["drain"],
+    )
+    for k in range(128):
+        lane_t = jax.tree_util.tree_map(lambda x: x[k].numpy(), tuple(t_slab))
+        lane_j = jax.tree_util.tree_map(lambda x: np.asarray(x[k]), tuple(j_slab))
+        assert_slab_equal(jslab.SlabState(*lane_j), jslab.SlabState(*lane_t),
+                          f"{mode} lane {k}")
+    for a, b in zip(t_out, j_out):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    for c in ("walk_hops", "extract_hops", "drain_hops", "hot_hits",
+              "hot_misses", "overflow_walks", "demotions", "stage_hops"):
+        np.testing.assert_array_equal(
+            getattr(t_slab, c).numpy(), np.asarray(getattr(j_slab, c)),
+            err_msg=f"{mode} {c}")
 
 
 def seeded_lanes(seed, K):
@@ -156,5 +239,23 @@ def test_cuda_kernel_equals_plain(K):
     got = walk_kernel.walk_pass(slab, *walkers, W_, PW - R, R, put_ops=puts, ev_off=ev_off)
     want = walk_kernel.walk_pass_plain(slab, *walkers, W_, PW - R, R, put_ops=puts, ev_off=ev_off)
     assert walk_kernel.walk_pass_kernel.launches == before + 1
+    for a, b in zip(list(got[0]) + list(got[1:]), list(want[0]) + list(want[1:])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("K", [1, 37, 300])
+def test_cuda_kernel_modes_equal_plain(K, mode):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the walk-pass kernel has no CPU build")
+    slab, walkers, kw = mode_inputs(K, "headline", mode, K, device="cuda")
+    kern = walk_kernel.walk_pass_kernel
+    name = walk_kernel.mode_name(kw["hot_entries"], slab.stage_hops.shape[1],
+                                 kw["drain"])
+    before = kern.launches_by_mode.get(name, 0)
+    got = walk_kernel.walk_pass(slab, *walkers, **kw)
+    want = walk_kernel.walk_pass_plain(slab, *walkers, **kw)
+    assert kern.launches_by_mode[name] == before + 1
     for a, b in zip(list(got[0]) + list(got[1:]), list(want[0]) + list(want[1:])):
         assert torch.equal(a, b)

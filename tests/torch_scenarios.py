@@ -6,12 +6,15 @@ are made with numpy from a seed and handed to both.  States and outputs
 are compared leaf by leaf through ``kafkastreams_cep_tpu_torch.convert``.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import torch
 
 from kafkastreams_cep_tpu import Query as JQuery
+from kafkastreams_cep_tpu.engine import EventBatch as JEventBatch
 from kafkastreams_cep_tpu_torch import Query as TQuery
 from kafkastreams_cep_tpu_torch.convert import state_arrays
+from kafkastreams_cep_tpu_torch.engine.matcher import EventBatch
 
 A, B, C, D, X = 0, 1, 2, 3, 4
 
@@ -145,6 +148,31 @@ def trace(kind: str, rng, K: int, T: int):
         "price": rng.integers(90, 131, size=(K, T)).astype(np.int32),
         "volume": rng.integers(600, 1101, size=(K, T)).astype(np.int32),
     }
+
+
+def events(kind: str, rng, K: int, T: int) -> EventBatch:
+    """A port ``EventBatch [K, T]`` of ``trace(kind)`` values: key = lane,
+    ts = 3t, off = t, every step valid."""
+    values = trace(kind, rng, K, T)
+    i32 = torch.int32
+    return EventBatch(
+        key=torch.arange(K, dtype=i32)[:, None].expand(K, T),
+        value=({f: to_t(v) for f, v in values.items()}
+               if isinstance(values, dict) else to_t(values)),
+        ts=(torch.arange(T, dtype=i32) * 3)[None, :].expand(K, T),
+        off=torch.arange(T, dtype=i32)[None, :].expand(K, T),
+        valid=torch.ones((K, T), dtype=torch.bool),
+    )
+
+
+def to_jax(events: EventBatch) -> JEventBatch:
+    """The same events as the JAX package's ``EventBatch``."""
+    def j(x):
+        if isinstance(x, dict):
+            return {k: j(v) for k, v in x.items()}
+        return jnp.asarray(x.numpy())
+
+    return JEventBatch(*(j(x) for x in events))
 
 
 def canon(seq) -> dict:
