@@ -7,7 +7,9 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases (any failure exits non-zero before the final line):
 
 1. build    — compile every kernel of the main paths from the repo's sources
-              with nvcc for sm_90a;
+              with nvcc for sm_90a: the walk-pass kernel and one whole-scan
+              library per pattern the script scans, all nvcc runs started
+              together;
 2. parity   — hold each kernel against its plain PyTorch version on the
               card, bit for bit, on random inputs made by numpy from a seed
               (K in {1, 37, 4096}, two slab configs, with and without puts);
@@ -35,7 +37,18 @@ Phases (any failure exits non-zero before the final line):
               the same E and E_hot is compared with it; every walk hop is
               attributed to one stage;
 6. kernel timing — each mode of the walk-pass kernel and its plain version,
-              timed on real mid-scan inputs, beside the kernel's bound.
+              timed on real mid-scan inputs, beside the kernel's bound;
+7. whole scan — the whole-scan kernel (``CEP_SCAN_KERNEL=1``): (b) equal to
+              its plain version, bit for bit, in seven cases at K 1/37/4096
+              and T=32; (c) the K=4096 x T=256 headline scan equal to the
+              per-step path of phase 4 and timed beside it; (d) the lazy
+              path without the hot tier and attribution, in 64-step chunks
+              with a drain after each, equal to the per-step path and timed
+              beside it; (e) the stock demo through ``CEPProcessor``, eager
+              and lazy, printing the same four lines through whole-scan
+              launches; (f) a predicate that calls ``torch`` falls back to
+              the per-step path; (g) each kernel instance timed beside its
+              bound and its plain version.
 
 The last two lines of standard output are the kernel report (one JSON
 object) and the device line ``{"ok": true, "device": {...}}``; the card's
@@ -46,8 +59,11 @@ script imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import logging
+import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -91,6 +107,15 @@ CMP_STEPS = 32  # headline steps held against the plain path
 PARITY_LANES = (1, 37, 4096)
 SOURCE = "kafkastreams_cep_tpu_torch/csrc/walk_pass.cu"
 REPLACES = "kafkastreams_cep_tpu/ops/walk_kernel.py:734"
+SCAN_SOURCE = "kafkastreams_cep_tpu_torch/csrc/scan_pass.cu"
+SCAN_REPLACES = "kafkastreams_cep_tpu/ops/scan_kernel.py:88"
+SCAN_STEPS = 32  # T of the whole-scan parity cases
+PLAIN_SCAN_STEPS = 4  # depth at which the whole scan's plain version is timed
+# The whole-scan cases' small config (tests/test_scan_kernel.py's).
+SMALL = dict(max_runs=8, slab_entries=24, slab_preds=4, dewey_depth=8, max_walk=8)
+# The lazy path without the hot tier and attribution: the whole-scan
+# kernel's lazy instance is single tier.
+LAZY_SINGLE = dict(HEADLINE, slab_entries=96, lazy_extraction=True, handle_ring=512)
 
 
 def log(msg: str) -> None:
@@ -123,6 +148,138 @@ def stock_pattern(Query):
         .within(1, "h")
         .build()
     )
+
+
+# The queries of tests/test_scan_kernel.py, over {"x": int32} events.
+def strict_pattern(Query):
+    return (
+        Query().select("a").where(lambda k, v, ts, st: v["x"] == 1)
+        .then().select("b").where(lambda k, v, ts, st: v["x"] == 2)
+        .then().select("c").where(lambda k, v, ts, st: v["x"] == 3)
+        .build()
+    )
+
+
+def typed_float_pattern(Query):
+    return (
+        Query().select("a").where(lambda k, v, ts, st: v["x"] > 0)
+        .fold("ema", lambda k, v, curr: 0.5 * curr + 0.25 * v["x"], init=0.0)
+        .fold("n", lambda k, v, curr: curr + 1, init=0)
+        .then().select("b").skip_till_next_match()
+        .where(lambda k, v, ts, st: (st.get("ema") > 0.7) & (st.get("n") > 1))
+        .build()
+    )
+
+
+def kleene_any_pattern(Query):
+    return (
+        Query().select("a").where(lambda k, v, ts, st: v["x"] == 0)
+        .then().select("b").one_or_more().skip_till_any_match()
+        .where(lambda k, v, ts, st: (0 < v["x"]) & (v["x"] < 8))
+        .then().select("c").where(lambda k, v, ts, st: v["x"] >= 8)
+        .build()
+    )
+
+
+def straddle_pattern(Query):
+    return (
+        Query().select("a").where(lambda k, v, ts, st: v["x"] == 0)
+        .then().select("b").zero_or_more().skip_till_next_match()
+        .where(lambda k, v, ts, st: (0 < v["x"]) & (v["x"] < 6))
+        .then().select("c").skip_till_next_match()
+        .where(lambda k, v, ts, st: v["x"] == 7)
+        .build()
+    )
+
+
+def windowed_pattern(Query):
+    return (
+        Query().select("a").where(lambda k, v, ts, st: v["x"] == 1)
+        .then().select("b").skip_till_next_match()
+        .where(lambda k, v, ts, st: v["x"] == 2)
+        .within(5, "ms")
+        .build()
+    )
+
+
+def torch_call_pattern(Query):
+    """A predicate the whole-scan code generator refuses (a torch call)."""
+    import torch
+
+    return (
+        Query().select("a").where(lambda k, v, ts, st: torch.abs(v["x"] - 3) < 2)
+        .then().select("b").skip_till_next_match()
+        .where(lambda k, v, ts, st: v["x"] == 7)
+        .build()
+    )
+
+
+def x_batch(torch, EventBatch, xs, device, ts_mult=1):
+    """A ``[K, T]`` batch of ``{"x": xs}`` events: ts = t * ts_mult, off = t."""
+    K, T = xs.shape
+    i32 = torch.int32
+    return EventBatch(
+        key=torch.arange(K, dtype=i32, device=device)[:, None].expand(K, T),
+        value={"x": torch.as_tensor(np.asarray(xs, np.int32), device=device)},
+        ts=(torch.arange(T, dtype=i32, device=device) * ts_mult)[None, :].expand(K, T),
+        off=torch.arange(T, dtype=i32, device=device)[None, :].expand(K, T),
+        valid=torch.ones((K, T), dtype=torch.bool, device=device),
+    )
+
+
+def scan_cases(torch, EventBatch, Query, device):
+    """The whole-scan parity cases (``tests/test_scan_kernel.py``'s, plus
+    the stock query lazily): ``name -> (pattern, config, events(K), scans)``."""
+    T = SCAN_STEPS
+
+    def stock_holes(K):
+        ev = make_batch(torch, EventBatch, K, T, 3, device)
+        valid = torch.ones((K, T), dtype=torch.bool, device=device)
+        valid[:, -2:] = False
+        valid[::3, 5] = False  # per-lane padding holes
+        return ev._replace(valid=valid)
+
+    def xs(seed, choices=None, high=None):
+        rng = np.random.default_rng(seed)
+        return lambda K: (rng.choice(choices, size=(K, T)) if choices
+                          else rng.integers(0, high, size=(K, T)))
+
+    kleene = xs(7, choices=[0, 1, 2, 3, 9, 9])
+    typed = xs(11, high=6)
+    windows = xs(13, high=4)
+    strict = xs(17, high=5)
+    overflow = np.asarray(([0] + [6] * 10 + [1, 6, 7, 6, 6] + [6] * T)[:T])
+    return {
+        "stock (headline config, padding holes)": (
+            stock_pattern(Query), HEADLINE, stock_holes, 1),
+        "kleene skip-till-any (two scans)": (
+            kleene_any_pattern(Query),
+            dict(max_runs=16, slab_entries=32, slab_preds=6, dewey_depth=10, max_walk=12),
+            lambda K: x_batch(torch, EventBatch, kleene(K), device), 2),
+        "typed float folds": (
+            typed_float_pattern(Query), SMALL,
+            lambda K: x_batch(torch, EventBatch, typed(K), device), 1),
+        "version overflow (renorm_versions=False)": (
+            straddle_pattern(Query),
+            dict(SMALL, dewey_depth=4, max_walk=12, renorm_versions=False),
+            lambda K: x_batch(torch, EventBatch, np.tile(overflow, (K, 1)), device), 1),
+        "enforce_windows": (
+            windowed_pattern(Query), dict(SMALL, enforce_windows=True),
+            lambda K: x_batch(torch, EventBatch, windows(K), device, ts_mult=3), 1),
+        "strict contiguity": (
+            strict_pattern(Query), SMALL,
+            lambda K: x_batch(torch, EventBatch, strict(K), device), 1),
+        "stock lazily (E=96, ring 512)": (
+            stock_pattern(Query),
+            dict(HEADLINE, slab_entries=96, lazy_extraction=True, handle_ring=512),
+            lambda K: make_batch(torch, EventBatch, K, T, 5, device), 1),
+    }
+
+
+def advance(events):
+    """The next batch of a stream: offsets and time move on."""
+    T = events.ts.shape[1]
+    return events._replace(off=events.off + T, ts=events.ts + 3 * T)
 
 
 def format_match(seq, name_of) -> str:
@@ -254,10 +411,13 @@ def main() -> None:
         fail("torch.cuda.is_available() is False")
     from kafkastreams_cep_tpu_torch import BatchMatcher, CEPProcessor, EngineConfig, Query, Record
     from kafkastreams_cep_tpu_torch.engine.matcher import (
-        EventBatch, build_drain, make_step,
+        EventBatch, build_drain, make_step, step_events,
     )
-    from kafkastreams_cep_tpu_torch.parallel.batch import step_events
-    from kafkastreams_cep_tpu_torch.ops import walk_inputs, walk_kernel
+    from kafkastreams_cep_tpu_torch.compiler.tables import lower
+    from kafkastreams_cep_tpu_torch.parallel import batch as batch_mod
+    from kafkastreams_cep_tpu_torch.ops import (
+        scan_codegen, scan_kernel, walk_inputs, walk_kernel,
+    )
 
     dev = torch.device(DEVICE)
     kern = walk_kernel.walk_pass_kernel
@@ -268,13 +428,40 @@ def main() -> None:
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t_start = time.perf_counter()
 
-    # 1. build ---------------------------------------------------------------
+    # 1. build: the walk-pass kernel and one whole-scan library per pattern,
+    # every nvcc started together ---------------------------------------------
+    skern = scan_kernel.scan_pass_kernel
+    cases = scan_cases(torch, EventBatch, Query, dev)
+    sources = {name: scan_codegen.generate(lower(pat), make_ev(1).value)
+               for name, (pat, _, make_ev, _) in cases.items()}
     t0 = time.perf_counter()
-    path = kern.build()
-    log(f"build: walk_pass -> {path.name} in {time.perf_counter() - t0:.2f} s")
+    walk_errors = []
+
+    def build_walk():
+        try:
+            kern.build()
+        except Exception as e:  # reported below, after the scan builds
+            walk_errors.append(e)
+
+    walk_thread = threading.Thread(target=build_walk)
+    walk_thread.start()
+    scan_paths = skern.build(*sources.values())
+    walk_thread.join()
+    if walk_errors:
+        fail(f"walk_pass build failed: {walk_errors[0]}")
+    log(f"build: walk_pass -> {kern.build()} and {len(set(scan_paths))} whole-scan "
+        f"libraries in {time.perf_counter() - t0:.2f} s (all nvcc runs together)")
     for line in kern.build_log.splitlines():
         if "registers" in line or "spill" in line:
-            log(f"build: ptxas {line.strip()}")
+            log(f"build: walk_pass ptxas {line.strip()}")
+    for name, src in sources.items():
+        lib = skern.library(src).name
+        secs = skern.build_seconds.get(lib)
+        log(f"build: scan_pass for {name!r} -> {lib}"
+            + (f" in {secs:.2f} s" if secs is not None else " (shared)"))
+        for line in skern.build_logs.get(lib, "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"build: scan_pass ptxas {line.strip()}")
 
     # 2. parity on random inputs --------------------------------------------
     max_err = {"default": 0}
@@ -351,8 +538,8 @@ def main() -> None:
     kern.reset_counts()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    state, out = bm.scan(state0, events)
-    hits = (out.count > 0).sum()  # a reduction of the outputs, consumed below
+    step_state, step_out = bm.scan(state0, events)  # kept for phase 7 (c)
+    hits = (step_out.count > 0).sum()  # a reduction of the outputs, consumed below
     end.record()
     torch.cuda.synchronize()
     scan_ms = start.elapsed_time(end)
@@ -360,15 +547,14 @@ def main() -> None:
     headline_launches = kern.launches_by_mode.get("default", 0)
     if headline_launches != T or kern.launches != T:
         fail(f"walk_pass launches {kern.launches_by_mode} in the timed scan, want {T}")
-    if int(out.count.sum()) != total or not n_hits:
+    if int(step_out.count.sum()) != total or not n_hits:
         fail("timed headline scan disagrees with the warm-up scan or found no match")
-    if int(out.count.min()) < 0 or int(out.count.max()) > cfg.max_walk:
+    if int(step_out.count.min()) < 0 or int(step_out.count.max()) > cfg.max_walk:
         fail("headline match counts out of range")
     log(f"headline: K={K} T={T}: warm-up scan {warm_s:.2f} s; timed scan "
         f"{scan_ms:.1f} ms = {scan_ms / T:.3f} ms/step, "
         f"{K * T / (scan_ms / 1e3):.0f} events/s, {n_hits} run-slot matches, "
-        f"counters {bm.counters(state)} [{smi}]")
-    del state, out
+        f"counters {bm.counters(step_state)} [{smi}]")
 
     mode_demo = {}
     for mode, extra in (("two_tier", dict(slab_hot_entries=16)),
@@ -635,6 +821,265 @@ def main() -> None:
             launches, by_path = lazy_runs[drain_mode], {"lazy_path": lazy_runs[drain_mode]}
             on = f"the lazy path's mid-chunk ring, K={K}"
         entry(mode, launches, ms, plain_ms, bnd, by_path, on)
+
+    # 7. the whole-scan kernel ---------------------------------------------------
+    t7 = time.perf_counter()
+
+    def scan_matcher(pattern, lanes, conf):
+        """A ``BatchMatcher`` with ``CEP_SCAN_KERNEL=1``, as a user turns it on."""
+        os.environ["CEP_SCAN_KERNEL"] = "1"
+        try:
+            m = BatchMatcher(pattern, lanes, EngineConfig(**conf), device=dev)
+        finally:
+            del os.environ["CEP_SCAN_KERNEL"]
+        if not m.uses_scan_kernel:
+            fail("CEP_SCAN_KERNEL=1 but the matcher does not use the whole-scan kernel")
+        return m
+
+    def scan_bound(state_in, state_out, events_in, out, conf):
+        """``(bound_ms, bound_by, MB moved, hops)`` of one whole scan: each
+        state leaf the kernel instance writes once in and once out, the
+        events once in, the output frames once out; the hops' compares
+        against the 32-bit rate."""
+        written = scan_kernel.mode_fields(EngineConfig(**conf))
+
+        def leaf(st, f):
+            return getattr(st.slab, f) if f in st.slab._fields else getattr(st, f)
+
+        ev = [events_in.key, events_in.ts, events_in.off, events_in.valid,
+              *scan_codegen.value_leaves(events_in.value)]
+        moved = (nbytes(leaf(state_in, f) for f in written)
+                 + nbytes(leaf(state_out, f) for f in written) + nbytes(ev) + nbytes(out))
+        hops = int(sum((getattr(state_out.slab, c) - getattr(state_in.slab, c)).sum()
+                       for c in ("walk_hops", "extract_hops")))
+        E_, MP_, D_ = state_in.slab.pstage.shape[1], state_in.slab.pstage.shape[2], \
+            state_in.ver.shape[2]
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = hops * (2 * E_ + MP_ * 3 * D_) / INT_OPS_PER_S * 1e3
+        return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations",
+                moved / 1e6, hops)
+
+    # (b) parity: kernel == plain version, bit for bit.
+    scan_err = {"default": 0, "lazy": 0}
+    t0 = time.perf_counter()
+    for name, (pat, conf, make_ev, scans) in cases.items():
+        ccfg = EngineConfig(**conf)
+        mode = scan_kernel.mode_name(ccfg)
+        for Kc in PARITY_LANES:
+            cbm = BatchMatcher(pat, Kc, ccfg, device=dev)
+            ev = make_ev(Kc)
+            s_k = s_p = cbm.init_state()
+            for i in range(scans):
+                s_k, o_k = scan_kernel.scan_pass(sources[name], ccfg, cbm.phases, s_k, ev)
+                s_p, o_p = scan_kernel.scan_pass_plain(cbm.phases, s_p, ev)
+                torch.cuda.synchronize()
+                err = max(max_abs_err(torch, s_k, s_p), max_abs_err(torch, o_k, o_p))
+                scan_err[mode] = max(scan_err[mode], err)
+                log(f"scan parity: {name} K={Kc} scan {i + 1}/{scans}: max_abs_err {err}; "
+                    f"match slots {int((o_k.count > 0).sum())}, handles "
+                    f"{int(s_k.hr_count.sum())}, counters {cbm.counters(s_k)}")
+                if err:
+                    fail(f"scan_pass kernel != plain ({name}, K={Kc}, scan {i + 1})")
+                ev = advance(ev)
+    log(f"scan parity: seven cases x K {PARITY_LANES} bit for bit "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # (c) the headline scan: one whole-scan launch against phase 4's per-step path.
+    sbm = scan_matcher(stock_pattern(Query), K, HEADLINE)
+    t0 = time.perf_counter()
+    _, warm_out = sbm.scan(state0, events)
+    int(warm_out.count.sum())
+    warm_s = time.perf_counter() - t0
+    del warm_out
+    skern.reset_counts()
+    kern.reset_counts()
+    start.record()
+    s_state, s_out = sbm.scan(state0, events)
+    s_hits = (s_out.count > 0).sum()  # a reduction of the outputs, consumed below
+    end.record()
+    torch.cuda.synchronize()
+    scan_k_ms = start.elapsed_time(end)
+    head_scan_launches = skern.launches_by_mode.get("default", 0)
+    if skern.launches != 1 or head_scan_launches != 1 or kern.launches:
+        fail(f"headline whole scan launched scan_pass {skern.launches_by_mode} and "
+             f"walk_pass {kern.launches_by_mode}, want one default scan_pass launch")
+    err = max(max_abs_err(torch, s_state, step_state), max_abs_err(torch, s_out, step_out))
+    scan_err["default"] = max(scan_err["default"], err)
+    if err or int(s_hits) != n_hits:
+        fail(f"headline whole scan != per-step path (max_abs_err {err})")
+    log(f"scan headline: K={K} T={T}: warm-up {warm_s:.2f} s; whole scan {scan_k_ms:.3f} ms "
+        f"= {K * T / (scan_k_ms / 1e3):.0f} events/s, per-step path {scan_ms:.1f} ms: "
+        f"{scan_ms / scan_k_ms:.1f}x; equal to the per-step path bit for bit "
+        f"({int(s_hits)} run-slot matches) [{smi}]")
+    head_bound = scan_bound(state0, s_state, events, s_out, HEADLINE)
+    plain_head_ms = cuda_ms(torch, lambda: scan_kernel.scan_pass_plain(
+        bm.phases, state0, window(EventBatch, events, 0, PLAIN_SCAN_STEPS)), 1)
+    del s_state, s_out, step_state, step_out
+
+    # (d) the lazy path, single tier: chunks and drains against the per-step path.
+    pbm = BatchMatcher(stock_pattern(Query), K, EngineConfig(**LAZY_SINGLE), device=dev)
+    lsbm = scan_matcher(stock_pattern(Query), K, LAZY_SINGLE)
+
+    def drained(batch):
+        """Every chunk's drain output and the final state (untimed)."""
+        st, outs = batch.init_state(), []
+        for c0 in range(0, T, LAZY_CHUNK):
+            st, _ = batch.scan(st, window(EventBatch, events, c0, c0 + LAZY_CHUNK))
+            st, dout = batch.drain(st)
+            outs.append(dout)
+        return st, tuple(outs)
+
+    t0 = time.perf_counter()
+    p_st, p_dr = drained(pbm)
+    k_st, k_dr = drained(lsbm)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(torch, k_st, p_st), max_abs_err(torch, k_dr, p_dr))
+    scan_err["lazy"] = max(scan_err["lazy"], err)
+    if err:
+        fail(f"lazy single-tier path: whole scan != per-step path (max_abs_err {err})")
+    lazy_slots = sum(int((d.count > 0).sum()) for d in k_dr)
+    log(f"scan lazy path: K={K} T={T} (E=96, ring 512, drain every {LAZY_CHUNK}): whole "
+        f"scans == per-step path, bit for bit, in every drain and the final state "
+        f"({lazy_slots} drained matches, counters {lsbm.counters(k_st)}; "
+        f"{time.perf_counter() - t0:.1f} s)")
+    del p_st, p_dr, k_st, k_dr
+    kern.reset_counts()
+    start.record()
+    _, p_n, _ = chunked(pbm, True)
+    end.record()
+    torch.cuda.synchronize()
+    lazy_step_ms = start.elapsed_time(end)
+    skern.reset_counts()
+    kern.reset_counts()
+    start.record()
+    _, k_n, k_drains = chunked(lsbm, True)
+    end.record()
+    torch.cuda.synchronize()
+    lazy_scan_ms = start.elapsed_time(end)
+    lazy_scan_launches = skern.launches_by_mode.get("lazy", 0)
+    n_chunks = T // LAZY_CHUNK
+    if (skern.launches != n_chunks or lazy_scan_launches != n_chunks
+            or kern.launches_by_mode.get("drain", 0) != n_chunks
+            or kern.launches != n_chunks):
+        fail(f"lazy whole-scan path launched scan_pass {skern.launches_by_mode} and "
+             f"walk_pass {kern.launches_by_mode}, want {n_chunks} of each (lazy, drain)")
+    if int(k_n) != int(p_n):
+        fail("timed lazy runs disagree on match slots")
+    k_drain_ms = sum(a.elapsed_time(b) for a, b in k_drains) / len(k_drains)
+    log(f"scan lazy path: whole scans + drains {lazy_scan_ms:.3f} ms = "
+        f"{K * T / (lazy_scan_ms / 1e3):.0f} events/s (drain {k_drain_ms:.3f} ms per pass), "
+        f"per-step path {lazy_step_ms:.1f} ms: {lazy_step_ms / lazy_scan_ms:.1f}x [{smi}]")
+    # One chunk's whole scan, timed alone, for the kernel report.
+    l_mid, _ = lsbm.scan(lsbm.init_state(), window(EventBatch, events, 0, LAZY_CHUNK))
+    l_mid, _ = lsbm.drain(l_mid)
+    chunk2 = window(EventBatch, events, LAZY_CHUNK, 2 * LAZY_CHUNK)
+    l_out_state, l_out = lsbm.scan(l_mid, chunk2)
+    lazy_chunk_ms = cuda_ms(torch, lambda: lsbm.scan(l_mid, chunk2), 5)
+    lazy_bound = scan_bound(l_mid, l_out_state, chunk2, l_out, LAZY_SINGLE)
+    plain_lazy_ms = cuda_ms(torch, lambda: scan_kernel.scan_pass_plain(
+        lsbm.phases, l_mid, window(EventBatch, chunk2, 0, PLAIN_SCAN_STEPS)), 1)
+    del l_mid, l_out_state, l_out
+
+    # (e) the stock demo through CEPProcessor with the switch on.
+    scan_demo = {"default": 0, "lazy": 0}
+    os.environ["CEP_SCAN_KERNEL"] = "1"
+    try:
+        skern.reset_counts()
+        kern.reset_counts()
+        proc = CEPProcessor(stock_pattern(Query), num_lanes=1, config=EngineConfig(**DEMO),
+                            topic="StockEvents", device=dev)
+        lines = [format_match(seq, name_of) for _, seq in proc.process(records)]
+        counters = proc.counters()
+        scan_demo["default"] = skern.launches_by_mode.get("default", 0)
+        log(f"scan demo: {lines == EXPECTED and 'EXPECTED byte for byte' or lines}; "
+            f"counters {counters}; scan_pass launches {skern.launches_by_mode}, "
+            f"walk_pass launches {kern.launches_by_mode}")
+        if lines != EXPECTED or any(counters.values()):
+            fail(f"scan demo differs from EXPECTED or lost work: {lines} {counters}")
+        if not proc.uses_scan_kernel or not scan_demo["default"] or kern.launches:
+            fail("scan demo did not run through scan_pass alone")
+        for interval, chunks in ((1, [records]),
+                                 (3, [records[i:i + 2] for i in range(0, 8, 2)])):
+            skern.reset_counts()
+            kern.reset_counts()
+            proc = CEPProcessor(
+                stock_pattern(Query), num_lanes=1,
+                config=EngineConfig(**DEMO, lazy_extraction=True), topic="StockEvents",
+                drain_interval=interval, device=dev,
+            )
+            got = []
+            for chunk in chunks:
+                got += proc.process(chunk)
+            got += proc.flush()
+            lines = [format_match(seq, name_of) for _, seq in got]
+            counters = proc.counters()
+            log(f"scan lazy demo (drain_interval={interval}, {len(chunks)} batches + "
+                f"flush): {lines == EXPECTED and 'EXPECTED byte for byte' or lines}; "
+                f"counters {counters}; scan_pass launches {skern.launches_by_mode}, "
+                f"walk_pass launches {kern.launches_by_mode}")
+            if lines != EXPECTED or any(counters.values()):
+                fail(f"scan lazy demo (drain_interval={interval}) differs from EXPECTED "
+                     f"or lost work: {lines} {counters}")
+            if (not skern.launches_by_mode.get("lazy") or not kern.launches_by_mode.get("drain")
+                    or kern.launches_by_mode.get("default")):
+                fail("scan lazy demo did not run through lazy scan_pass and drain launches")
+            scan_demo["lazy"] += skern.launches_by_mode["lazy"]
+    finally:
+        del os.environ["CEP_SCAN_KERNEL"]
+
+    # (f) fallback: a predicate the code generator refuses.
+    caught = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            caught.append(record.getMessage())
+
+    handler = Catch(level=logging.WARNING)
+    logging.getLogger(batch_mod.logger.name).addHandler(handler)
+    try:
+        fbm = scan_matcher(torch_call_pattern(Query), 64, SMALL)
+        ref = BatchMatcher(torch_call_pattern(Query), 64, EngineConfig(**SMALL), device=dev)
+        fev = x_batch(torch, EventBatch, np.random.default_rng(19).integers(0, 9, (64, 16)), dev)
+        skern.reset_counts()
+        kern.reset_counts()
+        f_state, f_out = fbm.scan(fbm.init_state(), fev)
+        fb_launches = dict(kern.launches_by_mode)
+        r_state, r_out = ref.scan(ref.init_state(), fev)
+        err = max(max_abs_err(torch, f_state, r_state), max_abs_err(torch, f_out, r_out))
+    finally:
+        logging.getLogger(batch_mod.logger.name).removeHandler(handler)
+    if fbm.uses_scan_kernel or skern.launches or fb_launches.get("default") != 16 or err:
+        fail(f"fallback: uses_scan_kernel {fbm.uses_scan_kernel}, scan_pass launches "
+             f"{skern.launches}, walk_pass launches {fb_launches}, max_abs_err {err}")
+    if not any("falling back to the per-step path" in m for m in caught):
+        fail(f"fallback was not logged: {caught}")
+    log(f"scan fallback: {caught[-1]!r}; uses_scan_kernel False; walk_pass launches "
+        f"{fb_launches}, scan_pass launches 0; equal to the per-step path "
+        f"({int((f_out.count > 0).sum())} match slots)")
+
+    # (g) the kernel report's whole-scan entries.
+    for mode, ms, plain_ms, bnd, by_path, on in (
+        ("default", scan_k_ms, plain_head_ms, head_bound,
+         {"headline": head_scan_launches, "demo": scan_demo["default"]},
+         f"the headline scan, K={K}, T={T}"),
+        ("lazy", lazy_chunk_ms, plain_lazy_ms, lazy_bound,
+         {"lazy_path": lazy_scan_launches, "lazy_demo": scan_demo["lazy"]},
+         f"the lazy path's second {LAZY_CHUNK}-step chunk, K={K}, E=96, single tier"),
+    ):
+        bound_ms, bound_by, mb, hops = bnd
+        launches = sum(by_path.values())
+        log(f"scan_pass[{mode}]: {ms:.3f} ms per scan on {on} (plain version "
+            f"{plain_ms:.1f} ms over its first {PLAIN_SCAN_STEPS} steps): {mb:.1f} MB "
+            f"moved, {hops} hops -> bound {bound_ms:.4f} ms ({bound_by}); launches "
+            f"{by_path} [{smi}]")
+        report.append({
+            "name": f"scan_pass[{mode}]", "route": "cuda", "source": SCAN_SOURCE,
+            "replaces": SCAN_REPLACES, "launches": launches, "launches_by_path": by_path,
+            "max_abs_err": scan_err[mode], "ms": ms, "plain_ms": plain_ms,
+            "plain_steps": PLAIN_SCAN_STEPS, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "timed_on": on,
+        })
+    log(f"whole scan phase: {time.perf_counter() - t7:.1f} s")
 
     log(f"total: {time.perf_counter() - t_start:.1f} s after the card check")
     log(smi)

@@ -920,6 +920,27 @@ def tree_where(valid, new, old):
     return torch.where(valid.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
 
 
+def step_events(events: EventBatch, t: int) -> EventBatch:
+    """Step ``t`` of a ``[K, T]`` batch as a ``[K]`` batch."""
+    return EventBatch(
+        key=events.key[:, t],
+        value=map_value(lambda x: x[:, t], events.value),
+        ts=events.ts[:, t],
+        off=events.off[:, t],
+        valid=events.valid[:, t],
+    )
+
+
+def scan_steps(step, state: EngineState, events: EventBatch):
+    """``step`` over each of a ``[K, T]`` batch's T steps; returns
+    ``(state, StepOutput [K, T, ...])``."""
+    outs = []
+    for t in range(events.ts.shape[1]):
+        state, out = step(state, step_events(events, t))
+        outs.append(out)
+    return state, StepOutput(*(torch.stack(x, dim=1) for x in zip(*outs)))
+
+
 def make_step(phases: StepPhases, walk_fn=walk_pass):
     """The ``[K]``-batched step: chain, puts and walkers, the slab phase
     through ``walk_fn`` (the kernel on CUDA tensors by default), then the

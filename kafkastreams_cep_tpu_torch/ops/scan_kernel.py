@@ -1,0 +1,299 @@
+"""The whole ``[K, T]`` event loop as one hand-written CUDA kernel for
+Hopper, beside its plain PyTorch version.
+
+Replaces ``kafkastreams_cep_tpu/ops/scan_kernel.py: build_scan`` (the
+Pallas kernel that runs a whole scan with state resident in VMEM) in its
+single-query, single-tier modes without stage attribution: eager and lazy
+extraction, each with and without ``enforce_windows``.  The kernel,
+``csrc/scan_pass.cu``, is ``template <bool kLazy>``; its header says how it
+maps lanes to warps and steps to a loop, what bounds it on the H100, and the
+contract it keeps.  It shares the slab phase with the walk-pass kernel
+(``csrc/walk_pass.cuh``).
+
+A pattern's predicates and folds reach the kernel as C++ that
+``ops/scan_codegen.py`` generates into a header, ``cep_pattern.h``; the
+library is built per generated header with ``nvcc`` for ``sm_90a`` into
+``kafkastreams_cep_tpu_torch/build/``, keyed by a hash of the sources, the
+header and the flags, and bound with ``ctypes`` (a plain C entry point, no
+PyTorch headers).
+
+:func:`scan_pass` is the entry point ``BatchMatcher.scan`` calls.  For
+tensors on the CPU it runs :func:`scan_pass_plain` (T plain engine steps);
+for CUDA tensors it launches the kernel or raises — it never falls back.
+Both give the same result bit for bit; ``chip_smoke.py`` holds them against
+each other on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict, List, Tuple
+
+import torch
+
+from kafkastreams_cep_tpu_torch.engine.matcher import (
+    EngineConfig,
+    EngineState,
+    EventBatch,
+    StepOutput,
+    StepPhases,
+    make_step,
+    scan_steps,
+)
+from kafkastreams_cep_tpu_torch.ops.scan_codegen import ScanSource, value_leaves
+from kafkastreams_cep_tpu_torch.ops.walk_kernel import BUILD_DIR, _nvcc, walk_pass_plain
+from kafkastreams_cep_tpu_torch.utils.logging import get_logger
+
+logger = get_logger("ops.scan_kernel")
+
+I32 = torch.int32
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("scan_pass.cu", "walk_pass.cuh", "scan_expr.cuh")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    # The plain version rounds every float operation: no a*b+c contraction.
+    "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+#: Run-state and slab leaves the kernel writes in every mode.
+_RUN_FIELDS = ("alive", "branching", "id_pos", "eval_pos", "ver", "vlen",
+               "event_off", "start_ts", "agg")
+_SLAB_FIELDS = ("stage", "off", "refs", "npreds", "pstage", "poff", "pvlen",
+                "pver", "missing", "trunc", "full_drops", "pred_drops",
+                "walk_hops", "extract_hops")
+_COUNT_FIELDS = ("run_drops", "ver_overflows", "step_seq")
+#: The handle ring, written under lazy extraction only.
+_RING_FIELDS = ("hr_stage", "hr_off", "hr_ver", "hr_vlen", "hr_ts", "hr_seq",
+                "hr_row", "hr_count", "handle_overflows")
+
+
+def mode_name(config: EngineConfig) -> str:
+    """The kernel instance a config runs: ``"default"`` or ``"lazy"``."""
+    return "lazy" if config.lazy_extraction else "default"
+
+
+def mode_fields(config: EngineConfig) -> Tuple[str, ...]:
+    """The state leaves a kernel instance writes: the run state, the slab
+    and the counters, and the handle ring under lazy extraction."""
+    return (_RUN_FIELDS + _SLAB_FIELDS + _COUNT_FIELDS
+            + (_RING_FIELDS if config.lazy_extraction else ()))
+
+
+def check_config(config: EngineConfig) -> None:
+    """The modes the kernel serves: single tier, no stage attribution."""
+    if config.slab_hot_entries or config.stage_attribution:
+        raise NotImplementedError(
+            "the whole-scan kernel (CEP_SCAN_KERNEL) serves a single-tier slab "
+            "without stage attribution; its two-tier and attribution modes "
+            "are not ported yet"
+        )
+
+
+def scan_pass_plain(phases: StepPhases, state: EngineState, events: EventBatch):
+    """The plain PyTorch version: ``T`` engine steps (``make_step`` over the
+    plain walk pass).  Returns ``(state, StepOutput [K, T, ...])``."""
+    return scan_steps(make_step(phases, walk_pass_plain), state, events)
+
+
+class ScanPassKernel:
+    """The built kernel libraries (one per generated header) plus launch
+    counts.
+
+    ``launches`` goes up by one for each kernel launch and for nothing
+    else, and ``launches_by_mode[mode_name(config)]`` with it."""
+
+    def __init__(self):
+        self.launches = 0
+        self.launches_by_mode: Dict[str, int] = {}
+        self.build_logs: Dict[str, str] = {}
+        self.build_seconds: Dict[str, float] = {}
+        self._libs: Dict[str, ctypes.CDLL] = {}
+
+    def library(self, source: ScanSource) -> Path:
+        """Where ``source``'s library lands (keyed by a hash of the kernel's
+        sources, the generated header and the flags)."""
+        blob = b"".join((CSRC / f).read_bytes() for f in SOURCES)
+        blob += source.header.encode() + " ".join(NVCC_FLAGS).encode()
+        tag = hashlib.sha256(blob).hexdigest()[:16]
+        return BUILD_DIR / f"libscanpass-{tag}.so"
+
+    def build(self, *sources: ScanSource) -> List[Path]:
+        """Compile every source not built yet (one ``nvcc`` each, all
+        started together) and load them."""
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        outs = [self.library(s) for s in sources]
+        jobs = []
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            for src, out in zip(sources, outs):
+                if out.exists() or any(out == j[0] for j in jobs):
+                    continue
+                inc = Path(tmp) / out.stem
+                inc.mkdir()
+                (inc / "cep_pattern.h").write_text(src.header)
+                tmp_out = inc / out.name
+                cmd = [_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", f"-I{inc}",
+                       str(CSRC / "scan_pass.cu"), "-o", str(tmp_out)]
+                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True)
+                jobs.append((out, tmp_out, proc, time.perf_counter()))
+            failed = []
+            for out, tmp_out, proc, t0 in jobs:
+                log, _ = proc.communicate()
+                self.build_logs[out.name] = log
+                self.build_seconds[out.name] = time.perf_counter() - t0
+                if proc.returncode:
+                    failed.append(f"{out.name}: nvcc failed ({proc.returncode}):\n{log}")
+                    continue
+                os.replace(tmp_out, out)  # atomic publish
+                logger.info("built %s in %.1f s", out.name, self.build_seconds[out.name])
+            if failed:
+                raise RuntimeError("\n".join(failed))
+        for src, out in zip(sources, outs):
+            if src.tag not in self._libs:
+                lib = ctypes.CDLL(str(out))
+                lib.cep_scan_pass.argtypes = [
+                    ctypes.POINTER(ctypes.c_int),
+                    ctypes.POINTER(ctypes.c_void_p),
+                    ctypes.c_void_p,
+                ]
+                lib.cep_scan_pass.restype = ctypes.c_int
+                lib.cep_scan_scratch.argtypes = [
+                    ctypes.POINTER(ctypes.c_int),
+                    ctypes.POINTER(ctypes.c_longlong),
+                ]
+                lib.cep_scan_scratch.restype = None
+                self._libs[src.tag] = lib
+        return outs
+
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.launches_by_mode = {}
+
+    def __call__(self, source: ScanSource, config: EngineConfig,
+                 state: EngineState, events: EventBatch):
+        check_config(config)
+        K, R = state.alive.shape
+        E, MP = state.slab.pstage.shape[1:]
+        D = state.ver.shape[2]
+        NS = state.agg.shape[2]
+        HB = state.hr_stage.shape[1]
+        T = events.ts.shape[1]
+        W = int(config.max_walk)
+        dev = state.alive.device
+        if dev.type != "cuda":
+            raise ValueError(f"whole-scan kernel needs CUDA tensors, got {dev}")
+        if MP > 32 or D > 32:
+            raise ValueError(f"kernel needs MP <= 32 and D <= 32, got {MP}, {D}")
+        lazy = bool(config.lazy_extraction)
+
+        def arg(x, shape, name, dtype=I32):
+            if x.device != dev:
+                raise ValueError(f"{name} on {x.device}, state on {dev}")
+            if tuple(x.shape) != tuple(shape):
+                raise ValueError(f"{name} shape {tuple(x.shape)} != {shape}")
+            if x.dtype != dtype:
+                raise ValueError(f"{name} dtype {x.dtype}, want {dtype}")
+            return x.contiguous()
+
+        def flag(x, shape, name):
+            # The kernel reads a bool as its one byte: a view, not a copy.
+            return arg(x, shape, name, torch.bool).view(torch.uint8)
+
+        leaves = value_leaves(events.value)
+        if len(leaves) != len(source.kinds):
+            raise ValueError(
+                f"{len(leaves)} event leaves, the generated source reads "
+                f"{len(source.kinds)}"
+            )
+        kind_dtype = {"i": I32, "f": torch.float32, "b": torch.bool}
+        ev_leaves = []
+        for i, (x, kind) in enumerate(zip(leaves, source.kinds)):
+            ev_leaves.append(
+                flag(x, (K, T), f"leaf {i}") if kind == "b"
+                else arg(x, (K, T), f"leaf {i}", kind_dtype[kind])
+            )
+        ev = [arg(events.key, (K, T), "key"), arg(events.ts, (K, T), "ts"),
+              arg(events.off, (K, T), "off"), flag(events.valid, (K, T), "valid")]
+
+        shapes = dict(
+            alive=(K, R), branching=(K, R), id_pos=(K, R), eval_pos=(K, R),
+            ver=(K, R, D), vlen=(K, R), event_off=(K, R), start_ts=(K, R),
+            agg=(K, R, NS), stage=(K, E), off=(K, E), refs=(K, E),
+            npreds=(K, E), pstage=(K, E, MP), poff=(K, E, MP),
+            pvlen=(K, E, MP), pver=(K, E, MP, D), hr_stage=(K, HB),
+            hr_off=(K, HB), hr_ver=(K, HB, D), hr_vlen=(K, HB), hr_ts=(K, HB),
+            hr_seq=(K, HB), hr_row=(K, HB),
+        )
+
+        def state_in(f):
+            leaf = getattr(state.slab, f) if f in _SLAB_FIELDS else getattr(state, f)
+            if f in ("alive", "branching"):
+                return flag(leaf, shapes[f], f)
+            return arg(leaf, shapes.get(f, (K,)), f)
+
+        # The kernel's pointer order; a leaf the mode does not write gets its
+        # input as its output, which the kernel never touches.
+        fields = _RUN_FIELDS + _SLAB_FIELDS + _COUNT_FIELDS + _RING_FIELDS
+        ins = {f: state_in(f) for f in fields}
+        written = mode_fields(config)
+        outs = {f: (torch.empty_like(ins[f]) if f in written else ins[f]) for f in fields}
+        out_stage = torch.empty((K, T, R, W), dtype=I32, device=dev)
+        out_off = torch.empty_like(out_stage)
+        count = torch.empty((K, T, R), dtype=I32, device=dev)
+
+        if not (K and T):  # nothing to scan: the state stays as it is
+            return state, StepOutput(out_stage, out_off, count)
+        if source.tag not in self._libs:
+            self.build(source)
+        lib = self._libs[source.tag]
+        sizes = (ctypes.c_longlong * 2)()
+        lib.cep_scan_scratch((ctypes.c_int * 2)(R, D), sizes)
+        scratch = torch.empty((K, sizes[0]), dtype=I32, device=dev)
+        flags = torch.empty((K, sizes[1]), dtype=torch.uint8, device=dev)
+
+        tensors = (
+            ev + [ins[f] for f in fields] + [outs[f] for f in fields]
+            + [out_stage, out_off, count, scratch, flags] + ev_leaves
+        )
+        dims = (ctypes.c_int * 10)(K, T, R, E, MP, D, W, HB, int(lazy),
+                                   int(bool(config.enforce_windows)))
+        ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.cep_scan_pass(dims, ptrs, ctypes.c_void_p(stream))
+        if err:
+            raise RuntimeError(f"whole-scan kernel launch failed: CUDA error {err}")
+        self.launches += 1
+        mode = mode_name(config)
+        self.launches_by_mode[mode] = self.launches_by_mode.get(mode, 0) + 1
+
+        def state_out(f):
+            leaf = outs[f]
+            return leaf.view(torch.bool) if f in ("alive", "branching") else leaf
+
+        slab = state.slab._replace(**{f: state_out(f) for f in _SLAB_FIELDS})
+        new_state = state._replace(
+            slab=slab,
+            **{f: state_out(f) for f in _RUN_FIELDS + _COUNT_FIELDS + _RING_FIELDS},
+        )
+        return new_state, StepOutput(out_stage, out_off, count)
+
+
+#: The process's kernel libraries (built at first launch).
+scan_pass_kernel = ScanPassKernel()
+
+
+def scan_pass(source: ScanSource, config: EngineConfig, phases: StepPhases,
+              state: EngineState, events: EventBatch):
+    """A ``[K, T]`` scan: the plain version for CPU tensors, the CUDA kernel
+    for CUDA tensors.  Returns ``(state, StepOutput [K, T, ...])``."""
+    if state.alive.is_cuda:
+        return scan_pass_kernel(source, config, state, events)
+    check_config(config)
+    return scan_pass_plain(phases, state, events)

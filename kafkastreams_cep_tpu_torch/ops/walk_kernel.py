@@ -19,8 +19,9 @@ kernel or raises — it never falls back.  Both give the same result bit for
 bit; ``chip_smoke.py`` holds them against each other on the card.
 
 The kernel builds at first use with ``nvcc`` for ``sm_90a`` into
-``kafkastreams_cep_tpu_torch/build/``, keyed by a hash of the source, and is
-bound with ``ctypes`` (a plain C entry point, no PyTorch headers).
+``kafkastreams_cep_tpu_torch/build/``, keyed by a hash of the source and of
+``csrc/walk_pass.cuh``, and is bound with ``ctypes`` (a plain C entry point,
+no PyTorch headers).
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ logger = get_logger("ops.walk_kernel")
 
 I32 = torch.int32
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "walk_pass.cu"
+HEADER = SOURCE.with_suffix(".cuh")  # device functions shared with scan_pass.cu
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -145,7 +147,7 @@ class WalkPassKernel:
         """Compile the source (once per source hash) and load it."""
         if self._lib is not None:
             return self._path
-        blob = SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        blob = SOURCE.read_bytes() + HEADER.read_bytes() + " ".join(NVCC_FLAGS).encode()
         tag = hashlib.sha256(blob).hexdigest()[:16]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         out = BUILD_DIR / f"libwalkpass-{tag}.so"

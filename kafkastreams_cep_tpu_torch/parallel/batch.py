@@ -6,10 +6,21 @@ queue + slab), and every step advances all lanes at once.  The step's slab
 phase, and the lazy drain pass, are the hand-written walk-pass kernel when
 the state lives on a CUDA device (``ops/walk_kernel.py``), the plain
 PyTorch pass on the CPU.
+
+``CEP_SCAN_KERNEL=1`` (or ``interpret``, accepted so that one environment
+drives both packages alike) runs each ``scan`` as one whole-scan kernel
+launch instead (``ops/scan_kernel.py``): the first scan traces the
+pattern's predicates and folds into C++ for the events' leaf dtypes
+(``ops/scan_codegen.py``), then builds and launches the kernel on CUDA, or
+runs its plain version on the CPU.  A pattern the code generator cannot
+express (:class:`~kafkastreams_cep_tpu_torch.ops.scan_codegen.LoweringError`,
+raised on the host before any build) is logged and served by the per-step
+path for good; every other failure raises.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional
 
 import torch
@@ -22,18 +33,22 @@ from kafkastreams_cep_tpu_torch.engine.matcher import (
     EngineConfig,
     EngineState,
     EventBatch,
-    StepOutput,
     TPUMatcher,
     counter_values,
     hot_counter_values,
     map_value,
     stage_counter_arrays,
     stage_report,
+    scan_steps,
     summed,
     walk_counter_values,
 )
 from kafkastreams_cep_tpu_torch.ops import renorm as renorm_mod
+from kafkastreams_cep_tpu_torch.ops import scan_codegen, scan_kernel
 from kafkastreams_cep_tpu_torch.ops import slab as slab_mod
+from kafkastreams_cep_tpu_torch.utils.logging import get_logger
+
+logger = get_logger("parallel.batch")
 
 
 def sweep_lanes(state: EngineState, depth: int, do_renorm: bool) -> EngineState:
@@ -73,17 +88,6 @@ def sweep_lanes(state: EngineState, depth: int, do_renorm: bool) -> EngineState:
     return state
 
 
-def step_events(events: EventBatch, t: int) -> EventBatch:
-    """Step ``t`` of a ``[K, T]`` batch as a ``[K]`` batch."""
-    return EventBatch(
-        key=events.key[:, t],
-        value=map_value(lambda x: x[:, t], events.value),
-        ts=events.ts[:, t],
-        off=events.off[:, t],
-        valid=events.valid[:, t],
-    )
-
-
 class BatchMatcher:
     """``K`` per-key matchers as one array program.
 
@@ -106,6 +110,14 @@ class BatchMatcher:
             self._conjunct_slots, self._conjunct_tally = build_conjunct_tally(
                 self.matcher.tables
             )
+        # The whole-scan kernel (opt-in): one generated source per event
+        # structure and leaf dtypes, made by the first scan that sees it.
+        self.uses_scan_kernel = os.environ.get("CEP_SCAN_KERNEL", "0") in (
+            "1", "interpret",
+        )
+        self._scan_sources: Dict[str, scan_codegen.ScanSource] = {}
+        if self.uses_scan_kernel:
+            scan_kernel.check_config(self.matcher.config)
 
     @property
     def names(self):
@@ -127,11 +139,32 @@ class BatchMatcher:
                     device=self.device,
                 )
             self._conjunct_counts = self._conjunct_tally(self._conjunct_counts, events)
-        outs = []
-        for t in range(events.ts.shape[1]):
-            state, out = self.step(state, step_events(events, t))
-            outs.append(out)
-        return state, StepOutput(*(torch.stack(x, dim=1) for x in zip(*outs)))
+        if self.uses_scan_kernel:
+            source = self._scan_source(events)
+            if source is not None:
+                return scan_kernel.scan_pass(
+                    source, self.matcher.config, self.phases, state, events
+                )
+        return scan_steps(self.step, state, events)
+
+    def _scan_source(self, events: EventBatch):
+        """The generated source for ``events``' structure and leaf dtypes,
+        or None once the pattern proved inexpressible (the per-step path
+        then serves every scan)."""
+        key = repr(map_value(lambda x: str(getattr(x, "dtype", type(x))), events.value))
+        if key not in self._scan_sources:
+            try:
+                self._scan_sources[key] = scan_codegen.generate(
+                    self.matcher.tables, events.value
+                )
+            except scan_codegen.LoweringError as e:
+                logger.warning(
+                    "whole-scan kernel cannot express this pattern (%s); "
+                    "falling back to the per-step path", e,
+                )
+                self.uses_scan_kernel = False
+                return None
+        return self._scan_sources[key]
 
     def sweep(self, state: EngineState) -> EngineState:
         """Free slab entries unreachable from live runs and renormalize

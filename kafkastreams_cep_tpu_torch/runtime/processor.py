@@ -214,6 +214,12 @@ class CEPProcessor:
         self._value_proto = None
         self.metrics = Metrics()
 
+    @property
+    def uses_scan_kernel(self) -> bool:
+        """Whether scans run the whole-scan kernel (``CEP_SCAN_KERNEL``;
+        False again once a pattern fell back to the per-step path)."""
+        return self.batch.uses_scan_kernel
+
     # -- key -> lane assignment (partition-assignment analog) ---------------
 
     def _key_code(self, key: Hashable, lane: int) -> int:

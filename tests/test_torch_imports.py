@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no module of ``kafkastreams_cep_tpu_torch``
-and not ``chip_smoke.py`` imports ``jax`` or anything of the JAX package
-``kafkastreams_cep_tpu`` (the port keeps its own copies of what it needs).
-Only the tests import both."""
+and neither of its scripts (``chip_smoke.py``, ``chip_ab_walk_pass.py``)
+imports ``jax`` or anything of the JAX package ``kafkastreams_cep_tpu`` (the
+port keeps its own copies of what it needs).  Only the tests import both."""
 
 import ast
 from pathlib import Path
@@ -12,7 +12,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "kafkastreams_cep_tpu_torch"
 FILES = sorted(
     p.relative_to(ROOT).as_posix()
-    for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]
+    for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py", ROOT / "chip_ab_walk_pass.py"]
     if (PKG / "build") not in p.parents  # build outputs, not sources
 )
 FORBIDDEN = ("jax", "jaxlib", "kafkastreams_cep_tpu")
@@ -35,8 +35,10 @@ def imported_modules(path: Path):
 
 
 def test_files_found():
-    assert "chip_smoke.py" in FILES
+    assert "chip_smoke.py" in FILES and "chip_ab_walk_pass.py" in FILES
     assert "kafkastreams_cep_tpu_torch/ops/walk_kernel.py" in FILES
+    assert "kafkastreams_cep_tpu_torch/ops/scan_kernel.py" in FILES
+    assert "kafkastreams_cep_tpu_torch/ops/scan_codegen.py" in FILES
 
 
 @pytest.mark.parametrize("rel", FILES)
