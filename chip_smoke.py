@@ -40,15 +40,34 @@ Phases (any failure exits non-zero before the final line):
               timed on real mid-scan inputs, beside the kernel's bound;
 7. whole scan — the whole-scan kernel (``CEP_SCAN_KERNEL=1``): (b) equal to
               its plain version, bit for bit, in seven cases at K 1/37/4096
-              and T=32; (c) the K=4096 x T=256 headline scan equal to the
-              per-step path of phase 4 and timed beside it; (d) the lazy
-              path without the hot tier and attribution, in 64-step chunks
-              with a drain after each, equal to the per-step path and timed
-              beside it; (e) the stock demo through ``CEPProcessor``, eager
-              and lazy, printing the same four lines through whole-scan
-              launches; (f) a predicate that calls ``torch`` falls back to
-              the per-step path; (g) each kernel instance timed beside its
-              bound and its plain version.
+              and T=32, in each case's own instance and (b2) in the
+              two-tier, attribution and combined instances (one plain run
+              over all three K's lanes side by side); (c) the K=4096 x T=256
+              headline scan equal to the per-step path of phase 4 and timed
+              beside it, and (c2) timed in the three new instances; (d) the
+              lazy path without the hot tier and attribution, in 64-step
+              chunks with a drain after each, equal to the per-step path and
+              timed beside it, and (d2) the lazy path itself (two-tier +
+              attribution) as whole scans, equal to phase 5's per-step path
+              in every drain and the final state and timed beside it; (e)
+              the stock demo through ``CEPProcessor``, eager, lazy and in
+              the three new instances, printing the same four lines through
+              whole-scan launches; (f) a predicate that calls ``torch``
+              falls back to the per-step path; (g) each kernel instance
+              timed beside its bound and its plain version;
+8. tiered    — ``EngineConfig.tiering``: (a) the tiered whole scan (B3) equal
+              to its plain version on the hybrid corpus of
+              ``tests/test_tiering.py``, eager, lazy and two-tier +
+              attribution, at K 1/37/4096, two scans of T=32; (b) the tiered
+              cell, ``bench.py: bench_tier`` at K=4096 x T=1024 in 128-step
+              batches, through the untiered per-step path, the tiered
+              chunk-gated per-step path and the tiered whole scan: equal
+              matches and counters, loss-free, each timed; (c) the tiered
+              processor (prefix_n_minus_1, per step and with the switch on,
+              eager, lazy and two-tier + attribution) emitting the untiered
+              stream, strict3 on the stencil tier, and the stock demo (plan
+              nfa) printing its four lines; (d) each tiered instance timed
+              beside its bound and its plain version.
 
 The last two lines of standard output are the kernel report (one JSON
 object) and the device line ``{"ok": true, "device": {...}}``; the card's
@@ -116,6 +135,19 @@ SMALL = dict(max_runs=8, slab_entries=24, slab_preds=4, dewey_depth=8, max_walk=
 # The lazy path without the hot tier and attribution: the whole-scan
 # kernel's lazy instance is single tier.
 LAZY_SINGLE = dict(HEADLINE, slab_entries=96, lazy_extraction=True, handle_ring=512)
+SCAN_MODES = ("two_tier", "attribution", "two_tier+attribution")
+# tests/test_tiering.py's corpus config, tiered, for the hybrid parity cases.
+TIER_PARITY = dict(max_runs=32, slab_entries=96, slab_preds=12, dewey_depth=20,
+                   max_walk=12, tiering=True)
+TIER_MODES = {"eager": {}, "lazy": dict(lazy_extraction=True, handle_ring=64),
+              "two_tier+attribution": dict(slab_hot_entries=16, stage_attribution=True)}
+# bench.py: bench_tier (:725-780), scaled to the card: its pattern and config,
+# K=4096 lanes x T=1024 steps in 128-step batches.
+TIER_CELL = dict(max_runs=32, slab_entries=64, slab_preds=8, dewey_depth=12, max_walk=12)
+TIER_STEPS = 1024
+TIER_CHUNK = 128
+DROP_COUNTERS = ("run_drops", "slab_full_drops", "slab_pred_drops", "slab_trunc",
+                 "walk_collisions", "handle_overflows")
 
 
 def log(msg: str) -> None:
@@ -202,6 +234,82 @@ def windowed_pattern(Query):
     )
 
 
+def value_is(code):
+    return lambda k, v, ts, st: v == code
+
+
+def skip_till_next_pattern(Query):
+    """tests/test_tiering.py's p1_skip_next (NFATest.java:104-132)."""
+    return (
+        Query().select("first").where(value_is(0))
+        .then().select("second").skip_till_next_match().where(value_is(2))
+        .then().select("latest").skip_till_next_match().where(value_is(3))
+        .build()
+    )
+
+
+def skip_till_any_pattern(Query):
+    """p2_skip_any (NFATest.java:134-172)."""
+    return (
+        Query().select("first").where(value_is(0))
+        .then().select("second").where(value_is(1))
+        .then().select("three").skip_till_any_match().where(value_is(2))
+        .then().select("latest").skip_till_any_match().where(value_is(3))
+        .build()
+    )
+
+
+def kleene_one_or_more_pattern(Query):
+    """p3_kleene (NFATest.java:69-101)."""
+    return (
+        Query().select("firstStage").where(value_is(0))
+        .then().select("secondStage").where(value_is(1))
+        .then().select("thirdStage").one_or_more().where(value_is(2))
+        .then().select("latestState").where(value_is(3))
+        .build()
+    )
+
+
+def prefix_n_minus_1_pattern(Query):
+    """pn1_strict3_skip: strict A, B, C then skip-till-next D."""
+    return (
+        Query().select("pa").where(value_is(0))
+        .then().select("pb").where(value_is(1))
+        .then().select("pc").where(value_is(2))
+        .then().select("sd").skip_till_next_match().where(value_is(3))
+        .build()
+    )
+
+
+def strict3_pattern(Query):
+    return (
+        Query().select("first").where(value_is(0))
+        .then().select("second").where(value_is(1))
+        .then().select("latest").where(value_is(2))
+        .build()
+    )
+
+
+def bench_tier_pattern(Query):
+    """bench.py: bench_tier's query: a 3-stage strict prefix, then
+    skip-till-next."""
+    return (
+        Query().select("pa").where(value_is(1))
+        .then().select("pb").where(value_is(2))
+        .then().select("pc").where(value_is(3))
+        .then().select("sd").skip_till_next_match().where(value_is(7))
+        .build()
+    )
+
+
+HYBRID = {
+    "p1_skip_next": skip_till_next_pattern,
+    "p2_skip_any": skip_till_any_pattern,
+    "p3_kleene": kleene_one_or_more_pattern,
+    "pn1_strict3_skip": prefix_n_minus_1_pattern,
+}
+
+
 def torch_call_pattern(Query):
     """A predicate the whole-scan code generator refuses (a torch call)."""
     import torch
@@ -276,6 +384,14 @@ def scan_cases(torch, EventBatch, Query, device):
     }
 
 
+def mode_extra(mode: str, conf) -> dict:
+    """The config fields of a whole-scan mode: a hot tier of 8 rows (16
+    past E=24), stage attribution, or both."""
+    hot = dict(slab_hot_entries=8 if conf["slab_entries"] <= 24 else 16)
+    return {"two_tier": hot, "attribution": dict(stage_attribution=True),
+            "two_tier+attribution": dict(hot, stage_attribution=True)}[mode]
+
+
 def advance(events):
     """The next batch of a stream: offsets and time move on."""
     T = events.ts.shape[1]
@@ -309,10 +425,76 @@ def make_batch(torch, EventBatch, K: int, T: int, seed: int, device):
 
 def window(EventBatch, events, t0: int, t1: int):
     """Steps ``[t0, t1)`` of a ``[K, T]`` batch."""
+    value = events.value
     return EventBatch(
-        events.key[:, t0:t1], {k: v[:, t0:t1] for k, v in events.value.items()},
+        events.key[:, t0:t1],
+        {k: v[:, t0:t1] for k, v in value.items()} if isinstance(value, dict)
+        else value[:, t0:t1],
         events.ts[:, t0:t1], events.off[:, t0:t1], events.valid[:, t0:t1],
     )
+
+
+def cat_lanes(torch, EventBatch, batches):
+    """Several ``[K_i, T]`` batches as one ``[sum K_i, T]`` batch."""
+    def cat(xs):
+        if isinstance(xs[0], dict):
+            return {k: cat([x[k] for x in xs]) for k in xs[0]}
+        return torch.cat(xs, dim=0)
+
+    return EventBatch(*(cat([getattr(b, f) for b in batches]) for f in EventBatch._fields))
+
+
+def lanes(x, lo: int, hi: int):
+    """Lanes ``[lo, hi)`` of every leaf of a state or output tuple."""
+    if isinstance(x, tuple):
+        return type(x)(*(lanes(v, lo, hi) for v in x))
+    return x[lo:hi]
+
+
+def letters_batch(torch, EventBatch, codes, device, t0=0):
+    """``[K, T]`` integer events (tests/test_tiering.py's shape): key 0,
+    ts = 1000 + offset, offsets from ``t0``."""
+    K, T = codes.shape
+    i32 = torch.int32
+    off = (torch.arange(T, dtype=i32, device=device) + t0)[None, :].expand(K, T)
+    return EventBatch(
+        key=torch.zeros((K, T), dtype=i32, device=device),
+        value=torch.as_tensor(np.asarray(codes, np.int32), device=device),
+        ts=off + 1000, off=off,
+        valid=torch.ones((K, T), dtype=torch.bool, device=device),
+    )
+
+
+def tier_cell_codes(K: int, T: int):
+    """bench.py: bench_tier's trace scaled to K lanes: codes 8..63 (seed 17),
+    so the begin predicate never fires by chance, and 12 * K / 32 planted
+    occurrences (prefix 1, 2, 3, suffix 7 nine steps on) clustered in 3 of
+    the 128-step batches, bench_tier's density per lane."""
+    rng = np.random.default_rng(17)
+    codes = rng.integers(8, 64, size=(K, T)).astype(np.int32)
+    n_chunks = max(T // TIER_CHUNK, 1)
+    hot = sorted(rng.choice(n_chunks, size=min(3, n_chunks), replace=False))
+    for i in range(12 * K // 32):
+        c = int(hot[i % len(hot)])
+        k = int(rng.integers(0, K))
+        t = c * TIER_CHUNK + int(rng.integers(0, max(TIER_CHUNK - 16, 1)))
+        codes[k, t], codes[k, t + 1], codes[k, t + 2] = 1, 2, 3
+        codes[k, t + 9] = 7
+    return codes, [int(c) for c in hot]
+
+
+def match_rows(compact, t0: int):
+    """``ops/decode.compact_matches`` output -> ``[(k, t, stages, offs)]`` in
+    ``(k, t, run row)`` order; row indices themselves are dropped (the
+    untiered queue also holds partial-prefix runs)."""
+    stage, off, count, k, t, r, n, ovf = compact
+    if bool(ovf):
+        fail("match compaction overflowed its budget")
+    n = int(n)
+    st, of, ct, ks, tt, rr = (x[:n].cpu().numpy() for x in (stage, off, count, k, t, r))
+    order = np.lexsort((rr, tt, ks))
+    return [(int(ks[i]), t0 + int(tt[i]), tuple(st[i, :ct[i]]), tuple(of[i, :ct[i]]))
+            for i in order]
 
 
 def max_abs_err(torch, got, want) -> int:
@@ -404,6 +586,275 @@ def mode_parity(torch, kern, walk_kernel, walk_inputs, dev, max_err):
     log(f"parity: every mode bit for bit; two-tier cases demoted {demoted} entries")
 
 
+def tiered_phase(torch, dev, smi, log_entry, scan_bound, hybrid_src, tier_src,
+                 records, name_of):
+    """Phase 8: the tiered configuration (``EngineConfig.tiering``).
+
+    (a) the tiered whole scan (``scan_pass(promo=...)``) equal to its plain
+    version on the hybrid corpus, eager, lazy and two-tier + attribution, at
+    K 1/37/4096; (b) the tiered cell (``bench.py: bench_tier`` at K=4096 x
+    T=1024 in 128-step batches) through the untiered per-step path, the
+    tiered chunk-gated per-step path and the tiered whole scan, with equal
+    matches and counters; (c) the tiered processor's streams equal to the
+    untiered ones; (d) the tiered instances' report entries."""
+    from kafkastreams_cep_tpu_torch import (
+        BatchMatcher, CEPProcessor, EngineConfig, Query, Record,
+    )
+    from kafkastreams_cep_tpu_torch.engine.matcher import EventBatch
+    from kafkastreams_cep_tpu_torch.ops import scan_kernel, walk_kernel
+    from kafkastreams_cep_tpu_torch.ops.decode import compact_matches
+    from kafkastreams_cep_tpu_torch.parallel.tiered import TieredBatchMatcher
+
+    skern, kern = scan_kernel.scan_pass_kernel, walk_kernel.walk_pass_kernel
+    t8 = time.perf_counter()
+
+    def tiered(pattern, num_lanes, conf, switch=False):
+        """A ``TieredBatchMatcher``; ``switch``: with ``CEP_SCAN_KERNEL=1``."""
+        if switch:
+            os.environ["CEP_SCAN_KERNEL"] = "1"
+        try:
+            m = TieredBatchMatcher(pattern, num_lanes, EngineConfig(**conf), device=dev)
+        finally:
+            os.environ.pop("CEP_SCAN_KERNEL", None)
+        if m.uses_scan_kernel != switch:
+            fail(f"tiered matcher: uses_scan_kernel {m.uses_scan_kernel}, want {switch}")
+        return m
+
+    def feed_window(feed, t0, t1):
+        return type(feed)(*(x[:, t0:t1] for x in feed))
+
+    # (a) parity: the tiered kernel against its plain version, all K lanes
+    # of a case in one plain run (lanes are independent), sliced per K.
+    tier_err = {}
+    t0 = time.perf_counter()
+    promoted_total = 0
+    for pname, make_pattern in HYBRID.items():
+        for label, extra in TIER_MODES.items():
+            conf = dict(TIER_PARITY, **extra)
+            mode = scan_kernel.mode_name(EngineConfig(**conf), tiered=True)
+            rng = np.random.default_rng(len(pname) * 31 + len(label))
+            tall = tiered(make_pattern(Query), sum(PARITY_LANES), conf)
+            tks = [tiered(make_pattern(Query), Kc, conf) for Kc in PARITY_LANES]
+            if tall.plan.tier != "hybrid":
+                fail(f"{pname}: plan {tall.plan}, want hybrid")
+            eng_all, carry_all = tall.init_state()
+            sts = [tuple(tm.init_state()) for tm in tks]
+            for i in range(2):
+                evs = [letters_batch(torch, EventBatch, rng.choice(
+                    5, size=(Kc, SCAN_STEPS), p=[0.3, 0.25, 0.2, 0.2, 0.05]), dev,
+                    t0=i * SCAN_STEPS) for Kc in PARITY_LANES]
+                ev_all = cat_lanes(torch, EventBatch, evs)
+                carry_all, feed_all = tall._prefix.scan(carry_all, ev_all)
+                eng_all, o_p, n_p = scan_kernel.scan_pass_plain(
+                    tall.inner.phases, eng_all, ev_all, promo=(tall._promote, feed_all))
+                lo = 0
+                for j, (tm, Kc) in enumerate(zip(tks, PARITY_LANES)):
+                    eng, carry = sts[j]
+                    carry, feed = tm._prefix.scan(carry, evs[j])
+                    eng, o_k, n_k = scan_kernel.scan_pass(
+                        hybrid_src[pname], tm.matcher.config, tm.inner.phases, eng,
+                        evs[j], promo=(tm._promote, feed))
+                    sts[j] = (eng, carry)
+                    torch.cuda.synchronize()
+                    err = max(max_abs_err(torch, eng, lanes(eng_all, lo, lo + Kc)),
+                              max_abs_err(torch, o_k, lanes(o_p, lo, lo + Kc)),
+                              max_abs_err(torch, n_k, n_p[lo:lo + Kc]))
+                    tier_err[mode] = max(tier_err.get(mode, 0), err)
+                    promoted_total += int(n_k.sum())
+                    log(f"tiered parity: {pname} [{mode}] K={Kc} scan {i + 1}/2: "
+                        f"max_abs_err {err}; prefix fires {int(feed.fire.sum())}, promoted "
+                        f"{int(n_k.sum())}, match slots {int((o_k.count > 0).sum())}, "
+                        f"handles {int(eng.hr_count.sum())}, run_drops "
+                        f"{int(eng.run_drops.sum())}, demotions {int(eng.slab.demotions.sum())}")
+                    if err:
+                        fail(f"scan_pass[{mode}] kernel != plain ({pname}, K={Kc}, scan {i + 1})")
+                    lo += Kc
+    if not promoted_total:
+        fail("no tiered parity case promoted a run")
+    log(f"tiered parity: {len(HYBRID)} patterns x {len(TIER_MODES)} modes x K {PARITY_LANES} "
+        f"bit for bit, {promoted_total} promotions ({time.perf_counter() - t0:.1f} s)")
+
+    # (b) the tiered cell: three paths over the same K=4096 x T=1024 trace.
+    Kt, Tt = LANES, TIER_STEPS
+    codes, hot = tier_cell_codes(Kt, Tt)
+    tev = letters_batch(torch, EventBatch, codes, dev)
+    tconf = dict(TIER_CELL, tiering=True)
+    paths = {
+        "untiered per step": BatchMatcher(bench_tier_pattern(Query), Kt,
+                                          EngineConfig(**TIER_CELL), device=dev),
+        "tiered per step": tiered(bench_tier_pattern(Query), Kt, tconf),
+        "tiered whole scan": tiered(bench_tier_pattern(Query), Kt, tconf, switch=True),
+    }
+
+    def run_cell(m, collect):
+        st, rows = m.init_state(), []
+        n = torch.zeros((), dtype=torch.int64, device=dev)
+        for b0 in range(0, Tt, TIER_CHUNK):
+            st, out = m.scan(st, window(EventBatch, tev, b0, b0 + TIER_CHUNK))
+            n += (out.count > 0).sum()  # a reduction of the outputs, consumed below
+            if collect:
+                rows += match_rows(compact_matches(out, 1 << 16), b0)
+        return st, n, rows
+
+    cell = {}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for label, m in paths.items():
+        t0 = time.perf_counter()
+        _, _, rows = run_cell(m, True)  # parity rows; also the warm-up
+        warm_s = time.perf_counter() - t0
+        calls0 = (getattr(m, "scan_calls", 0), getattr(m, "gate_chunks", 0),
+                  getattr(m, "nfa_dispatches", 0))
+        skern.reset_counts()
+        kern.reset_counts()
+        start.record()
+        st, n, _ = run_cell(m, False)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        calls = (getattr(m, "scan_calls", 0) - calls0[0],
+                 getattr(m, "gate_chunks", 0) - calls0[1],
+                 getattr(m, "nfa_dispatches", 0) - calls0[2])
+        cell[label] = dict(state=st, rows=rows, n=int(n), ms=ms, calls=calls,
+                           scan=dict(skern.launches_by_mode), walk=dict(kern.launches_by_mode),
+                           warm_s=warm_s)
+    ref = cell["untiered per step"]
+    counters = {label: paths[label].counters(c["state"]) for label, c in cell.items()}
+    if any(c["rows"] != ref["rows"] for c in cell.values()):
+        fail("tiered cell: the three paths' matches differ")
+    if any(c != counters["untiered per step"] for c in counters.values()):
+        fail(f"tiered cell: counters differ: {counters}")
+    if any(counters["untiered per step"][c] for c in DROP_COUNTERS):
+        fail(f"tiered cell is not loss-free: {counters['untiered per step']}")
+    tc = {label: paths[label].tier_counters(cell[label]["state"])
+          for label in ("tiered per step", "tiered whole scan")}
+    tcs = tc["tiered per step"]
+    if tc["tiered whole scan"] != tcs or not 0 < tcs["tier_promotions"] == tcs["prefix_fires"]:
+        fail(f"tiered cell: tier counters {tc}")
+    n_batches = Tt // TIER_CHUNK
+    gate = paths["tiered per step"].matcher.config.gate_chunk
+    if (ref["walk"].get("default") != Tt or cell["tiered whole scan"]["walk"]
+            or cell["tiered whole scan"]["scan"].get("tiered") != n_batches
+            or cell["tiered per step"]["scan"]
+            or cell["tiered per step"]["walk"].get("default")
+            != cell["tiered per step"]["calls"][2] * gate):
+        fail(f"tiered cell launches: " + "; ".join(
+            f"{k}: scan_pass {c['scan']}, walk_pass {c['walk']}" for k, c in cell.items()))
+    log(f"tiered cell: K={Kt} T={Tt} in {TIER_CHUNK}-step batches, {12 * Kt // 32} planted "
+        f"occurrences in batches {hot}: {len(ref['rows'])} matches, equal on all three "
+        f"paths; counters equal and loss-free; tier counters {tcs}; plan "
+        f"{paths['tiered per step'].plan.describe()}")
+    screened = 1.0 - tcs["prefix_fires"] / tcs["prefix_events_screened"]
+    for label, c in cell.items():
+        scans, chunks, disp = c["calls"]
+        gated = (f"NFA dispatches {disp} of {chunks or scans} "
+                 f"{'gate chunks' if chunks else 'batches'} ({disp / (chunks or scans):.4f}); "
+                 f"screened share {screened:.6f}" if scans else "every step dispatched")
+        log(f"tiered cell [{label}]: {c['ms']:.3f} ms = {Kt * Tt / (c['ms'] / 1e3):.0f} "
+            f"events/s (untimed first run {c['warm_s']:.2f} s); {gated}; launches "
+            f"scan_pass {c['scan']}, walk_pass {c['walk']} [{smi}]")
+    log(f"tiered cell: untiered / tiered per step {ref['ms'] / cell['tiered per step']['ms']:.2f}x, "
+        f"untiered / tiered whole scan {ref['ms'] / cell['tiered whole scan']['ms']:.1f}x")
+    cell_launches = cell["tiered whole scan"]["scan"]["tiered"]
+    del cell, paths
+
+    # (c) the tiered processor: prefix_n_minus_1 per step and with the switch
+    # on, eager and lazy, and in the two-tier attribution instance; strict3
+    # on the stencil tier; the stock demo, whose plan is nfa.
+    Ke = 8
+    rng = np.random.default_rng(77)
+    pcodes = rng.choice(5, size=(Ke, 48), p=[0.3, 0.25, 0.2, 0.2, 0.05])
+    pcodes[:, 22], pcodes[:, 23], pcodes[:, 24], pcodes[:, 30] = 0, 1, 2, 3  # straddles 24
+
+    def stream(pattern, conf, switch, lazy):
+        if switch:
+            os.environ["CEP_SCAN_KERNEL"] = "1"
+        try:
+            proc = CEPProcessor(pattern, Ke, EngineConfig(**conf), device=dev,
+                                drain_interval=3 if lazy else 1)
+        finally:
+            os.environ.pop("CEP_SCAN_KERNEL", None)
+        got = []
+        for lo in range(0, 48, 12):
+            got += proc.process([Record(key=k, value=int(pcodes[k, t]), timestamp=1000 + t)
+                                 for t in range(lo, lo + 12) for k in range(Ke)])
+        got += proc.flush()
+        out = [(k, [(stg, [e.offset for e in evs]) for stg, evs in seq.as_map().items()])
+               for k, seq in got]
+        return out, proc
+
+    proc_launches = {}
+    for label, extra in TIER_MODES.items():
+        lazy = label == "lazy"
+        conf = dict(TIER_PARITY, tiering=False, **extra)
+        want, uproc = stream(prefix_n_minus_1_pattern(Query), conf, False, lazy)
+        if not want:
+            fail("tiered processor: the untiered stream is empty")
+        for switch in (False, True):
+            skern.reset_counts()
+            kern.reset_counts()
+            got, tproc = stream(prefix_n_minus_1_pattern(Query), dict(conf, tiering=True),
+                                switch, lazy)
+            mode = scan_kernel.mode_name(tproc.batch.matcher.config, tiered=True)
+            if switch:
+                proc_launches[mode] = skern.launches_by_mode.get(mode, 0)
+            log(f"tiered processor [{label}, {'whole scan' if switch else 'per step'}]: "
+                f"{len(got)} matches, {'equal to' if got == want else 'DIFFERENT from'} the "
+                f"untiered stream; tier {tproc.tier_counters()}; counters "
+                f"{tproc.counters()}; scan_pass {skern.launches_by_mode}, walk_pass "
+                f"{kern.launches_by_mode}")
+            if got != want or tproc.counters() != uproc.counters():
+                fail(f"tiered processor [{label}] differs from the untiered one")
+            if switch and (not proc_launches[mode] or kern.launches_by_mode.get("default")
+                           or kern.launches_by_mode.get("two_tier+attribution")):
+                fail(f"tiered processor [{label}] did not run through scan_pass[{mode}]")
+            if not tproc.tier_counters()["tier_promotions"]:
+                fail(f"tiered processor [{label}] promoted nothing")
+    want, _ = stream(strict3_pattern(Query), TIER_PARITY | dict(tiering=False), False, False)
+    got, sproc = stream(strict3_pattern(Query), TIER_PARITY, False, False)
+    if sproc.batch.plan.tier != "stencil" or got != want or not want:
+        fail(f"strict3 under tiering: plan {sproc.batch.plan}, streams equal {got == want}")
+    log(f"tiered processor [strict3]: stencil tier, {len(got)} matches equal to the untiered "
+        f"stream; tier {sproc.tier_counters()}")
+    proc = CEPProcessor(stock_pattern(Query), num_lanes=1,
+                        config=EngineConfig(**DEMO, tiering=True), topic="StockEvents",
+                        device=dev)
+    lines = [format_match(seq, name_of) for _, seq in proc.process(records)]
+    log(f"tiered demo: plan {proc.batch.plan.describe()}; "
+        f"{lines == EXPECTED and 'EXPECTED byte for byte' or lines}")
+    if lines != EXPECTED or proc.batch.plan.tier != "nfa":
+        fail(f"stock demo under tiering=True: {lines}")
+
+    # (d) each tiered instance timed on a prefix-dense batch of the tiered
+    # cell (the first planted one), beside its bound and plain version.
+    b0 = hot[0] * TIER_CHUNK
+    ev_b = window(EventBatch, tev, b0, b0 + TIER_CHUNK)
+    for label, extra in TIER_MODES.items():
+        conf = dict(tconf, **extra)
+        tk = tiered(bench_tier_pattern(Query), Kt, conf, switch=True)
+        mode = scan_kernel.mode_name(tk.matcher.config, tiered=True)
+        st = tk.init_state()
+        for c0 in range(0, b0, TIER_CHUNK):
+            st, _ = tk.scan(st, window(EventBatch, tev, c0, c0 + TIER_CHUNK))
+            st = tk.drain(st)[0]
+        carry, feed = tk._prefix.scan(st.carry, ev_b)
+        args = (tier_src, tk.matcher.config, tk.inner.phases, st.engine, ev_b)
+        eng_out, out, promoted = scan_kernel.scan_pass(*args, promo=(tk._promote, feed))
+        ms = cuda_ms(torch, lambda: scan_kernel.scan_pass(*args, promo=(tk._promote, feed)), 5)
+        bnd = scan_bound(st.engine, eng_out, ev_b, out, conf, extra=list(feed) + [promoted])
+        plain_ms = cuda_ms(torch, lambda: scan_kernel.scan_pass_plain(
+            tk.inner.phases, st.engine, window(EventBatch, ev_b, 0, PLAIN_SCAN_STEPS),
+            promo=(tk._promote, feed_window(feed, 0, PLAIN_SCAN_STEPS))), 1)
+        by_path = {"processor": proc_launches.get(mode, 0)}
+        if label == "eager":
+            by_path["tiered_cell"] = cell_launches
+        log_entry(mode, ms, plain_ms, bnd, by_path,
+                  f"the tiered cell's batch at step {b0} ({int(feed.fire.sum())} prefix "
+                  f"fires, {int(promoted.sum())} promoted), K={Kt}, {label}",
+                  tier_err.get(mode, 0))
+        del tk, st, eng_out, out
+    log(f"tiered phase: {time.perf_counter() - t8:.1f} s")
+
+
 def main() -> None:
     import torch
 
@@ -434,6 +885,26 @@ def main() -> None:
     cases = scan_cases(torch, EventBatch, Query, dev)
     sources = {name: scan_codegen.generate(lower(pat), make_ev(1).value)
                for name, (pat, _, make_ev, _) in cases.items()}
+    # Every instance a path below runs: the seven cases in their own mode
+    # and in the two-tier, attribution and combined modes (the stock
+    # cases' libraries also serve the demo, the headline and the lazy
+    # path); the tiered instances of the hybrid corpus (whose
+    # prefix_n_minus_1 library also serves the tiered processor) and of
+    # the tiered cell.
+    jobs = {}
+    for name, (_, conf, _, _) in cases.items():
+        for extra in [{}] + [mode_extra(m, conf) for m in SCAN_MODES]:
+            mode = scan_kernel.mode_of(EngineConfig(**conf, **extra))
+            jobs[(name, mode)] = (sources[name], mode)
+    letters = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+    hybrid_src = {name: scan_codegen.generate(lower(b(Query)), letters)
+                  for name, b in HYBRID.items()}
+    tier_src = scan_codegen.generate(lower(bench_tier_pattern(Query)), letters)
+    for extra in TIER_MODES.values():
+        for name, src in list(hybrid_src.items()) + [("tier_cell", tier_src)]:
+            conf = TIER_CELL if name == "tier_cell" else TIER_PARITY
+            mode = scan_kernel.mode_of(EngineConfig(**conf, **extra), tiered=True)
+            jobs[(name, mode)] = (src, mode)
     t0 = time.perf_counter()
     walk_errors = []
 
@@ -445,7 +916,7 @@ def main() -> None:
 
     walk_thread = threading.Thread(target=build_walk)
     walk_thread.start()
-    scan_paths = skern.build(*sources.values())
+    scan_paths = skern.build(*jobs.values())
     walk_thread.join()
     if walk_errors:
         fail(f"walk_pass build failed: {walk_errors[0]}")
@@ -454,14 +925,17 @@ def main() -> None:
     for line in kern.build_log.splitlines():
         if "registers" in line or "spill" in line:
             log(f"build: walk_pass ptxas {line.strip()}")
-    for name, src in sources.items():
-        lib = skern.library(src).name
+    for (name, mode), (src, _) in jobs.items():
+        lib = skern.library(src, mode).name
         secs = skern.build_seconds.get(lib)
-        log(f"build: scan_pass for {name!r} -> {lib}"
-            + (f" in {secs:.2f} s" if secs is not None else " (shared)"))
-        for line in skern.build_logs.get(lib, "").splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"build: scan_pass ptxas {line.strip()}")
+        ptxas = "; ".join(
+            line.split(":", 1)[-1].strip()
+            for line in skern.build_logs.get(lib, "").splitlines()
+            if "registers" in line or "spill" in line
+        )
+        log(f"build: scan_pass[{mode.name}] for {name!r} -> {lib}"
+            + (f" in {secs:.2f} s" if secs is not None else " (shared)")
+            + (f"; ptxas {ptxas}" if ptxas else ""))
 
     # 2. parity on random inputs --------------------------------------------
     max_err = {"default": 0}
@@ -836,11 +1310,11 @@ def main() -> None:
             fail("CEP_SCAN_KERNEL=1 but the matcher does not use the whole-scan kernel")
         return m
 
-    def scan_bound(state_in, state_out, events_in, out, conf):
+    def scan_bound(state_in, state_out, events_in, out, conf, extra=()):
         """``(bound_ms, bound_by, MB moved, hops)`` of one whole scan: each
         state leaf the kernel instance writes once in and once out, the
-        events once in, the output frames once out; the hops' compares
-        against the 32-bit rate."""
+        events (and ``extra``: a promotion feed and count) once, the output
+        frames once out; the hops' compares against the 32-bit rate."""
         written = scan_kernel.mode_fields(EngineConfig(**conf))
 
         def leaf(st, f):
@@ -849,7 +1323,8 @@ def main() -> None:
         ev = [events_in.key, events_in.ts, events_in.off, events_in.valid,
               *scan_codegen.value_leaves(events_in.value)]
         moved = (nbytes(leaf(state_in, f) for f in written)
-                 + nbytes(leaf(state_out, f) for f in written) + nbytes(ev) + nbytes(out))
+                 + nbytes(leaf(state_out, f) for f in written) + nbytes(ev) + nbytes(out)
+                 + nbytes(extra))
         hops = int(sum((getattr(state_out.slab, c) - getattr(state_in.slab, c)).sum()
                        for c in ("walk_hops", "extract_hops")))
         E_, MP_, D_ = state_in.slab.pstage.shape[1], state_in.slab.pstage.shape[2], \
@@ -884,6 +1359,44 @@ def main() -> None:
     log(f"scan parity: seven cases x K {PARITY_LANES} bit for bit "
         f"({time.perf_counter() - t0:.1f} s)")
 
+    # (b2) the two-tier, attribution and combined instances: the seven cases
+    # at each K against one plain run over all their lanes side by side
+    # (lanes are independent), sliced per K.
+    t0 = time.perf_counter()
+    demoted = 0
+    for name, (pat, conf, make_ev, scans) in cases.items():
+        for m in SCAN_MODES:
+            ccfg = EngineConfig(**conf, **mode_extra(m, conf))
+            mode = scan_kernel.mode_name(ccfg)
+            evs = [make_ev(Kc) for Kc in PARITY_LANES]
+            pbm_all = BatchMatcher(pat, sum(PARITY_LANES), ccfg, device=dev)
+            s_p = pbm_all.init_state()
+            s_ks = [BatchMatcher(pat, Kc, ccfg, device=dev).init_state() for Kc in PARITY_LANES]
+            for i in range(scans):
+                s_p, o_p = scan_kernel.scan_pass_plain(
+                    pbm_all.phases, s_p, cat_lanes(torch, EventBatch, evs))
+                lo = 0
+                for j, Kc in enumerate(PARITY_LANES):
+                    s_ks[j], o_k = scan_kernel.scan_pass(
+                        sources[name], ccfg, pbm_all.phases, s_ks[j], evs[j])
+                    torch.cuda.synchronize()
+                    err = max(max_abs_err(torch, s_ks[j], lanes(s_p, lo, lo + Kc)),
+                              max_abs_err(torch, o_k, lanes(o_p, lo, lo + Kc)))
+                    scan_err[mode] = max(scan_err.get(mode, 0), err)
+                    dem = int(s_ks[j].slab.demotions.sum())
+                    demoted += dem
+                    log(f"scan parity: {name} [{mode}] K={Kc} scan {i + 1}/{scans}: "
+                        f"max_abs_err {err}; match slots {int((o_k.count > 0).sum())}, "
+                        f"demotions {dem}, stage evals {int(s_ks[j].stage_counts[:, 0].sum())}")
+                    if err:
+                        fail(f"scan_pass[{mode}] kernel != plain ({name}, K={Kc}, scan {i + 1})")
+                    lo += Kc
+                evs = [advance(e) for e in evs]
+    if not demoted:
+        fail("no two-tier whole-scan parity case demoted an entry")
+    log(f"scan parity: seven cases x {len(SCAN_MODES)} modes x K {PARITY_LANES} bit for bit, "
+        f"{demoted} demotions ({time.perf_counter() - t0:.1f} s)")
+
     # (c) the headline scan: one whole-scan launch against phase 4's per-step path.
     sbm = scan_matcher(stock_pattern(Query), K, HEADLINE)
     t0 = time.perf_counter()
@@ -915,6 +1428,38 @@ def main() -> None:
     plain_head_ms = cuda_ms(torch, lambda: scan_kernel.scan_pass_plain(
         bm.phases, state0, window(EventBatch, events, 0, PLAIN_SCAN_STEPS)), 1)
     del s_state, s_out, step_state, step_out
+
+    # (c2) the headline scan in the two-tier, attribution and combined
+    # instances (one timed launch each, after an untimed warm-up).
+    mode_head = {}
+    for m in SCAN_MODES:
+        mconf = dict(HEADLINE, **mode_extra(m, HEADLINE))
+        mbm = scan_matcher(stock_pattern(Query), K, mconf)
+        mode = scan_kernel.mode_name(EngineConfig(**mconf))
+        m0 = mbm.init_state()
+        _, w_out = mbm.scan(m0, events)
+        int(w_out.count.sum())
+        del w_out
+        skern.reset_counts()
+        kern.reset_counts()
+        start.record()
+        m_state, m_out = mbm.scan(m0, events)
+        m_hits = (m_out.count > 0).sum()  # a reduction of the outputs, consumed below
+        end.record()
+        torch.cuda.synchronize()
+        m_ms = start.elapsed_time(end)
+        if skern.launches_by_mode.get(mode) != 1 or skern.launches != 1 or kern.launches:
+            fail(f"headline [{mode}] launched scan_pass {skern.launches_by_mode} and "
+                 f"walk_pass {kern.launches_by_mode}")
+        m_bound = scan_bound(m0, m_state, events, m_out, mconf)
+        m_plain = cuda_ms(torch, lambda: scan_kernel.scan_pass_plain(
+            mbm.phases, m0, window(EventBatch, events, 0, PLAIN_SCAN_STEPS)), 1)
+        mode_head[mode] = (m_ms, m_plain, m_bound)
+        log(f"scan headline [{mode}]: K={K} T={T}: {m_ms:.3f} ms = "
+            f"{K * T / (m_ms / 1e3):.0f} events/s, {int(m_hits)} run-slot matches "
+            f"(single tier, no attribution: {n_hits}); hot {mbm.hot_counters(m_state)}, "
+            f"stage evals {int(m_state.stage_counts[:, 0].sum())} [{smi}]")
+        del m_state, m_out, mbm, m0
 
     # (d) the lazy path, single tier: chunks and drains against the per-step path.
     pbm = BatchMatcher(stock_pattern(Query), K, EngineConfig(**LAZY_SINGLE), device=dev)
@@ -980,6 +1525,53 @@ def main() -> None:
         lsbm.phases, l_mid, window(EventBatch, chunk2, 0, PLAIN_SCAN_STEPS)), 1)
     del l_mid, l_out_state, l_out
 
+    # (d2) the lazy path itself (two-tier + attribution) as whole scans:
+    # each 64-step chunk one launch of the lazy two-tier attribution
+    # instance, then B1's two-tier attribution drain; every drain and the
+    # final state equal phase 5's per-step path.
+    lwbm = scan_matcher(stock_pattern(Query), K, LAZY_PATH)
+    lw_mode = scan_kernel.mode_name(lcfg)
+    t0 = time.perf_counter()
+    p_st, p_dr = drained(lbm)
+    k_st, k_dr = drained(lwbm)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(torch, k_st, p_st), max_abs_err(torch, k_dr, p_dr))
+    scan_err[lw_mode] = max(scan_err.get(lw_mode, 0), err)
+    if err:
+        fail(f"lazy path: whole scans != per-step path (max_abs_err {err})")
+    log(f"scan lazy path [{lw_mode}]: K={K} T={T} (E=96, E_hot=16, ring 512, attribution, "
+        f"drain every {LAZY_CHUNK}): whole scans == per-step path, bit for bit, in every "
+        f"drain and the final state ({sum(int((d.count > 0).sum()) for d in k_dr)} drained "
+        f"matches, hot {lwbm.hot_counters(k_st)}; {time.perf_counter() - t0:.1f} s)")
+    del p_st, p_dr, k_st, k_dr
+    skern.reset_counts()
+    kern.reset_counts()
+    start.record()
+    _, lw_n, lw_drains = chunked(lwbm, True)
+    end.record()
+    torch.cuda.synchronize()
+    lazy_whole_ms = start.elapsed_time(end)
+    lazy_whole_launches = skern.launches_by_mode.get(lw_mode, 0)
+    if (skern.launches != n_chunks or lazy_whole_launches != n_chunks
+            or kern.launches_by_mode.get(drain_mode, 0) != n_chunks
+            or kern.launches != n_chunks):
+        fail(f"lazy path as whole scans launched scan_pass {skern.launches_by_mode} and "
+             f"walk_pass {kern.launches_by_mode}, want {n_chunks} of each")
+    if int(lw_n) != l_slots:
+        fail(f"lazy path as whole scans: {int(lw_n)} drained match slots, per-step {l_slots}")
+    lw_drain_ms = sum(a.elapsed_time(b) for a, b in lw_drains) / len(lw_drains)
+    log(f"scan lazy path [{lw_mode}]: whole scans + drains {lazy_whole_ms:.3f} ms = "
+        f"{K * T / (lazy_whole_ms / 1e3):.0f} events/s (drain {lw_drain_ms:.3f} ms per pass), "
+        f"per-step path (phase 5) {lazy_ms:.1f} ms: {lazy_ms / lazy_whole_ms:.1f}x [{smi}]")
+    lw_mid, _ = lwbm.scan(lwbm.init_state(), window(EventBatch, events, 0, LAZY_CHUNK))
+    lw_mid, _ = lwbm.drain(lw_mid)
+    lw_out_state, lw_out = lwbm.scan(lw_mid, chunk2)
+    lw_chunk_ms = cuda_ms(torch, lambda: lwbm.scan(lw_mid, chunk2), 5)
+    lw_bound = scan_bound(lw_mid, lw_out_state, chunk2, lw_out, LAZY_PATH)
+    lw_plain_ms = cuda_ms(torch, lambda: scan_kernel.scan_pass_plain(
+        lwbm.phases, lw_mid, window(EventBatch, chunk2, 0, PLAIN_SCAN_STEPS)), 1)
+    del lw_mid, lw_out_state, lw_out
+
     # (e) the stock demo through CEPProcessor with the switch on.
     scan_demo = {"default": 0, "lazy": 0}
     os.environ["CEP_SCAN_KERNEL"] = "1"
@@ -998,6 +1590,25 @@ def main() -> None:
             fail(f"scan demo differs from EXPECTED or lost work: {lines} {counters}")
         if not proc.uses_scan_kernel or not scan_demo["default"] or kern.launches:
             fail("scan demo did not run through scan_pass alone")
+        for m in SCAN_MODES:
+            mconf = dict(DEMO, **mode_extra(m, DEMO))
+            mode = scan_kernel.mode_name(EngineConfig(**mconf))
+            skern.reset_counts()
+            kern.reset_counts()
+            proc = CEPProcessor(stock_pattern(Query), num_lanes=1,
+                                config=EngineConfig(**mconf), topic="StockEvents",
+                                device=dev)
+            lines = [format_match(seq, name_of) for _, seq in proc.process(records)]
+            counters = proc.counters()
+            scan_demo[mode] = skern.launches_by_mode.get(mode, 0)
+            log(f"scan demo [{mode}]: "
+                f"{lines == EXPECTED and 'EXPECTED byte for byte' or lines}; counters "
+                f"{counters}; scan_pass launches {skern.launches_by_mode}, walk_pass "
+                f"launches {kern.launches_by_mode}")
+            if lines != EXPECTED or any(counters.values()):
+                fail(f"scan demo [{mode}] differs from EXPECTED or lost work: {lines}")
+            if not scan_demo[mode] or kern.launches:
+                fail(f"scan demo [{mode}] did not run through scan_pass[{mode}] alone")
         for interval, chunks in ((1, [records]),
                                  (3, [records[i:i + 2] for i in range(0, 8, 2)])):
             skern.reset_counts()
@@ -1058,16 +1669,11 @@ def main() -> None:
         f"({int((f_out.count > 0).sum())} match slots)")
 
     # (g) the kernel report's whole-scan entries.
-    for mode, ms, plain_ms, bnd, by_path, on in (
-        ("default", scan_k_ms, plain_head_ms, head_bound,
-         {"headline": head_scan_launches, "demo": scan_demo["default"]},
-         f"the headline scan, K={K}, T={T}"),
-        ("lazy", lazy_chunk_ms, plain_lazy_ms, lazy_bound,
-         {"lazy_path": lazy_scan_launches, "lazy_demo": scan_demo["lazy"]},
-         f"the lazy path's second {LAZY_CHUNK}-step chunk, K={K}, E=96, single tier"),
-    ):
+    def scan_entry(mode, ms, plain_ms, bnd, by_path, on, err):
         bound_ms, bound_by, mb, hops = bnd
         launches = sum(by_path.values())
+        if not launches:
+            fail(f"scan_pass[{mode}] was launched no time on its main paths")
         log(f"scan_pass[{mode}]: {ms:.3f} ms per scan on {on} (plain version "
             f"{plain_ms:.1f} ms over its first {PLAIN_SCAN_STEPS} steps): {mb:.1f} MB "
             f"moved, {hops} hops -> bound {bound_ms:.4f} ms ({bound_by}); launches "
@@ -1075,11 +1681,32 @@ def main() -> None:
         report.append({
             "name": f"scan_pass[{mode}]", "route": "cuda", "source": SCAN_SOURCE,
             "replaces": SCAN_REPLACES, "launches": launches, "launches_by_path": by_path,
-            "max_abs_err": scan_err[mode], "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "plain_steps": PLAIN_SCAN_STEPS, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "timed_on": on,
         })
+
+    scan_entry("default", scan_k_ms, plain_head_ms, head_bound,
+               {"headline": head_scan_launches, "demo": scan_demo["default"]},
+               f"the headline scan, K={K}, T={T}", scan_err["default"])
+    scan_entry("lazy", lazy_chunk_ms, plain_lazy_ms, lazy_bound,
+               {"lazy_path": lazy_scan_launches, "lazy_demo": scan_demo["lazy"]},
+               f"the lazy path's second {LAZY_CHUNK}-step chunk, K={K}, E=96, single tier",
+               scan_err["lazy"])
+    for mode, (m_ms, m_plain, m_bound) in mode_head.items():
+        scan_entry(mode, m_ms, m_plain, m_bound, {"headline": 1, "demo": scan_demo[mode]},
+                   f"the headline scan [{mode}], K={K}, T={T}"
+                   + (", E_hot=16" if "two_tier" in mode else ""),
+                   scan_err.get(mode, 0))
+    scan_entry(lw_mode, lw_chunk_ms, lw_plain_ms, lw_bound,
+               {"lazy_path": lazy_whole_launches},
+               f"the lazy path's second {LAZY_CHUNK}-step chunk, K={K}, E=96, E_hot=16, "
+               "attribution", scan_err.get(lw_mode, 0))
     log(f"whole scan phase: {time.perf_counter() - t7:.1f} s")
+
+    tiered_phase(torch, dev, smi, log_entry=scan_entry, scan_bound=scan_bound,
+                 hybrid_src=hybrid_src, tier_src=tier_src, records=records,
+                 name_of=name_of)
 
     log(f"total: {time.perf_counter() - t_start:.1f} s after the card check")
     log(smi)

@@ -14,10 +14,13 @@ import numpy as np
 import torch
 
 from kafkastreams_cep_tpu_torch.engine.matcher import EngineState
+from kafkastreams_cep_tpu_torch.engine.stencil import PrefixCarry, PromoOutput
+from kafkastreams_cep_tpu_torch.engine.tiered import TieredState
 from kafkastreams_cep_tpu_torch.ops.slab import PutOps, SlabState
 
 #: This package's state classes, by name.
-CLASSES = {c.__name__: c for c in (EngineState, SlabState, PutOps)}
+CLASSES = {c.__name__: c for c in (EngineState, SlabState, PutOps, TieredState,
+                                   PrefixCarry, PromoOutput)}
 
 
 def _numpy(leaf) -> np.ndarray:

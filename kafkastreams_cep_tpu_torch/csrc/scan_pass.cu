@@ -2,15 +2,40 @@
 // each lane, T engine steps (predicates, the unrolled evaluation chain with
 // its folds, the consuming puts, every branch, removal and extraction walk,
 // queue compaction, and under lazy extraction the handle-ring append), with
-// the lane's run state and slab kept in device memory across all T steps.
+// the lane's run state and slab kept in device memory across all T steps;
+// in its tiered form, each step's promotions too.
 //
 // Replaces the Pallas kernel kafkastreams_cep_tpu/ops/scan_kernel.py:
-// build_scan (pallas_call :1595) in its single-query, single-tier modes
-// without stage attribution: eager (kLazy = false) and lazy extraction
-// (kLazy = true), each with and without enforce_windows (a runtime flag).
-// It computes what T steps of the plain PyTorch step compute
-// (engine/matcher.py: make_step over walk_pass_plain), bit for bit on every
-// state leaf, counter and output.
+// build_scan (pallas_call :1595) for one query, in all of its modes.  They
+// are compile-time template parameters of one kernel, and a library holds
+// the one instance a configuration needs (ops/scan_kernel.py builds it at
+// first use, -DCEP_LAZY/-DCEP_TWO_TIER/-DCEP_ATTR/-DCEP_PROMO):
+//
+//   kLazy     (lazy_extraction) completed matches become ring handles
+//             instead of extraction walks;
+//   kTwoTier  (slab_hot_entries > 0) the consuming puts run op by op in
+//             queue order (walk_pass.cuh: put_phase_two_tier, as
+//             _puts_sequential: the warp's min-reduce victim and a whole-row
+//             demotion), and each hop is counted by its entry's tier;
+//   kAttr     (stage_attribution) the chain tallies each frame's stage
+//             crossing (evaluated, accepted, ignored, rejected) into the
+//             lane's stage_counts [4, S], and each hop its walker's stage
+//             into stage_hops [S]; the lane's warp owns both, no atomics;
+//   kPromo    (build_scan(..., promotion=p), the tiered hybrid: "B3") after
+//             each step, where the stencil prefix completed, the p prefix
+//             puts (put_first at the root, a chained put per later stage,
+//             walk_pass.cuh: put_op) and the suffix run appended at the
+//             live count; a full queue counts in run_drops.  The step is
+//             gated per lane: a lane with no live run and no completion at
+//             t skips the engine phases and the promotion and only ticks
+//             step_seq, which changes nothing else (the Pallas kernel gates
+//             a 128-lane block per step, :1381).
+//
+// enforce_windows is a runtime flag of every instance.  The kernel computes
+// what T steps of the plain PyTorch step compute (engine/matcher.py:
+// make_step over walk_pass_plain), each followed under kPromo by
+// engine/tiered.py's promotion under the same per-lane gate, bit for bit on
+// every state leaf, counter and output.
 //
 // The pattern's predicates, folds and transition tables come from a header
 // that ops/scan_codegen.py generates ("cep_pattern.h": cep_pred, cep_fold,
@@ -24,14 +49,15 @@
 // across all T steps.  In each step:
 //
 //   1. every step writes the empty output frame (stage and off -1, count
-//      0); a padding step (valid == 0) does nothing else, so its state is
-//      untouched, as the plain step's final where() leaves it;
+//      0); a padding step (valid == 0), or under kPromo a lane with nothing
+//      to do, does nothing else;
 //   2. one thread owns one run (runs r, r + 32, ... for R > 32): it
 //      evaluates the predicates, runs the run's unrolled chain (deepest
 //      frame last) and its folds (deepest frame first), and writes the
 //      run's put ops, branch, removal and extraction walkers and queue
-//      candidates to a per-lane scratch in device memory;
-//   3. the consuming puts (walk_pass.cuh: put_phase, the closed form);
+//      candidates to a per-lane scratch in device memory (kAttr: its
+//      stage tally in registers, summed over the warp);
+//   3. the consuming puts (closed form, or op by op under kTwoTier);
 //   4. the walkers one at a time in queue order (walk_one); no extraction
 //      walker is enabled under kLazy, whose matches become ring handles;
 //   5. (kLazy) completed matches take consecutive ring slots from hr_count
@@ -39,7 +65,8 @@
 //      that do not fit count in handle_overflows;
 //   6. compaction: a warp prefix sum over the runs' candidate counts, in
 //      the queue order [survivor, branches deepest-first, re-seed], places
-//      each candidate; candidates past R count in run_drops.
+//      each candidate; candidates past R count in run_drops;
+//   7. (kPromo) the promotion.
 //
 // The Pallas kernel's one-hot selects, log-shift cumsums, lane-last
 // layouts and (8, 128) tiling were workarounds for Mosaic and are not
@@ -50,18 +77,20 @@
 // 2.5 GB for the headline K=4096, T=256, R=24, W=12); then the state, whose
 // slab (4E + 3E*MP + E*MP*D int32 a lane) crosses device memory once in
 // and once out per scan, not once per step as on the per-step path; then
-// the events.  Beyond the bytes each lane is a chain of dependent hops
-// (lookup -> pointer row -> next lookup) served one walker after another,
-// and the busiest lane of a block sets its time.  A later version should
+// the events (and the promotion feed).  Beyond the bytes each lane is a
+// chain of dependent hops (lookup -> pointer row -> next lookup) served one
+// walker after another, and the busiest lane of a block sets its time;
+// under kTwoTier each put is a serial search too.  A later version should
 // attack those lane-serial hops, and keep the slab in shared memory rather
 // than device memory (a headline lane's slab is 23 KB).
 //
 // Contract (checked by ops/scan_kernel.py): contiguous tensors; the state's
-// bool leaves (alive, branching) and the events' valid and bool leaves as
-// one-byte bools, everything else int32 or float32; MP <= 32, D <= 32,
-// at most 64 distinct predicates; unique (stage, off) keys per lane among
-// live entries.  Compile with -fmad=false: the folds and predicates round
-// every float operation, as the plain version does.
+// bool leaves (alive, branching), the events' valid and bool leaves and
+// the promotion feed's fire as one-byte bools, everything else int32 or
+// float32; MP <= 32, D <= 32, at most 64 distinct predicates, p <= D;
+// unique (stage, off) keys per lane among live entries.  Compile with
+// -fmad=false: the folds and predicates round every float operation, as
+// the plain version does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,6 +103,8 @@ namespace {
 constexpr int kWarps = 4;  // lanes (warps) per block
 constexpr int H = CEP_H;   // frames per run per event
 constexpr int NS = CEP_NS;  // fold states
+constexpr int S = CEP_S;    // stages (the attribution width)
+constexpr int kMaxPromo = 32;  // prefix length p <= D <= 32
 static_assert(CEP_G <= 64, "at most 64 predicates (a 64-bit mask per run)");
 
 // Per-lane scratch: offsets in int32 words and in bytes, for R runs and
@@ -128,6 +159,9 @@ enum { kSurvAlive = 1, kSurvFinal = 2, kSurvBranching = 4, kHasSucc = 8 };
 
 struct Args {
   int K, T, R, E, MP, D, W, HB, enforce_windows;
+  int EH;  // hot rows (kTwoTier)
+  int plen, promo_eval;  // prefix length p and the promoted run's eval stage
+  int promo_ident[kMaxPromo];  // the prefix stages' identities
   // events [K, T]
   const int *ev_key, *ev_ts, *ev_off;
   const uint8_t* ev_valid;
@@ -158,6 +192,17 @@ struct Args {
   // per-lane scratch: Layout::ints int32 and Layout::bytes bytes a lane
   int* scratch;
   uint8_t* flags;
+  // kTwoTier: hop tiers and demotions; kAttr: stage_counts [K, 4, S] and
+  // stage_hops [K, S]
+  const int *hot_hits, *hot_misses, *overflow_walks, *demotions,
+      *stage_counts, *stage_hops;
+  int *o_hot_hits, *o_hot_misses, *o_overflow_walks, *o_demotions,
+      *o_stage_counts, *o_stage_hops;
+  // kPromo: the stencil tier's feed [K, T] (offs [K, T, P]) and the
+  // promotion count [K]
+  const uint8_t* pr_fire;
+  const int *pr_offs, *pr_anchor, *pr_sver;
+  int* o_promoted;
   // event value leaves [K, T], in cep_load_event's order
   const void* leaves[CEP_NUM_LEAVES > 0 ? CEP_NUM_LEAVES : 1];
 };
@@ -188,12 +233,13 @@ __device__ __forceinline__ int warp_exclusive(int v, int* total) {
 
 // Phase 2 for run r (one thread): predicates, the unrolled chain
 // (engine/matcher.py: eval_chain), the folds, and the run's entries in the
-// put queue, the walker queue and the candidate tables.  Returns the run's
-// Dewey overflows.
-template <bool kLazy>
+// put queue, the walker queue and the candidate tables; under kAttr each
+// active frame's row of the stage tally (tl [4][S], this thread's) at its
+// stage.  Returns the run's Dewey overflows.
+template <bool kLazy, bool kAttr>
 __device__ __forceinline__ int chain_run(const Args& a, const Lane& L, int r,
-                                         const CepEvent& ev, int ts,
-                                         int off) {
+                                         const CepEvent& ev, int ts, int off,
+                                         int* tl) {
   const int R = a.R, D = a.D, RH = R * H;
   const bool alive = L.alive[r] != 0;
   const int id = L.id[r], ev_pos = L.eval[r], vlen = L.vlen[r];
@@ -245,6 +291,19 @@ __device__ __forceinline__ int chain_run(const Args& a, const Lane& L, int r,
                            (ig_m && begin_m) || (ig_m && pr_m)) &&
                           prev >= 0;
     const bool consumed = take_m || begin_m;
+    if constexpr (kAttr) {
+      // eval, accept, ignore, reject (nothing fired) at stage cs; the
+      // compares keep tl in registers.
+      const bool rej = active && !consumed && !ig_m && !pr_m;
+#pragma unroll
+      for (int x = 0; x < S; ++x) {
+        const bool at = x == cs;
+        tl[x] += at && active;
+        tl[S + x] += at && consumed;
+        tl[2 * S + x] += at && ig_m;
+        tl[3 * S + x] += at && rej;
+      }
+    }
     const bool st_ = take_m && !branch_m, sb = begin_m, si = ig_m && !branch_m;
     const int tgt = cep_consume_target[cs], ident_cs = cep_ident[cs];
     if (st_ || sb || si) {  // the survivor: at most one across the chain
@@ -376,7 +435,7 @@ __device__ __forceinline__ void place(const Lane& L, int D, int j, int id,
     L.n_agg[(size_t)j * NS + n] = agg ? agg[n] : cep_state_init[n];
 }
 
-template <bool kLazy>
+template <bool kLazy, bool kTwoTier, bool kAttr, bool kPromo>
 __global__ void __launch_bounds__(32 * kWarps) scan_pass(Args a) {
   extern __shared__ unsigned dead_smem[];  // [kWarps][E] tombstone bits
   const int t = threadIdx.x;
@@ -460,13 +519,30 @@ __global__ void __launch_bounds__(32 * kWarps) scan_pass(Args a) {
   c.pred_drops = a.pred_drops[k];
   c.walk_hops = a.walk_hops[k];
   c.extract_hops = a.extract_hops[k];
+  c.EH = a.EH;
+  if constexpr (kTwoTier) {
+    c.hot_hits = a.hot_hits[k];
+    c.hot_misses = a.hot_misses[k];
+    c.overflow_walks = a.overflow_walks[k];
+    c.demotions = a.demotions[k];
+  }
+  // This lane's stage tallies, accumulated in place (kAttr).
+  int* stc = a.o_stage_counts + (size_t)k * 4 * S;
+  if constexpr (kAttr) {
+    c.S = S;
+    c.sh = a.o_stage_hops + (size_t)k * S;
+    for (int i = t; i < S; i += 32) c.sh[i] = a.stage_hops[(size_t)k * S + i];
+    for (int i = t; i < 4 * S; i += 32) stc[i] = a.stage_counts[(size_t)k * 4 * S + i];
+  }
   int run_drops = a.run_drops[k], ver_overflows = a.ver_overflows[k];
-  int hr_count = 0, handle_overflows = 0;
+  int hr_count = 0, handle_overflows = 0, promoted = 0;
   if constexpr (kLazy) {
     hr_count = a.hr_count[k];
     handle_overflows = a.handle_overflows[k];
   }
   const int seq0 = a.step_seq[k];
+  // Put and promotion allocation: hot rows [0, EHk), overflow [EHk, E).
+  const int EHk = kTwoTier ? a.EH : E;
   __syncwarp();
 
   for (int tt = 0; tt < T; ++tt) {
@@ -479,26 +555,49 @@ __global__ void __launch_bounds__(32 * kWarps) scan_pass(Args a) {
     for (int i = t; i < R; i += 32) ocnt[i] = 0;
     __syncwarp();
     if (!a.ev_valid[ek]) continue;  // padding: the state stays as it is
+    bool fire = false;
+    if constexpr (kPromo) {
+      // The per-lane gate: no live run and no completion at t is nothing
+      // to do (an empty queue steps to itself but for step_seq).
+      fire = a.pr_fire[ek] != 0;
+      bool live = false;
+      for (int i = t; i < R; i += 32) live = live || L.alive[i] != 0;
+      if (!__ballot_sync(kFull, live) && !fire) continue;
+    }
     const int ts = a.ev_ts[ek], off = a.ev_off[ek];
     const CepEvent ev = cep_load_event(a.leaves, ek, a.ev_key[ek], ts);
 
     // 2. Chains and folds, one thread per run.
     int ovf = 0;
-    for (int r = t; r < R; r += 32) ovf += chain_run<kLazy>(a, L, r, ev, ts, off);
+    int tl[kAttr ? 4 * S : 1];
+#pragma unroll
+    for (int i = 0; i < (kAttr ? 4 * S : 1); ++i) tl[i] = 0;
+    for (int r = t; r < R; r += 32)
+      ovf += chain_run<kLazy, kAttr>(a, L, r, ev, ts, off, tl);
     ver_overflows += warp_sum(ovf);
+    if constexpr (kAttr) {
+#pragma unroll
+      for (int i = 0; i < 4 * S; ++i) {
+        const int v = warp_sum(tl[i]);
+        if (t == 0) stc[i] += v;
+      }
+    }
     __syncwarp();
 
     // 3. Consuming puts.
     const PutLane p{L.p_en, L.p_first, L.p_cur, L.p_pst, L.p_pof, L.p_pvl,
                     L.p_ver, off, RH, L.p_sc};
-    put_phase(p, s, c);
+    if constexpr (kTwoTier)
+      put_phase_two_tier(p, s, c);
+    else
+      put_phase(p, s, c);
 
     // 4. Walkers in queue order: branches, removals, extractions.
     for (int q = 0; q < PW; ++q) {
       if (!L.w_en[q]) continue;
       const int row = q - (RH + R);
       const int run = L.w_run[q];
-      walk_one<false, false, false>(
+      walk_one<kTwoTier, kAttr, false>(
           s, dead, L.w_stage[q], L.w_off[q], L.w_vlen[q],
           t < D ? L.ver[(size_t)run * D + t] : 0, q >= RH, row >= 0, W,
           row >= 0 ? ost + row * W : nullptr,
@@ -614,6 +713,41 @@ __global__ void __launch_bounds__(32 * kWarps) scan_pass(Args a) {
       for (int n = 0; n < NS; ++n) L.agg[(size_t)j * NS + n] = L.n_agg[(size_t)j * NS + n];
     }
     __syncwarp();
+
+    // 7. Promotion (engine/tiered.py: build_promote, scan_kernel.py:
+    // 1184-1378): the prefix chain's puts, then the suffix run at the live
+    // count (the live runs are a contiguous prefix after compaction).
+    if constexpr (kPromo) {
+      if (!fire) continue;
+      int live = 0;
+      for (int i = t; i < R; i += 32) live += L.alive[i] != 0;
+      const int cnt = warp_sum(live);
+      if (cnt >= R) {  // the run the untiered queue could not hold
+        ++run_drops;
+        continue;
+      }
+      const int* po = a.pr_offs + ek * a.plen;
+      // The promoted version [sver, 0, ..., 0], staged in the put scratch.
+      for (int d = t; d < D; d += 32) L.p_ver[d] = d == 0 ? a.pr_sver[ek] : 0;
+      __syncwarp();
+      for (int j = 0; j < a.plen; ++j)
+        put_op(s, c, j == 0, a.promo_ident[j], po[j],
+               j ? a.promo_ident[j - 1] : -1, j ? po[j - 1] : -1, j + 1,
+               L.p_ver, EHk);
+      if (t == 0) {
+        L.alive[cnt] = 1;
+        L.id[cnt] = a.promo_ident[a.plen - 1];
+        L.eval[cnt] = a.promo_eval;
+        L.vlen[cnt] = a.plen;
+        L.event[cnt] = po[a.plen - 1];
+        L.start[cnt] = a.pr_anchor[ek];
+        L.branching[cnt] = 0;
+      }
+      for (int d = t; d < D; d += 32) L.ver[(size_t)cnt * D + d] = L.p_ver[d];
+      for (int n = t; n < NS; n += 32) L.agg[(size_t)cnt * NS + n] = cep_state_init[n];
+      ++promoted;
+      __syncwarp();
+    }
   }
 
   if (t == 0) {
@@ -630,17 +764,21 @@ __global__ void __launch_bounds__(32 * kWarps) scan_pass(Args a) {
       a.o_hr_count[k] = hr_count;
       a.o_handle_overflows[k] = handle_overflows;
     }
+    if constexpr (kTwoTier) {
+      a.o_hot_hits[k] = c.hot_hits;
+      a.o_hot_misses[k] = c.hot_misses;
+      a.o_overflow_walks[k] = c.overflow_walks;
+      a.o_demotions[k] = c.demotions;
+    }
+    if constexpr (kPromo) a.o_promoted[k] = promoted;
   }
 }
 
-template <bool kLazy>
-int launch(const Args& a, cudaStream_t stream) {
-  const dim3 block(32, kWarps);
-  const dim3 grid((a.K + kWarps - 1) / kWarps);
-  const size_t smem = sizeof(unsigned) * kWarps * a.E;
-  scan_pass<kLazy><<<grid, block, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
+#ifndef CEP_LAZY
+#error "build one instance: -DCEP_LAZY=0|1 -DCEP_TWO_TIER=0|1 -DCEP_ATTR=0|1 -DCEP_PROMO=0|1"
+#endif
+constexpr bool kInstLazy = CEP_LAZY, kInstTwoTier = CEP_TWO_TIER,
+               kInstAttr = CEP_ATTR, kInstPromo = CEP_PROMO;
 
 }  // namespace
 
@@ -652,13 +790,29 @@ extern "C" void cep_scan_scratch(const int* dims, long long* sizes) {
   sizes[1] = (long long)l.bytes;
 }
 
+// This library's instance as bits: lazy 1, two-tier 2, attribution 4,
+// promotion 8.
+extern "C" int cep_scan_mode() {
+  return kInstLazy | kInstTwoTier << 1 | kInstAttr << 2 | kInstPromo << 3;
+}
+
+// dims: K, T, R, E, MP, D, W, HB, enforce_windows, EH, S, P, promo_eval,
+// then the P prefix identities.  Returns a CUDA error, or -1 when S is not
+// the pattern's stage count or P is out of range.
 extern "C" int cep_scan_pass(const int* dims, void* const* ptrs,
                              void* stream) {
   Args a;
   a.K = dims[0]; a.T = dims[1]; a.R = dims[2]; a.E = dims[3];
   a.MP = dims[4]; a.D = dims[5]; a.W = dims[6]; a.HB = dims[7];
-  const int lazy = dims[8];
-  a.enforce_windows = dims[9];
+  a.enforce_windows = dims[8];
+  a.EH = dims[9];
+  const int s_width = dims[10];
+  a.plen = dims[11];
+  a.promo_eval = dims[12];
+  if ((kInstAttr && s_width != S) || a.plen < 0 || a.plen > kMaxPromo ||
+      (kInstPromo && a.plen == 0))
+    return -1;
+  for (int j = 0; j < kMaxPromo; ++j) a.promo_ident[j] = j < a.plen ? dims[13 + j] : -1;
   int i = 0;
 #define P(f) a.f = static_cast<decltype(a.f)>(ptrs[i++])
   P(ev_key); P(ev_ts); P(ev_off); P(ev_valid);
@@ -670,6 +824,8 @@ extern "C" int cep_scan_pass(const int* dims, void* const* ptrs,
   P(run_drops); P(ver_overflows); P(step_seq);
   P(hr_stage); P(hr_off); P(hr_ver); P(hr_vlen); P(hr_ts); P(hr_seq);
   P(hr_row); P(hr_count); P(handle_overflows);
+  P(hot_hits); P(hot_misses); P(overflow_walks); P(demotions);
+  P(stage_counts); P(stage_hops);
   P(o_alive); P(o_branching); P(o_id_pos); P(o_eval_pos); P(o_ver);
   P(o_vlen); P(o_event_off); P(o_start_ts); P(o_agg);
   P(o_stage); P(o_off); P(o_refs); P(o_npreds); P(o_pstage); P(o_poff);
@@ -678,9 +834,16 @@ extern "C" int cep_scan_pass(const int* dims, void* const* ptrs,
   P(o_run_drops); P(o_ver_overflows); P(o_step_seq);
   P(o_hr_stage); P(o_hr_off); P(o_hr_ver); P(o_hr_vlen); P(o_hr_ts);
   P(o_hr_seq); P(o_hr_row); P(o_hr_count); P(o_handle_overflows);
+  P(o_hot_hits); P(o_hot_misses); P(o_overflow_walks); P(o_demotions);
+  P(o_stage_counts); P(o_stage_hops);
   P(out_stage); P(out_off); P(count); P(scratch); P(flags);
+  P(pr_fire); P(pr_offs); P(pr_anchor); P(pr_sver); P(o_promoted);
 #undef P
   for (int l = 0; l < CEP_NUM_LEAVES; ++l) a.leaves[l] = ptrs[i++];
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return lazy ? launch<true>(a, s) : launch<false>(a, s);
+  const dim3 block(32, kWarps);
+  const dim3 grid((a.K + kWarps - 1) / kWarps);
+  const size_t smem = sizeof(unsigned) * kWarps * a.E;
+  scan_pass<kInstLazy, kInstTwoTier, kInstAttr, kInstPromo>
+      <<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }

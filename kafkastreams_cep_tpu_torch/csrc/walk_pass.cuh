@@ -1,7 +1,8 @@
 // Device functions of the slab phase, shared by the walk-pass kernel
 // (walk_pass.cu, one engine step) and the whole-scan kernel (scan_pass.cu,
 // T steps): the consuming puts, in closed form or op by op under the
-// two-tier slab, and the body of one buffer walk.
+// two-tier slab (put_op, which the whole-scan kernel's promotion phase
+// also uses), and the body of one buffer walk.
 //
 // Every function here runs on one warp that owns one lane: the lane's slab
 // lives in device memory behind a SlabLane, and the functions keep the
@@ -270,89 +271,94 @@ __device__ __forceinline__ int warp_victim(const int* st, const int* of,
   return best_i;
 }
 
+// One put_first (fst) or chained put of one lane, run by the whole warp
+// (ops/slab.py: _put_first_ / _put_): the entry (cur, off), its
+// predecessor (pst, pof), the pointer's version pvr [D] and length pvl.  A
+// new entry takes the lowest free row in [0, EH); when there is none, the
+// hot row with the least off (lowest index on ties, a warp min-reduce)
+// moves its whole row to the lowest free row in [EH, E) and its slot is
+// reused (_alloc_slot).  EH = E is the single tier.  Single values are
+// written by thread 0 and rows by all threads, with __syncwarp before
+// anything written is read.
+__device__ __forceinline__ void put_op(const SlabLane& s, Tally& c, bool fst,
+                                       int cur, int off, int pst, int pof,
+                                       int pvl, const int* pvr, int EH) {
+  const int t = threadIdx.x;
+  const int E = s.E, MP = s.MP, D = s.D;
+  int *st = s.st, *of = s.of, *rf = s.rf, *np = s.np;
+  int *ps = s.ps, *po = s.po, *pl = s.pl, *pv = s.pv;
+  // A chained put needs its predecessor (KVSharedVersionedBuffer.java:
+  // 86-89); a miss is counted and the op dropped.
+  if (!fst && warp_find(st, of, E, pst, pof) < 0) {
+    ++c.missing;
+    return;
+  }
+  int e = warp_find(st, of, E, cur, off);
+  const bool found = e >= 0;
+  if (!found) {
+    e = warp_first_free(st, 0, EH);
+    if (e < 0) {
+      const int fo = warp_first_free(st, EH, E);
+      if (fo < 0) {  // the whole slab is full
+        ++c.full_drops;
+        return;
+      }
+      e = warp_victim(st, of, EH);
+      if (t == 0) {
+        st[fo] = st[e];
+        of[fo] = of[e];
+        rf[fo] = rf[e];
+        np[fo] = np[e];
+      }
+      for (int i = t; i < MP; i += 32) {
+        ps[fo * MP + i] = ps[e * MP + i];
+        po[fo * MP + i] = po[e * MP + i];
+        pl[fo * MP + i] = pl[e * MP + i];
+      }
+      for (int i = t; i < MP * D; i += 32)
+        pv[(size_t)fo * MP * D + i] = pv[(size_t)e * MP * D + i];
+      __syncwarp();
+      if (t == 0) {
+        st[e] = -1;
+        of[e] = -1;
+      }
+      ++c.demotions;
+    }
+  }
+  // put_first resets its entry (:117-128); a creation initializes it.
+  if (t == 0 && (fst || !found)) {
+    st[e] = cur;
+    of[e] = off;
+    rf[e] = 1;
+    np[e] = 0;
+  }
+  __syncwarp();
+  const int n = np[e];
+  __syncwarp();
+  if (n >= MP) {  // pointer list full
+    ++c.pred_drops;
+    return;
+  }
+  const int cc = e * MP + n;
+  if (t == 0) {
+    ps[cc] = fst ? -1 : pst;
+    po[cc] = fst ? -1 : pof;
+    pl[cc] = pvl;
+    np[e] = n + 1;
+  }
+  for (int d = t; d < D; d += 32) pv[(size_t)cc * D + d] = pvr[d];
+  __syncwarp();
+}
+
 // _puts_sequential for one lane (two-tier slab): each op in queue order is
-// a put_first or a chained put, allocating through _alloc_slot.  The whole
-// warp runs every op; single values are written by thread 0 and rows by
-// all threads, with __syncwarp before anything written is read.
+// a put_first or a chained put (put_op with EH = c.EH hot rows).
 __device__ __forceinline__ void put_phase_two_tier(const PutLane& p_,
                                                    const SlabLane& s,
                                                    Tally& c) {
-  const int t = threadIdx.x;
-  const int E = s.E, MP = s.MP, D = s.D, PP = p_.PP, EH = c.EH;
-  int *st = s.st, *of = s.of, *rf = s.rf, *np = s.np;
-  int *ps = s.ps, *po = s.po, *pl = s.pl, *pv = s.pv;
-  const uint8_t* en = p_.en;
-  const uint8_t* first = p_.first;
-  const int* cur = p_.cur;
-  const int* pst = p_.pst;
-  const int* pof = p_.pof;
-  const int* pvl = p_.pvl;
-  const int* pvr = p_.pvr;
-  const int off = p_.off;
-  for (int p = 0; p < PP; ++p) {
-    if (!en[p]) continue;
-    const bool fst = first[p] != 0;
-    // A chained put needs its predecessor (KVSharedVersionedBuffer.java:
-    // 86-89); a miss is counted and the op dropped.
-    if (!fst && warp_find(st, of, E, pst[p], pof[p]) < 0) {
-      ++c.missing;
-      continue;
-    }
-    int e = warp_find(st, of, E, cur[p], off);
-    const bool found = e >= 0;
-    if (!found) {
-      e = warp_first_free(st, 0, EH);
-      if (e < 0) {
-        const int fo = warp_first_free(st, EH, E);
-        if (fo < 0) {  // the whole slab is full
-          ++c.full_drops;
-          continue;
-        }
-        e = warp_victim(st, of, EH);
-        if (t == 0) {
-          st[fo] = st[e];
-          of[fo] = of[e];
-          rf[fo] = rf[e];
-          np[fo] = np[e];
-        }
-        for (int i = t; i < MP; i += 32) {
-          ps[fo * MP + i] = ps[e * MP + i];
-          po[fo * MP + i] = po[e * MP + i];
-          pl[fo * MP + i] = pl[e * MP + i];
-        }
-        for (int i = t; i < MP * D; i += 32)
-          pv[(size_t)fo * MP * D + i] = pv[(size_t)e * MP * D + i];
-        __syncwarp();
-        if (t == 0) {
-          st[e] = -1;
-          of[e] = -1;
-        }
-        ++c.demotions;
-      }
-    }
-    // put_first resets its entry (:117-128); a creation initializes it.
-    if (t == 0 && (fst || !found)) {
-      st[e] = cur[p];
-      of[e] = off;
-      rf[e] = 1;
-      np[e] = 0;
-    }
-    __syncwarp();
-    const int n = np[e];
-    __syncwarp();
-    if (n >= MP) {  // pointer list full
-      ++c.pred_drops;
-      continue;
-    }
-    const int cc = e * MP + n;
-    if (t == 0) {
-      ps[cc] = fst ? -1 : pst[p];
-      po[cc] = fst ? -1 : pof[p];
-      pl[cc] = pvl[p];
-      np[e] = n + 1;
-    }
-    for (int d = t; d < D; d += 32) pv[(size_t)cc * D + d] = pvr[(size_t)p * D + d];
-    __syncwarp();
+  for (int p = 0; p < p_.PP; ++p) {
+    if (!p_.en[p]) continue;
+    put_op(s, c, p_.first[p] != 0, p_.cur[p], p_.off, p_.pst[p], p_.pof[p],
+           p_.pvl[p], p_.pvr + (size_t)p * s.D, c.EH);
   }
 }
 

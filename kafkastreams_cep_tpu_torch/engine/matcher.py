@@ -72,15 +72,20 @@ class EngineConfig:
     # Per-stage tallies: frames evaluated/accepted/ignored/rejected per stage
     # (``stage_counts``) and walk hops by the walker's stage (``stage_hops``).
     stage_attribution: bool = False
-    tiering: bool = False  # stencil prefix tier (not in this slice)
-    gate_chunk: int = 32  # tiered gating granularity (not in this slice)
+    # Compiler tiering: ``CEPProcessor`` runs the query's maximal strict
+    # prefix on the stencil tier and promotes runs into this engine only
+    # where the prefix completes (``parallel/tiered.py``); ``TPUMatcher``
+    # and ``BatchMatcher`` themselves ignore it, as in the JAX package.
+    tiering: bool = False
+    # The hybrid tier's per-step path gates its NFA work per chunk of this
+    # many steps (any value gives the same results).
+    gate_chunk: int = 32
 
 
 def check_config(cfg: EngineConfig) -> None:
     """Refuse the configurations this port does not serve yet, rather than
     silently running something else."""
     off_slice = {
-        "tiering": cfg.tiering,
         "sequential_slab": cfg.sequential_slab,
         "walker_budget": cfg.walker_budget != 1,
     }
@@ -223,6 +228,14 @@ HOT_COUNTER_NAMES = (
 )
 
 WALK_COUNTER_NAMES = ("walk_hops", "extract_hops", "drain_hops")
+
+# Compiler-tiering telemetry: events the stencil prefix screened, prefix
+# completions, and runs promoted into the NFA tier (zeros untiered).
+TIER_COUNTER_NAMES = (
+    "prefix_events_screened",
+    "prefix_fires",
+    "tier_promotions",
+)
 
 # Row order of ``EngineState.stage_counts``.
 STAGE_TALLY_NAMES = (

@@ -2,26 +2,31 @@
 Hopper, beside its plain PyTorch version.
 
 Replaces ``kafkastreams_cep_tpu/ops/scan_kernel.py: build_scan`` (the
-Pallas kernel that runs a whole scan with state resident in VMEM) in its
-single-query, single-tier modes without stage attribution: eager and lazy
-extraction, each with and without ``enforce_windows``.  The kernel,
-``csrc/scan_pass.cu``, is ``template <bool kLazy>``; its header says how it
-maps lanes to warps and steps to a loop, what bounds it on the H100, and the
-contract it keeps.  It shares the slab phase with the walk-pass kernel
+Pallas kernel that runs a whole scan with state resident in VMEM) for one
+query in every mode it takes: eager or lazy extraction, single or two-tier
+slab, with or without stage attribution, each with and without
+``enforce_windows``; and its tiered form ``build_scan(..., promotion=p)``,
+which after each step promotes the stencil prefix's completions into the
+NFA tier (``promo=``).  The kernel, ``csrc/scan_pass.cu``, is ``template
+<bool kLazy, bool kTwoTier, bool kAttr, bool kPromo>``; its header says how
+it maps lanes to warps and steps to a loop, what bounds it on the H100, and
+the contract it keeps.  It shares the slab phase with the walk-pass kernel
 (``csrc/walk_pass.cuh``).
 
 A pattern's predicates and folds reach the kernel as C++ that
-``ops/scan_codegen.py`` generates into a header, ``cep_pattern.h``; the
-library is built per generated header with ``nvcc`` for ``sm_90a`` into
-``kafkastreams_cep_tpu_torch/build/``, keyed by a hash of the sources, the
-header and the flags, and bound with ``ctypes`` (a plain C entry point, no
-PyTorch headers).
+``ops/scan_codegen.py`` generates into a header, ``cep_pattern.h``; a
+library holds one instance for one generated header, built at first use
+with ``nvcc`` for ``sm_90a`` into ``kafkastreams_cep_tpu_torch/build/``,
+keyed by a hash of the sources, the header and the flags (the instance's
+among them), and bound with ``ctypes`` (a plain C entry point, no PyTorch
+headers).
 
-:func:`scan_pass` is the entry point ``BatchMatcher.scan`` calls.  For
-tensors on the CPU it runs :func:`scan_pass_plain` (T plain engine steps);
-for CUDA tensors it launches the kernel or raises — it never falls back.
-Both give the same result bit for bit; ``chip_smoke.py`` holds them against
-each other on the card.
+:func:`scan_pass` is the entry point ``BatchMatcher.scan`` and
+``TieredBatchMatcher.scan`` call.  For tensors on the CPU it runs
+:func:`scan_pass_plain` (T plain engine steps, each followed under
+``promo`` by the plain promotion); for CUDA tensors it launches the kernel
+or raises — it never falls back.  Both give the same result bit for bit;
+``chip_smoke.py`` holds them against each other on the card.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -45,6 +50,8 @@ from kafkastreams_cep_tpu_torch.engine.matcher import (
     StepPhases,
     make_step,
     scan_steps,
+    step_events,
+    tree_where,
 )
 from kafkastreams_cep_tpu_torch.ops.scan_codegen import ScanSource, value_leaves
 from kafkastreams_cep_tpu_torch.ops.walk_kernel import BUILD_DIR, _nvcc, walk_pass_plain
@@ -72,73 +79,129 @@ _COUNT_FIELDS = ("run_drops", "ver_overflows", "step_seq")
 #: The handle ring, written under lazy extraction only.
 _RING_FIELDS = ("hr_stage", "hr_off", "hr_ver", "hr_vlen", "hr_ts", "hr_seq",
                 "hr_row", "hr_count", "handle_overflows")
+#: The two-tier counters and the stage tallies (``stage_counts`` is the
+#: engine's, the rest the slab's).
+_HOT_FIELDS = ("hot_hits", "hot_misses", "overflow_walks", "demotions")
+_ATTR_FIELDS = ("stage_counts", "stage_hops")
+#: Every leaf the kernel takes, in its pointer order (in, then out).
+_FIELDS = (_RUN_FIELDS + _SLAB_FIELDS + _COUNT_FIELDS + _RING_FIELDS
+           + _HOT_FIELDS + _ATTR_FIELDS)
+_ENGINE_ONLY = set(_RUN_FIELDS + _COUNT_FIELDS + _RING_FIELDS) | {"stage_counts"}
 
 
-def mode_name(config: EngineConfig) -> str:
-    """The kernel instance a config runs: ``"default"`` or ``"lazy"``."""
-    return "lazy" if config.lazy_extraction else "default"
+class Mode(NamedTuple):
+    """One kernel instance (its template parameters)."""
+
+    lazy: bool
+    two_tier: bool
+    attribution: bool
+    tiered: bool
+
+    @property
+    def name(self) -> str:
+        """``"default"``, or the instance's modes joined by ``+``
+        (``"lazy"``, ``"two_tier+attribution"``, ``"lazy+tiered"``, ...)."""
+        parts = [f for f in self._fields if getattr(self, f)]
+        return "+".join(parts) or "default"
+
+    @property
+    def defines(self) -> Tuple[str, ...]:
+        return (f"-DCEP_LAZY={int(self.lazy)}", f"-DCEP_TWO_TIER={int(self.two_tier)}",
+                f"-DCEP_ATTR={int(self.attribution)}", f"-DCEP_PROMO={int(self.tiered)}")
+
+
+def mode_of(config: EngineConfig, tiered: bool = False) -> Mode:
+    """The kernel instance a config runs (``tiered``: with promotions)."""
+    return Mode(bool(config.lazy_extraction), bool(config.slab_hot_entries),
+                bool(config.stage_attribution), bool(tiered))
+
+
+def mode_name(config: EngineConfig, tiered: bool = False) -> str:
+    return mode_of(config, tiered).name
 
 
 def mode_fields(config: EngineConfig) -> Tuple[str, ...]:
     """The state leaves a kernel instance writes: the run state, the slab
-    and the counters, and the handle ring under lazy extraction."""
+    and the counters; the handle ring under lazy extraction; the hot-tier
+    counters under the two-tier slab; ``stage_counts`` and ``stage_hops``
+    under stage attribution."""
+    m = mode_of(config)
     return (_RUN_FIELDS + _SLAB_FIELDS + _COUNT_FIELDS
-            + (_RING_FIELDS if config.lazy_extraction else ()))
+            + (_RING_FIELDS if m.lazy else ())
+            + (_HOT_FIELDS if m.two_tier else ())
+            + (_ATTR_FIELDS if m.attribution else ()))
 
 
-def check_config(config: EngineConfig) -> None:
-    """The modes the kernel serves: single tier, no stage attribution."""
-    if config.slab_hot_entries or config.stage_attribution:
-        raise NotImplementedError(
-            "the whole-scan kernel (CEP_SCAN_KERNEL) serves a single-tier slab "
-            "without stage attribution; its two-tier and attribution modes "
-            "are not ported yet"
-        )
-
-
-def scan_pass_plain(phases: StepPhases, state: EngineState, events: EventBatch):
+def scan_pass_plain(phases: StepPhases, state: EngineState, events: EventBatch,
+                    promo=None):
     """The plain PyTorch version: ``T`` engine steps (``make_step`` over the
-    plain walk pass).  Returns ``(state, StepOutput [K, T, ...])``."""
-    return scan_steps(make_step(phases, walk_pass_plain), state, events)
+    plain walk pass).  Returns ``(state, StepOutput [K, T, ...])``.
+
+    With ``promo = (promote, feed)`` (``engine/tiered.py: Promote`` and the
+    stencil tier's ``PromoOutput [K, T, ...]``) each step is followed by
+    ``promote`` at that slot, and each lane is gated per step: a lane with
+    no live run and no completion at ``t`` is left as it is but for
+    ``step_seq``; returns ``(state, StepOutput, promoted [K])``."""
+    step = make_step(phases, walk_pass_plain)
+    if promo is None:
+        return scan_steps(step, state, events)
+    promote, feed = promo
+    K = state.alive.shape[0]
+    promoted = torch.zeros((K,), dtype=I32, device=state.alive.device)
+    outs = []
+    for t in range(events.ts.shape[1]):
+        fire = feed.fire[:, t].to(torch.bool)
+        needed = state.alive.any(dim=1) | fire
+        new, out = step(state, step_events(events, t))
+        state = tree_where(needed, new, state)._replace(step_seq=new.step_seq)
+        outs.append(StepOutput(
+            torch.where(needed[:, None, None], out.stage, -1),
+            torch.where(needed[:, None, None], out.off, -1),
+            torch.where(needed[:, None], out.count, 0),
+        ))
+        state, n = promote(state, fire, feed.offs[:, t], feed.anchor_ts[:, t],
+                           feed.sver[:, t])
+        promoted = promoted + n
+    return state, StepOutput(*(torch.stack(x, dim=1) for x in zip(*outs))), promoted
 
 
 class ScanPassKernel:
-    """The built kernel libraries (one per generated header) plus launch
-    counts.
+    """The built kernel libraries (one per generated header and instance)
+    plus launch counts.
 
     ``launches`` goes up by one for each kernel launch and for nothing
-    else, and ``launches_by_mode[mode_name(config)]`` with it."""
+    else, and ``launches_by_mode[mode.name]`` with it."""
 
     def __init__(self):
         self.launches = 0
         self.launches_by_mode: Dict[str, int] = {}
         self.build_logs: Dict[str, str] = {}
         self.build_seconds: Dict[str, float] = {}
-        self._libs: Dict[str, ctypes.CDLL] = {}
+        self._libs: Dict[Tuple[str, Mode], ctypes.CDLL] = {}
 
-    def library(self, source: ScanSource) -> Path:
-        """Where ``source``'s library lands (keyed by a hash of the kernel's
-        sources, the generated header and the flags)."""
+    def library(self, source: ScanSource, mode: Mode) -> Path:
+        """Where ``source``'s library of instance ``mode`` lands (keyed by a
+        hash of the kernel's sources, the generated header and the flags)."""
         blob = b"".join((CSRC / f).read_bytes() for f in SOURCES)
-        blob += source.header.encode() + " ".join(NVCC_FLAGS).encode()
+        blob += source.header.encode() + " ".join(NVCC_FLAGS + mode.defines).encode()
         tag = hashlib.sha256(blob).hexdigest()[:16]
         return BUILD_DIR / f"libscanpass-{tag}.so"
 
-    def build(self, *sources: ScanSource) -> List[Path]:
-        """Compile every source not built yet (one ``nvcc`` each, all
-        started together) and load them."""
+    def build(self, *items: Tuple[ScanSource, Mode]) -> List[Path]:
+        """Compile every ``(source, mode)`` not built yet (one ``nvcc``
+        each, all started together) and load them."""
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        outs = [self.library(s) for s in sources]
+        outs = [self.library(src, mode) for src, mode in items]
         jobs = []
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-            for src, out in zip(sources, outs):
+            for (src, mode), out in zip(items, outs):
                 if out.exists() or any(out == j[0] for j in jobs):
                     continue
                 inc = Path(tmp) / out.stem
                 inc.mkdir()
                 (inc / "cep_pattern.h").write_text(src.header)
                 tmp_out = inc / out.name
-                cmd = [_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", f"-I{inc}",
+                cmd = [_nvcc(), *NVCC_FLAGS, *mode.defines, f"-I{CSRC}", f"-I{inc}",
                        str(CSRC / "scan_pass.cu"), "-o", str(tmp_out)]
                 proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True)
@@ -155,8 +218,8 @@ class ScanPassKernel:
                 logger.info("built %s in %.1f s", out.name, self.build_seconds[out.name])
             if failed:
                 raise RuntimeError("\n".join(failed))
-        for src, out in zip(sources, outs):
-            if src.tag not in self._libs:
+        for (src, mode), out in zip(items, outs):
+            if (src.tag, mode) not in self._libs:
                 lib = ctypes.CDLL(str(out))
                 lib.cep_scan_pass.argtypes = [
                     ctypes.POINTER(ctypes.c_int),
@@ -169,7 +232,12 @@ class ScanPassKernel:
                     ctypes.POINTER(ctypes.c_longlong),
                 ]
                 lib.cep_scan_scratch.restype = None
-                self._libs[src.tag] = lib
+                lib.cep_scan_mode.restype = ctypes.c_int
+                bits = sum(int(v) << i for i, v in enumerate(mode))
+                if lib.cep_scan_mode() != bits:
+                    raise RuntimeError(f"{out.name} holds instance {lib.cep_scan_mode()}, "
+                                       f"not {mode.name}")
+                self._libs[(src.tag, mode)] = lib
         return outs
 
     def reset_counts(self) -> None:
@@ -177,13 +245,13 @@ class ScanPassKernel:
         self.launches_by_mode = {}
 
     def __call__(self, source: ScanSource, config: EngineConfig,
-                 state: EngineState, events: EventBatch):
-        check_config(config)
+                 state: EngineState, events: EventBatch, promo=None):
         K, R = state.alive.shape
         E, MP = state.slab.pstage.shape[1:]
         D = state.ver.shape[2]
         NS = state.agg.shape[2]
         HB = state.hr_stage.shape[1]
+        S = state.slab.stage_hops.shape[1]
         T = events.ts.shape[1]
         W = int(config.max_walk)
         dev = state.alive.device
@@ -191,7 +259,8 @@ class ScanPassKernel:
             raise ValueError(f"whole-scan kernel needs CUDA tensors, got {dev}")
         if MP > 32 or D > 32:
             raise ValueError(f"kernel needs MP <= 32 and D <= 32, got {MP}, {D}")
-        lazy = bool(config.lazy_extraction)
+        mode = mode_of(config, promo is not None)
+        EH = int(config.slab_hot_entries)
 
         def arg(x, shape, name, dtype=I32):
             if x.device != dev:
@@ -229,60 +298,79 @@ class ScanPassKernel:
             npreds=(K, E), pstage=(K, E, MP), poff=(K, E, MP),
             pvlen=(K, E, MP), pver=(K, E, MP, D), hr_stage=(K, HB),
             hr_off=(K, HB), hr_ver=(K, HB, D), hr_vlen=(K, HB), hr_ts=(K, HB),
-            hr_seq=(K, HB), hr_row=(K, HB),
+            hr_seq=(K, HB), hr_row=(K, HB), stage_counts=(K, 4, S),
+            stage_hops=(K, S),
         )
 
         def state_in(f):
-            leaf = getattr(state.slab, f) if f in _SLAB_FIELDS else getattr(state, f)
+            leaf = getattr(state, f) if f in _ENGINE_ONLY else getattr(state.slab, f)
             if f in ("alive", "branching"):
                 return flag(leaf, shapes[f], f)
             return arg(leaf, shapes.get(f, (K,)), f)
 
         # The kernel's pointer order; a leaf the mode does not write gets its
         # input as its output, which the kernel never touches.
-        fields = _RUN_FIELDS + _SLAB_FIELDS + _COUNT_FIELDS + _RING_FIELDS
-        ins = {f: state_in(f) for f in fields}
+        ins = {f: state_in(f) for f in _FIELDS}
         written = mode_fields(config)
-        outs = {f: (torch.empty_like(ins[f]) if f in written else ins[f]) for f in fields}
+        outs = {f: (torch.empty_like(ins[f]) if f in written else ins[f]) for f in _FIELDS}
         out_stage = torch.empty((K, T, R, W), dtype=I32, device=dev)
         out_off = torch.empty_like(out_stage)
         count = torch.empty((K, T, R), dtype=I32, device=dev)
+        promoted = torch.zeros((K,), dtype=I32, device=dev)
+        if promo is not None:
+            promote, feed = promo
+            P = promote.prefix_len
+            if not 0 < P <= D:
+                raise ValueError(f"prefix length {P} outside 1..D={D}")
+            pr = [flag(feed.fire, (K, T), "fire"), arg(feed.offs, (K, T, P), "offs"),
+                  arg(feed.anchor_ts, (K, T), "anchor_ts"), arg(feed.sver, (K, T), "sver"),
+                  promoted]
+            promo_dims = [P, promote.eval_pos] + list(promote.idents)
+        else:
+            pr = [None] * 5
+            promo_dims = [0, 0]
+
+        def result(new_state):
+            out = StepOutput(out_stage, out_off, count)
+            return (new_state, out) if promo is None else (new_state, out, promoted)
 
         if not (K and T):  # nothing to scan: the state stays as it is
-            return state, StepOutput(out_stage, out_off, count)
-        if source.tag not in self._libs:
-            self.build(source)
-        lib = self._libs[source.tag]
+            return result(state)
+        if (source.tag, mode) not in self._libs:
+            self.build((source, mode))
+        lib = self._libs[(source.tag, mode)]
         sizes = (ctypes.c_longlong * 2)()
         lib.cep_scan_scratch((ctypes.c_int * 2)(R, D), sizes)
         scratch = torch.empty((K, sizes[0]), dtype=I32, device=dev)
         flags = torch.empty((K, sizes[1]), dtype=torch.uint8, device=dev)
 
         tensors = (
-            ev + [ins[f] for f in fields] + [outs[f] for f in fields]
-            + [out_stage, out_off, count, scratch, flags] + ev_leaves
+            ev + [ins[f] for f in _FIELDS] + [outs[f] for f in _FIELDS]
+            + [out_stage, out_off, count, scratch, flags] + pr + ev_leaves
         )
-        dims = (ctypes.c_int * 10)(K, T, R, E, MP, D, W, HB, int(lazy),
-                                   int(bool(config.enforce_windows)))
-        ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+        dims = [K, T, R, E, MP, D, W, HB, int(bool(config.enforce_windows)), EH, S,
+                *promo_dims]
+        dims = (ctypes.c_int * len(dims))(*dims)
+        ptrs = (ctypes.c_void_p * len(tensors))(
+            *[None if x is None else x.data_ptr() for x in tensors]
+        )
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cep_scan_pass(dims, ptrs, ctypes.c_void_p(stream))
         if err:
-            raise RuntimeError(f"whole-scan kernel launch failed: CUDA error {err}")
+            raise RuntimeError(f"whole-scan kernel launch failed: error {err}")
         self.launches += 1
-        mode = mode_name(config)
-        self.launches_by_mode[mode] = self.launches_by_mode.get(mode, 0) + 1
+        self.launches_by_mode[mode.name] = self.launches_by_mode.get(mode.name, 0) + 1
 
         def state_out(f):
             leaf = outs[f]
             return leaf.view(torch.bool) if f in ("alive", "branching") else leaf
 
-        slab = state.slab._replace(**{f: state_out(f) for f in _SLAB_FIELDS})
-        new_state = state._replace(
-            slab=slab,
-            **{f: state_out(f) for f in _RUN_FIELDS + _COUNT_FIELDS + _RING_FIELDS},
+        slab = state.slab._replace(
+            **{f: state_out(f) for f in _FIELDS if f not in _ENGINE_ONLY}
         )
-        return new_state, StepOutput(out_stage, out_off, count)
+        return result(state._replace(
+            slab=slab, **{f: state_out(f) for f in _FIELDS if f in _ENGINE_ONLY},
+        ))
 
 
 #: The process's kernel libraries (built at first launch).
@@ -290,10 +378,10 @@ scan_pass_kernel = ScanPassKernel()
 
 
 def scan_pass(source: ScanSource, config: EngineConfig, phases: StepPhases,
-              state: EngineState, events: EventBatch):
+              state: EngineState, events: EventBatch, promo=None):
     """A ``[K, T]`` scan: the plain version for CPU tensors, the CUDA kernel
-    for CUDA tensors.  Returns ``(state, StepOutput [K, T, ...])``."""
+    for CUDA tensors.  Returns ``(state, StepOutput [K, T, ...])``, and
+    ``promoted [K]`` third with ``promo = (promote, feed)``."""
     if state.alive.is_cuda:
-        return scan_pass_kernel(source, config, state, events)
-    check_config(config)
-    return scan_pass_plain(phases, state, events)
+        return scan_pass_kernel(source, config, state, events, promo)
+    return scan_pass_plain(phases, state, events, promo)

@@ -9,11 +9,14 @@ PyTorch pass on the CPU.
 
 ``CEP_SCAN_KERNEL=1`` (or ``interpret``, accepted so that one environment
 drives both packages alike) runs each ``scan`` as one whole-scan kernel
-launch instead (``ops/scan_kernel.py``): the first scan traces the
-pattern's predicates and folds into C++ for the events' leaf dtypes
-(``ops/scan_codegen.py``), then builds and launches the kernel on CUDA, or
-runs its plain version on the CPU.  A pattern the code generator cannot
-express (:class:`~kafkastreams_cep_tpu_torch.ops.scan_codegen.LoweringError`,
+launch instead (``ops/scan_kernel.py``), in the instance of the config's
+modes (eager or lazy, single or two-tier slab, with or without stage
+attribution; the conjunct tally still runs once a batch around it): the
+first scan traces the pattern's predicates and folds into C++ for the
+events' leaf dtypes (``ops/scan_codegen.py``), then builds and launches the
+kernel on CUDA, or runs its plain version on the CPU.  A pattern the code
+generator cannot express
+(:class:`~kafkastreams_cep_tpu_torch.ops.scan_codegen.LoweringError`,
 raised on the host before any build) is logged and served by the per-step
 path for good; every other failure raises.
 """
@@ -29,6 +32,7 @@ from kafkastreams_cep_tpu_torch.compiler.tiering import build_conjunct_tally
 from kafkastreams_cep_tpu_torch.engine.matcher import (
     COUNTER_NAMES,
     HOT_COUNTER_NAMES,
+    TIER_COUNTER_NAMES,
     WALK_COUNTER_NAMES,
     EngineConfig,
     EngineState,
@@ -116,8 +120,6 @@ class BatchMatcher:
             "1", "interpret",
         )
         self._scan_sources: Dict[str, scan_codegen.ScanSource] = {}
-        if self.uses_scan_kernel:
-            scan_kernel.check_config(self.matcher.config)
 
     @property
     def names(self):
@@ -132,13 +134,7 @@ class BatchMatcher:
 
     def scan(self, state: EngineState, events: EventBatch):
         """Run a ``[K, T]`` batch; returns ``(state, StepOutput [K, T, ...])``."""
-        if self._conjunct_slots:
-            if self._conjunct_counts is None:
-                self._conjunct_counts = torch.zeros(
-                    (2, len(self._conjunct_slots)), dtype=torch.int32,
-                    device=self.device,
-                )
-            self._conjunct_counts = self._conjunct_tally(self._conjunct_counts, events)
+        self._accumulate_conjuncts(events)
         if self.uses_scan_kernel:
             source = self._scan_source(events)
             if source is not None:
@@ -146,6 +142,18 @@ class BatchMatcher:
                     source, self.matcher.config, self.phases, state, events
                 )
         return scan_steps(self.step, state, events)
+
+    def _accumulate_conjuncts(self, events: EventBatch) -> None:
+        """Add one batch to the conjunct tally (on the device, no host
+        read); a no-op unless ``stage_attribution`` is on."""
+        if not self._conjunct_slots:
+            return
+        if self._conjunct_counts is None:
+            self._conjunct_counts = torch.zeros(
+                (2, len(self._conjunct_slots)), dtype=torch.int32,
+                device=self.device,
+            )
+        self._conjunct_counts = self._conjunct_tally(self._conjunct_counts, events)
 
     def _scan_source(self, events: EventBatch):
         """The generated source for ``events``' structure and leaf dtypes,
@@ -221,3 +229,18 @@ class BatchMatcher:
         for stage, rows in self.conjunct_counters().items():
             report.setdefault(stage, {})["conjuncts"] = rows
         return report
+
+    def metrics_snapshot(self, state: EngineState) -> Dict[str, Any]:
+        """The engine's telemetry of ``state`` in one dict: the summed loss,
+        hot-tier and walk counters, the tier counters (structural zeros
+        untiered, so every matcher has one schema) and, under attribution,
+        ``per_stage``."""
+        out: Dict[str, Any] = {}
+        out.update(self.counters(state))
+        out.update(self.hot_counters(state))
+        out.update(self.walk_counters(state))
+        out.update({n: 0 for n in TIER_COUNTER_NAMES})
+        per_stage = self.stage_counters(state)
+        if per_stage:
+            out["per_stage"] = per_stage
+        return out

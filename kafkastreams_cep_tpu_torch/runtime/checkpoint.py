@@ -139,7 +139,9 @@ def restore_processor(
 
     ``pattern`` is compiled fresh (predicates and folds come from code);
     the checkpoint supplies only state, and a topology whose stage names,
-    fold-state names or fold dtypes differ is refused."""
+    fold-state names or fold dtypes differ is refused.  A tiered snapshot
+    (``engine/...`` and ``carry/...`` leaves) restores with its stencil
+    carry."""
     if ckpt is None:
         ckpt = load_checkpoint(path)
     header = ckpt["header"]
@@ -178,7 +180,10 @@ def restore_processor(
             "(typed agg bit patterns are not translatable across dtypes)"
         )
     proc.state = state_from_arrays(ckpt["arrays"], proc.state)
-    proc._step_base = int(np.max(ckpt["arrays"]["step_seq"]))
+    # step_seq is the per-lane step counter; a tiered state nests the
+    # engine's leaves under "engine/".
+    arrays = ckpt["arrays"]
+    proc._step_base = int(np.max(arrays.get("step_seq", arrays.get("engine/step_seq"))))
     proc._lane_of = dict(header["lane_of"])
     proc._key_of = {v: k for k, v in proc._lane_of.items()}
     proc._next_offset = np.asarray(header["next_offset"]).copy()

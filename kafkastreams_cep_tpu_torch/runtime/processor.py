@@ -28,14 +28,17 @@ import torch
 
 from kafkastreams_cep_tpu_torch.engine.matcher import (
     OFFSET_LIMIT,
+    TIER_COUNTER_NAMES,
     EngineConfig,
     EventBatch,
 )
+from kafkastreams_cep_tpu_torch.engine.tiered import engine_view
 from kafkastreams_cep_tpu_torch.ops.decode import compact_drained, compact_matches
 from kafkastreams_cep_tpu_torch.parallel.batch import BatchMatcher
+from kafkastreams_cep_tpu_torch.parallel.tiered import TieredBatchMatcher
 from kafkastreams_cep_tpu_torch.utils.events import Event, Sequence
 from kafkastreams_cep_tpu_torch.utils.logging import get_logger
-from kafkastreams_cep_tpu_torch.utils.metrics import Metrics
+from kafkastreams_cep_tpu_torch.utils.metrics import COUNTER_ATTRS, SECONDS_ATTRS, Metrics
 
 logger = get_logger("runtime")
 
@@ -160,6 +163,12 @@ class CEPProcessor:
     leave with it); ``flush()`` drains whatever is still pending.  The
     emission order is the eager engine's.
 
+    **Tiering** (``EngineConfig.tiering``): the engine is a
+    :class:`~kafkastreams_cep_tpu_torch.parallel.tiered.TieredBatchMatcher`,
+    which screens each batch with the query's strict prefix first; the
+    emitted stream is the untiered one.  ``profile`` (a measured
+    ``per_stage`` snapshot) orders its conjuncts; it is ignored untiered.
+
     ``device`` is where the engine runs: ``"cuda"`` by default (raises when
     there is no GPU), ``"cpu"`` for the plain PyTorch path.
     """
@@ -178,9 +187,14 @@ class CEPProcessor:
         decode_budget: int = 131072,
         pipeline: bool = False,
         drain_interval: int = 1,
+        profile=None,
         device="cuda",
     ):
-        self.batch = BatchMatcher(pattern, num_lanes, config, device)
+        if config is not None and config.tiering:
+            self.batch = TieredBatchMatcher(pattern, num_lanes, config,
+                                            profile=profile, device=device)
+        else:
+            self.batch = BatchMatcher(pattern, num_lanes, config, device)
         self.device = self.batch.device
         self.topic = topic
         self.num_lanes = int(num_lanes)
@@ -566,15 +580,20 @@ class CEPProcessor:
     def _gc_events(self) -> None:
         """Drop host events no longer reachable from device state: only
         events still in a lane's slab or pointed at by a live run can
-        appear in a future match."""
-        st = self.state
+        appear in a future match; under tiering, also the events of a
+        partial prefix held in the stencil carry."""
+        st = engine_view(self.state)
         slab_stage = st.slab.stage.cpu().numpy()
         slab_off = st.slab.off.cpu().numpy()
         run_alive = st.alive.cpu().numpy()
         run_off = st.event_off.cpu().numpy()
+        carry = getattr(self.state, "carry", None)
+        carry_off = None if carry is None else carry.offs.cpu().numpy()
         for k in range(self.num_lanes):
             live = set(slab_off[k][slab_stage[k] >= 0].tolist())
             live.update(run_off[k][run_alive[k]].tolist())
+            if carry_off is not None:
+                live.update(carry_off[k][carry_off[k] >= 0].tolist())
             store = self._events[k]
             for o in [o for o in store if o not in live]:
                 del store[o]
@@ -588,3 +607,33 @@ class CEPProcessor:
     def hot_counters(self) -> Dict[str, int]:
         """Lane-summed two-tier residency counters (not loss indicators)."""
         return self.batch.hot_counters(self.state)
+
+    def walk_counters(self) -> Dict[str, int]:
+        """Lane-summed walk-cost counters (not loss indicators)."""
+        return self.batch.walk_counters(self.state)
+
+    def tier_counters(self) -> Dict[str, int]:
+        """Compiler-tiering counters (events the stencil prefix screened,
+        prefix completions, promotions); structural zeros untiered."""
+        fn = getattr(self.batch, "tier_counters", None)
+        if fn is None:
+            return {n: 0 for n in TIER_COUNTER_NAMES}
+        return fn(self.state)
+
+    def metrics_snapshot(self) -> Dict[str, Any]:
+        """Runtime counters and phase seconds, the engine's loss, hot-tier,
+        walk and tier counters, the tiering plan (``tier_plan``, tiered
+        processors only) and, under attribution, ``per_stage``."""
+        snap: Dict[str, Any] = {n: getattr(self.metrics, n)
+                                for n in COUNTER_ATTRS + SECONDS_ATTRS}
+        snap.update(self.counters())
+        snap.update(self.hot_counters())
+        snap.update(self.walk_counters())
+        snap.update(self.tier_counters())
+        plan = getattr(self.batch, "plan", None)
+        if plan is not None:
+            snap["tier_plan"] = plan.describe()
+        per_stage = self.batch.stage_counters(self.state)
+        if per_stage:
+            snap["per_stage"] = per_stage
+        return snap

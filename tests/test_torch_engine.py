@@ -151,7 +151,7 @@ def test_oracle_differential_random_letters():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("tiering", True), ("sequential_slab", True), ("walker_budget", 2),
+    ("sequential_slab", True), ("walker_budget", 2),
 ])
 def test_out_of_slice_configs_raise(field, value):
     with pytest.raises(NotImplementedError):

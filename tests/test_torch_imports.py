@@ -39,6 +39,8 @@ def test_files_found():
     assert "kafkastreams_cep_tpu_torch/ops/walk_kernel.py" in FILES
     assert "kafkastreams_cep_tpu_torch/ops/scan_kernel.py" in FILES
     assert "kafkastreams_cep_tpu_torch/ops/scan_codegen.py" in FILES
+    for mod in ("engine/stencil.py", "engine/tiered.py", "parallel/tiered.py"):
+        assert f"kafkastreams_cep_tpu_torch/{mod}" in FILES
 
 
 @pytest.mark.parametrize("rel", FILES)

@@ -16,18 +16,22 @@ counter must equal the JAX package's, bit for bit:
   query lazily (E=96, a 512-handle ring; the drain compared through
   ``decode.compact_drained``);
 * for a JAX scan's state carried across by ``convert.py`` and continued on
-  the port's scan path.
+  the port's scan path;
+* in its tiered form (``promo=``), against JAX's tiered whole-scan kernel
+  (``build_scan(..., promotion=p)``, interpret mode) at K=128.
 
 It also pins the switch's contract: ``uses_scan_kernel`` is True on every
 pattern above; a predicate that calls ``torch`` falls back to the per-step
 path (logged, ``uses_scan_kernel`` False, results still equal to JAX); any
-other failure of code generation or of the kernel call propagates; the
-two-tier and attribution modes raise ``NotImplementedError``.
+other failure of code generation or of the kernel call propagates.  The
+same cases run in the two-tier, attribution and combined instances, eager
+and lazy, with the hot-tier counters and the stage and conjunct reports.
 
 The CUDA kernel itself runs only on a GPU (``chip_smoke.py``; the
 ``cuda``-marked test below skips without one).
 """
 
+import dataclasses
 import logging
 
 import jax.numpy as jnp
@@ -207,11 +211,41 @@ def scan_case(name):
     return ts.stock, conf, stock_events(4, 16, 5, holes=False), 2
 
 
+#: The two-tier and attribution modes: an 8-row hot tier (the kleene and
+#: lazy stock traces overflow it, so puts demote), stage attribution, and
+#: both.
+MODES = {
+    "two_tier": lambda conf: dict(conf, slab_hot_entries=8),
+    "attribution": lambda conf: dict(conf, stage_attribution=True),
+    "two_tier+attribution": lambda conf: dict(
+        conf, slab_hot_entries=8,
+        stage_attribution=True),
+}
+
+
 @pytest.mark.parametrize(
     "name", ["stock", "kleene_any", "ver_overflow", "enforce_windows", "stock_lazy"]
 )
 def test_scan_path_equals_jax_batch(monkeypatch, scan_calls, name):
+    check_scan_path(monkeypatch, scan_calls, name, None)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize(
+    "name", ["stock", "kleene_any", "ver_overflow", "enforce_windows", "stock_lazy"]
+)
+def test_scan_path_modes_equal_jax_batch(monkeypatch, scan_calls, name, mode):
+    """The two-tier, attribution and combined instances, eager and lazy:
+    every state leaf (the hot-tier counters, ``stage_counts`` and
+    ``stage_hops`` among them) and the stage and conjunct reports equal
+    JAX's."""
+    check_scan_path(monkeypatch, scan_calls, name, mode)
+
+
+def check_scan_path(monkeypatch, scan_calls, name, mode):
     builder, conf, events, scans = scan_case(name)
+    if mode is not None:
+        conf = MODES[mode](conf)
     K = events.ts.shape[0]
     jb = jax_batch(monkeypatch, builder, K, conf)
     tb = port_batch(monkeypatch, builder, K, conf)
@@ -226,6 +260,11 @@ def test_scan_path_equals_jax_batch(monkeypatch, scan_calls, name):
     assert tb.uses_scan_kernel and len(scan_calls) == scans
     if name == "ver_overflow":  # the trace really overflows
         assert int(tst.ver_overflows.sum()) > 0
+    if conf.get("stage_attribution"):
+        assert tb.stage_counters(tst) == jb.stage_counters(js)
+        assert int(tst.stage_counts.sum()) > 0 and int(tst.slab.stage_hops.sum()) > 0
+    if conf.get("slab_hot_entries") and name in ("kleene_any", "stock_lazy"):
+        assert int(tst.slab.demotions.sum()) > 0  # the hot tier overflowed
     if conf.get("lazy_extraction"):
         assert int(tst.hr_count.sum()) > 0
         js, j_d = jb.drain(js)
@@ -346,15 +385,6 @@ def test_other_failures_propagate(monkeypatch, where):
     assert tb.uses_scan_kernel
 
 
-@pytest.mark.parametrize(
-    "extra", [dict(slab_hot_entries=16), dict(stage_attribution=True)],
-    ids=["two_tier", "attribution"],
-)
-def test_unported_modes_raise(monkeypatch, extra):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        port_batch(monkeypatch, strict, 2, dict(CFG, slab_entries=32, **extra))
-
-
 @pytest.mark.parametrize("mode", ["0", "", "2"])
 def test_switch_off_uses_per_step_path(monkeypatch, scan_calls, mode):
     monkeypatch.setenv("CEP_SCAN_KERNEL", mode)
@@ -386,3 +416,53 @@ def test_kernel_equals_plain_on_gpu(monkeypatch):
             np.testing.assert_array_equal(a, b)
         for a, b in zip(got[1], want[1]):
             np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+def test_tiered_scan_path_equals_jax_tiered_scan_kernel(monkeypatch):
+    """The port's tiered whole-scan path (``promo=``; its plain version on
+    the CPU) against JAX's tiered whole-scan kernel (``build_scan(...,
+    promotion=p)``, interpret mode) at one 128-lane block, T=8, on
+    ``tests/test_tiering.py``'s ``KCFG``: outputs, promotions and every
+    state leaf (slab storage behind ``npreds`` masked).  The pattern has no
+    fold, so a lane the port's per-lane gate leaves unstepped equals one the
+    Pallas kernel's per-block gate steps through an empty queue."""
+    from test_tiering import KCFG, _kernel_trace, prefix_n_minus_1 as j_pn1
+    from kafkastreams_cep_tpu.parallel.tiered import TieredBatchMatcher as JTiered
+    from kafkastreams_cep_tpu_torch.parallel.tiered import TieredBatchMatcher
+
+    K, T = 128, 8
+    j_ev = _kernel_trace(K, T, 9)
+    t_ev = EventBatch(*(torch.as_tensor(np.array(x)) for x in j_ev))
+    conf = dict(dataclasses.asdict(KCFG), tiering=True)
+    monkeypatch.setenv("CEP_WALK_KERNEL", "0")
+    monkeypatch.setenv("CEP_SCAN_KERNEL", "interpret")
+    jt = JTiered(j_pn1(), K, JConfig(**conf))
+    monkeypatch.setenv("CEP_SCAN_KERNEL", "1")
+    tt = TieredBatchMatcher(prefix_n_minus_1(ts.TQuery), K, EngineConfig(**conf),
+                            device="cpu")
+    assert jt.uses_scan_kernel and tt.uses_scan_kernel
+    js, j_out = jt.scan(jt.init_state(), j_ev)
+    t_s, t_out = tt.scan(tt.init_state(), t_ev)
+    assert_outputs_equal(j_out, t_out, "tiered")
+    a, b = state_arrays(js), state_arrays(t_s)
+    assert a.keys() == b.keys()
+    eng = lambda arrays: canon_state(
+        {k[len("engine/"):]: v for k, v in arrays.items() if k.startswith("engine/")})
+    ea, eb = eng(a), eng(b)
+    for leaf in ea:
+        np.testing.assert_array_equal(ea[leaf], eb[leaf], err_msg=f"tiered {leaf}")
+    for leaf in (k for k in a if k.startswith("carry/")):
+        np.testing.assert_array_equal(a[leaf], b[leaf], err_msg=f"tiered {leaf}")
+    assert int(t_s.carry.promotions.sum()) > 0 and int((t_out.count > 0).sum()) > 0
+
+
+def prefix_n_minus_1(Q):
+    """``tests/test_tiering.py``'s prefix_n_minus_1: strict A, B, C, then
+    skip-till-next D (codes 0..3)."""
+    return (
+        Q().select("pa").where(ts.value_is(0))
+        .then().select("pb").where(ts.value_is(1))
+        .then().select("pc").where(ts.value_is(2))
+        .then().select("sd").skip_till_next_match().where(ts.value_is(3))
+        .build()
+    )
