@@ -67,7 +67,28 @@ Phases (any failure exits non-zero before the final line):
               eager, lazy and two-tier + attribution) emitting the untiered
               stream, strict3 on the stencil tier, and the stock demo (plan
               nfa) printing its four lines; (d) each tiered instance timed
-              beside its bound and its plain version.
+              beside its bound and its plain version;
+9. banks     — the multi-query paths, each step one walk-pass launch over
+              every query's lanes: (a) the stacked cell, ``bench.py:
+              bench_bank`` at 16 queries x 6,400 lanes x T=64, 16 serial
+              ``BatchMatcher``s against one ``StackedBankMatcher``: equal
+              outputs and counters, 16 x 64 against 64 launches, q-ev/s of
+              both, one stacked step's launch equal to the plain pass and
+              timed beside its bound, and ``choose_bank``'s pick on a
+              128-lane sample; (b) the tenant cell, ``bench.py:
+              bench_tenants`` at 300 Zipf-drawn tenants x 128 lanes x T=64:
+              the shared screen against the naive-fused stacked bank (38,400
+              lanes), bit-equal and loss-free, q-ev/s of both, the dedup
+              ratio and prefix hit rate; (c) the mixed tenant bank of
+              ``tests/test_multitenant.py`` at 4,096 lanes a query, 3 batches
+              of T=24: equal to serial matchers, a zero match-rate quota
+              sheds one tenant and leaves the others unchanged, and a
+              quarantined-then-reinstated tenant leaves the survivors equal
+              to a bank without it; (d) the stock demo through ``CEPBank``
+              beside a strict query, printing the four lines;
+10. spike    — the spike kernel (``spike_pallas.py``'s Pallas kernel on
+              Hopper) once on spike_pallas.py's main inputs, equal to its
+              plain version on seeds 0, 1 and 2, timed beside its bound.
 
 The last two lines of standard output are the kernel report (one JSON
 object) and the device line ``{"ok": true, "device": {...}}``; the card's
@@ -148,6 +169,23 @@ TIER_STEPS = 1024
 TIER_CHUNK = 128
 DROP_COUNTERS = ("run_drops", "slab_full_drops", "slab_pred_drops", "slab_trunc",
                  "walk_collisions", "handle_overflows")
+# bench.py: bench_bank (:1305) at its widest default bank: 16 threshold
+# queries over 102,400 lanes in all (6,400 a query), T=64, its config.
+BANK_N = 16
+BANK_TOTAL_LANES = 102400
+BANK_STEPS = 64
+BANK_CFG = dict(max_runs=8, slab_entries=16, slab_preds=4, dewey_depth=6, max_walk=6)
+# bench.py: bench_tenants (:1401) at N=300 tenants, with 128 lanes a query.
+TENANT_N = 300
+TENANT_K = 128
+TENANT_STEPS = 64
+TENANT_CFG = dict(max_runs=4, slab_entries=16, slab_preds=4, dewey_depth=8, max_walk=4)
+# tests/test_multitenant.py: MIXED and its CFG, at 4,096 lanes a query.
+MIXED_CFG = dict(max_runs=8, slab_entries=24, slab_preds=4, dewey_depth=32, max_walk=8)
+MIXED_K = 4096
+MIXED_STEPS = 8
+SPIKE_SOURCE = "kafkastreams_cep_tpu_torch/csrc/spike.cu"
+SPIKE_REPLACES = "spike_pallas.py:95"
 
 
 def log(msg: str) -> None:
@@ -308,6 +346,65 @@ HYBRID = {
     "p3_kleene": kleene_one_or_more_pattern,
     "pn1_strict3_skip": prefix_n_minus_1_pattern,
 }
+
+
+def bank_pattern(Query, i):
+    """bench.py: bench_bank's query ``q(i)``: price below a threshold, then
+    (skip-till-next) above another."""
+    lo, hi = 95 + i * 5, 120 - i * 3
+    return (
+        Query().select("a").where(lambda k, v, ts, st, lo=lo: v["price"] < lo)
+        .then().select("b").skip_till_next_match()
+        .where(lambda k, v, ts, st, hi=hi: v["price"] > hi)
+        .build()
+    )
+
+
+def tenant_pattern(Query, a, b, c):
+    """bench.py: bench_tenants' strict three-symbol alert rule."""
+    return (
+        Query().select("pa").where(lambda k, v, ts, st, a=a: v == a)
+        .then().select("pb").where(lambda k, v, ts, st, b=b: v == b)
+        .then().select("pc").where(lambda k, v, ts, st, c=c: v == c)
+        .build()
+    )
+
+
+def _ge(th):
+    return lambda k, v, ts, st, th=th: v["x"] >= th
+
+
+def _lt(th):
+    return lambda k, v, ts, st, th=th: v["x"] < th
+
+
+def mixed_patterns(Query):
+    """tests/test_multitenant.py: MIXED: two whole-pattern stencil queries,
+    two hybrid ones (one sharing the first's prefix) and a folded one."""
+    def stencil(a, b, c):
+        return (Query().select("a").where(_ge(a)).then().select("b").where(_lt(b))
+                .then().select("c").where(_ge(c)).build())
+
+    def hybrid(a, b, z):
+        return (Query().select("a").where(_ge(a)).then().select("b").where(_lt(b))
+                .then().select("z").skip_till_next_match().where(_ge(z)).build())
+
+    folded = (Query().select("a").where(_ge(8))
+              .fold("acc", lambda k, v, curr: curr + v["x"], init=0)
+              .then().select("b").skip_till_next_match()
+              .where(lambda k, v, ts, st: v["x"] > st.get("acc") % 4).build())
+    return [stencil(8, 3, 7), hybrid(8, 3, 9), hybrid(9, 1, 7), stencil(9, 2, 8), folded]
+
+
+def strict_stock_pattern(Query):
+    """A strict three-stage rule over the stock records, the bank demo's
+    second query."""
+    return (
+        Query().select("big").where(lambda k, v, ts, st: v["volume"] > 1000)
+        .then().select("up").where(lambda k, v, ts, st: v["price"] >= 120)
+        .then().select("thin").where(lambda k, v, ts, st: v["volume"] < 1000)
+        .build()
+    )
 
 
 def torch_call_pattern(Query):
@@ -855,6 +952,365 @@ def tiered_phase(torch, dev, smi, log_entry, scan_bound, hybrid_src, tier_src,
     log(f"tiered phase: {time.perf_counter() - t8:.1f} s")
 
 
+def bank_phase(torch, dev, smi, report, records, name_of):
+    """Phase 9: the multi-query banks, whose steps launch the walk-pass
+    kernel once over every query's lanes.
+
+    (a) the stacked cell: ``bench.py: bench_bank`` at 16 queries x 6,400
+    lanes, T=64, serial (16 ``BatchMatcher``s) against one
+    ``StackedBankMatcher``: equal outputs and counters, the launches
+    counted, one stacked step's launch held against the plain pass and
+    timed, ``choose_bank`` on a 128-lane sample; (b) the tenant cell:
+    ``bench.py: bench_tenants`` at N=300 over 128 lanes a query, the shared
+    screen against the naive-fused stacked bank: equal and loss-free; (c)
+    the mixed tenant bank against serial matchers, with a zero match-rate
+    quota and a quarantine/reinstatement; (d) the stock demo through
+    ``CEPBank``."""
+    from kafkastreams_cep_tpu_torch import BatchMatcher, EngineConfig, Query
+    from kafkastreams_cep_tpu_torch.compiler.multitenant import TenantQuota
+    from kafkastreams_cep_tpu_torch.engine.matcher import EventBatch, step_events
+    from kafkastreams_cep_tpu_torch.ops import walk_kernel
+    from kafkastreams_cep_tpu_torch.parallel.stacked import (
+        StackedBankMatcher, choose_bank, replicate_events,
+    )
+    from kafkastreams_cep_tpu_torch.parallel.tenantbank import TenantBankMatcher
+    from kafkastreams_cep_tpu_torch.runtime.bank import CEPBank
+
+    kern = walk_kernel.walk_pass_kernel
+    t9 = time.perf_counter()
+    i32 = torch.int32
+    by_path = {}
+
+    def batch(value, K, T, t0=0):
+        t = (torch.arange(T, dtype=i32, device=dev) + t0)[None, :].expand(K, T)
+        return EventBatch(key=torch.arange(K, dtype=i32, device=dev)[:, None].expand(K, T),
+                          value=value, ts=t, off=t,
+                          valid=torch.ones((K, T), dtype=torch.bool, device=dev))
+
+    def timed(fn):
+        """``fn()``'s result and its ms by CUDA events; ``fn`` returns a
+        reduction of its outputs, consumed inside the timed region."""
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        res = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return res, a.elapsed_time(b)
+
+    def equal_out(x, y):
+        return all(torch.equal(getattr(x, f), getattr(y, f)) for f in x._fields)
+
+    # (a) the stacked cell ------------------------------------------------------
+    N, T = BANK_N, BANK_STEPS
+    Kq = max((BANK_TOTAL_LANES // N) // 128 * 128, 128)
+    cfg = EngineConfig(**BANK_CFG)
+    prices = np.random.default_rng(13).integers(80, 141, size=(Kq, T)).astype(np.int32)
+    events = batch({"price": torch.as_tensor(prices, device=dev)}, Kq, T)
+    patterns = [bank_pattern(Query, i) for i in range(N)]
+    serial = [BatchMatcher(p, Kq, cfg, device=dev) for p in patterns]
+    s0 = [m.init_state() for m in serial]
+    serial[0].scan(s0[0], window(EventBatch, events, 0, 2))  # warm-up
+
+    def run_serial():
+        res = [m.scan(s, events) for m, s in zip(serial, s0)]
+        return res, sum((o.count > 0).sum() for _, o in res)
+
+    kern.reset_counts()
+    (serial_res, serial_hits), serial_ms = timed(run_serial)
+    serial_launches = kern.launches_by_mode.get("default", 0)
+    serial_counters = [m.counters(s) for m, (s, _) in zip(serial, serial_res)]
+    del s0
+    stacked = StackedBankMatcher(patterns, Kq, cfg, device=dev)
+    st0 = stacked.init_state()
+    stacked.scan(st0, window(EventBatch, events, 0, 2))  # warm-up
+
+    def run_stacked():
+        st, out = stacked.scan(st0, events)
+        return st, out, (out.count > 0).sum()
+
+    kern.reset_counts()
+    (st_s, out_s, stacked_hits), stacked_ms = timed(run_stacked)
+    stacked_launches = kern.launches_by_mode.get("default", 0)
+    if stacked_launches != T or kern.launches != T:
+        fail(f"stacked cell: walk_pass launches {kern.launches_by_mode}, want {T}")
+    if serial_launches != N * T:
+        fail(f"stacked cell: serial walk_pass launches {serial_launches}, want {N * T}")
+    for q, (_, o1) in enumerate(serial_res):
+        if not equal_out(type(o1)(*(x[q] for x in out_s)), o1):
+            fail(f"stacked cell: query {q} differs from its serial matcher")
+    want = {k: sum(c[k] for c in serial_counters) for k in serial_counters[0]}
+    got = stacked.counters(st_s)
+    if got != want or int(stacked_hits) != int(serial_hits) or not int(stacked_hits):
+        fail(f"stacked cell: counters {got} vs serial {want}, match slots "
+             f"{int(stacked_hits)} vs {int(serial_hits)}")
+    del serial_res, serial
+    qev = N * Kq * T
+    log(f"stacked cell: {N} queries x {Kq} lanes x {T} events: outputs and counters equal "
+        f"to the serial matchers; {int(stacked_hits)} match slots; counters {got}")
+    log(f"stacked cell: serial {serial_ms:.1f} ms = {qev / (serial_ms / 1e3):.0f} q-ev/s "
+        f"({serial_launches} walk_pass launches); stacked {stacked_ms:.1f} ms = "
+        f"{qev / (stacked_ms / 1e3):.0f} q-ev/s, {stacked_ms / T:.3f} ms/step "
+        f"({stacked_launches} launches); stacked/serial {serial_ms / stacked_ms:.2f}x; "
+        f"pred_stats {stacked.pred_stats} [{smi}]")
+    # One stacked step's walk pass, against the plain pass, timed.
+    ph = stacked.phases
+    s_mid, _ = stacked.scan(st0, window(EventBatch, events, 0, T // 2))
+    ev = step_events(replicate_events(events, N), T // 2)
+    rec = ph.eval_chain(s_mid, ev, stacked.qids)
+    ops = ph.build_puts(s_mid, rec)
+    wk = ph.build_walkers(s_mid, rec, ev)
+    args = (s_mid.slab, *wk, ph.max_walk, ph.out_base, ph.out_rows)
+    kw = dict(put_ops=ops, ev_off=ev.off)
+    got_k = kern(*args, **kw)
+    want_k = walk_kernel.walk_pass_plain(*args, **kw)
+    torch.cuda.synchronize()
+    bank_err = max_abs_err(torch, got_k, want_k)
+    log(f"stacked cell: step {T // 2}'s walk_pass over {N * Kq} lanes: kernel vs plain "
+        f"max_abs_err {bank_err}")
+    if bank_err:
+        fail("stacked cell: walk_pass kernel != plain on a stacked step")
+    bank_ms = cuda_ms(torch, lambda: kern(*args, **kw), 20)
+    bank_plain_ms = cuda_ms(torch, lambda: walk_kernel.walk_pass_plain(*args, **kw), 1)
+    bank_bound = bound(s_mid.slab, got_k[0], walk_kernel.mode_fields(0, 0, False),
+                       list(wk) + list(ops) + [ev.off], got_k[1:], cfg.slab_entries,
+                       cfg.slab_preds, cfg.dewey_depth)
+    del s_mid, rec, ops, wk, args, got_k, want_k, out_s, st_s
+    sample = EventBatch(events.key[:128], {"price": events.value["price"][:128]},
+                        events.ts[:128], events.off[:128], events.valid[:128])
+    mode, det = choose_bank(patterns, cfg, sample, reps=1, device=dev)
+    log(f"stacked cell: choose_bank on a 128-lane sample picks {mode} ({det}); at full "
+        f"width the {'stacked' if stacked_ms <= serial_ms else 'serial'} side was faster "
+        f"[{smi}]")
+    by_path["stacked_cell"] = stacked_launches
+    del stacked, st0
+
+    # (b) the tenant cell -------------------------------------------------------
+    rng = np.random.default_rng(29)
+    pool = [(int(a), int(b)) for a, b in rng.integers(1, 8, size=(16, 2))]
+    Kt, Tt = TENANT_K, TENANT_STEPS
+    codes = rng.integers(8, 64, size=(Kt, Tt)).astype(np.int32)
+    planted = [(int(rng.integers(0, Kt)), int(rng.integers(0, Tt - 3))) for _ in range(6)]
+    z = rng.zipf(1.5, size=TENANT_N)
+    params = []
+    for i in range(TENANT_N):
+        a, b = pool[int(z[i] - 1) % len(pool)]
+        params.append((a, b, int(rng.integers(1, 8))))
+    for j, (k, t) in enumerate(planted):
+        codes[k, t:t + 3] = params[j % TENANT_N]
+    tev = batch(torch.as_tensor(codes, device=dev), Kt, Tt)
+    tcfg = EngineConfig(**TENANT_CFG)
+    tpats = [tenant_pattern(Query, *p) for p in params]
+    tbank = TenantBankMatcher(tpats, Kt, tcfg, device=dev)
+    tbank.scan(tbank.init_state(), window(EventBatch, tev, 0, 2))  # warm-up
+    t_init = tbank.init_state()
+
+    def run_tenant():
+        st, out = tbank.scan(t_init, tev)
+        return st, out, (out.count > 0).sum()
+
+    kern.reset_counts()
+    (t_st, t_out, t_hits), tenant_ms = timed(run_tenant)
+    if kern.launches:
+        fail(f"tenant cell: the shared screen launched walk_pass {kern.launches} times")
+    naive = StackedBankMatcher(tpats, Kt, tcfg, device=dev)
+    n_init = naive.init_state()
+    naive.scan(n_init, window(EventBatch, tev, 0, 2))  # warm-up
+
+    def run_naive():
+        st, out = naive.scan(n_init, tev)
+        return st, out, (out.count > 0).sum()
+
+    kern.reset_counts()
+    (n_st, n_out, n_hits), naive_ms = timed(run_naive)
+    naive_launches = kern.launches_by_mode.get("default", 0)
+    if naive_launches != Tt:
+        fail(f"tenant cell: naive-fused walk_pass launches {naive_launches}, want {Tt}")
+    tc, nc = tbank.counters(t_st), naive.counters(n_st)
+    if not equal_out(t_out, n_out) or any(tc.values()) or any(nc.values()):
+        fail(f"tenant cell: shared screen vs naive-fused: equal {equal_out(t_out, n_out)}, "
+             f"counters {tc} / {nc}")
+    if not int(t_hits):
+        fail("tenant cell: no planted occurrence matched")
+    stats = tbank.bank.stats
+    qev = TENANT_N * Kt * Tt
+    log(f"tenant cell: {TENANT_N} queries x {Kt} lanes x {Tt} events ({Kt} lanes a query "
+        f"where bench_tenants took 8): {int(t_hits)} matches bit-equal, both loss-free; "
+        f"shared screen {tenant_ms:.2f} ms = {qev / (tenant_ms / 1e3):.0f} q-ev/s; "
+        f"naive-fused ({TENANT_N * Kt} lanes) {naive_ms:.1f} ms = "
+        f"{qev / (naive_ms / 1e3):.0f} q-ev/s ({naive_launches} walk_pass launches); "
+        f"speed-up {naive_ms / tenant_ms:.1f}x; pred_dedup_ratio "
+        f"{stats['pred_dedup_ratio']:.2f}, prefix hit rate "
+        f"{stats['prefix_shared_hit_rate']:.4f}, {stats['prefix_columns_distinct']}/"
+        f"{stats['prefix_columns_total']} distinct prefix columns [{smi}]")
+    by_path["tenant_cell_naive_fused"] = naive_launches
+    del naive, n_init, n_st, n_out, t_out, t_st, tbank
+
+    # (c) the mixed tenant bank -------------------------------------------------
+    Km, Tm = MIXED_K, MIXED_STEPS
+    mcfg = EngineConfig(**MIXED_CFG)
+
+    def mtrace(b):
+        """The test's trace for seed 31 + b, its offsets and timestamps
+        running on from batch to batch."""
+        xs = np.random.default_rng(31 + b).integers(0, 10, size=(Km, Tm)).astype(np.int32)
+        return batch({"x": torch.as_tensor(xs, device=dev)}, Km, Tm, t0=b * Tm)
+
+    mev = [mtrace(b) for b in range(3)]
+    names = [f"q{i}" for i in range(5)]
+    kern.reset_counts()
+    mbank = TenantBankMatcher(mixed_patterns(Query), Km, mcfg, names=names, device=dev)
+    m_st, m_outs = mbank.init_state(), []
+    for ev_b in mev:
+        m_st, o = mbank.scan(m_st, ev_b)
+        m_outs.append(o)
+    mixed_launches = kern.launches_by_mode.get("default", 0)
+    tiers = [mbank.tier_of(q) for q in range(5)]
+    if not mixed_launches or kern.launches != mixed_launches:
+        fail(f"mixed bank: walk_pass launches {kern.launches_by_mode}")
+    summed = {}
+    for q, pat in enumerate(mixed_patterns(Query)):
+        m = BatchMatcher(pat, Km, mcfg, device=dev)
+        s = m.init_state()
+        for b, ev_b in enumerate(mev):
+            s, o1 = m.scan(s, ev_b)
+            if not equal_out(type(o1)(*(x[q] for x in m_outs[b])), o1):
+                fail(f"mixed bank: query {q} batch {b} differs from its serial matcher")
+        for k, v in m.counters(s).items():
+            summed[k] = summed.get(k, 0) + v
+    bc = mbank.counters(m_st)
+    drop = lambda d: {k: v for k, v in d.items() if k != "slab_missing"}
+    capacity = {k: bc[k] for k in DROP_COUNTERS + ("ver_overflows",)}
+    tcm = mbank.tier_counters(m_st)
+    if any(capacity.values()) or drop(bc) != drop(summed) or not tcm["tier_promotions"]:
+        fail(f"mixed bank: counters {bc} vs serial {summed}; tier {tcm}")
+    log(f"mixed bank: tiers {tiers}, K={Km} x T={Tm} x 3 batches: every query equal to its "
+        f"serial matcher, capacity counters 0, counters equal (slab_missing aside); tier "
+        f"{tcm}; {sum(int((o.count > 0).sum()) for o in m_outs)} match slots; walk_pass "
+        f"launches {mixed_launches} (the nfa and hybrid groups) [{smi}]")
+    by_path["mixed_bank"] = mixed_launches
+    # A zero match-rate quota on hybrid q1: shed, the others unchanged.
+    qbank = TenantBankMatcher(mixed_patterns(Query), Km, mcfg, names=names, device=dev,
+                              quotas={"q1": TenantQuota(match_rate_budget=0.0)})
+    q_st = qbank.init_state()
+    for b, ev_b in enumerate(mev):
+        q_st, o = qbank.scan(q_st, ev_b)
+        if o.count[1].any() or not all(torch.equal(getattr(o, f)[[0, 2, 3, 4]],
+                                                   getattr(m_outs[b], f)[[0, 2, 3, 4]])
+                                       for f in o._fields):
+            fail(f"mixed bank quota: batch {b}: q1 emitted or another tenant changed")
+    shed = int(qbank.iso.quota_shed[1])
+    if not shed:
+        fail("mixed bank quota: nothing shed")
+    log(f"mixed bank: match_rate_budget=0 on q1: quota_shed {shed}, q1 silent, the other "
+        f"tenants equal to the unquotaed bank in every batch")
+    del qbank, q_st
+    # Quarantine hybrid q1 for batch 1, reinstate it for batch 2.
+    fbank = TenantBankMatcher(mixed_patterns(Query), Km, mcfg, names=names, device=dev)
+    keep = [0, 2, 3, 4]
+    rbank = TenantBankMatcher([mixed_patterns(Query)[i] for i in keep], Km, mcfg, device=dev)
+    f_st, r_st = fbank.init_state(), rbank.init_state()
+    for b, ev_b in enumerate(mev):
+        if b == 1:
+            fbank.quarantine(1)
+        if b == 2:
+            fbank.reinstate(1)
+        f_st, fo = fbank.scan(f_st, ev_b)
+        r_st, ro = rbank.scan(r_st, ev_b)
+        if not all(torch.equal(getattr(fo, f)[keep], getattr(ro, f)) for f in fo._fields):
+            fail(f"mixed bank quarantine: survivors differ from the bank without q1 "
+                 f"(batch {b})")
+        if b == 1 and fo.count[1].any():
+            fail("mixed bank quarantine: q1 emitted while quarantined")
+    log("mixed bank: q1 quarantined for batch 1 and reinstated for batch 2: the "
+        "survivors equal a bank built without q1 in every batch; q1 silent while dark")
+    del fbank, rbank, f_st, r_st, mbank, m_st, m_outs
+
+    # (d) the bank demo ---------------------------------------------------------
+    kern.reset_counts()
+    bank = CEPBank({"stock": stock_pattern(Query), "strict": strict_stock_pattern(Query)},
+                   num_lanes=1, config=EngineConfig(**DEMO), topic="StockEvents", device=dev)
+    got = bank.process(records)
+    lines = [format_match(seq, name_of) for name, _, seq in got if name == "stock"]
+    strict_lines = [format_match(seq, name_of) for name, _, seq in got if name == "strict"]
+    demo_launches = kern.launches_by_mode.get("default", 0)
+    for line in lines:
+        log(f"bank demo: stock {line}")
+    log(f"bank demo: strict {strict_lines}; counters {bank.counters()}; walk_pass "
+        f"launches {demo_launches}")
+    if lines != EXPECTED or strict_lines != ['{"big":["e3"],"up":["e4"],"thin":["e5"]}']:
+        fail(f"bank demo: stock {lines}, strict {strict_lines}")
+    if not demo_launches or any(v for c in bank.counters().values() for v in c.values()):
+        fail("bank demo: no walk_pass launch or lost work")
+    by_path["bank_demo"] = demo_launches
+
+    bound_ms, bound_by, mb, hops = bank_bound
+    log(f"walk_pass[bank]: {bank_ms:.3f} ms/launch (plain {bank_plain_ms:.1f} ms) on the "
+        f"stacked cell's step {T // 2}, {N * Kq} lanes: {mb:.1f} MB moved, {hops} hops -> "
+        f"bound {bound_ms:.4f} ms ({bound_by}); launches {by_path} [{smi}]")
+    report.append({
+        "name": "walk_pass[bank]", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": bank_err, "ms": bank_ms, "plain_ms": bank_plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "timed_on": f"the stacked cell's step {T // 2}, {N} queries x {Kq} lanes",
+    })
+    log(f"bank phase: {time.perf_counter() - t9:.1f} s")
+
+
+def spike_inputs(torch, seed, dev):
+    """spike_pallas.py: main's inputs for ``seed`` (main uses seed 0)."""
+    T, L, E, MP, D = 32, 128, 16, 4, 6
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(x.astype(np.int32), device=dev) for x in (
+        rng.integers(0, 3, (T, L)), rng.integers(0, 3, (E, L)),
+        rng.integers(0, 3, (E, MP, D, L))))
+
+
+def spike_phase(torch, dev, smi, report):
+    """Phase 10: the spike kernel (``csrc/spike.cu``) on spike_pallas.py's
+    main path (one call on its inputs), held against its plain version on
+    seeds 0, 1 and 2 and timed beside its bound."""
+    from kafkastreams_cep_tpu_torch.ops import spike_kernel as sk
+
+    kern = sk.spike_kernel
+    ev, stage, pver = spike_inputs(torch, 0, dev)
+    kern.launches = 0
+    out = sk.spike(ev, stage, pver)
+    launches = kern.launches
+    if launches != 1 or not bool(torch.isfinite(out).all()) or out.shape != (sk.ROWS, 128):
+        fail(f"spike: {launches} launches, output {tuple(out.shape)}")
+    err = 0.0
+    for seed in (0, 1, 2):
+        x = spike_inputs(torch, seed, dev)
+        got, want = kern(*x), sk.spike_plain(*x)
+        e = float((got - want).abs().max())
+        err = max(err, e)
+        log(f"spike: seed {seed}: kernel vs plain max_abs_err {e}; max {float(got.max())}")
+        if e or not torch.equal(got, want):
+            fail(f"spike kernel != plain (seed {seed})")
+    ms = cuda_ms(torch, lambda: kern(ev, stage, pver), 50)
+    plain_ms = cuda_ms(torch, lambda: sk.spike_plain(ev, stage, pver), 3)
+    T, L = ev.shape
+    E, MP, D = pver.shape[:3]
+    moved = nbytes([ev, stage, pver, out])
+    ops = T * L * (2 * E * MP * D + 2 * E * MP + 4 * sk.ROWS)  # compares, counts, rows
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    log(f"spike: {ms:.4f} ms/launch (plain {plain_ms:.2f} ms); {moved / 1e3:.1f} kB moved, "
+        f"{ops} operations -> bound {bound_ms:.6f} ms ({bound_by}); launches {launches} "
+        f"[{smi}]")
+    report.append({
+        "name": "spike", "route": "cuda", "source": SPIKE_SOURCE, "replaces": SPIKE_REPLACES,
+        "launches": launches, "launches_by_path": {"spike_main": launches},
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None,
+        "timed_on": "spike_pallas.py: main's inputs (seed 0), T=32, L=128",
+    })
+
+
 def main() -> None:
     import torch
 
@@ -867,7 +1323,7 @@ def main() -> None:
     from kafkastreams_cep_tpu_torch.compiler.tables import lower
     from kafkastreams_cep_tpu_torch.parallel import batch as batch_mod
     from kafkastreams_cep_tpu_torch.ops import (
-        scan_codegen, scan_kernel, walk_inputs, walk_kernel,
+        scan_codegen, scan_kernel, spike_kernel, walk_inputs, walk_kernel,
     )
 
     dev = torch.device(DEVICE)
@@ -906,25 +1362,30 @@ def main() -> None:
             mode = scan_kernel.mode_of(EngineConfig(**conf, **extra), tiered=True)
             jobs[(name, mode)] = (src, mode)
     t0 = time.perf_counter()
-    walk_errors = []
+    build_errors = []
 
-    def build_walk():
+    def build(lib):
         try:
-            kern.build()
+            lib.build()
         except Exception as e:  # reported below, after the scan builds
-            walk_errors.append(e)
+            build_errors.append(e)
 
-    walk_thread = threading.Thread(target=build_walk)
-    walk_thread.start()
+    threads = [threading.Thread(target=build, args=(lib,))
+               for lib in (kern, spike_kernel.spike_kernel)]
+    for th in threads:
+        th.start()
     scan_paths = skern.build(*jobs.values())
-    walk_thread.join()
-    if walk_errors:
-        fail(f"walk_pass build failed: {walk_errors[0]}")
-    log(f"build: walk_pass -> {kern.build()} and {len(set(scan_paths))} whole-scan "
-        f"libraries in {time.perf_counter() - t0:.2f} s (all nvcc runs together)")
-    for line in kern.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"build: walk_pass ptxas {line.strip()}")
+    for th in threads:
+        th.join()
+    if build_errors:
+        fail(f"walk_pass or spike build failed: {build_errors[0]}")
+    log(f"build: walk_pass -> {kern.build()}, spike -> {spike_kernel.spike_kernel.build()} "
+        f"and {len(set(scan_paths))} whole-scan libraries in "
+        f"{time.perf_counter() - t0:.2f} s (all nvcc runs together)")
+    for name, lib in (("walk_pass", kern), ("spike", spike_kernel.spike_kernel)):
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"build: {name} ptxas {line.strip()}")
     for (name, mode), (src, _) in jobs.items():
         lib = skern.library(src, mode).name
         secs = skern.build_seconds.get(lib)
@@ -1707,6 +2168,8 @@ def main() -> None:
     tiered_phase(torch, dev, smi, log_entry=scan_entry, scan_bound=scan_bound,
                  hybrid_src=hybrid_src, tier_src=tier_src, records=records,
                  name_of=name_of)
+    bank_phase(torch, dev, smi, report, records, name_of)
+    spike_phase(torch, dev, smi, report)
 
     log(f"total: {time.perf_counter() - t_start:.1f} s after the card check")
     log(smi)

@@ -31,6 +31,7 @@ from kafkastreams_cep_tpu_torch.compiler.tables import (
     TYPE_BEGIN,
     TransitionTables,
     lower,
+    stackable,
 )
 from kafkastreams_cep_tpu_torch.ops import dewey_ops
 from kafkastreams_cep_tpu_torch.ops import slab as slab_mod
@@ -274,6 +275,18 @@ def walk_counter_values(state: EngineState):
     return (state.slab.walk_hops, state.slab.extract_hops, state.slab.drain_hops)
 
 
+def per_lane_counter_arrays(state: EngineState) -> Dict[str, torch.Tensor]:
+    """The loss, hot-tier and walk counters of ``state`` per lane (``[K]``
+    each, on the host, int64), read from the device in one transfer."""
+    names = COUNTER_NAMES + HOT_COUNTER_NAMES + WALK_COUNTER_NAMES
+    vals = torch.stack([
+        v.reshape(-1).to(torch.int64)
+        for v in counter_values(state) + hot_counter_values(state)
+        + walk_counter_values(state)
+    ]).cpu()
+    return dict(zip(names, vals))
+
+
 def stage_counter_arrays(state: EngineState) -> Dict[str, np.ndarray]:
     """The per-stage tallies as host int64 arrays ``[K, S]`` (the
     ``STAGE_TALLY_NAMES`` rows plus ``stage_walk_hops``); empty when
@@ -390,45 +403,84 @@ class StepPhases(NamedTuple):
     out_rows: int
     max_walk: int
     hot_entries: int
+    pred_stats: Optional[Dict[str, Any]] = None  # merged-dispatch dedup stats
 
 
-def _build_step(tables: TransitionTables, cfg: EngineConfig, device) -> StepPhases:
-    """Compile one pattern's per-event step for ``device``."""
-    if isinstance(tables, (list, tuple)):
-        raise NotImplementedError(
-            "stacked query banks are not ported to the PyTorch engine yet"
+def _build_step(tables, cfg: EngineConfig, device) -> StepPhases:
+    """Compile the per-event step for ``device``.
+
+    ``tables`` is one :class:`TransitionTables` or a list of them sharing
+    the compiled table shape: a *stacked bank*.  Stacked tables ride a
+    leading query axis ``[Q, S]``; ``eval_chain`` and ``finish`` take a
+    per-lane ``qids [K]`` tensor and each lane reads its own query's rows
+    by gather.  The union of the queries' predicates is deduplicated and
+    split (``compiler/multitenant.py: plan_step_predicates``): each
+    event-level predicate is evaluated once per lane and broadcast over the
+    runs, each run-level one per run under its owner query's decode, and
+    every lane reads its query's predicate ids from the merged table.
+    Every lane evaluates every query's folds and keeps its own query's
+    (computed, then selected): folds and predicates must be total over
+    other queries' fold states.
+    """
+    from kafkastreams_cep_tpu_torch.compiler.multitenant import plan_step_predicates
+
+    tlist = list(tables) if isinstance(tables, (list, tuple)) else [tables]
+    if not tlist:
+        raise ValueError("a stacked bank needs at least one query")
+    if not stackable(tlist):
+        raise ValueError(
+            "stacked patterns must share the compiled table shape "
+            "(stage count, chain depth, begin/final positions); "
+            "fall back to one matcher per query otherwise"
         )
     check_config(cfg)
+    tables = tlist[0]
+    Q = len(tlist)
     R, D, W = cfg.max_runs, cfg.dewey_depth, cfg.max_walk
     HB = cfg.handle_ring
     H = tables.max_hops
-    NS = max(tables.num_states, 1)
+    NS = max(max(t.num_states for t in tlist), 1)
     RH = R * H
     # Attribution width: the pattern's stage count, 0 (zero-size) when off.
     S_AT = tables.num_stages if cfg.stage_attribution else 0
 
-    def dev_table(a):
-        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+    pred_plan = plan_step_predicates(tlist)
+    remaps = pred_plan.remaps
 
-    ident = dev_table(tables.ident)
-    types = dev_table(tables.types)
-    consume_op = dev_table(tables.consume_op)
-    consume_pred = dev_table(tables.consume_pred)
-    consume_target = dev_table(tables.consume_target)
-    ignore_pred = dev_table(tables.ignore_pred)
-    proceed_pred = dev_table(tables.proceed_pred)
-    proceed_target = dev_table(tables.proceed_target)
-    if tables.window_ms.max(initial=-1) > np.iinfo(np.int32).max:
-        raise ValueError(
-            f"window of {int(tables.window_ms.max())} ms exceeds int32 device "
-            "time; windows up to ~24.8 days are supported"
-        )
-    window_ms = dev_table(tables.window_ms)
+    def dev_table(get, remap=False):
+        """``[Q * S]`` int64: the queries' rows of one table, flattened
+        (lane ``k`` reads ``flat[qid[k] * S + idx]``); predicate ids remapped
+        into the merged dispatch table."""
+        rows = []
+        for q, t in enumerate(tlist):
+            a = np.asarray(get(t), dtype=np.int64)
+            if remap and len(remaps[q]):
+                a = np.where(a >= 0, remaps[q][np.maximum(a, 0)], a)
+            rows.append(a)
+        return torch.as_tensor(np.stack(rows).reshape(-1), device=device)
+
+    S = tables.num_stages
+    ident = dev_table(lambda t: t.ident)
+    types = dev_table(lambda t: t.types)
+    consume_op = dev_table(lambda t: t.consume_op)
+    consume_pred = dev_table(lambda t: t.consume_pred, remap=True)
+    consume_target = dev_table(lambda t: t.consume_target)
+    ignore_pred = dev_table(lambda t: t.ignore_pred, remap=True)
+    proceed_pred = dev_table(lambda t: t.proceed_pred, remap=True)
+    proceed_target = dev_table(lambda t: t.proceed_target)
+    for t in tlist:
+        if t.window_ms.max(initial=-1) > np.iinfo(np.int32).max:
+            raise ValueError(
+                f"window of {int(t.window_ms.max())} ms exceeds int32 device "
+                "time; windows up to ~24.8 days are supported"
+            )
+    window_ms = dev_table(lambda t: t.window_ms)
     final_pos = int(tables.final_pos)
     begin_pos = int(tables.begin_pos)
-    is_float = [d == "float32" for d in tables.state_dtypes] + [False] * (
-        NS - tables.num_states
-    )
+    is_float_q = [
+        [d == "float32" for d in t.state_dtypes] + [False] * (NS - t.num_states)
+        for t in tlist
+    ]
 
     def _enc_host(x, flt):
         if flt:
@@ -437,15 +489,16 @@ def _build_step(tables: TransitionTables, cfg: EngineConfig, device) -> StepPhas
 
     inits = torch.tensor(
         [
-            _enc_host(x, f)
-            for x, f in zip(
-                list(tables.state_inits) + [0] * (NS - tables.num_states),
-                is_float,
-            )
+            [
+                _enc_host(x, f)
+                for x, f in zip(list(t.state_inits) + [0] * (NS - t.num_states),
+                                is_float_q[q])
+            ]
+            for q, t in enumerate(tlist)
         ],
         dtype=I32,
         device=device,
-    )  # [NS]
+    )  # [Q, NS]
 
     def dec(v, flt):
         return v.view(torch.float32) if flt else v
@@ -454,32 +507,49 @@ def _build_step(tables: TransitionTables, cfg: EngineConfig, device) -> StepPhas
         v = torch.as_tensor(v, device=device)
         return v.to(torch.float32).view(I32) if flt else v.to(I32)
 
-    def tbl(table, idx):
-        return table[idx.long()].to(I32)
+    def row_offset(qids):
+        """The flat-table offset of each lane's query row (``[K, 1]``), 0
+        for a single query."""
+        if Q == 1:
+            return 0
+        if qids is None:
+            raise ValueError(f"a stacked step over {Q} queries needs per-lane qids")
+        return qids.to(device=device, dtype=torch.int64)[:, None] * S
+
+    def lane_inits(qids):
+        """Each lane's query's encoded fold inits, ``[NS]`` or ``[K, 1, NS]``."""
+        if Q == 1:
+            return inits[0]
+        return inits[qids.long()][:, None, :]
 
     def as_bool(x, shape):
         return torch.as_tensor(x, device=device).to(torch.bool).expand(shape)
 
     def eval_preds(state: EngineState, ev: EventBatch):
-        """Every predicate against every run: ``[K, R, G]`` bool.  Event
-        fields arrive as ``[K, 1]`` so they broadcast against the
-        ``[K, R]`` fold states."""
+        """The merged predicate frame ``[K, R, G]``: the event-level half
+        evaluated once per lane (event fields ``[K, 1]``, an empty states
+        view: they provably never read it) and broadcast over the runs,
+        then the run-level half against each run's fold states decoded
+        through the owner query's names and dtypes."""
         K = state.alive.shape[0]
-        if not tables.predicates:
+        if not (pred_plan.num_event or pred_plan.num_run):
             return torch.zeros((K, R, 0), dtype=torch.bool, device=device)
         key = ev.key[:, None]
         value = map_value(lambda x: x[:, None], ev.value)
         ts = ev.ts[:, None]
-        states = ArrayStates(
-            {
-                n: dec(state.agg[..., i], is_float[i])
-                for i, n in enumerate(tables.state_names)
-            }
-        )
-        return torch.stack(
-            [as_bool(p(key, value, ts, states), (K, R)) for p in tables.predicates],
-            dim=-1,
-        )
+        empty = ArrayStates({})
+        cols = [as_bool(e.pred(key, value, ts, empty), (K, R))
+                for e in pred_plan.event_entries]
+        env: Dict[int, ArrayStates] = {}
+        for e in pred_plan.run_entries:
+            if e.owner not in env:
+                t = tlist[e.owner]
+                env[e.owner] = ArrayStates({
+                    n: dec(state.agg[..., i], is_float_q[e.owner][i])
+                    for i, n in enumerate(t.state_names)
+                })
+            cols.append(as_bool(e.pred(key, value, ts, env[e.owner]), (K, R)))
+        return torch.stack(cols, dim=-1)
 
     def pv(preds, pid):
         """Predicate value by id; ``-1`` (absent edge) is False."""
@@ -488,9 +558,15 @@ def _build_step(tables: TransitionTables, cfg: EngineConfig, device) -> StepPhas
         got = preds.gather(-1, pid.clamp(min=0).long()[..., None]).squeeze(-1)
         return got & (pid >= 0)
 
-    def eval_chain(state: EngineState, ev: EventBatch) -> _ChainRecord:
+    def eval_chain(state: EngineState, ev: EventBatch, qids=None) -> _ChainRecord:
         """Predicates plus every run's unrolled chain (``NFA.evaluate``,
-        recursion unrolled to the pattern depth)."""
+        recursion unrolled to the pattern depth); ``qids [K]`` selects each
+        lane's query in a stacked bank."""
+        qo = row_offset(qids)
+
+        def tbl(table, idx):
+            return table[qo + idx.long()].to(I32)
+
         K = state.alive.shape[0]
         preds = eval_preds(state, ev)
         ts = ev.ts[:, None]
@@ -627,17 +703,27 @@ def _build_step(tables: TransitionTables, cfg: EngineConfig, device) -> StepPhas
         key = ev.key[:, None]
         value = map_value(lambda x: x[:, None], ev.value)
         s = state.agg.clone()
+        inits_l = lane_inits(qids)
+        # In a stacked bank every query's folds run on every lane, masked
+        # to the lanes of that query.
+        folded = [(q, t) for q, t in enumerate(tlist) if t.aggs]
+        qms = {q: None if Q == 1 else (qids == q)[:, None] for q, _ in folded}
         br_agg: List[Any] = [None] * H
         for h in range(H - 1, -1, -1):
             copy_mask = torch.zeros((K, R, NS), dtype=torch.bool, device=device)
-            for slot in tables.aggs:
-                copy_mask[..., slot.state] |= frame_pos[h] == slot.stage
-            br_agg[h] = torch.where(copy_mask, s, inits)
-            for slot in tables.aggs:
-                cond = consumed_h[h] & (frame_pos[h] == slot.stage)
-                flt = is_float[slot.state]
-                val = enc(slot.fn(key, value, dec(s[..., slot.state], flt)), flt)
-                s[..., slot.state] = torch.where(cond, val, s[..., slot.state])
+            for q, t in folded:
+                for slot in t.aggs:
+                    m = frame_pos[h] == slot.stage
+                    copy_mask[..., slot.state] |= m if qms[q] is None else m & qms[q]
+            br_agg[h] = torch.where(copy_mask, s, inits_l)
+            for q, t in folded:
+                for slot in t.aggs:
+                    cond = consumed_h[h] & (frame_pos[h] == slot.stage)
+                    if qms[q] is not None:
+                        cond = cond & qms[q]
+                    flt = is_float_q[q][slot.state]
+                    val = enc(slot.fn(key, value, dec(s[..., slot.state], flt)), flt)
+                    s[..., slot.state] = torch.where(cond, val, s[..., slot.state])
 
         def stk(name):
             return torch.stack(hops[name], dim=2)
@@ -710,8 +796,9 @@ def _build_step(tables: TransitionTables, cfg: EngineConfig, device) -> StepPhas
     S_CAND = 1 + H + 1  # survivor, branch per hop, re-seed
     RS = R * S_CAND
 
-    def finish(state, ev, rec, slab, out_stage, out_off, out_count):
-        """Queue compaction and padding masking."""
+    def finish(state, ev, rec, slab, out_stage, out_off, out_count, qids=None):
+        """Queue compaction and padding masking (``qids`` as in
+        ``eval_chain``)."""
         K = state.alive.shape[0]
         valid = ev.valid
         seed_mask = state.alive & (state.id_pos < 0)
@@ -765,7 +852,7 @@ def _build_step(tables: TransitionTables, cfg: EngineConfig, device) -> StepPhas
                 False,
             ),
             agg=compact(
-                cand(rec.final_agg, rec.br_agg, inits.expand(K, R, NS)), 0
+                cand(rec.final_agg, rec.br_agg, lane_inits(qids).expand(K, R, NS)), 0
             ),
             slab=slab,
             run_drops=state.run_drops + dropped,
@@ -822,7 +909,8 @@ def _build_step(tables: TransitionTables, cfg: EngineConfig, device) -> StepPhas
             + (final_en & ~fit).sum(dim=1, dtype=I32),
         )
 
-    def init_state(num_lanes: int) -> EngineState:
+    def init_state(num_lanes: int, q: int = 0) -> EngineState:
+        """``num_lanes`` lanes of query ``q``'s initial state."""
         K = int(num_lanes)
 
         def full(shape, v, dtype=I32):
@@ -843,7 +931,7 @@ def _build_step(tables: TransitionTables, cfg: EngineConfig, device) -> StepPhas
             event_off=full((K, R), -1),
             start_ts=full((K, R), -1),
             branching=full((K, R), False, torch.bool),
-            agg=inits.expand(K, R, NS).clone(),
+            agg=inits[q].expand(K, R, NS).clone(),
             slab=slab_mod.make(
                 K, cfg.slab_entries, cfg.slab_preds, D, num_stages=S_AT,
                 device=device,
@@ -873,6 +961,7 @@ def _build_step(tables: TransitionTables, cfg: EngineConfig, device) -> StepPhas
         out_rows=R,
         max_walk=W,
         hot_entries=cfg.slab_hot_entries,
+        pred_stats=dict(pred_plan.stats),
     )
 
 
@@ -954,21 +1043,23 @@ def scan_steps(step, state: EngineState, events: EventBatch):
     return state, StepOutput(*(torch.stack(x, dim=1) for x in zip(*outs)))
 
 
-def make_step(phases: StepPhases, walk_fn=walk_pass):
+def make_step(phases: StepPhases, walk_fn=walk_pass, qids=None):
     """The ``[K]``-batched step: chain, puts and walkers, the slab phase
-    through ``walk_fn`` (the kernel on CUDA tensors by default), then the
-    queue compaction."""
+    through ``walk_fn`` (the kernel on CUDA tensors by default) over every
+    lane at once, then the queue compaction.  ``qids [K]`` gives each
+    lane's query in a stacked bank; the walk pass takes no tables, so one
+    launch serves every query's lanes."""
     ph = phases
 
     def step(state: EngineState, ev: EventBatch):
-        rec = ph.eval_chain(state, ev)
+        rec = ph.eval_chain(state, ev, qids)
         ops = ph.build_puts(state, rec)
         wk = ph.build_walkers(state, rec, ev)
         slab, out_stage, out_off, out_count = walk_fn(
             state.slab, *wk, ph.max_walk, ph.out_base, ph.out_rows,
             put_ops=ops, ev_off=ev.off, hot_entries=ph.hot_entries,
         )
-        return ph.finish(state, ev, rec, slab, out_stage, out_off, out_count)
+        return ph.finish(state, ev, rec, slab, out_stage, out_off, out_count, qids)
 
     return step
 

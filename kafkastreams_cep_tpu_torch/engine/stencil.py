@@ -143,34 +143,44 @@ class StencilPrefix:
             ],
             dim=-1,
         )  # [K, T, p]
-        b0 = bools[..., 0].to(I32)
-        # Seed version at each slot: 1 + begin-accepts strictly before it
-        # (the untiered seed bumps its version at every accept).
-        sver = 1 + carry.cnt[:, None] + (torch.cumsum(b0, dim=1, dtype=I32) - b0)
-        ext_b = torch.cat([carry.bools, bools], dim=1)
-        ext_off = torch.cat([carry.offs, ev.off.to(I32)], dim=1)
-        ext_ts = torch.cat([carry.ts, ev.ts.to(I32)], dim=1)
-        ext_sver = torch.cat([carry.sver, sver], dim=1)
-        # fire[k, t] = AND_j ext_b[k, t + j, j]: stage j saw event t-p+1+j.
-        fire = ext_b[:, 0:T, 0]
-        for j in range(1, p):
-            fire = fire & ext_b[:, j:j + T, j]
-        offs = torch.stack([ext_off[:, j:j + T] for j in range(p)], dim=-1)
-        a = min(1, p - 1)  # the window anchor's column
-        # The new carry: the trailing p-1 valid columns, which end at
-        # column c + p - 1 (valid slots are a per-lane prefix).
-        c = valid.sum(dim=1, dtype=I32)
-        new = PrefixCarry(
-            bools=_trailing(ext_b, c, p - 1),
-            offs=_trailing(ext_off, c, p - 1),
-            ts=_trailing(ext_ts, c, p - 1),
-            sver=_trailing(ext_sver, c, p - 1),
-            cnt=carry.cnt + b0.sum(dim=1, dtype=I32),
-            screened=carry.screened + c,
-            fires=carry.fires + fire.sum(dim=1, dtype=I32),
-            promotions=carry.promotions,
-        )
-        return new, PromoOutput(
-            fire=fire, offs=offs, anchor_ts=ext_ts[:, a:a + T].contiguous(),
-            sver=ext_sver[:, 0:T].contiguous(),
-        )
+        return prefix_recurrence(p, carry, bools, ev.off.to(I32), ev.ts.to(I32), valid)
+
+
+def prefix_recurrence(p: int, carry: PrefixCarry, bools: torch.Tensor,
+                      offs: torch.Tensor, ts: torch.Tensor, valid: torch.Tensor
+                      ) -> Tuple[PrefixCarry, PromoOutput]:
+    """The prefix tier's recurrence over ``[K, T]``, the stage predicates
+    already evaluated: ``bools [K, T, p]`` (valid-masked), ``offs``/``ts``
+    ``[K, T]`` int32, ``valid [K, T]`` (a per-lane prefix of slots)."""
+    T = ts.shape[1]
+    b0 = bools[..., 0].to(I32)
+    # Seed version at each slot: 1 + begin-accepts strictly before it
+    # (the untiered seed bumps its version at every accept).
+    sver = 1 + carry.cnt[:, None] + (torch.cumsum(b0, dim=1, dtype=I32) - b0)
+    ext_b = torch.cat([carry.bools, bools], dim=1)
+    ext_off = torch.cat([carry.offs, offs], dim=1)
+    ext_ts = torch.cat([carry.ts, ts], dim=1)
+    ext_sver = torch.cat([carry.sver, sver], dim=1)
+    # fire[k, t] = AND_j ext_b[k, t + j, j]: stage j saw event t-p+1+j.
+    fire = ext_b[:, 0:T, 0]
+    for j in range(1, p):
+        fire = fire & ext_b[:, j:j + T, j]
+    offs_out = torch.stack([ext_off[:, j:j + T] for j in range(p)], dim=-1)
+    a = min(1, p - 1)  # the window anchor's column
+    # The new carry: the trailing p-1 valid columns, which end at
+    # column c + p - 1 (valid slots are a per-lane prefix).
+    c = valid.sum(dim=1, dtype=I32)
+    new = PrefixCarry(
+        bools=_trailing(ext_b, c, p - 1),
+        offs=_trailing(ext_off, c, p - 1),
+        ts=_trailing(ext_ts, c, p - 1),
+        sver=_trailing(ext_sver, c, p - 1),
+        cnt=carry.cnt + b0.sum(dim=1, dtype=I32),
+        screened=carry.screened + c,
+        fires=carry.fires + fire.sum(dim=1, dtype=I32),
+        promotions=carry.promotions,
+    )
+    return new, PromoOutput(
+        fire=fire, offs=offs_out, anchor_ts=ext_ts[:, a:a + T].contiguous(),
+        sver=ext_sver[:, 0:T].contiguous(),
+    )

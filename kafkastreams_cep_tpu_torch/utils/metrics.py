@@ -49,3 +49,12 @@ class Metrics:
             yield
         finally:
             setattr(self, attr, getattr(self, attr) + time.perf_counter() - t0)
+
+
+def merge_counter_dicts(dicts) -> dict:
+    """Key-wise sum of plain counter dicts (bank members, shard reports)."""
+    out: dict = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out

@@ -39,7 +39,9 @@ def test_files_found():
     assert "kafkastreams_cep_tpu_torch/ops/walk_kernel.py" in FILES
     assert "kafkastreams_cep_tpu_torch/ops/scan_kernel.py" in FILES
     assert "kafkastreams_cep_tpu_torch/ops/scan_codegen.py" in FILES
-    for mod in ("engine/stencil.py", "engine/tiered.py", "parallel/tiered.py"):
+    for mod in ("engine/stencil.py", "engine/tiered.py", "parallel/tiered.py",
+                "compiler/multitenant.py", "engine/predmatrix.py", "parallel/stacked.py",
+                "parallel/tenantbank.py", "runtime/bank.py", "ops/spike_kernel.py"):
         assert f"kafkastreams_cep_tpu_torch/{mod}" in FILES
 
 
