@@ -736,6 +736,9 @@ def tiered_phase(torch, dev, smi, log_entry, scan_bound, hybrid_src, tier_src,
                 fail(f"{pname}: plan {tall.plan}, want hybrid")
             eng_all, carry_all = tall.init_state()
             sts = [tuple(tm.init_state()) for tm in tks]
+            alts = [st[0] for st in sts]
+            alt = not skern.arena(hybrid_src[pname], tks[0].matcher.config, alts[0],
+                                  tiered=True)[0]
             for i in range(2):
                 evs = [letters_batch(torch, EventBatch, rng.choice(
                     5, size=(Kc, SCAN_STEPS), p=[0.3, 0.25, 0.2, 0.2, 0.05]), dev,
@@ -751,11 +754,16 @@ def tiered_phase(torch, dev, smi, log_entry, scan_bound, hybrid_src, tier_src,
                     eng, o_k, n_k = scan_kernel.scan_pass(
                         hybrid_src[pname], tm.matcher.config, tm.inner.phases, eng,
                         evs[j], promo=(tm._promote, feed))
+                    alts[j], o_a, n_a = skern(hybrid_src[pname], tm.matcher.config, alts[j],
+                                              evs[j], (tm._promote, feed), pv_shared=alt)
                     sts[j] = (eng, carry)
                     torch.cuda.synchronize()
                     err = max(max_abs_err(torch, eng, lanes(eng_all, lo, lo + Kc)),
                               max_abs_err(torch, o_k, lanes(o_p, lo, lo + Kc)),
-                              max_abs_err(torch, n_k, n_p[lo:lo + Kc]))
+                              max_abs_err(torch, n_k, n_p[lo:lo + Kc]),
+                              max_abs_err(torch, alts[j], lanes(eng_all, lo, lo + Kc)),
+                              max_abs_err(torch, o_a, lanes(o_p, lo, lo + Kc)),
+                              max_abs_err(torch, n_a, n_p[lo:lo + Kc]))
                     tier_err[mode] = max(tier_err.get(mode, 0), err)
                     promoted_total += int(n_k.sum())
                     log(f"tiered parity: {pname} [{mode}] K={Kc} scan {i + 1}/2: "
@@ -769,7 +777,7 @@ def tiered_phase(torch, dev, smi, log_entry, scan_bound, hybrid_src, tier_src,
     if not promoted_total:
         fail("no tiered parity case promoted a run")
     log(f"tiered parity: {len(HYBRID)} patterns x {len(TIER_MODES)} modes x K {PARITY_LANES} "
-        f"bit for bit, {promoted_total} promotions ({time.perf_counter() - t0:.1f} s)")
+        f"x both placements bit for bit, {promoted_total} promotions ({time.perf_counter() - t0:.1f} s)")
 
     # (b) the tiered cell: three paths over the same K=4096 x T=1024 trace.
     Kt, Tt = LANES, TIER_STEPS
@@ -947,7 +955,8 @@ def tiered_phase(torch, dev, smi, log_entry, scan_bound, hybrid_src, tier_src,
         log_entry(mode, ms, plain_ms, bnd, by_path,
                   f"the tiered cell's batch at step {b0} ({int(feed.fire.sum())} prefix "
                   f"fires, {int(promoted.sum())} promoted), K={Kt}, {label}",
-                  tier_err.get(mode, 0))
+                  tier_err.get(mode, 0),
+                  skern.geometry(tier_src, tk.matcher.config, st.engine, tiered=True))
         del tk, st, eng_out, out
     log(f"tiered phase: {time.perf_counter() - t8:.1f} s")
 
@@ -1771,6 +1780,13 @@ def main() -> None:
             fail("CEP_SCAN_KERNEL=1 but the matcher does not use the whole-scan kernel")
         return m
 
+    def geometry(m, events_in, state):
+        """How ``m``'s whole-scan instance runs ``state``'s lanes on this
+        card: where the pointer rows go, the arena's bytes a lane, the
+        lanes resident per SM, registers and local memory a thread."""
+        src = scan_codegen.generate(m.matcher.tables, events_in.value)
+        return skern.geometry(src, m.matcher.config, state)
+
     def scan_bound(state_in, state_out, events_in, out, conf, extra=()):
         """``(bound_ms, bound_by, MB moved, hops)`` of one whole scan: each
         state leaf the kernel instance writes once in and once out, the
@@ -1804,20 +1820,24 @@ def main() -> None:
         for Kc in PARITY_LANES:
             cbm = BatchMatcher(pat, Kc, ccfg, device=dev)
             ev = make_ev(Kc)
-            s_k = s_p = cbm.init_state()
+            s_k = s_a = s_p = cbm.init_state()
+            alt = not skern.arena(sources[name], ccfg, s_k)[0]
             for i in range(scans):
                 s_k, o_k = scan_kernel.scan_pass(sources[name], ccfg, cbm.phases, s_k, ev)
+                s_a, o_a = skern(sources[name], ccfg, s_a, ev, pv_shared=alt)
                 s_p, o_p = scan_kernel.scan_pass_plain(cbm.phases, s_p, ev)
                 torch.cuda.synchronize()
-                err = max(max_abs_err(torch, s_k, s_p), max_abs_err(torch, o_k, o_p))
+                err = max(max_abs_err(torch, s_k, s_p), max_abs_err(torch, o_k, o_p),
+                          max_abs_err(torch, s_a, s_p), max_abs_err(torch, o_a, o_p))
                 scan_err[mode] = max(scan_err[mode], err)
-                log(f"scan parity: {name} K={Kc} scan {i + 1}/{scans}: max_abs_err {err}; "
+                log(f"scan parity: {name} K={Kc} scan {i + 1}/{scans}: max_abs_err {err} "
+                    f"(pointer rows {'in device memory' if alt else 'shared'} too); "
                     f"match slots {int((o_k.count > 0).sum())}, handles "
                     f"{int(s_k.hr_count.sum())}, counters {cbm.counters(s_k)}")
                 if err:
                     fail(f"scan_pass kernel != plain ({name}, K={Kc}, scan {i + 1})")
                 ev = advance(ev)
-    log(f"scan parity: seven cases x K {PARITY_LANES} bit for bit "
+    log(f"scan parity: seven cases x K {PARITY_LANES} x both placements bit for bit "
         f"({time.perf_counter() - t0:.1f} s)")
 
     # (b2) the two-tier, attribution and combined instances: the seven cases
@@ -1833,6 +1853,8 @@ def main() -> None:
             pbm_all = BatchMatcher(pat, sum(PARITY_LANES), ccfg, device=dev)
             s_p = pbm_all.init_state()
             s_ks = [BatchMatcher(pat, Kc, ccfg, device=dev).init_state() for Kc in PARITY_LANES]
+            s_as = list(s_ks)
+            alt = not skern.arena(sources[name], ccfg, s_ks[0])[0]
             for i in range(scans):
                 s_p, o_p = scan_kernel.scan_pass_plain(
                     pbm_all.phases, s_p, cat_lanes(torch, EventBatch, evs))
@@ -1840,9 +1862,12 @@ def main() -> None:
                 for j, Kc in enumerate(PARITY_LANES):
                     s_ks[j], o_k = scan_kernel.scan_pass(
                         sources[name], ccfg, pbm_all.phases, s_ks[j], evs[j])
+                    s_as[j], o_a = skern(sources[name], ccfg, s_as[j], evs[j], pv_shared=alt)
                     torch.cuda.synchronize()
                     err = max(max_abs_err(torch, s_ks[j], lanes(s_p, lo, lo + Kc)),
-                              max_abs_err(torch, o_k, lanes(o_p, lo, lo + Kc)))
+                              max_abs_err(torch, o_k, lanes(o_p, lo, lo + Kc)),
+                              max_abs_err(torch, s_as[j], lanes(s_p, lo, lo + Kc)),
+                              max_abs_err(torch, o_a, lanes(o_p, lo, lo + Kc)))
                     scan_err[mode] = max(scan_err.get(mode, 0), err)
                     dem = int(s_ks[j].slab.demotions.sum())
                     demoted += dem
@@ -1855,7 +1880,8 @@ def main() -> None:
                 evs = [advance(e) for e in evs]
     if not demoted:
         fail("no two-tier whole-scan parity case demoted an entry")
-    log(f"scan parity: seven cases x {len(SCAN_MODES)} modes x K {PARITY_LANES} bit for bit, "
+    log(f"scan parity: seven cases x {len(SCAN_MODES)} modes x K {PARITY_LANES} x both "
+        f"placements bit for bit, "
         f"{demoted} demotions ({time.perf_counter() - t0:.1f} s)")
 
     # (c) the headline scan: one whole-scan launch against phase 4's per-step path.
@@ -1886,6 +1912,7 @@ def main() -> None:
         f"{scan_ms / scan_k_ms:.1f}x; equal to the per-step path bit for bit "
         f"({int(s_hits)} run-slot matches) [{smi}]")
     head_bound = scan_bound(state0, s_state, events, s_out, HEADLINE)
+    head_geo = geometry(sbm, events, state0)
     plain_head_ms = cuda_ms(torch, lambda: scan_kernel.scan_pass_plain(
         bm.phases, state0, window(EventBatch, events, 0, PLAIN_SCAN_STEPS)), 1)
     del s_state, s_out, step_state, step_out
@@ -1915,7 +1942,7 @@ def main() -> None:
         m_bound = scan_bound(m0, m_state, events, m_out, mconf)
         m_plain = cuda_ms(torch, lambda: scan_kernel.scan_pass_plain(
             mbm.phases, m0, window(EventBatch, events, 0, PLAIN_SCAN_STEPS)), 1)
-        mode_head[mode] = (m_ms, m_plain, m_bound)
+        mode_head[mode] = (m_ms, m_plain, m_bound, geometry(mbm, events, m0))
         log(f"scan headline [{mode}]: K={K} T={T}: {m_ms:.3f} ms = "
             f"{K * T / (m_ms / 1e3):.0f} events/s, {int(m_hits)} run-slot matches "
             f"(single tier, no attribution: {n_hits}); hot {mbm.hot_counters(m_state)}, "
@@ -1982,6 +2009,7 @@ def main() -> None:
     l_out_state, l_out = lsbm.scan(l_mid, chunk2)
     lazy_chunk_ms = cuda_ms(torch, lambda: lsbm.scan(l_mid, chunk2), 5)
     lazy_bound = scan_bound(l_mid, l_out_state, chunk2, l_out, LAZY_SINGLE)
+    lazy_geo = geometry(lsbm, chunk2, l_mid)
     plain_lazy_ms = cuda_ms(torch, lambda: scan_kernel.scan_pass_plain(
         lsbm.phases, l_mid, window(EventBatch, chunk2, 0, PLAIN_SCAN_STEPS)), 1)
     del l_mid, l_out_state, l_out
@@ -2029,6 +2057,7 @@ def main() -> None:
     lw_out_state, lw_out = lwbm.scan(lw_mid, chunk2)
     lw_chunk_ms = cuda_ms(torch, lambda: lwbm.scan(lw_mid, chunk2), 5)
     lw_bound = scan_bound(lw_mid, lw_out_state, chunk2, lw_out, LAZY_PATH)
+    lw_geo = geometry(lwbm, chunk2, lw_mid)
     lw_plain_ms = cuda_ms(torch, lambda: scan_kernel.scan_pass_plain(
         lwbm.phases, lw_mid, window(EventBatch, chunk2, 0, PLAIN_SCAN_STEPS)), 1)
     del lw_mid, lw_out_state, lw_out
@@ -2130,7 +2159,7 @@ def main() -> None:
         f"({int((f_out.count > 0).sum())} match slots)")
 
     # (g) the kernel report's whole-scan entries.
-    def scan_entry(mode, ms, plain_ms, bnd, by_path, on, err):
+    def scan_entry(mode, ms, plain_ms, bnd, by_path, on, err, geo):
         bound_ms, bound_by, mb, hops = bnd
         launches = sum(by_path.values())
         if not launches:
@@ -2138,31 +2167,33 @@ def main() -> None:
         log(f"scan_pass[{mode}]: {ms:.3f} ms per scan on {on} (plain version "
             f"{plain_ms:.1f} ms over its first {PLAIN_SCAN_STEPS} steps): {mb:.1f} MB "
             f"moved, {hops} hops -> bound {bound_ms:.4f} ms ({bound_by}); launches "
-            f"{by_path} [{smi}]")
+            f"{by_path}; pointer rows {'shared' if geo['pv_shared'] else 'in device memory'}, "
+            f"{geo['lane_bytes']} B of shared memory a lane, {geo['lanes_per_sm']} lanes an "
+            f"SM, {geo['registers']} registers, {geo['local_bytes']} B local [{smi}]")
         report.append({
             "name": f"scan_pass[{mode}]", "route": "cuda", "source": SCAN_SOURCE,
             "replaces": SCAN_REPLACES, "launches": launches, "launches_by_path": by_path,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "plain_steps": PLAIN_SCAN_STEPS, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "timed_on": on,
+            "library_ms": None, "timed_on": on, "geometry": geo,
         })
 
     scan_entry("default", scan_k_ms, plain_head_ms, head_bound,
                {"headline": head_scan_launches, "demo": scan_demo["default"]},
-               f"the headline scan, K={K}, T={T}", scan_err["default"])
+               f"the headline scan, K={K}, T={T}", scan_err["default"], head_geo)
     scan_entry("lazy", lazy_chunk_ms, plain_lazy_ms, lazy_bound,
                {"lazy_path": lazy_scan_launches, "lazy_demo": scan_demo["lazy"]},
                f"the lazy path's second {LAZY_CHUNK}-step chunk, K={K}, E=96, single tier",
-               scan_err["lazy"])
-    for mode, (m_ms, m_plain, m_bound) in mode_head.items():
+               scan_err["lazy"], lazy_geo)
+    for mode, (m_ms, m_plain, m_bound, m_geo) in mode_head.items():
         scan_entry(mode, m_ms, m_plain, m_bound, {"headline": 1, "demo": scan_demo[mode]},
                    f"the headline scan [{mode}], K={K}, T={T}"
                    + (", E_hot=16" if "two_tier" in mode else ""),
-                   scan_err.get(mode, 0))
+                   scan_err.get(mode, 0), m_geo)
     scan_entry(lw_mode, lw_chunk_ms, lw_plain_ms, lw_bound,
                {"lazy_path": lazy_whole_launches},
                f"the lazy path's second {LAZY_CHUNK}-step chunk, K={K}, E=96, E_hot=16, "
-               "attribution", scan_err.get(lw_mode, 0))
+               "attribution", scan_err.get(lw_mode, 0), lw_geo)
     log(f"whole scan phase: {time.perf_counter() - t7:.1f} s")
 
     tiered_phase(torch, dev, smi, log_entry=scan_entry, scan_bound=scan_bound,

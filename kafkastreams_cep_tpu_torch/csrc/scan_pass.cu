@@ -2,14 +2,15 @@
 // each lane, T engine steps (predicates, the unrolled evaluation chain with
 // its folds, the consuming puts, every branch, removal and extraction walk,
 // queue compaction, and under lazy extraction the handle-ring append), with
-// the lane's run state and slab kept in device memory across all T steps;
-// in its tiered form, each step's promotions too.
+// the lane's slab, run queue and step scratch held in shared memory across
+// all T steps; in its tiered form, each step's promotions too.
 //
 // Replaces the Pallas kernel kafkastreams_cep_tpu/ops/scan_kernel.py:
 // build_scan (pallas_call :1595) for one query, in all of its modes.  They
 // are compile-time template parameters of one kernel, and a library holds
 // the one instance a configuration needs (ops/scan_kernel.py builds it at
-// first use, -DCEP_LAZY/-DCEP_TWO_TIER/-DCEP_ATTR/-DCEP_PROMO):
+// first use, -DCEP_LAZY/-DCEP_TWO_TIER/-DCEP_ATTR/-DCEP_PROMO), in both
+// placements of the slab's pointer rows (kPvShared, below):
 //
 //   kLazy     (lazy_extraction) completed matches become ring handles
 //             instead of extraction walks;
@@ -20,7 +21,7 @@
 //   kAttr     (stage_attribution) the chain tallies each frame's stage
 //             crossing (evaluated, accepted, ignored, rejected) into the
 //             lane's stage_counts [4, S], and each hop its walker's stage
-//             into stage_hops [S]; the lane's warp owns both, no atomics;
+//             into stage_hops [S]; both live in the lane's shared memory;
 //   kPromo    (build_scan(..., promotion=p), the tiered hybrid: "B3") after
 //             each step, where the stencil prefix completed, the p prefix
 //             puts (put_first at the root, a chained put per later stage,
@@ -40,32 +41,39 @@
 // The pattern's predicates, folds and transition tables come from a header
 // that ops/scan_codegen.py generates ("cep_pattern.h": cep_pred, cep_fold,
 // cep_types, ...); this file is the same for every pattern.  The slab
-// phase is walk_pass.cuh's, shared with the walk-pass kernel.
+// phase is walk_pass.cuh's, shared with the walk-pass kernel: its functions
+// take plain pointers, which here point into shared memory.
 //
-// Mapping: one warp per lane, lanes independent, a loop over t inside the
-// warp in place of the Pallas kernel's sequential grid axis.  The warp
-// first copies its lane's state to the output tensors (the port of the
-// pl.when(t == 0) copy, scan_kernel.py:268-313), then mutates them in place
-// across all T steps.  In each step:
+// Mapping: one lane a block of one warp, lanes independent, a loop over t
+// inside the warp in place of the Pallas kernel's sequential grid axis.
+// The block's dynamic shared memory is the lane's arena (scan_layout.cuh):
+// the slab rows (stage, off, refs, npreds) and tombstones, the pointer rows
+// (pstage, poff, pvlen, pver) where the rule below puts them, two run-queue
+// buffers, the step scratch and the stage tallies.  The warp loads its lane's state into
+// the arena once, runs the T steps there, and writes the state leaves to
+// the output tensors once at the end (the port of the pl.when(t == 0) copy,
+// scan_kernel.py:268-313).  In each step:
 //
 //   1. every step writes the empty output frame (stage and off -1, count
-//      0); a padding step (valid == 0), or under kPromo a lane with nothing
-//      to do, does nothing else;
+//      0) in streaming stores; a padding step (valid == 0), or under kPromo
+//      a lane with nothing to do, does nothing else;
 //   2. one thread owns one run (runs r, r + 32, ... for R > 32): it
 //      evaluates the predicates, runs the run's unrolled chain (deepest
 //      frame last) and its folds (deepest frame first), and writes the
 //      run's put ops, branch, removal and extraction walkers and queue
-//      candidates to a per-lane scratch in device memory (kAttr: its
-//      stage tally in registers, summed over the warp);
+//      candidates to the scratch (kAttr: its tally by shared-memory
+//      atomics); then a ballot lists the enabled walkers in queue order;
 //   3. the consuming puts (closed form, or op by op under kTwoTier);
-//   4. the walkers one at a time in queue order (walk_one); no extraction
-//      walker is enabled under kLazy, whose matches become ring handles;
+//   4. the listed walkers one at a time (walk_one); no extraction walker is
+//      enabled under kLazy, whose matches become ring handles;
 //   5. (kLazy) completed matches take consecutive ring slots from hr_count
-//      in run-queue order, each pinning its root entry (refs + 1); matches
-//      that do not fit count in handle_overflows;
+//      in run-queue order (the ring stays in device memory: it is only
+//      appended to), each pinning its root entry (refs + 1, one lookup a
+//      match); matches that do not fit count in handle_overflows;
 //   6. compaction: a warp prefix sum over the runs' candidate counts, in
 //      the queue order [survivor, branches deepest-first, re-seed], places
-//      each candidate; candidates past R count in run_drops;
+//      each candidate in the other run buffer, which becomes the queue;
+//      candidates past R count in run_drops;
 //   7. (kPromo) the promotion.
 //
 // The Pallas kernel's one-hot selects, log-shift cumsums, lane-last
@@ -76,83 +84,71 @@
 // [K, T, R, W] stage and off plus [K, T, R] count, written once (about
 // 2.5 GB for the headline K=4096, T=256, R=24, W=12); then the state, whose
 // slab (4E + 3E*MP + E*MP*D int32 a lane) crosses device memory once in
-// and once out per scan, not once per step as on the per-step path; then
-// the events (and the promotion feed).  Beyond the bytes each lane is a
-// chain of dependent hops (lookup -> pointer row -> next lookup) served one
-// walker after another, and the busiest lane of a block sets its time;
-// under kTwoTier each put is a serial search too.  A later version should
-// attack those lane-serial hops, and keep the slab in shared memory rather
-// than device memory (a headline lane's slab is 23 KB).
+// and once out per scan; then the events (and the promotion feed).  Beyond
+// the bytes each lane is a chain of dependent hops (lookup -> pointer row
+// -> next lookup) served one walker after another, so the time is a lane's
+// latency over the lanes an SM holds.  A clock64 tally of the previous
+// design, which kept the lane in device memory (chip_phases_scan_pass.py,
+// PERF.md section 5), put 54-66 % of a lane's cycles in the walkers and
+// 15-27 % in the puts.  What this design does about it:
+//   * the lane's working state lives in shared memory for all T steps;
+//   * the closed-form puts run over the enabled ops alone (put_listed),
+//     their lookups one pass of the warp over the rows;
+//   * a ballot lists the enabled walkers, instead of a scan of every flag;
+//     a hop reads its entry's pointer rows once and a pruned entry is
+//     compacted by the whole warp (walk_pass.cuh: walk_one's kWarpRows);
+//   * the frames go out in streaming stores, the stage tally by
+//     shared-memory atomics, the next queue into a second run buffer;
+//   * at most 128 registers a thread (kMinLanes), so registers hold 16
+//     lanes an SM (the tiered instances are not capped: a cap made them
+//     spill and run slower).
+//
+// kPvShared: where the pointer rows live (pstage, poff, pvlen, and pver,
+// which alone is E*MP*D int32: 18.4 KB of a headline lane).  Measured with
+// chip_ab_scan_pass.py (H100 80GB HBM3, 700 W): with them in shared memory
+// a headline lane needs 37 KB and an SM holds 6 lanes, each about 1.7x as
+// fast as a lane that reads them from device memory, whose 14 KB arena
+// lets an SM hold 15; the 15 win (26.6 against 34.8 ms), and they win at
+// every slab size of the sweep down to E=16 (a 21 KB shared arena, 10
+// lanes an SM: 11.6 against 14.5 ms).  So the rule (scan_layout.cuh:
+// scan_pv_shared, mirrored by the wrapper) takes the pointer rows into
+// shared memory only where that costs no lanes: a lane of at most 13 KB,
+// the 16 lanes an SM that 128 registers allow.  The tiered instances are
+// the exception: most of their lanes skip the slab phase (the per-lane
+// gate), and their batch ran 0.89 ms with the rows shared against 1.11 ms
+// in device memory, so there the rows are shared up to 48 KB a lane.
+// Otherwise the rows stay in the output tensors in device memory, copied
+// there at the start, and the hops read them through the L2.  A lookup's
+// keys (stage, off), refs and npreds always sit in the arena.
 //
 // Contract (checked by ops/scan_kernel.py): contiguous tensors; the state's
 // bool leaves (alive, branching), the events' valid and bool leaves and
 // the promotion feed's fire as one-byte bools, everything else int32 or
 // float32; MP <= 32, D <= 32, at most 64 distinct predicates, p <= D;
-// unique (stage, off) keys per lane among live entries.  Compile with
-// -fmad=false: the folds and predicates round every float operation, as
-// the plain version does.
+// unique (stage, off) keys per lane among live entries; the arena within
+// 227 KB.  Compile with -fmad=false: the folds and predicates round every
+// float operation, as the plain version does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "cep_pattern.h"
+#include "scan_layout.cuh"
 #include "walk_pass.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;  // lanes (warps) per block
 constexpr int H = CEP_H;   // frames per run per event
 constexpr int NS = CEP_NS;  // fold states
 constexpr int S = CEP_S;    // stages (the attribution width)
 constexpr int kMaxPromo = 32;  // prefix length p <= D <= 32
+// Lanes (one-warp blocks) an SM must be able to hold: at most 128
+// registers a thread, so that registers never hold fewer lanes than a
+// 13 KB arena (scan_layout.cuh: kPvSharedMaxBytes) would.  The tiered
+// instances, which hold fewer lanes (4 and up), are not capped.
+constexpr int kMinLanes = 16;
 static_assert(CEP_G <= 64, "at most 64 predicates (a 64-bit mask per run)");
-
-// Per-lane scratch: offsets in int32 words and in bytes, for R runs and
-// Dewey depth D.
-struct Layout {
-  size_t p_cur, p_pst, p_pof, p_pvl, p_ver, p_sc;  // put ops [R*H]
-  size_t w_stage, w_off, w_vlen, w_run;            // walkers [R*H + 2R]
-  size_t r_id, r_eval, r_vlen, r_event, r_start, r_bits, r_agg;  // runs
-  size_t b_id, b_eval, b_vlen, b_event, b_start, b_agg;  // branches [R*H]
-  size_t n_alive, n_id, n_eval, n_vlen, n_event, n_start, n_branch, n_ver,
-      n_agg;  // the compacted queue [R]
-  size_t ints;
-  size_t p_en, p_first, w_en, b_en;  // one-byte flags
-  size_t bytes;
-};
-
-__host__ __device__ inline size_t take(size_t* o, size_t n) {
-  const size_t at = *o;
-  *o += n;
-  return at;
-}
-
-__host__ __device__ inline Layout layout(int R, int D) {
-  const size_t RH = (size_t)R * H, PW = RH + 2 * (size_t)R;
-  Layout l{};
-  size_t o = 0;
-  l.p_cur = take(&o, RH); l.p_pst = take(&o, RH); l.p_pof = take(&o, RH);
-  l.p_pvl = take(&o, RH); l.p_ver = take(&o, RH * D);
-  l.p_sc = take(&o, RH * kPutCols);
-  l.w_stage = take(&o, PW); l.w_off = take(&o, PW); l.w_vlen = take(&o, PW);
-  l.w_run = take(&o, PW);
-  l.r_id = take(&o, R); l.r_eval = take(&o, R); l.r_vlen = take(&o, R);
-  l.r_event = take(&o, R); l.r_start = take(&o, R); l.r_bits = take(&o, R);
-  l.r_agg = take(&o, (size_t)R * NS);
-  l.b_id = take(&o, RH); l.b_eval = take(&o, RH); l.b_vlen = take(&o, RH);
-  l.b_event = take(&o, RH); l.b_start = take(&o, RH);
-  l.b_agg = take(&o, RH * NS);
-  l.n_alive = take(&o, R); l.n_id = take(&o, R); l.n_eval = take(&o, R);
-  l.n_vlen = take(&o, R); l.n_event = take(&o, R); l.n_start = take(&o, R);
-  l.n_branch = take(&o, R); l.n_ver = take(&o, (size_t)R * D);
-  l.n_agg = take(&o, (size_t)R * NS);
-  l.ints = o;
-  o = 0;
-  l.p_en = take(&o, RH); l.p_first = take(&o, RH); l.w_en = take(&o, PW);
-  l.b_en = take(&o, RH);
-  l.bytes = o;
-  return l;
-}
+static_assert(kScanPutCols == kPutCols, "scan_layout.cuh sizes walk_pass.cuh's put scratch");
 
 // Run flag bits (r_bits).
 enum { kSurvAlive = 1, kSurvFinal = 2, kSurvBranching = 4, kHasSucc = 8 };
@@ -162,6 +158,7 @@ struct Args {
   int EH;  // hot rows (kTwoTier)
   int plen, promo_eval;  // prefix length p and the promoted run's eval stage
   int promo_ident[kMaxPromo];  // the prefix stages' identities
+  int lane_bytes;  // the arena (scan_layout)
   // events [K, T]
   const int *ev_key, *ev_ts, *ev_off;
   const uint8_t* ev_valid;
@@ -189,9 +186,6 @@ struct Args {
       *o_hr_row, *o_hr_count, *o_handle_overflows;
   // outputs [K, T, R, W] x 2, [K, T, R]
   int *out_stage, *out_off, *count;
-  // per-lane scratch: Layout::ints int32 and Layout::bytes bytes a lane
-  int* scratch;
-  uint8_t* flags;
   // kTwoTier: hop tiers and demotions; kAttr: stage_counts [K, 4, S] and
   // stage_hops [K, S]
   const int *hot_hits, *hot_misses, *overflow_walks, *demotions,
@@ -207,18 +201,27 @@ struct Args {
   const void* leaves[CEP_NUM_LEAVES > 0 ? CEP_NUM_LEAVES : 1];
 };
 
-// One lane's view of its run state (the output tensors) and scratch.
-struct Lane {
-  uint8_t *alive, *branching;
-  int *id, *eval, *ver, *vlen, *event, *start, *agg;
+// One run-queue buffer in the arena.
+struct Runs {
+  int *alive, *branching, *id, *eval, *ver, *vlen, *event, *start, *agg;
+};
+
+// The step's scratch in the arena.
+struct Step {
   int *p_cur, *p_pst, *p_pof, *p_pvl, *p_ver, *p_sc;
-  int *w_stage, *w_off, *w_vlen, *w_run;
+  int *w_stage, *w_off, *w_vlen, *w_run, *w_list;
   int *r_id, *r_eval, *r_vlen, *r_event, *r_start, *r_bits, *r_agg;
   int *b_id, *b_eval, *b_vlen, *b_event, *b_start, *b_agg;
-  int *n_alive, *n_id, *n_eval, *n_vlen, *n_event, *n_start, *n_branch,
-      *n_ver, *n_agg;
+  int *p_list, *p_free;  // the enabled puts, the free rows
+  int* stc;  // stage_counts [4, S] (kAttr)
   uint8_t *p_en, *p_first, *w_en, *b_en;
 };
+
+__device__ __forceinline__ Runs runs_at(unsigned char* arena, const RunOffsets& o) {
+  auto at = [arena](size_t b) { return reinterpret_cast<int*>(arena + b); };
+  return Runs{at(o.alive), at(o.branching), at(o.id), at(o.eval), at(o.ver),
+              at(o.vlen), at(o.event), at(o.start), at(o.agg)};
+}
 
 // Exclusive prefix sum over the warp; *total gets the warp's sum.
 __device__ __forceinline__ int warp_exclusive(int v, int* total) {
@@ -234,19 +237,19 @@ __device__ __forceinline__ int warp_exclusive(int v, int* total) {
 // Phase 2 for run r (one thread): predicates, the unrolled chain
 // (engine/matcher.py: eval_chain), the folds, and the run's entries in the
 // put queue, the walker queue and the candidate tables; under kAttr each
-// active frame's row of the stage tally (tl [4][S], this thread's) at its
-// stage.  Returns the run's Dewey overflows.
+// active frame's row of the stage tally at its stage.  Returns the run's
+// Dewey overflows.
 template <bool kLazy, bool kAttr>
-__device__ __forceinline__ int chain_run(const Args& a, const Lane& L, int r,
-                                         const CepEvent& ev, int ts, int off,
-                                         int* tl) {
+__device__ __forceinline__ int chain_run(const Args& a, const Runs& q,
+                                         const Step& L, int r,
+                                         const CepEvent& ev, int ts, int off) {
   const int R = a.R, D = a.D, RH = R * H;
-  const bool alive = L.alive[r] != 0;
-  const int id = L.id[r], ev_pos = L.eval[r], vlen = L.vlen[r];
-  const int eoff = L.event[r], st0 = L.start[r];
-  const bool brn = L.branching[r] != 0;
-  const int* vv = L.ver + (size_t)r * D;
-  const int* ag = L.agg + (size_t)r * NS;
+  const bool alive = q.alive[r] != 0;
+  const int id = q.id[r], ev_pos = q.eval[r], vlen = q.vlen[r];
+  const int eoff = q.event[r], st0 = q.start[r];
+  const bool brn = q.branching[r] != 0;
+  const int* vv = q.ver + (size_t)r * D;
+  const int* ag = q.agg + (size_t)r * NS;
 
   const bool seed = id < 0;
   const int idc = max(id, 0);
@@ -292,16 +295,12 @@ __device__ __forceinline__ int chain_run(const Args& a, const Lane& L, int r,
                           prev >= 0;
     const bool consumed = take_m || begin_m;
     if constexpr (kAttr) {
-      // eval, accept, ignore, reject (nothing fired) at stage cs; the
-      // compares keep tl in registers.
-      const bool rej = active && !consumed && !ig_m && !pr_m;
-#pragma unroll
-      for (int x = 0; x < S; ++x) {
-        const bool at = x == cs;
-        tl[x] += at && active;
-        tl[S + x] += at && consumed;
-        tl[2 * S + x] += at && ig_m;
-        tl[3 * S + x] += at && rej;
+      // eval, accept, ignore, reject (nothing fired) at stage cs.
+      if (active && cs < S) {
+        atomicAdd(&L.stc[cs], 1);
+        if (consumed) atomicAdd(&L.stc[S + cs], 1);
+        if (ig_m) atomicAdd(&L.stc[2 * S + cs], 1);
+        if (!consumed && !ig_m && !pr_m) atomicAdd(&L.stc[3 * S + cs], 1);
       }
     }
     const bool st_ = take_m && !branch_m, sb = begin_m, si = ig_m && !branch_m;
@@ -417,57 +416,225 @@ __device__ __forceinline__ int chain_run(const Args& a, const Lane& L, int r,
   return ovf;
 }
 
-// Candidate c of run r into the compacted queue's slot j (phase 6).
-__device__ __forceinline__ void place(const Lane& L, int D, int j, int id,
+// The consuming puts in closed form (walk_pass.cuh: put_phase, the port of
+// puts_batched) over the enabled ops alone: an op that is not enabled takes
+// part in no group (every stage of put_phase skips it), so running the
+// stages over the enabled ops, listed in queue order, gives the same slab
+// in O(n) a stage where put_phase takes O(R*H).  Op i of the list is thread
+// i % 32's; every op's two lookups (its predecessor, its target) are one
+// pass of the warp over the rows, the lowest matching row winning as in
+// find_row; the free rows are listed once by a ballot.  Scratch columns as
+// put_phase's, indexed by list position.
+__device__ __forceinline__ void put_listed(const PutLane& p_, const SlabLane& s,
+                                           Tally& c, int* list, int* free_rows) {
+  const int t = threadIdx.x;
+  const int E = s.E, MP = s.MP, D = s.D, PP = p_.PP;
+  int *st = s.st, *of = s.of, *rf = s.rf, *np = s.np;
+  int *ps = s.ps, *po = s.po, *pl = s.pl, *pv = s.pv;
+  const uint8_t* first = p_.first;
+  const int *cur = p_.cur, *pst = p_.pst, *pof = p_.pof;
+  const int off = p_.off;
+  int* sc = p_.sc;
+#define SC(i, c) sc[(i) * kPutCols + (c)]
+  int n = 0;
+  for (int b = 0; b < PP; b += 32) {
+    const int p = b + t;
+    const bool en = p < PP && p_.en[p];
+    const unsigned m = __ballot_sync(kFull, en);
+    if (en) list[n + __popc(m & ((1u << t) - 1u))] = p;
+    n += __popc(m);
+  }
+  if (!n) return;
+
+  // A: the lookups against the step-start slab (kEntry the target's row,
+  // kNp0 the predecessor's, E when absent), then the predecessor check.
+  for (int i = t; i < n; i += 32) {
+    SC(i, kEntry) = E;
+    SC(i, kNp0) = E;
+  }
+  __syncwarp();
+  for (int e = t; e < E; e += 32) {
+    const int se = st[e], oe = of[e];
+    for (int i = 0; i < n; ++i) {
+      const int p = list[i];
+      if (se == cur[p] && oe == off) atomicMin(&SC(i, kEntry), e);
+      if (se == pst[p] && oe == pof[p]) atomicMin(&SC(i, kNp0), e);
+    }
+  }
+  __syncwarp();
+  int miss = 0;
+  for (int i = t; i < n; i += 32) {
+    const int p = list[i];
+    const bool prev_found = SC(i, kNp0) < E;
+    miss += !first[p] && !prev_found;
+    const int enp = first[p] || prev_found;
+    const int e = SC(i, kEntry);
+    const int exist = enp && e < E;
+    SC(i, kEnp) = enp;
+    SC(i, kExist) = exist;
+    SC(i, kEntry) = exist ? e : 0;
+    SC(i, kNp0) = exist ? np[e] : 0;
+  }
+  __syncwarp();
+
+  // B: creators, the first enabled op of a group whose entry is absent;
+  // and the free rows, in index order.
+  for (int i = t; i < n; i += 32) {
+    const int ci = cur[list[i]];
+    bool creator = SC(i, kEnp) && !SC(i, kExist);
+    for (int j = 0; creator && j < i; ++j)
+      if (SC(j, kEnp) && cur[list[j]] == ci) creator = false;
+    SC(i, kCreator) = creator;
+  }
+  int nfree = 0;
+  for (int b = 0; b < E; b += 32) {
+    const int e = b + t;
+    const bool f = e < E && st[e] < 0;
+    const unsigned m = __ballot_sync(kFull, f);
+    if (f) free_rows[nfree + __popc(m & ((1u << t) - 1u))] = e;
+    nfree += __popc(m);
+  }
+  __syncwarp();
+
+  // C: creator c (in op order) takes the c-th free row.
+  for (int i = t; i < n; i += 32) {
+    int slot = -1;
+    if (SC(i, kCreator)) {
+      int crank = 0;
+      for (int j = 0; j < i; ++j) crank += SC(j, kCreator);
+      if (crank < nfree) slot = free_rows[crank];
+    }
+    SC(i, kAlloc) = slot;
+  }
+  __syncwarp();
+
+  // D: each op's entry and whether it lands.
+  int full = 0;
+  for (int i = t; i < n; i += 32) {
+    int ok = 0;
+    if (SC(i, kEnp)) {
+      if (SC(i, kExist)) {
+        ok = 1;
+      } else {
+        const int ci = cur[list[i]];
+        for (int j = 0; j < n; ++j) {
+          if (SC(j, kCreator) && cur[list[j]] == ci) {
+            ok = SC(j, kAlloc) >= 0;
+            if (ok) SC(i, kEntry) = SC(j, kAlloc);
+            break;
+          }
+        }
+        full += !ok;
+      }
+    }
+    SC(i, kOk) = ok;
+  }
+  __syncwarp();
+
+  // E: reset segments, pointer slots, and the appends that survive.
+  int pdrop = 0;
+  for (int i = t; i < n; i += 32) {
+    int fit = 0;
+    if (SC(i, kOk)) {
+      const int p = list[i], ci = cur[p];
+      int seg_head = -1, later_reset = 0;
+      for (int j = 0; j < n; ++j) {
+        const int q = list[j];
+        if (cur[q] != ci || !SC(j, kOk) || !first[q]) continue;
+        if (j <= i) seg_head = j; else later_reset = 1;
+      }
+      int prior = 0;
+      for (int j = seg_head < 0 ? 0 : seg_head; j < i; ++j)
+        prior += cur[list[j]] == ci && SC(j, kOk);
+      const int base = (seg_head >= 0 || !SC(i, kExist)) ? 0 : SC(i, kNp0);
+      const int slot = min(base + prior, MP);
+      pdrop += slot >= MP;
+      fit = !later_reset && slot < MP;
+      if (fit) {
+        const int cc = SC(i, kEntry) * MP + slot;
+        ps[cc] = first[p] ? -1 : pst[p];
+        po[cc] = first[p] ? -1 : pof[p];
+        pl[cc] = p_.pvl[p];
+        for (int d = 0; d < D; ++d) pv[(size_t)cc * D + d] = p_.pvr[(size_t)p * D + d];
+      }
+    }
+    SC(i, kFit) = fit;
+  }
+  __syncwarp();
+
+  // F: entry metadata (group-consistent, so repeated writes agree).
+  for (int i = t; i < n; i += 32) {
+    if (!SC(i, kOk)) continue;
+    const int ci = cur[list[i]];
+    int has_first = 0, cnt = 0;
+    for (int j = 0; j < n; ++j) {
+      const int q = list[j];
+      if (cur[q] != ci) continue;
+      has_first |= SC(j, kOk) && first[q];
+      cnt += SC(j, kFit);
+    }
+    const int reset = has_first || !SC(i, kExist);
+    const int base_n = reset ? 0 : SC(i, kNp0);
+    const int e = SC(i, kEntry);
+    st[e] = ci;
+    of[e] = off;
+    np[e] = min(base_n + cnt, MP);
+    if (reset) rf[e] = 1;
+  }
+#undef SC
+  c.missing += warp_sum(miss);
+  c.full_drops += warp_sum(full);
+  c.pred_drops += warp_sum(pdrop);
+  __syncwarp();
+}
+
+// A candidate into the next queue's slot j (phase 6).
+__device__ __forceinline__ void place(const Runs& nq, int D, int j, int id,
                                       int eval, int vlen, int event, int start,
                                       int branching, const int* ver, int bump,
                                       const int* agg) {
-  L.n_alive[j] = 1;
-  L.n_id[j] = id;
-  L.n_eval[j] = eval;
-  L.n_vlen[j] = vlen;
-  L.n_event[j] = event;
-  L.n_start[j] = start;
-  L.n_branch[j] = branching;
+  nq.alive[j] = 1;
+  nq.id[j] = id;
+  nq.eval[j] = eval;
+  nq.vlen[j] = vlen;
+  nq.event[j] = event;
+  nq.start[j] = start;
+  nq.branching[j] = branching;
   for (int d = 0; d < D; ++d)
-    L.n_ver[(size_t)j * D + d] = ver[d] + (d == bump);
+    nq.ver[(size_t)j * D + d] = ver[d] + (d == bump);
   for (int n = 0; n < NS; ++n)
-    L.n_agg[(size_t)j * NS + n] = agg ? agg[n] : cep_state_init[n];
+    nq.agg[(size_t)j * NS + n] = agg ? agg[n] : cep_state_init[n];
 }
 
-template <bool kLazy, bool kTwoTier, bool kAttr, bool kPromo>
-__global__ void __launch_bounds__(32 * kWarps) scan_pass(Args a) {
-  extern __shared__ unsigned dead_smem[];  // [kWarps][E] tombstone bits
+template <bool kLazy, bool kTwoTier, bool kAttr, bool kPromo, bool kPvShared>
+__global__ void __launch_bounds__(32, kPromo ? 1 : kMinLanes) scan_pass(Args a) {
+  extern __shared__ __align__(16) unsigned char arena[];
   const int t = threadIdx.x;
-  const int k = blockIdx.x * kWarps + threadIdx.y;
-  if (k >= a.K) return;  // uniform per warp
+  const int k = blockIdx.x;
   const int R = a.R, E = a.E, MP = a.MP, D = a.D, W = a.W, T = a.T;
   const int HB = a.HB, RH = R * H, PW = RH + 2 * R;
-  unsigned* dead = dead_smem + threadIdx.y * E;
+  const ScanLayout ly = scan_layout(R, E, MP, D, H, NS, S, kAttr, kPvShared);
+  auto at = [&](size_t b) { return reinterpret_cast<int*>(arena + b); };
+  auto flag = [&](size_t b) { return reinterpret_cast<uint8_t*>(arena + b); };
 
   const size_t e1 = (size_t)k * E, e2 = e1 * MP, e3 = e2 * D;
   const size_t r1 = (size_t)k * R, h1 = (size_t)k * HB;
-  const SlabLane s{a.o_stage + e1, a.o_off + e1, a.o_refs + e1,
-                   a.o_npreds + e1, a.o_pstage + e2, a.o_poff + e2,
-                   a.o_pvlen + e2, a.o_pver + e3, E, MP, D};
-  const Layout ly = layout(R, D);
-  int* sc = a.scratch + (size_t)k * ly.ints;
-  uint8_t* fl = a.flags + (size_t)k * ly.bytes;
-  const Lane L{
-      a.o_alive + r1, a.o_branching + r1, a.o_id_pos + r1,
-      a.o_eval_pos + r1, a.o_ver + r1 * D, a.o_vlen + r1,
-      a.o_event_off + r1, a.o_start_ts + r1, a.o_agg + r1 * NS,
-      sc + ly.p_cur, sc + ly.p_pst, sc + ly.p_pof, sc + ly.p_pvl,
-      sc + ly.p_ver, sc + ly.p_sc,
-      sc + ly.w_stage, sc + ly.w_off, sc + ly.w_vlen, sc + ly.w_run,
-      sc + ly.r_id, sc + ly.r_eval, sc + ly.r_vlen, sc + ly.r_event,
-      sc + ly.r_start, sc + ly.r_bits, sc + ly.r_agg,
-      sc + ly.b_id, sc + ly.b_eval, sc + ly.b_vlen, sc + ly.b_event,
-      sc + ly.b_start, sc + ly.b_agg,
-      sc + ly.n_alive, sc + ly.n_id, sc + ly.n_eval, sc + ly.n_vlen,
-      sc + ly.n_event, sc + ly.n_start, sc + ly.n_branch, sc + ly.n_ver,
-      sc + ly.n_agg,
-      fl + ly.p_en, fl + ly.p_first, fl + ly.w_en, fl + ly.b_en};
+  // The pointer rows: in the arena, or in place in the output tensors.
+  const SlabLane s{at(ly.st), at(ly.of), at(ly.rf), at(ly.np),
+                   kPvShared ? at(ly.ps) : a.o_pstage + e2,
+                   kPvShared ? at(ly.po) : a.o_poff + e2,
+                   kPvShared ? at(ly.pl) : a.o_pvlen + e2,
+                   kPvShared ? at(ly.pv) : a.o_pver + e3, E, MP, D};
+  unsigned* dead = reinterpret_cast<unsigned*>(arena + ly.dead);
+  Runs q = runs_at(arena, ly.run[0]), nq = runs_at(arena, ly.run[1]);
+  const Step L{
+      at(ly.p_cur), at(ly.p_pst), at(ly.p_pof), at(ly.p_pvl), at(ly.p_ver),
+      at(ly.p_sc), at(ly.w_stage), at(ly.w_off), at(ly.w_vlen), at(ly.w_run),
+      at(ly.w_list), at(ly.r_id), at(ly.r_eval), at(ly.r_vlen), at(ly.r_event),
+      at(ly.r_start), at(ly.r_bits), at(ly.r_agg), at(ly.b_id), at(ly.b_eval),
+      at(ly.b_vlen), at(ly.b_event), at(ly.b_start), at(ly.b_agg),
+      at(ly.p_list), at(ly.p_free), at(ly.stc),
+      flag(ly.p_en), flag(ly.p_first), flag(ly.w_en), flag(ly.b_en)};
   int* hr_stage = a.o_hr_stage + h1;
   int* hr_off = a.o_hr_off + h1;
   int* hr_ver = a.o_hr_ver + h1 * D;
@@ -476,18 +643,18 @@ __global__ void __launch_bounds__(32 * kWarps) scan_pass(Args a) {
   int* hr_seq = a.o_hr_seq + h1;
   int* hr_row = a.o_hr_row + h1;
 
-  // The state crosses device memory once: copied here, mutated in place.
+  // Load the lane: the state crosses device memory once in, once out.
   for (int i = t; i < R; i += 32) {
-    L.alive[i] = a.alive[r1 + i];
-    L.branching[i] = a.branching[r1 + i];
-    L.id[i] = a.id_pos[r1 + i];
-    L.eval[i] = a.eval_pos[r1 + i];
-    L.vlen[i] = a.vlen[r1 + i];
-    L.event[i] = a.event_off[r1 + i];
-    L.start[i] = a.start_ts[r1 + i];
+    q.alive[i] = a.alive[r1 + i];
+    q.branching[i] = a.branching[r1 + i];
+    q.id[i] = a.id_pos[r1 + i];
+    q.eval[i] = a.eval_pos[r1 + i];
+    q.vlen[i] = a.vlen[r1 + i];
+    q.event[i] = a.event_off[r1 + i];
+    q.start[i] = a.start_ts[r1 + i];
   }
-  for (int i = t; i < R * D; i += 32) L.ver[i] = a.ver[r1 * D + i];
-  for (int i = t; i < R * NS; i += 32) L.agg[i] = a.agg[r1 * NS + i];
+  for (int i = t; i < R * D; i += 32) q.ver[i] = a.ver[r1 * D + i];
+  for (int i = t; i < R * NS; i += 32) q.agg[i] = a.agg[r1 * NS + i];
   for (int i = t; i < E; i += 32) {
     s.st[i] = a.stage[e1 + i];
     s.of[i] = a.off[e1 + i];
@@ -526,13 +693,12 @@ __global__ void __launch_bounds__(32 * kWarps) scan_pass(Args a) {
     c.overflow_walks = a.overflow_walks[k];
     c.demotions = a.demotions[k];
   }
-  // This lane's stage tallies, accumulated in place (kAttr).
-  int* stc = a.o_stage_counts + (size_t)k * 4 * S;
   if constexpr (kAttr) {
     c.S = S;
-    c.sh = a.o_stage_hops + (size_t)k * S;
+    c.sh = at(ly.sh);
     for (int i = t; i < S; i += 32) c.sh[i] = a.stage_hops[(size_t)k * S + i];
-    for (int i = t; i < 4 * S; i += 32) stc[i] = a.stage_counts[(size_t)k * 4 * S + i];
+    for (int i = t; i < 4 * S; i += 32)
+      L.stc[i] = a.stage_counts[(size_t)k * 4 * S + i];
   }
   int run_drops = a.run_drops[k], ver_overflows = a.ver_overflows[k];
   int hr_count = 0, handle_overflows = 0, promoted = 0;
@@ -550,9 +716,12 @@ __global__ void __launch_bounds__(32 * kWarps) scan_pass(Args a) {
     int* ost = a.out_stage + ek * R * W;
     int* oof = a.out_off + ek * R * W;
     int* ocnt = a.count + ek * R;
-    // 1. The empty frame (outputs come from torch.empty).
-    for (int i = t; i < R * W; i += 32) { ost[i] = -1; oof[i] = -1; }
-    for (int i = t; i < R; i += 32) ocnt[i] = 0;
+    // 1. The empty frame (outputs come from torch.empty), streamed out.
+    for (int i = t; i < R * W; i += 32) {
+      __stcs(ost + i, -1);
+      __stcs(oof + i, -1);
+    }
+    for (int i = t; i < R; i += 32) __stcs(ocnt + i, 0);
     __syncwarp();
     if (!a.ev_valid[ek]) continue;  // padding: the state stays as it is
     bool fire = false;
@@ -561,26 +730,26 @@ __global__ void __launch_bounds__(32 * kWarps) scan_pass(Args a) {
       // to do (an empty queue steps to itself but for step_seq).
       fire = a.pr_fire[ek] != 0;
       bool live = false;
-      for (int i = t; i < R; i += 32) live = live || L.alive[i] != 0;
+      for (int i = t; i < R; i += 32) live = live || q.alive[i] != 0;
       if (!__ballot_sync(kFull, live) && !fire) continue;
     }
     const int ts = a.ev_ts[ek], off = a.ev_off[ek];
     const CepEvent ev = cep_load_event(a.leaves, ek, a.ev_key[ek], ts);
 
-    // 2. Chains and folds, one thread per run.
+    // 2. Chains and folds, one thread per run; then the enabled walkers,
+    // listed in queue order.
     int ovf = 0;
-    int tl[kAttr ? 4 * S : 1];
-#pragma unroll
-    for (int i = 0; i < (kAttr ? 4 * S : 1); ++i) tl[i] = 0;
     for (int r = t; r < R; r += 32)
-      ovf += chain_run<kLazy, kAttr>(a, L, r, ev, ts, off, tl);
+      ovf += chain_run<kLazy, kAttr>(a, q, L, r, ev, ts, off);
     ver_overflows += warp_sum(ovf);
-    if constexpr (kAttr) {
-#pragma unroll
-      for (int i = 0; i < 4 * S; ++i) {
-        const int v = warp_sum(tl[i]);
-        if (t == 0) stc[i] += v;
-      }
+    __syncwarp();
+    int n_walk = 0;
+    for (int q0 = 0; q0 < PW; q0 += 32) {
+      const int wq = q0 + t;
+      const bool en = wq < PW && L.w_en[wq];
+      const unsigned m = __ballot_sync(kFull, en);
+      if (en) L.w_list[n_walk + __popc(m & ((1u << t) - 1u))] = wq;
+      n_walk += __popc(m);
     }
     __syncwarp();
 
@@ -590,16 +759,16 @@ __global__ void __launch_bounds__(32 * kWarps) scan_pass(Args a) {
     if constexpr (kTwoTier)
       put_phase_two_tier(p, s, c);
     else
-      put_phase(p, s, c);
+      put_listed(p, s, c, L.p_list, L.p_free);
 
-    // 4. Walkers in queue order: branches, removals, extractions.
-    for (int q = 0; q < PW; ++q) {
-      if (!L.w_en[q]) continue;
-      const int row = q - (RH + R);
-      const int run = L.w_run[q];
-      walk_one<kTwoTier, kAttr, false>(
-          s, dead, L.w_stage[q], L.w_off[q], L.w_vlen[q],
-          t < D ? L.ver[(size_t)run * D + t] : 0, q >= RH, row >= 0, W,
+    // 4. The listed walkers: branches, removals, extractions.
+    for (int i = 0; i < n_walk; ++i) {
+      const int wq = L.w_list[i];
+      const int row = wq - (RH + R);
+      const int run = L.w_run[wq];
+      walk_one<kTwoTier, kAttr, false, true>(
+          s, dead, L.w_stage[wq], L.w_off[wq], L.w_vlen[wq],
+          t < D ? q.ver[(size_t)run * D + t] : 0, wq >= RH, row >= 0, W,
           row >= 0 ? ost + row * W : nullptr,
           row >= 0 ? oof + row * W : nullptr, row >= 0 ? ocnt + row : nullptr,
           c);
@@ -619,41 +788,39 @@ __global__ void __launch_bounds__(32 * kWarps) scan_pass(Args a) {
           hr_stage[dst] = L.r_id[r];
           hr_off[dst] = off;
           for (int d = 0; d < D; ++d)
-            hr_ver[(size_t)dst * D + d] = L.ver[(size_t)r * D + d];
+            hr_ver[(size_t)dst * D + d] = q.ver[(size_t)r * D + d];
           hr_vlen[dst] = L.r_vlen[r];
           hr_ts[dst] = ts;
           hr_seq[dst] = seq0 + tt;
           hr_row[dst] = r;
         }
         n_over += fin && !fit;
-        if (r < R) L.n_alive[r] = fit;  // staging reused as the pin list
         base += total;
+        // Each fitted match pins its root (stage r_id, this off): one lookup
+        // a match, keys being unique among live entries.
+        for (unsigned m = __ballot_sync(kFull, fit); m; m &= m - 1) {
+          const int e = warp_find(s.st, s.of, E, L.r_id[r0 + __ffs(m) - 1], off);
+          if (e >= 0 && t == 0) ++s.rf[e];
+          __syncwarp();
+        }
       }
       handle_overflows += warp_sum(n_over);
       hr_count = min(base, HB);
-      __syncwarp();
-      for (int e = t; e < E; e += 32) {
-        int pin = 0;
-        for (int r = 0; r < R; ++r)
-          pin += L.n_alive[r] && s.st[e] == L.r_id[r] && s.of[e] == off;
-        s.rf[e] += pin;
-      }
-      __syncwarp();
     }
 
-    // 6. Queue compaction (engine/matcher.py: finish).  The next queue is
-    // staged in scratch, then copied over the run state.
+    // 6. Queue compaction (engine/matcher.py: finish) into the other run
+    // buffer, which then becomes the queue.
     for (int j = t; j < R; j += 32) {
-      L.n_alive[j] = 0;
-      L.n_id[j] = -1;
-      L.n_eval[j] = 0;
-      L.n_vlen[j] = 0;
-      L.n_event[j] = -1;
-      L.n_start[j] = -1;
-      L.n_branch[j] = 0;
-      for (int d = 0; d < D; ++d) L.n_ver[(size_t)j * D + d] = 0;
-      for (int n = 0; n < NS; ++n) L.n_agg[(size_t)j * NS + n] = 0;
+      nq.alive[j] = 0;
+      nq.id[j] = -1;
+      nq.eval[j] = 0;
+      nq.vlen[j] = 0;
+      nq.event[j] = -1;
+      nq.start[j] = -1;
+      nq.branching[j] = 0;
     }
+    for (int i = t; i < R * D; i += 32) nq.ver[i] = 0;
+    for (int i = t; i < R * NS; i += 32) nq.agg[i] = 0;
     __syncwarp();
     int base = 0, dropped = 0;
     for (int r0 = 0; r0 < R; r0 += 32) {
@@ -662,7 +829,7 @@ __global__ void __launch_bounds__(32 * kWarps) scan_pass(Args a) {
       bool reseed = false;
       if (r < R) {
         bits = L.r_bits[r];
-        reseed = L.alive[r] && L.id[r] < 0;
+        reseed = q.alive[r] && q.id[r] < 0;
         n_cand = ((bits & kSurvAlive) && !(bits & kSurvFinal)) + reseed;
         for (int h = 0; h < H; ++h) n_cand += L.b_en[r * H + h];
       }
@@ -670,10 +837,10 @@ __global__ void __launch_bounds__(32 * kWarps) scan_pass(Args a) {
       int j = base + warp_exclusive(n_cand, &total);
       base += total;
       if (r >= R) continue;
-      const int* vv = L.ver + (size_t)r * D;
+      const int* vv = q.ver + (size_t)r * D;
       if ((bits & kSurvAlive) && !(bits & kSurvFinal)) {
         if (j < R)
-          place(L, D, j, L.r_id[r], L.r_eval[r], L.r_vlen[r], L.r_event[r],
+          place(nq, D, j, L.r_id[r], L.r_eval[r], L.r_vlen[r], L.r_event[r],
                 L.r_start[r], (bits & kSurvBranching) != 0, vv, -1,
                 L.r_agg + (size_t)r * NS);
         else
@@ -684,7 +851,7 @@ __global__ void __launch_bounds__(32 * kWarps) scan_pass(Args a) {
         const int b = r * H + h;
         if (!L.b_en[b]) continue;
         if (j < R)
-          place(L, D, j, L.b_id[b], L.b_eval[b], L.b_vlen[b], L.b_event[b],
+          place(nq, D, j, L.b_id[b], L.b_eval[b], L.b_vlen[b], L.b_event[b],
                 L.b_start[b], 1, vv, L.b_vlen[b] - 1,
                 L.b_agg + (size_t)b * NS);
         else
@@ -693,25 +860,16 @@ __global__ void __launch_bounds__(32 * kWarps) scan_pass(Args a) {
       }
       if (reseed) {
         if (j < R)
-          place(L, D, j, -1, CEP_BEGIN_POS, L.vlen[r], -1, -1, 0, vv,
-                (bits & kHasSucc) ? L.vlen[r] - 1 : -1, nullptr);
+          place(nq, D, j, -1, CEP_BEGIN_POS, q.vlen[r], -1, -1, 0, vv,
+                (bits & kHasSucc) ? q.vlen[r] - 1 : -1, nullptr);
         else
           ++dropped;
       }
     }
     run_drops += warp_sum(dropped);
-    __syncwarp();
-    for (int j = t; j < R; j += 32) {
-      L.alive[j] = L.n_alive[j];
-      L.id[j] = L.n_id[j];
-      L.eval[j] = L.n_eval[j];
-      L.vlen[j] = L.n_vlen[j];
-      L.event[j] = L.n_event[j];
-      L.start[j] = L.n_start[j];
-      L.branching[j] = L.n_branch[j];
-      for (int d = 0; d < D; ++d) L.ver[(size_t)j * D + d] = L.n_ver[(size_t)j * D + d];
-      for (int n = 0; n < NS; ++n) L.agg[(size_t)j * NS + n] = L.n_agg[(size_t)j * NS + n];
-    }
+    const Runs was = q;
+    q = nq;
+    nq = was;
     __syncwarp();
 
     // 7. Promotion (engine/tiered.py: build_promote, scan_kernel.py:
@@ -720,7 +878,7 @@ __global__ void __launch_bounds__(32 * kWarps) scan_pass(Args a) {
     if constexpr (kPromo) {
       if (!fire) continue;
       int live = 0;
-      for (int i = t; i < R; i += 32) live += L.alive[i] != 0;
+      for (int i = t; i < R; i += 32) live += q.alive[i] != 0;
       const int cnt = warp_sum(live);
       if (cnt >= R) {  // the run the untiered queue could not hold
         ++run_drops;
@@ -735,21 +893,53 @@ __global__ void __launch_bounds__(32 * kWarps) scan_pass(Args a) {
                j ? a.promo_ident[j - 1] : -1, j ? po[j - 1] : -1, j + 1,
                L.p_ver, EHk);
       if (t == 0) {
-        L.alive[cnt] = 1;
-        L.id[cnt] = a.promo_ident[a.plen - 1];
-        L.eval[cnt] = a.promo_eval;
-        L.vlen[cnt] = a.plen;
-        L.event[cnt] = po[a.plen - 1];
-        L.start[cnt] = a.pr_anchor[ek];
-        L.branching[cnt] = 0;
+        q.alive[cnt] = 1;
+        q.id[cnt] = a.promo_ident[a.plen - 1];
+        q.eval[cnt] = a.promo_eval;
+        q.vlen[cnt] = a.plen;
+        q.event[cnt] = po[a.plen - 1];
+        q.start[cnt] = a.pr_anchor[ek];
+        q.branching[cnt] = 0;
       }
-      for (int d = t; d < D; d += 32) L.ver[(size_t)cnt * D + d] = L.p_ver[d];
-      for (int n = t; n < NS; n += 32) L.agg[(size_t)cnt * NS + n] = cep_state_init[n];
+      for (int d = t; d < D; d += 32) q.ver[(size_t)cnt * D + d] = L.p_ver[d];
+      for (int n = t; n < NS; n += 32) q.agg[(size_t)cnt * NS + n] = cep_state_init[n];
       ++promoted;
       __syncwarp();
     }
   }
+  __syncwarp();
 
+  // Write the lane back.
+  for (int i = t; i < R; i += 32) {
+    a.o_alive[r1 + i] = (uint8_t)q.alive[i];
+    a.o_branching[r1 + i] = (uint8_t)q.branching[i];
+    a.o_id_pos[r1 + i] = q.id[i];
+    a.o_eval_pos[r1 + i] = q.eval[i];
+    a.o_vlen[r1 + i] = q.vlen[i];
+    a.o_event_off[r1 + i] = q.event[i];
+    a.o_start_ts[r1 + i] = q.start[i];
+  }
+  for (int i = t; i < R * D; i += 32) a.o_ver[r1 * D + i] = q.ver[i];
+  for (int i = t; i < R * NS; i += 32) a.o_agg[r1 * NS + i] = q.agg[i];
+  for (int i = t; i < E; i += 32) {
+    a.o_stage[e1 + i] = s.st[i];
+    a.o_off[e1 + i] = s.of[i];
+    a.o_refs[e1 + i] = s.rf[i];
+    a.o_npreds[e1 + i] = s.np[i];
+  }
+  if constexpr (kPvShared) {
+    for (int i = t; i < E * MP; i += 32) {
+      a.o_pstage[e2 + i] = s.ps[i];
+      a.o_poff[e2 + i] = s.po[i];
+      a.o_pvlen[e2 + i] = s.pl[i];
+    }
+    for (int i = t; i < E * MP * D; i += 32) a.o_pver[e3 + i] = s.pv[i];
+  }
+  if constexpr (kAttr) {
+    for (int i = t; i < S; i += 32) a.o_stage_hops[(size_t)k * S + i] = c.sh[i];
+    for (int i = t; i < 4 * S; i += 32)
+      a.o_stage_counts[(size_t)k * 4 * S + i] = L.stc[i];
+  }
   if (t == 0) {
     a.o_missing[k] = c.missing;
     a.o_trunc[k] = c.trunc;
@@ -780,15 +970,25 @@ __global__ void __launch_bounds__(32 * kWarps) scan_pass(Args a) {
 constexpr bool kInstLazy = CEP_LAZY, kInstTwoTier = CEP_TWO_TIER,
                kInstAttr = CEP_ATTR, kInstPromo = CEP_PROMO;
 
-}  // namespace
-
-// Per-lane scratch the wrapper allocates: sizes[0] int32 words and
-// sizes[1] bytes, for dims {R, D}.
-extern "C" void cep_scan_scratch(const int* dims, long long* sizes) {
-  const Layout l = layout(dims[0], dims[1]);
-  sizes[0] = (long long)l.ints;
-  sizes[1] = (long long)l.bytes;
+// This library's kernel in one placement of the pointer rows, with the
+// arena's size set as its dynamic shared memory.
+template <bool kPvShared>
+cudaError_t kernel_for(int lane_bytes, void (**fn)(Args)) {
+  *fn = scan_pass<kInstLazy, kInstTwoTier, kInstAttr, kInstPromo, kPvShared>;
+  cudaError_t e = cudaFuncSetAttribute(
+      *fn, cudaFuncAttributeMaxDynamicSharedMemorySize, lane_bytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(*fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  return e;
 }
+
+cudaError_t kernel_for(bool pv_shared, int lane_bytes, void (**fn)(Args)) {
+  return pv_shared ? kernel_for<true>(lane_bytes, fn)
+                   : kernel_for<false>(lane_bytes, fn);
+}
+
+}  // namespace
 
 // This library's instance as bits: lazy 1, two-tier 2, attribution 4,
 // promotion 8.
@@ -796,9 +996,27 @@ extern "C" int cep_scan_mode() {
   return kInstLazy | kInstTwoTier << 1 | kInstAttr << 2 | kInstPromo << 3;
 }
 
+// The occupancy of the kernel in placement pv_shared with a lane_bytes
+// arena: out[0] lanes resident per SM, out[1] registers a thread, out[2]
+// local memory bytes a thread.  Returns a CUDA error.
+extern "C" int cep_scan_occupancy(int pv_shared, int lane_bytes, int* out) {
+  void (*fn)(Args);
+  cudaError_t e = kernel_for(pv_shared != 0, lane_bytes, &fn);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fn, 32, lane_bytes);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, fn);
+  out[1] = attr.numRegs;
+  out[2] = (int)attr.localSizeBytes;
+  return (int)e;
+}
+
 // dims: K, T, R, E, MP, D, W, HB, enforce_windows, EH, S, P, promo_eval,
-// then the P prefix identities.  Returns a CUDA error, or -1 when S is not
-// the pattern's stage count or P is out of range.
+// pv_shared, lane_bytes, then the P prefix identities.  Returns a CUDA
+// error, or -1 when S is not the pattern's stage count, P is out of range
+// or lane_bytes is not the arena's size (its fold states not the
+// pattern's), -2 when the arena exceeds a block's shared memory.
 extern "C" int cep_scan_pass(const int* dims, void* const* ptrs,
                              void* stream) {
   Args a;
@@ -809,10 +1027,16 @@ extern "C" int cep_scan_pass(const int* dims, void* const* ptrs,
   const int s_width = dims[10];
   a.plen = dims[11];
   a.promo_eval = dims[12];
+  const bool pv_shared = dims[13] != 0;
+  a.lane_bytes = dims[14];
   if ((kInstAttr && s_width != S) || a.plen < 0 || a.plen > kMaxPromo ||
       (kInstPromo && a.plen == 0))
     return -1;
-  for (int j = 0; j < kMaxPromo; ++j) a.promo_ident[j] = j < a.plen ? dims[13 + j] : -1;
+  const size_t need = scan_layout(a.R, a.E, a.MP, a.D, H, NS, S, kInstAttr,
+                                  pv_shared).bytes;
+  if (need != (size_t)a.lane_bytes) return -1;
+  if (need > kSmemPerBlock) return -2;
+  for (int j = 0; j < kMaxPromo; ++j) a.promo_ident[j] = j < a.plen ? dims[15 + j] : -1;
   int i = 0;
 #define P(f) a.f = static_cast<decltype(a.f)>(ptrs[i++])
   P(ev_key); P(ev_ts); P(ev_off); P(ev_valid);
@@ -836,14 +1060,13 @@ extern "C" int cep_scan_pass(const int* dims, void* const* ptrs,
   P(o_hr_seq); P(o_hr_row); P(o_hr_count); P(o_handle_overflows);
   P(o_hot_hits); P(o_hot_misses); P(o_overflow_walks); P(o_demotions);
   P(o_stage_counts); P(o_stage_hops);
-  P(out_stage); P(out_off); P(count); P(scratch); P(flags);
+  P(out_stage); P(out_off); P(count);
   P(pr_fire); P(pr_offs); P(pr_anchor); P(pr_sver); P(o_promoted);
 #undef P
   for (int l = 0; l < CEP_NUM_LEAVES; ++l) a.leaves[l] = ptrs[i++];
-  const dim3 block(32, kWarps);
-  const dim3 grid((a.K + kWarps - 1) / kWarps);
-  const size_t smem = sizeof(unsigned) * kWarps * a.E;
-  scan_pass<kInstLazy, kInstTwoTier, kInstAttr, kInstPromo>
-      <<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  void (*fn)(Args);
+  const cudaError_t e = kernel_for(pv_shared, a.lane_bytes, &fn);
+  if (e != cudaSuccess) return (int)e;
+  fn<<<a.K, 32, a.lane_bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,10 +5,11 @@
 // also uses), and the body of one buffer walk.
 //
 // Every function here runs on one warp that owns one lane: the lane's slab
-// lives in device memory behind a SlabLane, and the functions keep the
-// plain PyTorch pass's semantics (ops/slab.py: puts_batched,
-// _puts_sequential, walks_compacted) bit for bit.  walk_pass.cu's header
-// describes the mapping and the contract.
+// lives behind a SlabLane, in device memory (walk_pass.cu) or in shared
+// memory (scan_pass.cu, where the pointer rows may stay in device memory),
+// and the functions keep the plain PyTorch pass's semantics (ops/slab.py:
+// puts_batched, _puts_sequential, walks_compacted) bit for bit.
+// walk_pass.cu's header describes the mapping and the contract.
 
 #pragma once
 
@@ -378,6 +379,83 @@ __device__ __forceinline__ bool compatible(int q_mine, int qlen, const int* p,
   return (qlen > plen && full) || (qlen == plen && butlast && last_q >= last_p);
 }
 
+// compatible for the pointers a walk may take (need: the thread's pointer
+// is live), reading only the digits below each pointer's length: only
+// those decide, so the warp runs as many digits as its longest live
+// pointer has.  False where need is.
+__device__ __forceinline__ bool compatible_live(int q_mine, int qlen,
+                                                const int* p, int plen, int D,
+                                                bool need) {
+  const unsigned len = need ? (unsigned)max(plen, 0) : 0u;
+  const int n = min((int)__reduce_max_sync(kFull, len), D);
+  bool full = true, butlast = true;
+  int last_q = 0, last_p = 0;
+  for (int d = 0; d < n; ++d) {
+    const int qd = __shfl_sync(kFull, q_mine, d);
+    const int pd = need && d < plen ? p[d] : 0;
+    const bool eq = qd == pd;
+    if (d < plen) full = full && eq;
+    if (d < plen - 1) butlast = butlast && eq;
+    if (d == plen - 1) { last_q = qd; last_p = pd; }
+  }
+  return need && ((qlen > plen && full) || (qlen == plen && butlast && last_q >= last_p));
+}
+
+// Entry e's pointer slots after a walk pruned the ones dead[e] marks, by
+// the whole warp: the survivors move to the front in order, zeros behind,
+// and dead[e] is cleared.  A slot only moves to a lower one, so the
+// elements are moved in rounds of kRound x 32, each read whole before it
+// is written.
+__device__ __forceinline__ void prune_row(const SlabLane& s, unsigned* dead,
+                                          int e) {
+  constexpr int kRound = 4;
+  const int t = threadIdx.x;
+  const int MP = s.MP, D = s.D;
+  const unsigned dmask = dead[e];
+  const int np0 = s.np[e] + __popc(dmask);
+  const unsigned keep = (np0 >= 32 ? kFull : ((1u << np0) - 1u)) & ~dmask;
+  const int n_keep = __popc(keep);
+  int *ps = s.ps + e * MP, *po = s.po + e * MP, *pl = s.pl + e * MP;
+  int* pv = s.pv + (size_t)e * MP * D;
+  const bool kept = t < MP && ((keep >> t) & 1u);
+  int a = 0, b = 0, c = 0;
+  if (kept) {
+    a = ps[t];
+    b = po[t];
+    c = pl[t];
+  }
+  __syncwarp();
+  if (t == 0) dead[e] = 0;
+  if (kept) {
+    const int to = __popc(keep & ((1u << t) - 1u));
+    ps[to] = a;
+    po[to] = b;
+    pl[to] = c;
+  }
+  if (t < MP && t >= n_keep) {
+    ps[t] = 0;
+    po[t] = 0;
+    pl[t] = 0;
+  }
+  for (int f0 = 0; f0 < MP * D; f0 += 32 * kRound) {
+    int v[kRound], to[kRound];
+#pragma unroll
+    for (int r = 0; r < kRound; ++r) {
+      const int f = f0 + 32 * r + t, k = f / D;
+      const bool kf = f < MP * D && ((keep >> k) & 1u);
+      v[r] = kf ? pv[f] : 0;
+      to[r] = kf ? __popc(keep & ((1u << k) - 1u)) * D + (f - k * D) : -1;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < kRound; ++r)
+      if (to[r] >= 0) pv[to[r]] = v[r];
+    __syncwarp();
+  }
+  for (int f = n_keep * D + t; f < MP * D; f += 32) pv[f] = 0;
+  __syncwarp();
+}
+
 // One walker of walks_compacted, run by the whole warp: from entry (cs, co)
 // with query version (qv one digit per thread, ql), at most W hops.  A
 // removal walk (rem) decrements refs, deletes entries it frees and
@@ -386,7 +464,15 @@ __device__ __forceinline__ bool compatible(int q_mine, int qlen, const int* p,
 // its hops as emitting and, when ost is given, writes its path to ost/oof
 // and its length to *ocnt.  When the walk ends, each pruned entry is
 // compacted (survivors to the front, zeros behind).
-template <bool kTwoTier, bool kAttr, bool kDrain>
+//
+// kWarpRows (the whole-scan kernel's choice) changes how, not what: thread
+// j reads pointer j's pstage and poff beside its pvlen before the version
+// check and the chosen pointer's three reach every thread by shuffle, so a
+// hop reads the pointer rows once (the hop writes no pointer row); the
+// check reads only live pointers' digits below their length
+// (compatible_live); and each pruned entry is compacted by the whole warp
+// (prune_row) instead of by one thread.
+template <bool kTwoTier, bool kAttr, bool kDrain, bool kWarpRows = false>
 __device__ __forceinline__ void walk_one(const SlabLane& s, unsigned* dead,
                                          int cs, int co, int ql, int qv,
                                          bool rem, bool wot, int W, int* ost,
@@ -427,8 +513,16 @@ __device__ __forceinline__ void walk_one(const SlabLane& s, unsigned* dead,
     // check (its shuffles need the whole warp); threads past MP check a
     // dummy row and are masked out.
     const int mine = e * MP + (t < MP ? t : 0);
+    const int pl_m = pl[mine];
+    int ps_m = 0, po_m = 0;
+    if constexpr (kWarpRows) {
+      ps_m = ps[mine];
+      po_m = po[mine];
+    }
     const bool compat =
-        compatible(qv, ql, pv + (size_t)mine * D, pl[mine], D);
+        kWarpRows ? compatible_live(qv, ql, pv + (size_t)mine * D, pl_m, D,
+                                    t < MP && ((live >> t) & 1u))
+                  : compatible(qv, ql, pv + (size_t)mine * D, pl_m, D);
     const bool ok = t < MP && ((live >> t) & 1u) && compat;
     const unsigned okm = __ballot_sync(kFull, ok);
     __syncwarp();
@@ -444,15 +538,22 @@ __device__ __forceinline__ void walk_one(const SlabLane& s, unsigned* dead,
     const bool sel = okm != 0;
     const int j = sel ? __ffs(okm) - 1 : 0;
     const int sj = e * MP + j;
-    const int ns = ps[sj];
+    int ns, ns_off = 0, ns_len = 0;
+    if constexpr (kWarpRows) {
+      ns = __shfl_sync(kFull, ps_m, j);
+      ns_off = __shfl_sync(kFull, po_m, j);
+      ns_len = __shfl_sync(kFull, pl_m, j);
+    } else {
+      ns = ps[sj];
+    }
     if (sel && rem && newref == 0) {
       if (t == 0) { dead[e] = dmask | (1u << j); np[e] = np_now - 1; }
     }
     const bool nactive = sel && ns >= 0;
     if (nactive) {
       cs = ns;
-      co = po[sj];
-      ql = pl[sj];
+      co = kWarpRows ? ns_off : po[sj];
+      ql = kWarpRows ? ns_len : pl[sj];
       if (t < D) qv = pv[(size_t)sj * D + t];
     }
     const bool budget_out = wot && cnt >= W;
@@ -462,8 +563,15 @@ __device__ __forceinline__ void walk_one(const SlabLane& s, unsigned* dead,
   }
   c.trunc += active;
   // Compact every entry this walker pruned; rows are independent, so
-  // each thread takes whole rows.
-  for (int e = t; e < E; e += 32) {
+  // each thread takes whole rows (kWarpRows: the warp takes one row after
+  // another).
+  if constexpr (kWarpRows) {
+    for (int base = 0; base < E; base += 32) {
+      unsigned rows = __ballot_sync(kFull, base + t < E && dead[base + t] != 0);
+      for (; rows; rows &= rows - 1) prune_row(s, dead, base + __ffs(rows) - 1);
+    }
+  }
+  for (int e = t; e < E && !kWarpRows; e += 32) {
     const unsigned dmask = dead[e];
     if (!dmask) continue;
     dead[e] = 0;

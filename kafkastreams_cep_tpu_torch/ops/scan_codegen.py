@@ -385,6 +385,7 @@ class ScanSource:
     kinds: Tuple[str, ...]
     num_preds: int
     num_aggs: int
+    hops: int  #: frames a run evaluates per event (``CEP_H``)
 
     @property
     def tag(self) -> str:
@@ -501,4 +502,4 @@ def generate(tables: TransitionTables, value) -> ScanSource:
         "}",
         "",
     ]
-    return ScanSource("\n".join(lines), kinds, G, A)
+    return ScanSource("\n".join(lines), kinds, G, A, int(tables.max_hops))

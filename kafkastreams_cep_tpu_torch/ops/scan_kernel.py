@@ -8,10 +8,13 @@ slab, with or without stage attribution, each with and without
 ``enforce_windows``; and its tiered form ``build_scan(..., promotion=p)``,
 which after each step promotes the stencil prefix's completions into the
 NFA tier (``promo=``).  The kernel, ``csrc/scan_pass.cu``, is ``template
-<bool kLazy, bool kTwoTier, bool kAttr, bool kPromo>``; its header says how
-it maps lanes to warps and steps to a loop, what bounds it on the H100, and
-the contract it keeps.  It shares the slab phase with the walk-pass kernel
-(``csrc/walk_pass.cuh``).
+<bool kLazy, bool kTwoTier, bool kAttr, bool kPromo, bool kPvShared>``; its
+header says how it maps lanes to warps and steps to a loop, what bounds it
+on the H100, and the contract it keeps.  It shares the slab phase with the
+walk-pass kernel (``csrc/walk_pass.cuh``).  Each lane runs in its block's
+shared memory (``csrc/scan_layout.cuh``, mirrored here by
+:func:`lane_layout`); the slab's pointer rows join it where
+:func:`pv_in_shared` says so, else they stay in device memory.
 
 A pattern's predicates and folds reach the kernel as C++ that
 ``ops/scan_codegen.py`` generates into a header, ``cep_pattern.h``; a
@@ -38,7 +41,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -61,7 +64,7 @@ logger = get_logger("ops.scan_kernel")
 
 I32 = torch.int32
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("scan_pass.cu", "walk_pass.cuh", "scan_expr.cuh")
+SOURCES = ("scan_pass.cu", "scan_layout.cuh", "walk_pass.cuh", "scan_expr.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # The plain version rounds every float operation: no a*b+c contraction.
@@ -87,6 +90,58 @@ _ATTR_FIELDS = ("stage_counts", "stage_hops")
 _FIELDS = (_RUN_FIELDS + _SLAB_FIELDS + _COUNT_FIELDS + _RING_FIELDS
            + _HOT_FIELDS + _ATTR_FIELDS)
 _ENGINE_ONLY = set(_RUN_FIELDS + _COUNT_FIELDS + _RING_FIELDS) | {"stage_counts"}
+
+
+#: ``csrc/scan_layout.cuh``'s constants: a block's dynamic shared memory on
+#: the H100 (227 KB), the largest lane that takes the pointer rows into
+#: shared memory (untiered, tiered), and the closed-form put's scratch
+#: columns.
+SMEM_PER_BLOCK = 232448
+PV_SHARED_MAX_BYTES = 13 * 1024
+PV_SHARED_MAX_BYTES_TIERED = 48 * 1024
+PUT_COLS = 8
+_RUN_ARRAYS = ("alive", "branching", "id", "eval", "vlen", "event", "start")
+
+
+def lane_layout(R: int, E: int, MP: int, D: int, H: int, NS: int, S: int,
+                attribution: bool, pv_shared: bool) -> Dict[str, int]:
+    """One lane's shared-memory arena (``scan_layout.cuh: scan_layout``):
+    each array's byte offset, every one 16-byte aligned, and ``"bytes"``,
+    the arena's size.  The pointer rows (``ps``, ``po``, ``pl``, ``pv``)
+    are in it only with ``pv_shared``; the stage tallies only under
+    ``attribution``."""
+    RH, PW, EMP = R * H, R * H + 2 * R, E * MP
+    ints = [("st", E), ("of", E), ("rf", E), ("np", E), ("dead", E)]
+    if pv_shared:
+        ints += [("ps", EMP), ("po", EMP), ("pl", EMP), ("pv", EMP * D)]
+    for b in (0, 1):
+        ints += [(f"run{b}.{f}", R) for f in _RUN_ARRAYS]
+        ints += [(f"run{b}.ver", R * D), (f"run{b}.agg", R * NS)]
+    ints += [(f, RH) for f in ("p_cur", "p_pst", "p_pof", "p_pvl")]
+    ints += [("p_ver", RH * D), ("p_sc", RH * PUT_COLS), ("p_list", RH), ("p_free", E)]
+    ints += [(f, PW) for f in ("w_stage", "w_off", "w_vlen", "w_run", "w_list")]
+    ints += [(f, R) for f in ("r_id", "r_eval", "r_vlen", "r_event", "r_start", "r_bits")]
+    ints += [("r_agg", R * NS)]
+    ints += [(f, RH) for f in ("b_id", "b_eval", "b_vlen", "b_event", "b_start")]
+    ints += [("b_agg", RH * NS), ("stc", 4 * S if attribution else 0),
+             ("sh", S if attribution else 0)]
+    arrays = [(f, 4 * n) for f, n in ints]
+    arrays += [("p_en", RH), ("p_first", RH), ("w_en", PW), ("b_en", RH)]
+    out, o = {}, 0
+    for f, n in arrays + [("bytes", 0)]:
+        out[f] = o = (o + 15) & ~15
+        o += n
+    return out
+
+
+def pv_in_shared(R: int, E: int, MP: int, D: int, H: int, NS: int, S: int,
+                 attribution: bool, tiered: bool) -> bool:
+    """The placement rule (``scan_layout.cuh: scan_pv_shared``): the
+    pointer rows go to shared memory when the lane then needs at most
+    ``PV_SHARED_MAX_BYTES`` (``PV_SHARED_MAX_BYTES_TIERED`` in a tiered
+    instance)."""
+    limit = PV_SHARED_MAX_BYTES_TIERED if tiered else PV_SHARED_MAX_BYTES
+    return lane_layout(R, E, MP, D, H, NS, S, attribution, True)["bytes"] <= limit
 
 
 class Mode(NamedTuple):
@@ -227,11 +282,10 @@ class ScanPassKernel:
                     ctypes.c_void_p,
                 ]
                 lib.cep_scan_pass.restype = ctypes.c_int
-                lib.cep_scan_scratch.argtypes = [
-                    ctypes.POINTER(ctypes.c_int),
-                    ctypes.POINTER(ctypes.c_longlong),
+                lib.cep_scan_occupancy.argtypes = [
+                    ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                 ]
-                lib.cep_scan_scratch.restype = None
+                lib.cep_scan_occupancy.restype = ctypes.c_int
                 lib.cep_scan_mode.restype = ctypes.c_int
                 bits = sum(int(v) << i for i, v in enumerate(mode))
                 if lib.cep_scan_mode() != bits:
@@ -244,8 +298,49 @@ class ScanPassKernel:
         self.launches = 0
         self.launches_by_mode = {}
 
+    @staticmethod
+    def arena(source: ScanSource, config: EngineConfig, state: EngineState,
+              pv_shared: Optional[bool] = None, tiered: bool = False) -> Tuple[bool, int]:
+        """``(pv_shared, bytes)``: where a lane's pointer rows go (the rule
+        of :func:`pv_in_shared` for the instance, ``tiered`` or not, unless
+        ``pv_shared`` is given) and the size of its shared-memory arena.
+        Raises ``ValueError`` when the arena exceeds a block's shared
+        memory."""
+        R = state.alive.shape[1]
+        E, MP = state.slab.pstage.shape[1:]
+        dims = (R, E, MP, state.ver.shape[2], source.hops, state.agg.shape[2],
+                state.slab.stage_hops.shape[1], bool(config.stage_attribution))
+        if pv_shared is None:
+            pv_shared = pv_in_shared(*dims, tiered)
+        nbytes = lane_layout(*dims, pv_shared)["bytes"]
+        if nbytes > SMEM_PER_BLOCK:
+            raise ValueError(
+                f"a lane needs {nbytes} bytes of shared memory with the pointer rows "
+                f"{'shared' if pv_shared else 'in device memory'}, over the "
+                f"{SMEM_PER_BLOCK} a block holds (R={R}, E={E}, MP={MP})"
+            )
+        return bool(pv_shared), nbytes
+
+    def geometry(self, source: ScanSource, config: EngineConfig, state: EngineState,
+                 tiered: bool = False, pv_shared: Optional[bool] = None) -> Dict:
+        """How the built instance for ``config`` (``tiered``: with
+        promotions) runs ``state``'s lanes on this card: the pointer rows'
+        placement, the arena's bytes, the lanes resident per SM, and the
+        registers and local memory of a thread."""
+        pv, nbytes = self.arena(source, config, state, pv_shared, tiered)
+        occ = (ctypes.c_int * 3)()
+        lib = self._libs[(source.tag, mode_of(config, tiered))]
+        err = lib.cep_scan_occupancy(int(pv), nbytes, occ)
+        if err:
+            raise RuntimeError(f"occupancy query failed: error {err}")
+        return dict(pv_shared=pv, lane_bytes=nbytes, lanes_per_sm=occ[0],
+                    registers=occ[1], local_bytes=occ[2])
+
     def __call__(self, source: ScanSource, config: EngineConfig,
-                 state: EngineState, events: EventBatch, promo=None):
+                 state: EngineState, events: EventBatch, promo=None,
+                 pv_shared: Optional[bool] = None):
+        """One launch over ``events``; ``pv_shared`` overrides the
+        placement rule (for tests and measurements)."""
         K, R = state.alive.shape
         E, MP = state.slab.pstage.shape[1:]
         D = state.ver.shape[2]
@@ -261,6 +356,8 @@ class ScanPassKernel:
             raise ValueError(f"kernel needs MP <= 32 and D <= 32, got {MP}, {D}")
         mode = mode_of(config, promo is not None)
         EH = int(config.slab_hot_entries)
+        pv_shared, lane_bytes = self.arena(source, config, state, pv_shared,
+                                           promo is not None)
 
         def arg(x, shape, name, dtype=I32):
             if x.device != dev:
@@ -339,17 +436,12 @@ class ScanPassKernel:
         if (source.tag, mode) not in self._libs:
             self.build((source, mode))
         lib = self._libs[(source.tag, mode)]
-        sizes = (ctypes.c_longlong * 2)()
-        lib.cep_scan_scratch((ctypes.c_int * 2)(R, D), sizes)
-        scratch = torch.empty((K, sizes[0]), dtype=I32, device=dev)
-        flags = torch.empty((K, sizes[1]), dtype=torch.uint8, device=dev)
-
         tensors = (
             ev + [ins[f] for f in _FIELDS] + [outs[f] for f in _FIELDS]
-            + [out_stage, out_off, count, scratch, flags] + pr + ev_leaves
+            + [out_stage, out_off, count] + pr + ev_leaves
         )
         dims = [K, T, R, E, MP, D, W, HB, int(bool(config.enforce_windows)), EH, S,
-                *promo_dims]
+                *promo_dims[:2], int(pv_shared), lane_bytes, *promo_dims[2:]]
         dims = (ctypes.c_int * len(dims))(*dims)
         ptrs = (ctypes.c_void_p * len(tensors))(
             *[None if x is None else x.data_ptr() for x in tensors]

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no module of ``kafkastreams_cep_tpu_torch``
-and neither of its scripts (``chip_smoke.py``, ``chip_ab_walk_pass.py``)
-imports ``jax`` or anything of the JAX package ``kafkastreams_cep_tpu`` (the
+and none of its scripts (``chip_smoke.py``, ``chip_ab_walk_pass.py``,
+``chip_ab_scan_pass.py``, ``chip_phases_scan_pass.py``) imports ``jax`` or anything of the JAX package ``kafkastreams_cep_tpu`` (the
 port keeps its own copies of what it needs).  Only the tests import both."""
 
 import ast
@@ -10,9 +10,11 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "kafkastreams_cep_tpu_torch"
+SCRIPTS = ("chip_smoke.py", "chip_ab_walk_pass.py", "chip_ab_scan_pass.py",
+           "chip_phases_scan_pass.py")
 FILES = sorted(
     p.relative_to(ROOT).as_posix()
-    for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py", ROOT / "chip_ab_walk_pass.py"]
+    for p in [*PKG.rglob("*.py"), *(ROOT / s for s in SCRIPTS)]
     if (PKG / "build") not in p.parents  # build outputs, not sources
 )
 FORBIDDEN = ("jax", "jaxlib", "kafkastreams_cep_tpu")
@@ -35,7 +37,7 @@ def imported_modules(path: Path):
 
 
 def test_files_found():
-    assert "chip_smoke.py" in FILES and "chip_ab_walk_pass.py" in FILES
+    assert all((ROOT / s).is_file() for s in SCRIPTS) and set(SCRIPTS) <= set(FILES)
     assert "kafkastreams_cep_tpu_torch/ops/walk_kernel.py" in FILES
     assert "kafkastreams_cep_tpu_torch/ops/scan_kernel.py" in FILES
     assert "kafkastreams_cep_tpu_torch/ops/scan_codegen.py" in FILES

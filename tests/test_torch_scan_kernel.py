@@ -32,6 +32,7 @@ The CUDA kernel itself runs only on a GPU (``chip_smoke.py``; the
 """
 
 import dataclasses
+import itertools
 import logging
 
 import jax.numpy as jnp
@@ -394,28 +395,72 @@ def test_switch_off_uses_per_step_path(monkeypatch, scan_calls, mode):
     assert not scan_calls
 
 
-@pytest.mark.cuda
-def test_kernel_equals_plain_on_gpu(monkeypatch):
-    """On a GPU: the CUDA kernel equals its plain version bit for bit, eager
-    and lazy (``chip_smoke.py`` runs the full set of cases)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU")
-    dev = torch.device("cuda")
-    for conf in (CFG, dict(CFG, lazy_extraction=True, handle_ring=64)):
-        tb = BatchMatcher(ts.stock(ts.TQuery), 37, EngineConfig(**conf), device=dev)
-        events = stock_events(37, 24, 9)
-        events = EventBatch(
-            events.key.to(dev), {f: v.to(dev) for f, v in events.value.items()},
-            events.ts.to(dev), events.off.to(dev), events.valid.to(dev),
-        )
+def kernel_equals_plain(dev, kernel=None):
+    """Every instance of the whole-scan kernel (eager or lazy x single or
+    two-tier x with or without attribution; and tiered: eager, lazy,
+    two-tier + attribution), in both placements of the pointer rows,
+    against its plain version on ``dev``; ``kernel`` (default: the CUDA
+    kernel) takes the wrapper's arguments."""
+    from kafkastreams_cep_tpu_torch.parallel.tiered import TieredBatchMatcher
+
+    kernel = kernel or scan_kernel.scan_pass_kernel
+    K, T = 37, 24
+
+    def on_dev(events):
+        return EventBatch(*(
+            {f: v.to(dev) for f, v in x.items()} if isinstance(x, dict) else x.to(dev)
+            for x in events))
+
+    def check(got, want, msg):
+        assert len(got) == len(want)
+        for a, b in zip(state_arrays(got[0]).values(), state_arrays(want[0]).values()):
+            np.testing.assert_array_equal(a, b, err_msg=msg)
+        for a, b in zip(got[1:], want[1:]):
+            for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+                np.testing.assert_array_equal(x.cpu().numpy(), y.cpu().numpy(), err_msg=msg)
+
+    events = on_dev(stock_events(K, T, 9))
+    for lazy, hot, attr in itertools.product((False, True), repeat=3):
+        conf = dict(CFG, slab_hot_entries=8 if hot else 0, stage_attribution=attr)
+        if lazy:
+            conf.update(lazy_extraction=True, handle_ring=64)
+        tb = BatchMatcher(ts.stock(ts.TQuery), K, EngineConfig(**conf), device=dev)
         source = scan_codegen.generate(tb.matcher.tables, events.value)
         cfg = tb.matcher.config
-        got = scan_kernel.scan_pass_kernel(source, cfg, tb.init_state(), events)
         want = scan_kernel.scan_pass_plain(tb.phases, tb.init_state(), events)
-        for a, b in zip(state_arrays(got[0]).values(), state_arrays(want[0]).values()):
-            np.testing.assert_array_equal(a, b)
-        for a, b in zip(got[1], want[1]):
-            np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+        for pv in (True, False):
+            got = kernel(source, cfg, tb.init_state(), events, pv_shared=pv)
+            check(got, want, f"{scan_kernel.mode_name(cfg)}, pv_shared={pv}")
+    codes = np.random.default_rng(11).choice(4, size=(K, T), p=[0.3, 0.3, 0.3, 0.1])
+    letters = on_dev(EventBatch(
+        key=torch.zeros((K, T), dtype=torch.int32),
+        value=torch.as_tensor(codes.astype(np.int32)),
+        ts=torch.arange(T, dtype=torch.int32)[None, :].expand(K, T) + 1000,
+        off=torch.arange(T, dtype=torch.int32)[None, :].expand(K, T),
+        valid=torch.ones((K, T), dtype=torch.bool)))
+    for extra in ({}, dict(lazy_extraction=True, handle_ring=64),
+                  dict(slab_hot_entries=8, stage_attribution=True)):
+        tm = TieredBatchMatcher(prefix_n_minus_1(ts.TQuery), K,
+                                EngineConfig(**CFG, tiering=True, **extra), device=dev)
+        source = scan_codegen.generate(tm.matcher.tables, letters.value)
+        eng, carry = tm.init_state()
+        _, feed = tm._prefix.scan(carry, letters)
+        promo = (tm._promote, feed)
+        want = scan_kernel.scan_pass_plain(tm.inner.phases, eng, letters, promo=promo)
+        assert int(want[2].sum()) > 0
+        for pv in (True, False):
+            got = kernel(source, tm.matcher.config, eng, letters, promo, pv_shared=pv)
+            check(got, want, f"{scan_kernel.mode_name(tm.matcher.config, True)}, pv_shared={pv}")
+
+
+@pytest.mark.cuda
+def test_kernel_equals_plain_on_gpu(monkeypatch):
+    """On a GPU: the CUDA kernel equals its plain version bit for bit in
+    every instance and both placements of the pointer rows
+    (``chip_smoke.py`` runs the full set of cases)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    kernel_equals_plain(torch.device("cuda"))
 
 
 def test_tiered_scan_path_equals_jax_tiered_scan_kernel(monkeypatch):
