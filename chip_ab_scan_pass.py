@@ -1,7 +1,7 @@
 """Time the whole-scan kernel built from this tree against the same kernel
 built from another tree, on one GPU, in turns.
 
-    python3 chip_ab_scan_pass.py OTHER_ROOT [ROUNDS]
+    python3 chip_ab_scan_pass.py OTHER_ROOT [ROUNDS] [--sass]
 
 OTHER_ROOT is another checkout of the repository, for example a parent
 commit unpacked with ``git archive`` into a directory ``.gitignore`` lists
@@ -18,9 +18,12 @@ placement rule of the slab's pointer rows, the headline scan in the default
 instance at smaller slabs (E in ``SWEEP_E``).  Each instance's
 state, frames and promotions must agree bit for bit between the two builds
 (this build in both placements of the slab's pointer rows); then each build is timed by CUDA events in ROUNDS rounds (default
-5) of this, other, other, this.  Prints the card, one line per instance
-with both medians, their ratio and this build's geometry, and one JSON
-object last.  Imports nothing of JAX.
+5) of this, other, other, this.  With ``--sass`` the script first holds
+the machine code of each pair of libraries against each other
+(``cuobjdump -sass``, instructions and function names only) and prints
+whether they are identical.  Prints the card, one line per instance with
+both medians, their ratio and this build's geometry, and one JSON object
+last.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -48,6 +52,17 @@ def load_scan_module(root: Path, name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def sass(lib: Path) -> list:
+    """The machine code of a library: ``cuobjdump -sass``'s function names
+    and instruction lines (without the paths and build details around them)."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                         check=True).stdout
+    return [ln.strip() for ln in out.splitlines()
+            if ln.strip().startswith(("Function :", "/*"))]
 
 
 def card() -> str:
@@ -126,9 +141,10 @@ def main() -> None:
     import torch
 
     if len(sys.argv) < 2 or not torch.cuda.is_available():
-        cs.fail("usage: chip_ab_scan_pass.py OTHER_ROOT [ROUNDS], on a CUDA machine")
-    other_root = Path(sys.argv[1]).resolve()
-    rounds = int(sys.argv[2]) if len(sys.argv) > 2 else 5
+        cs.fail("usage: chip_ab_scan_pass.py OTHER_ROOT [ROUNDS] [--sass], on a CUDA machine")
+    args_ = [a for a in sys.argv[1:] if not a.startswith("--")]
+    other_root = Path(args_[0]).resolve()
+    rounds = int(args_[1]) if len(args_) > 1 else 5
     from kafkastreams_cep_tpu_torch.ops import scan_kernel
 
     smi = card()
@@ -139,8 +155,20 @@ def main() -> None:
     this, other = scan_kernel.scan_pass_kernel, other_mod.ScanPassKernel()
     items = [(args[0], scan_kernel.mode_of(args[1], promo is not None))
              for _, _, args, promo in cases]
-    this.build(*items)
-    other.build(*[(src, other_mod.Mode(*mode)) for src, mode in items])
+    libs = this.build(*items)
+    other_libs = other.build(*[(src, other_mod.Mode(*mode)) for src, mode in items])
+    same_sass = {}
+    if "--sass" in sys.argv:
+        for (mode, on, _, _), a, b in zip(cases, libs, other_libs):
+            sa, sb = sass(a), sass(b)
+            same_sass[f"{mode} on {on}"] = sa == sb
+            diff = [(x, y) for x, y in zip(sa, sb) if x != y]
+            cs.log(f"sass scan_pass[{mode}] on {on}: {a.name} vs {b.name}: "
+                   + ("identical" if sa == sb else
+                      f"differs ({len(diff) + abs(len(sa) - len(sb))} of "
+                      f"{max(len(sa), len(sb))} lines)")
+                   + f", {len(sa)} lines"
+                   + "".join(f"\n  this:  {x}\n  other: {y}" for x, y in diff[:4]))
     for name, kern in (("this", this), ("other", other)):
         for lib, log in kern.build_logs.items():
             regs = "; ".join(ln.split(":", 1)[-1].strip() for ln in log.splitlines()
@@ -190,7 +218,7 @@ def main() -> None:
         report.append({"mode": mode, "on": on, "this_ms": med["this"],
                        "other_ms": med["other"], "alt_ms": med.get("alt"), "geometry": geo,
                        "this_runs": ms["this"], "other_runs": ms["other"]})
-    print(json.dumps({"card": smi, "ab": report}), flush=True)
+    print(json.dumps({"card": smi, "ab": report, "same_sass": same_sass}), flush=True)
 
 
 if __name__ == "__main__":

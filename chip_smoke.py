@@ -12,10 +12,15 @@ Phases (any failure exits non-zero before the final line):
               together;
 2. parity   — hold each kernel against its plain PyTorch version on the
               card, bit for bit, on random inputs made by numpy from a seed
-              (K in {1, 37, 4096}, two slab configs, with and without puts);
-              then every mode of the walk-pass kernel — two-tier (E_hot 8
-              at E=16, 16 at E=48) x stage attribution x drain — on inputs
-              whose hot tier is full, so that puts demote;
+              (K in {1, 37, 4096}: the first lanes of one 4096-lane input,
+              held against one plain run; three slab configs, one of them
+              with rows of no multiple of 16 bytes, with and without puts;
+              and at K 1 and 37 a slab of E=1536 rows, past what a block of
+              eight lanes holds, so that its blocks serve fewer); then every
+              mode of the
+              walk-pass kernel — two-tier (E_hot 8 at E=16 and E=25, 16 at
+              E=48 and E=1536) x stage attribution x drain — on inputs whose
+              hot tier is full, so that puts demote;
 3. headline — ``BatchMatcher.scan`` at K=4096 lanes with the headline config
               (``bench.py``'s): the first 32 steps through the kernel and
               through the plain pass must agree bit for bit;
@@ -88,7 +93,8 @@ Phases (any failure exits non-zero before the final line):
               beside a strict query, printing the four lines;
 10. spike    — the spike kernel (``spike_pallas.py``'s Pallas kernel on
               Hopper) once on spike_pallas.py's main inputs, equal to its
-              plain version on seeds 0, 1 and 2, timed beside its bound.
+              plain version on seeds 0, 1 and 2 at main's shapes and at
+              ``SPIKE_SHAPES``, timed beside its bound.
 
 The last two lines of standard output are the kernel report (one JSON
 object) and the device line ``{"ok": true, "device": {...}}``; the card's
@@ -145,6 +151,19 @@ LANES = 4096  # K of the headline and lazy paths
 STEPS = 256  # T
 CMP_STEPS = 32  # headline steps held against the plain path
 PARITY_LANES = (1, 37, 4096)
+# The walk-pass kernel's random parity configs: E, MP, D, W, R, H and the
+# hot rows of the two-tier cases; "misaligned" has rows (E*4, E*MP*4 bytes)
+# and lane counts (37) that end off 16 bytes, so the kernel's copies take
+# their scalar heads and tails; "wide" has lanes whose arena is too large for
+# eight a block (ops/walk_kernel.py: block_lanes gives 5 to 7), run at the
+# lane counts WALK_PARITY_LANES gives it.
+WALK_PARITY = {
+    "test_walk_kernel": (16, 4, 6, 8, 4, 2, 8),
+    "misaligned": (25, 3, 5, 6, 4, 2, 8),
+    "headline": (48, 8, 12, 12, 24, 3, 16),
+    "wide": (1536, 8, 12, 12, 24, 3, 16),
+}
+WALK_PARITY_LANES = {"wide": (1, 37)}
 SOURCE = "kafkastreams_cep_tpu_torch/csrc/walk_pass.cu"
 REPLACES = "kafkastreams_cep_tpu/ops/walk_kernel.py:734"
 SCAN_SOURCE = "kafkastreams_cep_tpu_torch/csrc/scan_pass.cu"
@@ -186,6 +205,10 @@ MIXED_K = 4096
 MIXED_STEPS = 8
 SPIKE_SOURCE = "kafkastreams_cep_tpu_torch/csrc/spike.cu"
 SPIKE_REPLACES = "spike_pallas.py:95"
+# Spike shapes beside main's (T, L, E, MP, D): a lane count of no multiple
+# of 32, and one whose arena passes a block's shared memory (the kernel then
+# keeps it in a device-memory scratch).
+SPIKE_SHAPES = ((32, 100, 20, 4, 6), (5, 33, 9, 3, 5), (3, 128, 64, 8, 3))
 
 
 def log(msg: str) -> None:
@@ -619,6 +642,35 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def once_ms(torch, fn):
+    """``(fn(), ms)``: one call of ``fn`` timed by CUDA events."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def kernel_ms(torch, fn, reps: int) -> float:
+    """Mean device ms per call of ``fn``, one kernel launch with a light
+    host wrapper, over ``reps`` calls: the card first runs a spin of a few
+    ms (``torch.cuda._sleep``) while the host queues every call behind it, so
+    the events time the launches back to back and not the wrapper's host
+    work (which ``cuda_ms`` would, where it exceeds the kernel's time)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e6) * reps)  # about 1 ms of spin a call queued
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def nbytes(xs) -> int:
     """Bytes of the tensors as the engine hands them over."""
     return sum(x.numel() * x.element_size() for x in xs)
@@ -640,44 +692,94 @@ def bound(slab_in, slab_out, leaves, other_in, other_out, E, MP, D):
             moved / 1e6, hops)
 
 
-def mode_parity(torch, kern, walk_kernel, walk_inputs, dev, max_err):
-    """Every mode of the walk-pass kernel against its plain version."""
+def walk_parity_arrays(walk_inputs, made: dict, name: str, hot: int):
+    """The random walk-pass inputs of ``WALK_PARITY[name]`` with ``hot`` hot
+    rows, at the config's most lanes, as numpy arrays: made once (seeded by
+    the lane count) and kept in ``made``, so that every mode and lane count
+    that reads them shares them."""
+    if (name, hot) not in made:
+        E, MP, D, _, R, H, _ = WALK_PARITY[name]
+        K = max(WALK_PARITY_LANES.get(name, PARITY_LANES))
+        made[name, hot] = walk_inputs.random_inputs(K, K, E, MP, D, R, H, hot_entries=hot)
+    return made[name, hot]
+
+
+def first_lanes(x, K: int):
+    """The first ``K`` lanes of every tensor leaf of ``x`` (tuples and named
+    tuples of ``[K, ...]`` tensors; None stays None)."""
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        leaves = [first_lanes(v, K) for v in x]
+        return type(x)._make(leaves) if hasattr(x, "_make") else tuple(leaves)
+    if isinstance(x, dict):
+        return {n: first_lanes(v, K) for n, v in x.items()}
+    return x[:K].contiguous() if hasattr(x, "shape") else x
+
+
+def lanes_equal(torch, kern, want, args, kw, Ks, what):
+    """``kern`` on the first K lanes of ``args``/``kw`` against the same
+    lanes of the plain version's ``want``, for each K of ``Ks`` (lanes are
+    independent, so one plain run serves every K): ``{K: (got, err)}``."""
+    return {K: kernel_equal(torch, kern, first_lanes(want, K), first_lanes(args, K),
+                            first_lanes(kw, K), f"{what}, K={K}") for K in Ks}
+
+
+def kernel_equal(torch, kern, want, args, kw, what):
+    """``kern(*args, **kw)`` against the plain version's ``want``: ``(got,
+    max_abs_err)`` (fails on any difference)."""
+    got = kern(*args, **kw)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, got, want)
+    if err:
+        fail(f"walk_pass kernel != plain ({what}; max_abs_err {err})")
+    return got, err
+
+
+def walk_geometry(kern, args, kw):
+    """The walk-pass kernel's geometry for a call ``kern(*args, **kw)``:
+    the lanes a block serves, the block's arena bytes, lanes resident per
+    SM, registers and local bytes a thread."""
+    puts = kw.get("put_ops")
+    PP = puts.en.shape[1] if puts is not None else 0
+    return kern.geometry(args[0], PP, kw.get("hot_entries", 0), kw.get("drain", False))
+
+
+def walk_geometry_text(geo) -> str:
+    return (f"arena {geo['arena_bytes']} B a block of {geo['lanes_a_block']} lanes, "
+            f"{geo['lanes_per_sm']} lanes an SM, {geo['registers']} registers")
+
+
+def mode_parity(torch, kern, walk_kernel, walk_inputs, dev, max_err, made):
+    """Every mode of the walk-pass kernel against its plain version, on the
+    inputs ``walk_parity_arrays`` keeps in ``made``."""
     demoted = 0
-    for name, (E, MP, D, W, R, H, EH) in {
-        "test_walk_kernel": (16, 4, 6, 8, 4, 2, 8),
-        "headline": (48, 8, 12, 12, 24, 3, 16),
-    }.items():
+    for name, (E, MP, D, W, R, H, EH) in WALK_PARITY.items():
         for hot in (0, EH):
             for S in (0, walk_inputs.NUM_STAGES):
                 for drain in (False, True):
                     if not (hot or S or drain):
                         continue  # the default mode: phase 2's first cases
                     mode = walk_kernel.mode_name(hot, S, drain)
-                    for K in PARITY_LANES:
-                        arrs = walk_inputs.random_inputs(K, K, E, MP, D, R, H,
-                                                         hot_entries=hot)
-                        slab, wk, puts, ev_off = walk_inputs.as_tensors(
-                            arrs, dev, stage_hops=S)
-                        PW = wk[0].shape[1]
-                        kw = dict(put_ops=puts, ev_off=ev_off, hot_entries=hot,
-                                  drain=drain)
-                        rows = (PW - R, R)
-                        if drain:  # the handle ring: no puts, all rows emit
-                            ones = torch.ones_like(wk[0])
-                            wk = (*wk[:5], ones, ones)
-                            kw.update(put_ops=None, ev_off=None)
-                            rows = (0, PW)
-                        got = kern(slab, *wk, W, *rows, **kw)
-                        want = walk_kernel.walk_pass_plain(slab, *wk, W, *rows, **kw)
-                        torch.cuda.synchronize()
-                        err = max_abs_err(torch, got, want)
-                        dem = int((got[0].demotions - slab.demotions).sum())
+                    Ks = WALK_PARITY_LANES.get(name, PARITY_LANES)
+                    slab, wk, puts, ev_off = walk_inputs.as_tensors(
+                        walk_parity_arrays(walk_inputs, made, name, hot), dev, stage_hops=S)
+                    PW = wk[0].shape[1]
+                    kw = dict(put_ops=puts, ev_off=ev_off, hot_entries=hot, drain=drain)
+                    rows = (PW - R, R)
+                    if drain:  # the handle ring: no puts, all rows emit
+                        ones = torch.ones_like(wk[0])
+                        wk = (*wk[:5], ones, ones)
+                        kw.update(put_ops=None, ev_off=None)
+                        rows = (0, PW)
+                    want = walk_kernel.walk_pass_plain(slab, *wk, W, *rows, **kw)
+                    for K, (got, err) in lanes_equal(torch, kern, want, (slab, *wk, W, *rows),
+                                                     kw, Ks, f"{name}, {mode}").items():
+                        dem = int((got[0].demotions - slab.demotions[:K]).sum())
                         demoted += dem
                         max_err[mode] = max(max_err.get(mode, 0), err)
                         log(f"parity: {name} {mode} K={K}: max_abs_err {err}"
                             + (f", demotions {dem}" if hot else ""))
-                        if err:
-                            fail(f"walk_pass kernel != plain ({name}, {mode}, K={K})")
     if not demoted:
         fail("no two-tier parity case demoted an entry")
     log(f"parity: every mode bit for bit; two-tier cases demoted {demoted} entries")
@@ -1079,7 +1181,8 @@ def bank_phase(torch, dev, smi, report, records, name_of):
         f"max_abs_err {bank_err}")
     if bank_err:
         fail("stacked cell: walk_pass kernel != plain on a stacked step")
-    bank_ms = cuda_ms(torch, lambda: kern(*args, **kw), 20)
+    bank_ms = kernel_ms(torch, lambda: kern(*args, **kw), 20)
+    bank_geo = walk_geometry(kern, args, kw)
     bank_plain_ms = cuda_ms(torch, lambda: walk_kernel.walk_pass_plain(*args, **kw), 1)
     bank_bound = bound(s_mid.slab, got_k[0], walk_kernel.mode_fields(0, 0, False),
                        list(wk) + list(ops) + [ev.off], got_k[1:], cfg.slab_entries,
@@ -1256,20 +1359,23 @@ def bank_phase(torch, dev, smi, report, records, name_of):
     bound_ms, bound_by, mb, hops = bank_bound
     log(f"walk_pass[bank]: {bank_ms:.3f} ms/launch (plain {bank_plain_ms:.1f} ms) on the "
         f"stacked cell's step {T // 2}, {N * Kq} lanes: {mb:.1f} MB moved, {hops} hops -> "
-        f"bound {bound_ms:.4f} ms ({bound_by}); launches {by_path} [{smi}]")
+        f"bound {bound_ms:.4f} ms ({bound_by}); {walk_geometry_text(bank_geo)}; "
+        f"launches {by_path} [{smi}]")
     report.append({
         "name": "walk_pass[bank]", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": bank_err, "ms": bank_ms, "plain_ms": bank_plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "timed_on": f"the stacked cell's step {T // 2}, {N} queries x {Kq} lanes",
+        "geometry": bank_geo,
     })
     log(f"bank phase: {time.perf_counter() - t9:.1f} s")
 
 
-def spike_inputs(torch, seed, dev):
-    """spike_pallas.py: main's inputs for ``seed`` (main uses seed 0)."""
-    T, L, E, MP, D = 32, 128, 16, 4, 6
+def spike_inputs(torch, seed, dev, shape=(32, 128, 16, 4, 6)):
+    """spike_pallas.py: main's inputs for ``seed`` (main uses seed 0) at
+    ``shape`` (T, L, E, MP, D; main's by default)."""
+    T, L, E, MP, D = shape
     rng = np.random.default_rng(seed)
     return tuple(torch.as_tensor(x.astype(np.int32), device=dev) for x in (
         rng.integers(0, 3, (T, L)), rng.integers(0, 3, (E, L)),
@@ -1290,15 +1396,17 @@ def spike_phase(torch, dev, smi, report):
     if launches != 1 or not bool(torch.isfinite(out).all()) or out.shape != (sk.ROWS, 128):
         fail(f"spike: {launches} launches, output {tuple(out.shape)}")
     err = 0.0
-    for seed in (0, 1, 2):
-        x = spike_inputs(torch, seed, dev)
-        got, want = kern(*x), sk.spike_plain(*x)
-        e = float((got - want).abs().max())
-        err = max(err, e)
-        log(f"spike: seed {seed}: kernel vs plain max_abs_err {e}; max {float(got.max())}")
-        if e or not torch.equal(got, want):
-            fail(f"spike kernel != plain (seed {seed})")
-    ms = cuda_ms(torch, lambda: kern(ev, stage, pver), 50)
+    for shape in [(32, 128, 16, 4, 6)] + list(SPIKE_SHAPES):
+        for seed in (0, 1, 2):
+            x = spike_inputs(torch, seed, dev, shape)
+            got, want = kern(*x), sk.spike_plain(*x)
+            e = float((got - want).abs().max())
+            err = max(err, e)
+            log(f"spike: (T, L, E, MP, D) {shape}, seed {seed}: kernel vs plain "
+                f"max_abs_err {e}; max {float(got.max())}")
+            if e or not torch.equal(got, want):
+                fail(f"spike kernel != plain ({shape}, seed {seed})")
+    ms = kernel_ms(torch, lambda: kern(ev, stage, pver), 50)
     plain_ms = cuda_ms(torch, lambda: sk.spike_plain(ev, stage, pver), 3)
     T, L = ev.shape
     E, MP, D = pver.shape[:3]
@@ -1409,26 +1517,23 @@ def main() -> None:
 
     # 2. parity on random inputs --------------------------------------------
     max_err = {"default": 0}
-    for name, (E, MP, D, W, R, H) in {
-        "test_walk_kernel": (16, 4, 6, 8, 4, 2),
-        "headline": (48, 8, 12, 12, 24, 3),
-    }.items():
-        for K in PARITY_LANES:
-            arrs = walk_inputs.random_inputs(K, K, E, MP, D, R, H)
-            slab, wk, puts, ev_off = walk_inputs.as_tensors(arrs, dev)
-            PW = wk[0].shape[1]
-            for with_puts in (False, True):
-                kw = dict(put_ops=puts, ev_off=ev_off) if with_puts else {}
-                got = kern(slab, *wk, W, PW - R, R, **kw)
-                want = walk_kernel.walk_pass_plain(slab, *wk, W, PW - R, R, **kw)
-                torch.cuda.synchronize()
-                err = max_abs_err(torch, got, want)
+    t0, made = time.perf_counter(), {}
+    for name, (E, MP, D, W, R, H, _) in WALK_PARITY.items():
+        Ks = WALK_PARITY_LANES.get(name, PARITY_LANES)
+        slab, wk, puts, ev_off = walk_inputs.as_tensors(
+            walk_parity_arrays(walk_inputs, made, name, 0), dev)
+        PW = wk[0].shape[1]
+        for with_puts in (False, True):
+            kw = dict(put_ops=puts, ev_off=ev_off) if with_puts else {}
+            want = walk_kernel.walk_pass_plain(slab, *wk, W, PW - R, R, **kw)
+            for K, (_, err) in lanes_equal(torch, kern, want, (slab, *wk, W, PW - R, R), kw,
+                                           Ks, f"{name}, puts={with_puts}").items():
                 max_err["default"] = max(max_err["default"], err)
                 log(f"parity: {name} K={K} puts={with_puts}: max_abs_err {err}")
-                if err:
-                    fail(f"walk_pass kernel != plain ({name}, K={K}, puts={with_puts})")
+    log(f"parity: default cases took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    mode_parity(torch, kern, walk_kernel, walk_inputs, dev, max_err)
+    mode_parity(torch, kern, walk_kernel, walk_inputs, dev, max_err, made)
+    del made
     log(f"parity: mode cases took {time.perf_counter() - t0:.1f} s")
 
     # 3. headline: kernel vs plain path, step by step -----------------------
@@ -1644,31 +1749,33 @@ def main() -> None:
     # 6. kernel timing on real mid-scan inputs -------------------------------
     report = []
 
-    def entry(mode, launches, ms, plain_ms, bnd, by_path, timed_on):
+    def entry(mode, launches, timing, bnd, by_path, timed_on):
+        _, ms, plain_ms, geo = timing
         bound_ms, bound_by, mb, hops = bnd
         log(f"walk_pass[{mode}]: {ms:.3f} ms/launch (plain {plain_ms:.1f} ms) on "
             f"{timed_on}: {mb:.1f} MB moved, {hops} hops -> bound {bound_ms:.4f} ms "
-            f"({bound_by}); launches {by_path} [{smi}]")
+            f"({bound_by}); {walk_geometry_text(geo)}; launches {by_path} [{smi}]")
         report.append({
             "name": "walk_pass" if mode == "default" else f"walk_pass[{mode}]",
             "route": "cuda", "source": SOURCE, "replaces": REPLACES,
             "launches": launches, "launches_by_path": by_path,
             "max_abs_err": max_err.get(mode, 0), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "timed_on": timed_on,
+            "timed_on": timed_on, "geometry": geo,
         })
 
-    def timed(args, kw, mode, plain_reps=2):
+    def timed(args, kw, mode):
+        """The kernel against its plain version on ``args``, both timed (the
+        plain version once, the run it is compared by): ``(got, ms, plain_ms,
+        geometry)``."""
         got = kern(*args, **kw)
-        want = walk_kernel.walk_pass_plain(*args, **kw)
+        want, plain_ms = once_ms(torch, lambda: walk_kernel.walk_pass_plain(*args, **kw))
         err = max_abs_err(torch, got, want)
         max_err[mode] = max(max_err.get(mode, 0), err)
         if err:
             fail(f"{mode} on mid-scan inputs: kernel != plain (max_abs_err {err})")
-        ms = cuda_ms(torch, lambda: kern(*args, **kw), 20)
-        plain_ms = cuda_ms(torch, lambda: walk_kernel.walk_pass_plain(*args, **kw),
-                           plain_reps)
-        return got, ms, plain_ms
+        ms = kernel_ms(torch, lambda: kern(*args, **kw), 20)
+        return got, ms, plain_ms, walk_geometry(kern, args, kw)
 
     # The default mode on the headline step.
     ph = bm.phases
@@ -1678,12 +1785,13 @@ def main() -> None:
     ops = ph.build_puts(s_mid, rec)
     wk = ph.build_walkers(s_mid, rec, ev)
     args = (s_mid.slab, *wk, ph.max_walk, ph.out_base, ph.out_rows)
-    got, ms, plain_ms = timed(args, dict(put_ops=ops, ev_off=ev.off), "default")
+    timing = timed(args, dict(put_ops=ops, ev_off=ev.off), "default")
+    got = timing[0]
     E, MP, D = cfg.slab_entries, cfg.slab_preds, cfg.dewey_depth
     bnd = bound(s_mid.slab, got[0], walk_kernel.mode_fields(0, 0, False),
                 list(wk) + list(ops) + [ev.off], got[1:], E, MP, D)
-    entry("default", demo_launches + headline_launches + lazy_demo["default"], ms,
-          plain_ms, bnd, {"demo": demo_launches, "headline": headline_launches,
+    entry("default", demo_launches + headline_launches + lazy_demo["default"], timing,
+          bnd, {"demo": demo_launches, "headline": headline_launches,
                           "lazy_demo": lazy_demo["default"]},
           f"headline step {T // 2}, K={K}")
     # Where a headline step's time goes (CUDA events around each phase).
@@ -1726,7 +1834,8 @@ def main() -> None:
                               ("attribution", s_mid.slab, 0)):
         args = (slab_s, *wk, lph.max_walk, lph.out_base, lph.out_rows)
         kw = dict(put_ops=ops, ev_off=ev.off, hot_entries=hot)
-        got, ms, plain_ms = timed(args, kw, mode)
+        timing = timed(args, kw, mode)
+        got = timing[0]
         leaves = walk_kernel.mode_fields(hot, slab_s.stage_hops.shape[1], False)
         bnd = bound(slab_s, got[0], leaves, list(wk) + list(ops) + [ev.off],
                     got[1:], EL, MP, D)
@@ -1737,7 +1846,7 @@ def main() -> None:
             launches, by_path = mode_demo[mode], {"demo": mode_demo[mode]}
             on = (f"lazy-path step {mid}, K={K}, "
                   + ("without attribution" if hot else "single tier"))
-        entry(mode, launches, ms, plain_ms, bnd, by_path, on)
+        entry(mode, launches, timing, bnd, by_path, on)
 
     HB = lcfg.handle_ring
     pend = torch.arange(HB, device=dev)[None, :] < s_mid.hr_count[:, None]
@@ -1753,9 +1862,9 @@ def main() -> None:
         (drain_mode, dslab, lcfg.slab_hot_entries),
         ("drain", dslab._replace(stage_hops=dslab.stage_hops[:, :0]), 0),
     ):
-        got, ms, plain_ms = timed((slab_d, *ring, lph.max_walk, 0, HB),
-                                  dict(hot_entries=hot, drain=True), mode,
-                                  plain_reps=1)
+        timing = timed((slab_d, *ring, lph.max_walk, 0, HB),
+                       dict(hot_entries=hot, drain=True), mode)
+        got = timing[0]
         leaves = walk_kernel.mode_fields(hot, slab_d.stage_hops.shape[1], True)
         bnd = bound(slab_d, got[0], leaves, ring, got[1:], EL, MP, D)
         if mode == "drain":
@@ -1764,7 +1873,7 @@ def main() -> None:
         else:
             launches, by_path = lazy_runs[drain_mode], {"lazy_path": lazy_runs[drain_mode]}
             on = f"the lazy path's mid-chunk ring, K={K}"
-        entry(mode, launches, ms, plain_ms, bnd, by_path, on)
+        entry(mode, launches, timing, bnd, by_path, on)
 
     # 7. the whole-scan kernel ---------------------------------------------------
     t7 = time.perf_counter()

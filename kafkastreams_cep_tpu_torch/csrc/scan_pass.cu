@@ -92,11 +92,11 @@
 // PERF.md section 5), put 54-66 % of a lane's cycles in the walkers and
 // 15-27 % in the puts.  What this design does about it:
 //   * the lane's working state lives in shared memory for all T steps;
-//   * the closed-form puts run over the enabled ops alone (put_listed),
-//     their lookups one pass of the warp over the rows;
+//   * the closed-form puts run over the enabled ops alone (walk_pass.cuh:
+//     put_listed), their lookups one pass of the warp over the rows;
 //   * a ballot lists the enabled walkers, instead of a scan of every flag;
 //     a hop reads its entry's pointer rows once and a pruned entry is
-//     compacted by the whole warp (walk_pass.cuh: walk_one's kWarpRows);
+//     compacted by the whole warp (walk_pass.cuh: walk_one);
 //   * the frames go out in streaming stores, the stage tally by
 //     shared-memory atomics, the next queue into a second run buffer;
 //   * at most 128 registers a thread (kMinLanes), so registers hold 16
@@ -416,178 +416,6 @@ __device__ __forceinline__ int chain_run(const Args& a, const Runs& q,
   return ovf;
 }
 
-// The consuming puts in closed form (walk_pass.cuh: put_phase, the port of
-// puts_batched) over the enabled ops alone: an op that is not enabled takes
-// part in no group (every stage of put_phase skips it), so running the
-// stages over the enabled ops, listed in queue order, gives the same slab
-// in O(n) a stage where put_phase takes O(R*H).  Op i of the list is thread
-// i % 32's; every op's two lookups (its predecessor, its target) are one
-// pass of the warp over the rows, the lowest matching row winning as in
-// find_row; the free rows are listed once by a ballot.  Scratch columns as
-// put_phase's, indexed by list position.
-__device__ __forceinline__ void put_listed(const PutLane& p_, const SlabLane& s,
-                                           Tally& c, int* list, int* free_rows) {
-  const int t = threadIdx.x;
-  const int E = s.E, MP = s.MP, D = s.D, PP = p_.PP;
-  int *st = s.st, *of = s.of, *rf = s.rf, *np = s.np;
-  int *ps = s.ps, *po = s.po, *pl = s.pl, *pv = s.pv;
-  const uint8_t* first = p_.first;
-  const int *cur = p_.cur, *pst = p_.pst, *pof = p_.pof;
-  const int off = p_.off;
-  int* sc = p_.sc;
-#define SC(i, c) sc[(i) * kPutCols + (c)]
-  int n = 0;
-  for (int b = 0; b < PP; b += 32) {
-    const int p = b + t;
-    const bool en = p < PP && p_.en[p];
-    const unsigned m = __ballot_sync(kFull, en);
-    if (en) list[n + __popc(m & ((1u << t) - 1u))] = p;
-    n += __popc(m);
-  }
-  if (!n) return;
-
-  // A: the lookups against the step-start slab (kEntry the target's row,
-  // kNp0 the predecessor's, E when absent), then the predecessor check.
-  for (int i = t; i < n; i += 32) {
-    SC(i, kEntry) = E;
-    SC(i, kNp0) = E;
-  }
-  __syncwarp();
-  for (int e = t; e < E; e += 32) {
-    const int se = st[e], oe = of[e];
-    for (int i = 0; i < n; ++i) {
-      const int p = list[i];
-      if (se == cur[p] && oe == off) atomicMin(&SC(i, kEntry), e);
-      if (se == pst[p] && oe == pof[p]) atomicMin(&SC(i, kNp0), e);
-    }
-  }
-  __syncwarp();
-  int miss = 0;
-  for (int i = t; i < n; i += 32) {
-    const int p = list[i];
-    const bool prev_found = SC(i, kNp0) < E;
-    miss += !first[p] && !prev_found;
-    const int enp = first[p] || prev_found;
-    const int e = SC(i, kEntry);
-    const int exist = enp && e < E;
-    SC(i, kEnp) = enp;
-    SC(i, kExist) = exist;
-    SC(i, kEntry) = exist ? e : 0;
-    SC(i, kNp0) = exist ? np[e] : 0;
-  }
-  __syncwarp();
-
-  // B: creators, the first enabled op of a group whose entry is absent;
-  // and the free rows, in index order.
-  for (int i = t; i < n; i += 32) {
-    const int ci = cur[list[i]];
-    bool creator = SC(i, kEnp) && !SC(i, kExist);
-    for (int j = 0; creator && j < i; ++j)
-      if (SC(j, kEnp) && cur[list[j]] == ci) creator = false;
-    SC(i, kCreator) = creator;
-  }
-  int nfree = 0;
-  for (int b = 0; b < E; b += 32) {
-    const int e = b + t;
-    const bool f = e < E && st[e] < 0;
-    const unsigned m = __ballot_sync(kFull, f);
-    if (f) free_rows[nfree + __popc(m & ((1u << t) - 1u))] = e;
-    nfree += __popc(m);
-  }
-  __syncwarp();
-
-  // C: creator c (in op order) takes the c-th free row.
-  for (int i = t; i < n; i += 32) {
-    int slot = -1;
-    if (SC(i, kCreator)) {
-      int crank = 0;
-      for (int j = 0; j < i; ++j) crank += SC(j, kCreator);
-      if (crank < nfree) slot = free_rows[crank];
-    }
-    SC(i, kAlloc) = slot;
-  }
-  __syncwarp();
-
-  // D: each op's entry and whether it lands.
-  int full = 0;
-  for (int i = t; i < n; i += 32) {
-    int ok = 0;
-    if (SC(i, kEnp)) {
-      if (SC(i, kExist)) {
-        ok = 1;
-      } else {
-        const int ci = cur[list[i]];
-        for (int j = 0; j < n; ++j) {
-          if (SC(j, kCreator) && cur[list[j]] == ci) {
-            ok = SC(j, kAlloc) >= 0;
-            if (ok) SC(i, kEntry) = SC(j, kAlloc);
-            break;
-          }
-        }
-        full += !ok;
-      }
-    }
-    SC(i, kOk) = ok;
-  }
-  __syncwarp();
-
-  // E: reset segments, pointer slots, and the appends that survive.
-  int pdrop = 0;
-  for (int i = t; i < n; i += 32) {
-    int fit = 0;
-    if (SC(i, kOk)) {
-      const int p = list[i], ci = cur[p];
-      int seg_head = -1, later_reset = 0;
-      for (int j = 0; j < n; ++j) {
-        const int q = list[j];
-        if (cur[q] != ci || !SC(j, kOk) || !first[q]) continue;
-        if (j <= i) seg_head = j; else later_reset = 1;
-      }
-      int prior = 0;
-      for (int j = seg_head < 0 ? 0 : seg_head; j < i; ++j)
-        prior += cur[list[j]] == ci && SC(j, kOk);
-      const int base = (seg_head >= 0 || !SC(i, kExist)) ? 0 : SC(i, kNp0);
-      const int slot = min(base + prior, MP);
-      pdrop += slot >= MP;
-      fit = !later_reset && slot < MP;
-      if (fit) {
-        const int cc = SC(i, kEntry) * MP + slot;
-        ps[cc] = first[p] ? -1 : pst[p];
-        po[cc] = first[p] ? -1 : pof[p];
-        pl[cc] = p_.pvl[p];
-        for (int d = 0; d < D; ++d) pv[(size_t)cc * D + d] = p_.pvr[(size_t)p * D + d];
-      }
-    }
-    SC(i, kFit) = fit;
-  }
-  __syncwarp();
-
-  // F: entry metadata (group-consistent, so repeated writes agree).
-  for (int i = t; i < n; i += 32) {
-    if (!SC(i, kOk)) continue;
-    const int ci = cur[list[i]];
-    int has_first = 0, cnt = 0;
-    for (int j = 0; j < n; ++j) {
-      const int q = list[j];
-      if (cur[q] != ci) continue;
-      has_first |= SC(j, kOk) && first[q];
-      cnt += SC(j, kFit);
-    }
-    const int reset = has_first || !SC(i, kExist);
-    const int base_n = reset ? 0 : SC(i, kNp0);
-    const int e = SC(i, kEntry);
-    st[e] = ci;
-    of[e] = off;
-    np[e] = min(base_n + cnt, MP);
-    if (reset) rf[e] = 1;
-  }
-#undef SC
-  c.missing += warp_sum(miss);
-  c.full_drops += warp_sum(full);
-  c.pred_drops += warp_sum(pdrop);
-  __syncwarp();
-}
-
 // A candidate into the next queue's slot j (phase 6).
 __device__ __forceinline__ void place(const Runs& nq, int D, int j, int id,
                                       int eval, int vlen, int event, int start,
@@ -766,7 +594,7 @@ __global__ void __launch_bounds__(32, kPromo ? 1 : kMinLanes) scan_pass(Args a) 
       const int wq = L.w_list[i];
       const int row = wq - (RH + R);
       const int run = L.w_run[wq];
-      walk_one<kTwoTier, kAttr, false, true>(
+      walk_one<kTwoTier, kAttr, false>(
           s, dead, L.w_stage[wq], L.w_off[wq], L.w_vlen[wq],
           t < D ? q.ver[(size_t)run * D + t] : 0, wq >= RH, row >= 0, W,
           row >= 0 ? ost + row * W : nullptr,

@@ -5,10 +5,11 @@
 // also uses), and the body of one buffer walk.
 //
 // Every function here runs on one warp that owns one lane: the lane's slab
-// lives behind a SlabLane, in device memory (walk_pass.cu) or in shared
-// memory (scan_pass.cu, where the pointer rows may stay in device memory),
-// and the functions keep the plain PyTorch pass's semantics (ops/slab.py:
-// puts_batched, _puts_sequential, walks_compacted) bit for bit.
+// lives behind a SlabLane whose keys, refs and npreds sit in shared memory
+// and whose pointer rows sit in device memory (walk_pass.cu) or where the
+// whole scan's placement rule puts them (scan_pass.cu), and the functions keep the plain PyTorch pass's
+// semantics (ops/slab.py: puts_batched, _puts_sequential, walks_compacted)
+// bit for bit.
 // walk_pass.cu's header describes the mapping and the contract.
 
 #pragma once
@@ -80,153 +81,168 @@ __device__ __forceinline__ int warp_find(const int* st, const int* of, int E,
   return -1;
 }
 
-// Serial lookup (one thread): first row keyed (s, o), or -1.
-__device__ __forceinline__ int find_row(const int* st, const int* of, int E,
-                                        int s, int o) {
-  for (int i = 0; i < E; ++i)
-    if (st[i] == s && of[i] == o) return i;
-  return -1;
-}
-
-// puts_batched for one lane.  Ops are spread over the warp's threads; the
-// stages are separated by __syncwarp because later stages read what other
-// threads wrote to the scratch.
-__device__ __forceinline__ void put_phase(const PutLane& p_, const SlabLane& s,
-                                          Tally& c) {
+// puts_batched for one lane, in closed form over the enabled ops alone: an
+// op that is not enabled takes part in no group, so running the stages
+// over the enabled ops, listed in queue order, gives the same slab in O(n)
+// a stage where a pass over every op takes O(R*H).  Op i of the list is
+// thread i % 32's; every op's two lookups (its predecessor, its target) are
+// one pass of the warp over the rows, the lowest matching row winning
+// (atomicMin); the free rows are listed once by a ballot.  The stages are
+// separated by __syncwarp because later stages read what other threads
+// wrote to the scratch sc [n, kPutCols], indexed by list position; list
+// [PP] and free_rows [E] are scratch too.
+__device__ __forceinline__ void put_listed(const PutLane& p_, const SlabLane& s,
+                                           Tally& c, int* list, int* free_rows) {
   const int t = threadIdx.x;
   const int E = s.E, MP = s.MP, D = s.D, PP = p_.PP;
   int *st = s.st, *of = s.of, *rf = s.rf, *np = s.np;
   int *ps = s.ps, *po = s.po, *pl = s.pl, *pv = s.pv;
-  const uint8_t* en = p_.en;
   const uint8_t* first = p_.first;
-  const int* cur = p_.cur;
-  const int* pst = p_.pst;
-  const int* pof = p_.pof;
-  const int* pvl = p_.pvl;
-  const int* pvr = p_.pvr;
+  const int *cur = p_.cur, *pst = p_.pst, *pof = p_.pof;
   const int off = p_.off;
   int* sc = p_.sc;
-#define SC(p, c) sc[(p) * kPutCols + (c)]
+#define SC(i, c) sc[(i) * kPutCols + (c)]
+  int n = 0;
+  for (int b = 0; b < PP; b += 32) {
+    const int p = b + t;
+    const bool en = p < PP && p_.en[p];
+    const unsigned m = __ballot_sync(kFull, en);
+    if (en) list[n + __popc(m & ((1u << t) - 1u))] = p;
+    n += __popc(m);
+  }
+  if (!n) return;
 
-  // A: predecessor check and target lookup against the step-start slab.
+  // A: the lookups against the step-start slab (kEntry the target's row,
+  // kNp0 the predecessor's, E when absent), then the predecessor check.
+  for (int i = t; i < n; i += 32) {
+    SC(i, kEntry) = E;
+    SC(i, kNp0) = E;
+  }
+  __syncwarp();
+  for (int e = t; e < E; e += 32) {
+    const int se = st[e], oe = of[e];
+    for (int i = 0; i < n; ++i) {
+      const int p = list[i];
+      if (se == cur[p] && oe == off) atomicMin(&SC(i, kEntry), e);
+      if (se == pst[p] && oe == pof[p]) atomicMin(&SC(i, kNp0), e);
+    }
+  }
+  __syncwarp();
   int miss = 0;
-  for (int p = t; p < PP; p += 32) {
-    int enp = 0, exist = 0, e0 = 0, np0 = 0;
-    if (en[p]) {
-      const bool prev_found = find_row(st, of, E, pst[p], pof[p]) >= 0;
-      miss += !first[p] && !prev_found;
-      enp = first[p] || prev_found;
-      if (enp) {
-        const int e = find_row(st, of, E, cur[p], off);
-        exist = e >= 0;
-        e0 = exist ? e : 0;
-        np0 = exist ? np[e] : 0;
-      }
-    }
-    SC(p, kEnp) = enp;
-    SC(p, kExist) = exist;
-    SC(p, kEntry) = e0;
-    SC(p, kNp0) = np0;
+  for (int i = t; i < n; i += 32) {
+    const int p = list[i];
+    const bool prev_found = SC(i, kNp0) < E;
+    miss += !first[p] && !prev_found;
+    const int enp = first[p] || prev_found;
+    const int e = SC(i, kEntry);
+    const int exist = enp && e < E;
+    SC(i, kEnp) = enp;
+    SC(i, kExist) = exist;
+    SC(i, kEntry) = exist ? e : 0;
+    SC(i, kNp0) = exist ? np[e] : 0;
   }
   __syncwarp();
 
-  // B: creators — the first enabled op of a group whose entry is absent.
-  for (int p = t; p < PP; p += 32) {
-    bool creator = SC(p, kEnp) && !SC(p, kExist);
-    for (int q = 0; creator && q < p; ++q)
-      if (SC(q, kEnp) && cur[q] == cur[p]) creator = false;
-    SC(p, kCreator) = creator;
+  // B: creators, the first enabled op of a group whose entry is absent;
+  // and the free rows, in index order.
+  for (int i = t; i < n; i += 32) {
+    const int ci = cur[list[i]];
+    bool creator = SC(i, kEnp) && !SC(i, kExist);
+    for (int j = 0; creator && j < i; ++j)
+      if (SC(j, kEnp) && cur[list[j]] == ci) creator = false;
+    SC(i, kCreator) = creator;
   }
-  __syncwarp();
-
-  // C: creator c (in op order) takes the c-th free slot (in index order).
   int nfree = 0;
-  for (int base = 0; base < E; base += 32) {
-    const int i = base + t;
-    nfree += __popc(__ballot_sync(kFull, i < E && st[i] < 0));
+  for (int b = 0; b < E; b += 32) {
+    const int e = b + t;
+    const bool f = e < E && st[e] < 0;
+    const unsigned m = __ballot_sync(kFull, f);
+    if (f) free_rows[nfree + __popc(m & ((1u << t) - 1u))] = e;
+    nfree += __popc(m);
   }
-  for (int p = t; p < PP; p += 32) {
+  __syncwarp();
+
+  // C: creator c (in op order) takes the c-th free row.
+  for (int i = t; i < n; i += 32) {
     int slot = -1;
-    if (SC(p, kCreator)) {
+    if (SC(i, kCreator)) {
       int crank = 0;
-      for (int q = 0; q < p; ++q) crank += SC(q, kCreator);
-      if (crank < nfree) {
-        for (int i = 0, seen = 0; i < E; ++i) {
-          if (st[i] < 0) {
-            if (seen == crank) { slot = i; break; }
-            ++seen;
-          }
-        }
-      }
+      for (int j = 0; j < i; ++j) crank += SC(j, kCreator);
+      if (crank < nfree) slot = free_rows[crank];
     }
-    SC(p, kAlloc) = slot;
+    SC(i, kAlloc) = slot;
   }
   __syncwarp();
 
   // D: each op's entry and whether it lands.
   int full = 0;
-  for (int p = t; p < PP; p += 32) {
+  for (int i = t; i < n; i += 32) {
     int ok = 0;
-    if (SC(p, kEnp)) {
-      if (SC(p, kExist)) {
+    if (SC(i, kEnp)) {
+      if (SC(i, kExist)) {
         ok = 1;
       } else {
-        for (int q = 0; q < PP; ++q) {
-          if (SC(q, kCreator) && cur[q] == cur[p]) {
-            ok = SC(q, kAlloc) >= 0;
-            if (ok) SC(p, kEntry) = SC(q, kAlloc);
+        const int ci = cur[list[i]];
+        for (int j = 0; j < n; ++j) {
+          if (SC(j, kCreator) && cur[list[j]] == ci) {
+            ok = SC(j, kAlloc) >= 0;
+            if (ok) SC(i, kEntry) = SC(j, kAlloc);
             break;
           }
         }
         full += !ok;
       }
     }
-    SC(p, kOk) = ok;
+    SC(i, kOk) = ok;
   }
   __syncwarp();
 
   // E: reset segments, pointer slots, and the appends that survive.
   int pdrop = 0;
-  for (int p = t; p < PP; p += 32) {
+  for (int i = t; i < n; i += 32) {
     int fit = 0;
-    if (SC(p, kOk)) {
+    if (SC(i, kOk)) {
+      const int p = list[i], ci = cur[p];
       int seg_head = -1, later_reset = 0;
-      for (int q = 0; q < PP; ++q) {
-        if (cur[q] != cur[p] || !SC(q, kOk) || !first[q]) continue;
-        if (q <= p) seg_head = q; else later_reset = 1;
+      for (int j = 0; j < n; ++j) {
+        const int q = list[j];
+        if (cur[q] != ci || !SC(j, kOk) || !first[q]) continue;
+        if (j <= i) seg_head = j; else later_reset = 1;
       }
       int prior = 0;
-      for (int q = seg_head < 0 ? 0 : seg_head; q < p; ++q)
-        prior += cur[q] == cur[p] && SC(q, kOk);
-      const int base = (seg_head >= 0 || !SC(p, kExist)) ? 0 : SC(p, kNp0);
+      for (int j = seg_head < 0 ? 0 : seg_head; j < i; ++j)
+        prior += cur[list[j]] == ci && SC(j, kOk);
+      const int base = (seg_head >= 0 || !SC(i, kExist)) ? 0 : SC(i, kNp0);
       const int slot = min(base + prior, MP);
       pdrop += slot >= MP;
       fit = !later_reset && slot < MP;
       if (fit) {
-        const int c = SC(p, kEntry) * MP + slot;
-        ps[c] = first[p] ? -1 : pst[p];
-        po[c] = first[p] ? -1 : pof[p];
-        pl[c] = pvl[p];
-        for (int d = 0; d < D; ++d) pv[(size_t)c * D + d] = pvr[(size_t)p * D + d];
+        const int cc = SC(i, kEntry) * MP + slot;
+        ps[cc] = first[p] ? -1 : pst[p];
+        po[cc] = first[p] ? -1 : pof[p];
+        pl[cc] = p_.pvl[p];
+        for (int d = 0; d < D; ++d) pv[(size_t)cc * D + d] = p_.pvr[(size_t)p * D + d];
       }
     }
-    SC(p, kFit) = fit;
+    SC(i, kFit) = fit;
   }
   __syncwarp();
 
   // F: entry metadata (group-consistent, so repeated writes agree).
-  for (int p = t; p < PP; p += 32) {
-    if (!SC(p, kOk)) continue;
+  for (int i = t; i < n; i += 32) {
+    if (!SC(i, kOk)) continue;
+    const int ci = cur[list[i]];
     int has_first = 0, cnt = 0;
-    for (int q = 0; q < PP; ++q) {
-      if (cur[q] != cur[p]) continue;
-      has_first |= SC(q, kOk) && first[q];
-      cnt += SC(q, kFit);
+    for (int j = 0; j < n; ++j) {
+      const int q = list[j];
+      if (cur[q] != ci) continue;
+      has_first |= SC(j, kOk) && first[q];
+      cnt += SC(j, kFit);
     }
-    const int reset = has_first || !SC(p, kExist);
-    const int base_n = reset ? 0 : SC(p, kNp0);
-    const int e = SC(p, kEntry);
-    st[e] = cur[p];
+    const int reset = has_first || !SC(i, kExist);
+    const int base_n = reset ? 0 : SC(i, kNp0);
+    const int e = SC(i, kEntry);
+    st[e] = ci;
     of[e] = off;
     np[e] = min(base_n + cnt, MP);
     if (reset) rf[e] = 1;
@@ -364,25 +380,11 @@ __device__ __forceinline__ void put_phase_two_tier(const PutLane& p_,
 }
 
 // dewey_ops.is_compatible of the query version (held one digit per thread:
-// thread d has q[d]) against one pointer version; called by every thread.
-__device__ __forceinline__ bool compatible(int q_mine, int qlen, const int* p,
-                                           int plen, int D) {
-  bool full = true, butlast = true;
-  int last_q = 0, last_p = 0;
-  for (int d = 0; d < D; ++d) {
-    const int qd = __shfl_sync(kFull, q_mine, d);
-    const bool eq = qd == p[d];
-    if (d < plen) full = full && eq;
-    if (d < plen - 1) butlast = butlast && eq;
-    if (d == plen - 1) { last_q = qd; last_p = p[d]; }
-  }
-  return (qlen > plen && full) || (qlen == plen && butlast && last_q >= last_p);
-}
-
-// compatible for the pointers a walk may take (need: the thread's pointer
-// is live), reading only the digits below each pointer's length: only
-// those decide, so the warp runs as many digits as its longest live
-// pointer has.  False where need is.
+// thread d has q[d]) against the thread's pointer version p of length plen,
+// for the pointers a walk may take (need: the thread's pointer is live),
+// reading only the digits below each pointer's length: only those decide,
+// so the warp runs as many digits as its longest live pointer has.  False
+// where need is not; called by every thread.
 __device__ __forceinline__ bool compatible_live(int q_mine, int qlen,
                                                 const int* p, int plen, int D,
                                                 bool need) {
@@ -399,6 +401,22 @@ __device__ __forceinline__ bool compatible_live(int q_mine, int qlen,
     if (d == plen - 1) { last_q = qd; last_p = pd; }
   }
   return need && ((qlen > plen && full) || (qlen == plen && butlast && last_q >= last_p));
+}
+
+// The first n int32 of src into row, by the warp: each thread loads up to
+// kBatch of them before it stores any.
+__device__ __forceinline__ void stage_row(int* row, const int* src, int n) {
+  constexpr int kBatch = 4;
+  for (int i0 = threadIdx.x; i0 < n; i0 += 32 * kBatch) {
+    int x[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (i0 + 32 * u < n) x[u] = src[i0 + 32 * u];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (i0 + 32 * u < n) row[i0 + 32 * u] = x[u];
+  }
+  __syncwarp();
 }
 
 // Entry e's pointer slots after a walk pruned the ones dead[e] marks, by
@@ -465,18 +483,26 @@ __device__ __forceinline__ void prune_row(const SlabLane& s, unsigned* dead,
 // and its length to *ocnt.  When the walk ends, each pruned entry is
 // compacted (survivors to the front, zeros behind).
 //
-// kWarpRows (the whole-scan kernel's choice) changes how, not what: thread
-// j reads pointer j's pstage and poff beside its pvlen before the version
+// Thread j reads pointer j's pstage, poff and pvlen before the version
 // check and the chosen pointer's three reach every thread by shuffle, so a
 // hop reads the pointer rows once (the hop writes no pointer row); the
 // check reads only live pointers' digits below their length
 // (compatible_live); and each pruned entry is compacted by the whole warp
-// (prune_row) instead of by one thread.
-template <bool kTwoTier, bool kAttr, bool kDrain, bool kWarpRows = false>
+// (prune_row).
+//
+// kStageRow (the walk-pass kernel's choice, whose pointer rows stay in
+// device memory; the whole-scan kernel leaves it off) changes how, not
+// what: each hop reads its entry's live versions in one batch beside the
+// pointer rows, into the lane's shared scratch row [MP * D], and the check
+// and the step read them there, so a hop waits for device memory once
+// instead of once for the rows, once for the digits and once for the next
+// version.
+template <bool kTwoTier, bool kAttr, bool kDrain, bool kStageRow = false>
 __device__ __forceinline__ void walk_one(const SlabLane& s, unsigned* dead,
                                          int cs, int co, int ql, int qv,
                                          bool rem, bool wot, int W, int* ost,
-                                         int* oof, int* ocnt, Tally& c) {
+                                         int* oof, int* ocnt, Tally& c,
+                                         int* row = nullptr) {
   const int t = threadIdx.x;
   const int E = s.E, MP = s.MP, D = s.D;
   int *st = s.st, *of = s.of, *rf = s.rf, *np = s.np;
@@ -514,15 +540,12 @@ __device__ __forceinline__ void walk_one(const SlabLane& s, unsigned* dead,
     // dummy row and are masked out.
     const int mine = e * MP + (t < MP ? t : 0);
     const int pl_m = pl[mine];
-    int ps_m = 0, po_m = 0;
-    if constexpr (kWarpRows) {
-      ps_m = ps[mine];
-      po_m = po[mine];
-    }
-    const bool compat =
-        kWarpRows ? compatible_live(qv, ql, pv + (size_t)mine * D, pl_m, D,
-                                    t < MP && ((live >> t) & 1u))
-                  : compatible(qv, ql, pv + (size_t)mine * D, pl_m, D);
+    const int ps_m = ps[mine], po_m = po[mine];
+    // Entry e's versions [MP, D] (kStageRow: staged into row).
+    if constexpr (kStageRow) stage_row(row, pv + (size_t)e * MP * D, min(np0, MP) * D);
+    const bool compat = compatible_live(
+        qv, ql, kStageRow ? row + (t < MP ? t : 0) * D : pv + (size_t)mine * D, pl_m, D,
+        t < MP && ((live >> t) & 1u));
     const bool ok = t < MP && ((live >> t) & 1u) && compat;
     const unsigned okm = __ballot_sync(kFull, ok);
     __syncwarp();
@@ -538,23 +561,18 @@ __device__ __forceinline__ void walk_one(const SlabLane& s, unsigned* dead,
     const bool sel = okm != 0;
     const int j = sel ? __ffs(okm) - 1 : 0;
     const int sj = e * MP + j;
-    int ns, ns_off = 0, ns_len = 0;
-    if constexpr (kWarpRows) {
-      ns = __shfl_sync(kFull, ps_m, j);
-      ns_off = __shfl_sync(kFull, po_m, j);
-      ns_len = __shfl_sync(kFull, pl_m, j);
-    } else {
-      ns = ps[sj];
-    }
+    const int ns = __shfl_sync(kFull, ps_m, j);
+    const int ns_off = __shfl_sync(kFull, po_m, j);
+    const int ns_len = __shfl_sync(kFull, pl_m, j);
     if (sel && rem && newref == 0) {
       if (t == 0) { dead[e] = dmask | (1u << j); np[e] = np_now - 1; }
     }
     const bool nactive = sel && ns >= 0;
     if (nactive) {
       cs = ns;
-      co = kWarpRows ? ns_off : po[sj];
-      ql = kWarpRows ? ns_len : pl[sj];
-      if (t < D) qv = pv[(size_t)sj * D + t];
+      co = ns_off;
+      ql = ns_len;
+      if (t < D) qv = kStageRow ? row[j * D + t] : pv[(size_t)sj * D + t];
     }
     const bool budget_out = wot && cnt >= W;
     c.trunc += budget_out && nactive;
@@ -562,40 +580,10 @@ __device__ __forceinline__ void walk_one(const SlabLane& s, unsigned* dead,
     __syncwarp();
   }
   c.trunc += active;
-  // Compact every entry this walker pruned; rows are independent, so
-  // each thread takes whole rows (kWarpRows: the warp takes one row after
-  // another).
-  if constexpr (kWarpRows) {
-    for (int base = 0; base < E; base += 32) {
-      unsigned rows = __ballot_sync(kFull, base + t < E && dead[base + t] != 0);
-      for (; rows; rows &= rows - 1) prune_row(s, dead, base + __ffs(rows) - 1);
-    }
-  }
-  for (int e = t; e < E && !kWarpRows; e += 32) {
-    const unsigned dmask = dead[e];
-    if (!dmask) continue;
-    dead[e] = 0;
-    const int np0 = np[e] + __popc(dmask);
-    int dst = 0;
-    for (int k = 0; k < MP; ++k) {
-      if (k >= np0 || ((dmask >> k) & 1u)) continue;
-      if (dst != k) {
-        const int a0 = e * MP + dst, b0 = e * MP + k;
-        ps[a0] = ps[b0];
-        po[a0] = po[b0];
-        pl[a0] = pl[b0];
-        for (int d = 0; d < D; ++d)
-          pv[(size_t)a0 * D + d] = pv[(size_t)b0 * D + d];
-      }
-      ++dst;
-    }
-    for (int k = dst; k < MP; ++k) {
-      const int a0 = e * MP + k;
-      ps[a0] = 0;
-      po[a0] = 0;
-      pl[a0] = 0;
-      for (int d = 0; d < D; ++d) pv[(size_t)a0 * D + d] = 0;
-    }
+  // Compact every entry this walker pruned, one row after another.
+  for (int base = 0; base < E; base += 32) {
+    unsigned rows = __ballot_sync(kFull, base + t < E && dead[base + t] != 0);
+    for (; rows; rows &= rows - 1) prune_row(s, dead, base + __ffs(rows) - 1);
   }
   if (t == 0 && ocnt) *ocnt = cnt;
   __syncwarp();

@@ -15,6 +15,9 @@ every TPU kernel of the repository has a Hopper counterpart.
 ``csrc/spike.cu`` for CUDA tensors (built with ``nvcc`` at first use into
 ``kafkastreams_cep_tpu_torch/build/``, bound with ``ctypes``); the two agree
 bit for bit (``chip_smoke.py`` holds them against each other on the card).
+The kernel reads the digits once and keeps each slot's majority digit in
+shared memory (its header says why that decides every compare); an arena
+past a block's shared memory lives in a device-memory scratch instead.
 """
 
 from __future__ import annotations
@@ -29,7 +32,9 @@ from pathlib import Path
 
 import torch
 
-from kafkastreams_cep_tpu_torch.ops.walk_kernel import BUILD_DIR, NVCC_FLAGS, _nvcc
+from kafkastreams_cep_tpu_torch.ops.walk_kernel import (
+    BUILD_DIR, NVCC_FLAGS, SMEM_PER_BLOCK, _nvcc, includes,
+)
 from kafkastreams_cep_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("ops.spike_kernel")
@@ -91,8 +96,8 @@ class SpikeKernel:
         """Compile the source (once per source hash) and load it."""
         if self._lib is not None:
             return self._path
-        tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                             ).hexdigest()[:16]
+        blob = b"".join(p.read_bytes() for p in includes(SOURCE))
+        tag = hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         out = BUILD_DIR / f"libspike-{tag}.so"
         if not out.exists():
@@ -111,6 +116,8 @@ class SpikeKernel:
         lib.cep_spike.argtypes = [ctypes.POINTER(ctypes.c_int),
                                   ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
         lib.cep_spike.restype = ctypes.c_int
+        lib.cep_spike_arena_bytes.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.cep_spike_arena_bytes.restype = ctypes.c_longlong
         self._lib, self._path = lib, out
         return out
 
@@ -129,7 +136,12 @@ class SpikeKernel:
         self.build()
         if L:
             dims = (ctypes.c_int * 6)(T, L, E, MP, D, ROWS)
-            ptrs = (ctypes.c_void_p * 4)(*[x.data_ptr() for x in ins + [out]])
+            # The kernel's arena: in shared memory when it fits, else here.
+            nbytes = self._lib.cep_spike_arena_bytes(dims)
+            scratch = (torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+                       if nbytes > SMEM_PER_BLOCK else None)
+            ptrs = (ctypes.c_void_p * 5)(*[x.data_ptr() for x in ins + [out]],
+                                         None if scratch is None else scratch.data_ptr())
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = self._lib.cep_spike(dims, ptrs, ctypes.c_void_p(stream))
             if err:

@@ -7,10 +7,16 @@ tier), the two-tier slab (``hot_entries > 0``), stage attribution (a slab
 whose ``stage_hops`` is ``[K, S > 0]``) and the lazy drain pass
 (``drain=True``), alone or together.  Each mode is a compile-time template
 instance of one kernel, ``csrc/walk_pass.cu``; its header says how it maps
-lanes to warps, what bounds each mode on the H100 (each lane's slab crosses
-device memory once in and once out; beyond that a lane is a chain of
-dependent hops, so latency, hidden by running many lanes per SM) and the
+lanes to warps and blocks, what bounds each mode on the H100 and the
 contract it keeps.
+
+A block of up to :data:`LANES_PER_BLOCK` lanes (:func:`block_lanes`: fewer
+where that many do not fit) keeps its lanes' slab keys, tombstones, stage
+tallies, put ops and scratch in a shared-memory arena
+(``csrc/walk_layout.cuh``, mirrored by :func:`block_layout`); the pointer
+rows stay in device memory.  :meth:`WalkPassKernel.arena` gives a call's
+lanes a block and arena bytes, :meth:`WalkPassKernel.geometry` its lanes per
+SM and registers on the card.
 
 :func:`walk_pass` is the entry point the engine calls.  For tensors on the
 CPU it runs :func:`walk_pass_plain` (``puts_batched`` then
@@ -19,9 +25,9 @@ kernel or raises — it never falls back.  Both give the same result bit for
 bit; ``chip_smoke.py`` holds them against each other on the card.
 
 The kernel builds at first use with ``nvcc`` for ``sm_90a`` into
-``kafkastreams_cep_tpu_torch/build/``, keyed by a hash of the source and of
-``csrc/walk_pass.cuh``, and is bound with ``ctypes`` (a plain C entry point,
-no PyTorch headers).
+``kafkastreams_cep_tpu_torch/build/``, keyed by a hash of the source, of
+every header it includes and of the flags, and is bound with ``ctypes`` (a
+plain C entry point, no PyTorch headers).
 """
 
 from __future__ import annotations
@@ -29,12 +35,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -46,13 +53,66 @@ logger = get_logger("ops.walk_kernel")
 
 I32 = torch.int32
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "walk_pass.cu"
-HEADER = SOURCE.with_suffix(".cuh")  # device functions shared with scan_pass.cu
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-_PUT_COLS = 8  # scratch columns per put op (csrc/walk_pass.cu kPutCols)
+
+#: ``csrc/walk_layout.cuh``'s and ``csrc/scan_layout.cuh``'s constants: the
+#: most lanes a block serves, a block's dynamic shared memory on the H100
+#: (227 KB) and the closed-form put's scratch columns.
+LANES_PER_BLOCK = 8
+SMEM_PER_BLOCK = 232448
+PUT_COLS = 8
+SPAN_BYTES = 1024  # the copy tables (walk_layout.cuh: kWalkSpanBytes)
+
+
+def includes(path: Path) -> List[Path]:
+    """``path`` and every header it includes with ``#include "..."`` beside
+    it, recursively, in first-seen order: what a build of ``path`` reads."""
+    seen: List[Path] = []
+    todo = [path]
+    while todo:
+        p = todo.pop(0)
+        if p in seen or not p.exists():
+            continue
+        seen.append(p)
+        todo += [p.parent / m for m in re.findall(r'^#include "([^"]+)"', p.read_text(), re.M)]
+    return seen
+
+
+def block_layout(E: int, MP: int, D: int, PP: int, S: int, puts: bool,
+                 lanes: int = LANES_PER_BLOCK) -> Dict[str, int]:
+    """One block's shared-memory arena (``walk_layout.cuh: walk_layout``):
+    each array's byte offset, every one 16-byte aligned, and ``"bytes"``,
+    the arena's size.  Each array holds the block's ``lanes`` lanes one after
+    another: the slab keys, a hop's staged versions (``row``), the stage
+    tally; the put scratch only with ``puts`` (the closed-form puts, single
+    tier); the ``PP`` put ops (0 without puts) always, without their
+    versions; ``spans`` is the block's copy tables."""
+    LE, LPP = lanes * E, (lanes * PP if puts else 0)
+    ints = [("st", LE), ("of", LE), ("rf", LE), ("np", LE), ("dead", LE)]
+    ints += [("row", lanes * MP * D), ("sh", lanes * S),
+             ("p_sc", LPP * PUT_COLS), ("p_list", LPP), ("p_free", LE if puts else 0)]
+    ints += [(f, lanes * PP) for f in ("p_cur", "p_pst", "p_pof", "p_pvl")]
+    arrays = [(f, 4 * n) for f, n in ints]
+    arrays += [("p_en", lanes * PP), ("p_first", lanes * PP), ("spans", SPAN_BYTES)]
+    out, o = {}, 0
+    for f, n in arrays + [("bytes", 0)]:
+        out[f] = o = (o + 15) & ~15
+        o += n
+    return out
+
+
+def block_lanes(E: int, MP: int, D: int, PP: int, S: int, puts: bool) -> int:
+    """The lanes a block serves (``walk_layout.cuh: walk_lanes``): the most,
+    up to ``LANES_PER_BLOCK``, whose arena fits a block's shared memory; 0
+    when not even one lane's does."""
+    for lanes in range(LANES_PER_BLOCK, 0, -1):
+        if block_layout(E, MP, D, PP, S, puts, lanes)["bytes"] <= SMEM_PER_BLOCK:
+            return lanes
+    return 0
 
 
 #: Slab leaves every mode reads and writes, in the kernel's pointer order.
@@ -147,8 +207,8 @@ class WalkPassKernel:
         """Compile the source (once per source hash) and load it."""
         if self._lib is not None:
             return self._path
-        blob = SOURCE.read_bytes() + HEADER.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        tag = hashlib.sha256(blob).hexdigest()[:16]
+        blob = b"".join(p.read_bytes() for p in includes(SOURCE))
+        tag = hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         out = BUILD_DIR / f"libwalkpass-{tag}.so"
         if not out.exists():
@@ -172,8 +232,48 @@ class WalkPassKernel:
             ctypes.c_void_p,
         ]
         lib.cep_walk_pass.restype = ctypes.c_int
+        lib.cep_walk_occupancy.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ]
+        lib.cep_walk_occupancy.restype = ctypes.c_int
+        if lib.cep_walk_lanes() != LANES_PER_BLOCK:
+            raise RuntimeError(f"{out.name} serves up to {lib.cep_walk_lanes()} lanes "
+                               f"a block, the wrapper {LANES_PER_BLOCK}")
         self._lib, self._path = lib, out
         return out
+
+    @staticmethod
+    def arena(slab: SlabState, PP: int, hot_entries: int = 0) -> Tuple[int, int]:
+        """``(lanes, bytes)`` of a call on ``slab`` with ``PP`` put ops (0
+        without puts): the lanes a block serves (:func:`block_lanes`) and
+        the size of its shared-memory arena.  Raises ``ValueError`` when not
+        even one lane's arena fits a block's shared memory."""
+        _, E, MP, D = slab.pver.shape
+        S = slab.stage_hops.shape[1]
+        dims = (E, MP, D, PP, S, bool(PP) and not hot_entries)
+        lanes = block_lanes(*dims)
+        if not lanes:
+            raise ValueError(
+                f"walk-pass arena of one lane, {block_layout(*dims, 1)['bytes']} bytes, "
+                f"is over the {SMEM_PER_BLOCK} a block holds (E={E}, MP={MP}, D={D}, "
+                f"PP={PP})"
+            )
+        return lanes, block_layout(*dims, lanes)["bytes"]
+
+    def geometry(self, slab: SlabState, PP: int, hot_entries: int = 0,
+                 drain: bool = False) -> Dict:
+        """How the built instance for these arguments runs on this card: the
+        lanes a block serves, the block's arena bytes, the lanes resident
+        per SM, and the registers and local memory of a thread."""
+        lanes, nbytes = self.arena(slab, PP, hot_entries)
+        self.build()
+        mode = int(bool(hot_entries)) | int(slab.stage_hops.shape[1] > 0) << 1 | int(drain) << 2
+        occ = (ctypes.c_int * 3)()
+        err = self._lib.cep_walk_occupancy(mode, lanes, nbytes, occ)
+        if err:
+            raise RuntimeError(f"occupancy query failed: error {err}")
+        return dict(lanes_a_block=lanes, arena_bytes=nbytes, lanes_per_sm=occ[0],
+                    registers=occ[1], local_bytes=occ[2])
 
     def reset_counts(self) -> None:
         self.launches = 0
@@ -185,6 +285,7 @@ class WalkPassKernel:
         put_ops: Optional[PutOps] = None, ev_off=None, hot_entries: int = 0,
         drain: bool = False,
     ):
+        """One launch."""
         K, E = slab.stage.shape
         MP = slab.pstage.shape[2]
         D = slab.pver.shape[3]
@@ -251,20 +352,17 @@ class WalkPassKernel:
         out_stage = torch.empty((K, OR, W), dtype=I32, device=dev)
         out_off = torch.empty_like(out_stage)
         count = torch.empty((K, OR), dtype=I32, device=dev)
-        # Scratch of the closed-form put phase (the two-tier one needs none).
-        n_scratch = K * PP if PP and not EH else 1
-        scratch = torch.empty((max(n_scratch, 1), _PUT_COLS), dtype=I32, device=dev)
+        lanes, nbytes = self.arena(slab, PP, EH)
 
         self.build()
         tensors = (
             [slab_in[f] for f in _BASE_FIELDS] + puts_in + walk_in
-            + [outs[f] for f in _BASE_FIELDS]
-            + [out_stage, out_off, count, scratch]
+            + [outs[f] for f in _BASE_FIELDS] + [out_stage, out_off, count]
             + [slab_in[f] for f in _MODE_FIELDS] + [outs[f] for f in _MODE_FIELDS]
         )
-        dims = (ctypes.c_int * 13)(
+        dims = (ctypes.c_int * 15)(
             K, E, MP, D, PP, PW, W, int(out_base), OR, int(put_ops is not None),
-            EH, S, int(bool(drain)),
+            EH, S, int(bool(drain)), lanes, nbytes,
         )
         ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
         if K:

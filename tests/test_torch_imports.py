@@ -11,7 +11,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "kafkastreams_cep_tpu_torch"
 SCRIPTS = ("chip_smoke.py", "chip_ab_walk_pass.py", "chip_ab_scan_pass.py",
-           "chip_phases_scan_pass.py")
+           "chip_phases_scan_pass.py", "chip_phases_walk_pass.py")
 FILES = sorted(
     p.relative_to(ROOT).as_posix()
     for p in [*PKG.rglob("*.py"), *(ROOT / s for s in SCRIPTS)]

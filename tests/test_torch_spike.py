@@ -77,3 +77,29 @@ def test_cuda_spike_equals_plain(seed):
     got = spike(ev, stage, pver)
     assert spike_kernel.spike_kernel.launches == before + 1
     assert torch.equal(got, spike_plain(ev, stage, pver))
+
+
+@pytest.fixture
+def narrow(monkeypatch):
+    """``spike_pallas``'s module shapes at L=100 lanes (no multiple of 32)
+    and E=20 rows: ``inputs`` and ``ref_impl`` read them."""
+    monkeypatch.setattr(sp, "L", 100)
+    monkeypatch.setattr(sp, "E", 20)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_spike_plain_equals_ref_narrow(narrow, seed):
+    ev, stage, pver = inputs(seed)
+    assert ev.shape == (sp.T, 100) and pver.shape == (20, sp.MP, sp.D, 100)
+    got = spike(*(torch.as_tensor(x) for x in (ev, stage, pver)))
+    ref = np.asarray(sp.ref_impl(jnp.asarray(ev), jnp.asarray(stage), jnp.asarray(pver)))
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_cuda_spike_equals_plain_narrow(narrow, seed):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the spike kernel has no CPU build")
+    ev, stage, pver = (torch.as_tensor(x, device="cuda") for x in inputs(seed))
+    assert torch.equal(spike(ev, stage, pver), spike_plain(ev, stage, pver))

@@ -15,8 +15,9 @@ Both comparisons run in each of the kernel's modes too: the two-tier slab
 stage attribution (``stage_hops [K, S]``), the lazy drain (``drain=True``,
 the handle ring as the walker queue) and all three together.
 
-The CUDA kernel itself runs only on a GPU: the ``cuda``-marked test holds
-it against the plain version there and skips on a machine without one.
+The CUDA kernel itself runs only on a GPU: the ``cuda``-marked tests hold
+it against the plain version there (the misaligned config too, and a slab
+too wide for eight lanes a block) and skip on a machine without one.
 """
 
 import functools
@@ -39,7 +40,13 @@ from test_walk_kernel import OUT_BASE, OUT_ROWS, W, random_walkers
 CONFIGS = {
     "test_walk_kernel": (16, 4, 6, 8, 4, 2),  # E, MP, D, W, R, H
     "headline": (48, 8, 12, 12, 24, 3),
+    # Rows of E*4, E*MP*4 and E*MP*D*4 bytes, none a multiple of 16: the
+    # kernel's block copies take their scalar heads and tails.
+    "misaligned": (25, 3, 5, 6, 4, 2),
 }
+#: The GPU tests' configs besides: lanes whose arena is too large for eight
+#: a block, so that the kernel's blocks serve 5-7.
+CUDA_CONFIGS = dict(CONFIGS, wide=(1536, 8, 12, 12, 24, 3))
 JAX_CLASSES = {"SlabState": jslab.SlabState, "PutOps": jslab.PutOps}
 
 
@@ -65,8 +72,8 @@ def mode_inputs(seed, config, mode, K, device="cpu"):
     where ``kw`` holds ``max_walk, out_base, out_rows, put_ops, ev_off,
     hot_entries, drain``.  A drain's queue is the handle ring: every walker
     removes and emits, and all rows are output rows."""
-    E, MP, D, W_, R, H = CONFIGS[config]
-    EH = (8 if E == 16 else 16) if mode in ("two_tier", "all") else 0
+    E, MP, D, W_, R, H = CUDA_CONFIGS[config]
+    EH = (16 if E == 48 else 8) if mode in ("two_tier", "all") else 0
     S = walk_inputs.NUM_STAGES if mode in ("attribution", "all") else 0
     drain = mode in ("drain", "all")
     arrs = walk_inputs.random_inputs(seed, K, E, MP, D, R, H, hot_entries=EH)
@@ -257,5 +264,31 @@ def test_cuda_kernel_modes_equal_plain(K, mode):
     got = walk_kernel.walk_pass(slab, *walkers, **kw)
     want = walk_kernel.walk_pass_plain(slab, *walkers, **kw)
     assert kern.launches_by_mode[name] == before + 1
+    for a, b in zip(list(got[0]) + list(got[1:]), list(want[0]) + list(want[1:])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["misaligned", "wide"])
+@pytest.mark.parametrize("mode", ("default",) + MODES)
+def test_cuda_kernel_misaligned_equals_plain(mode, config):
+    """K=37 lanes (the last block holds fewer than the others) of the
+    misaligned config, and of the wide one, whose blocks serve fewer than
+    eight lanes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the walk-pass kernel has no CPU build")
+    if mode == "default":
+        E, MP, D, W_, R, H = CUDA_CONFIGS[config]
+        arrs = walk_inputs.random_inputs(37, 37, E, MP, D, R, H)
+        slab, walkers, puts, ev_off = walk_inputs.as_tensors(arrs, "cuda")
+        PW = walkers[0].shape[1]
+        kw = dict(max_walk=W_, out_base=PW - R, out_rows=R, put_ops=puts, ev_off=ev_off)
+    else:
+        slab, walkers, kw = mode_inputs(37, config, mode, 37, device="cuda")
+    if config == "wide":
+        PP = kw["put_ops"].en.shape[1] if kw.get("put_ops") is not None else 0
+        assert walk_kernel.WalkPassKernel.arena(slab, PP, kw.get("hot_entries", 0))[0] < 8
+    got = walk_kernel.walk_pass_kernel(slab, *walkers, **kw)
+    want = walk_kernel.walk_pass_plain(slab, *walkers, **kw)
     for a, b in zip(list(got[0]) + list(got[1:]), list(want[0]) + list(want[1:])):
         assert torch.equal(a, b)
