@@ -94,7 +94,32 @@ Phases (any failure exits non-zero before the final line):
 10. spike    — the spike kernel (``spike_pallas.py``'s Pallas kernel on
               Hopper) once on spike_pallas.py's main inputs, equal to its
               plain version on seeds 0, 1 and 2 at main's shapes and at
-              ``SPIKE_SHAPES``, timed beside its bound.
+              ``SPIKE_SHAPES``, timed beside its bound;
+11. ingestion — the processor's front door: (a) the native packer and
+              JSON-lines parser, built by g++ from the port's source (a
+              failed build fails), equal to their plain versions on the
+              phase's real columns and lines; (b) ``bench.py:
+              bench_processor``'s columnar stream (K=4096 x T=128, seed 23,
+              one warm and four timed pipelined batches, then ``flush``)
+              per step (128 B1 launches a batch) and with
+              ``CEP_SCAN_KERNEL=1`` (one B2 launch a batch): equal matches
+              and counters, the first batch equal to ``process()`` of its
+              524,288 ``Record``s, events/s and phase seconds of each run;
+              (c) that batch as JSON lines through the native parser into
+              ``process_columns``, equal; (d) the lazy configuration (E=96,
+              E_hot=16, ring 512, attribution, a drain every batch) over the
+              same columns per step (B1's lazy and drain instances) and as
+              whole scans (B2's lazy instance), equal, and the tiered cell
+              over 128-step column batches with an event GC after every
+              batch, per step and with the switch on (B3), emitting the
+              untiered stream; (e) the
+              ingest guard on ``bench.py: bench_ooo``'s trace at 64 and
+              4,096 keys: no guard in order, guard in order and guard on the
+              bounded-skew shuffle give equal matches, order and counters,
+              every loss counter 0, records/s of each; a checkpoint taken
+              mid-stream with records held restores on the card and finishes
+              equal to the uninterrupted run.  The new paths' launches join
+              the kernel report's entries.
 
 The last two lines of standard output are the kernel report (one JSON
 object) and the device line ``{"ok": true, "device": {...}}``; the card's
@@ -209,6 +234,19 @@ SPIKE_REPLACES = "spike_pallas.py:95"
 # of 32, and one whose arena passes a block's shared memory (the kernel then
 # keeps it in a device-memory scratch).
 SPIKE_SHAPES = ((32, 100, 20, 4, 6), (5, 33, 9, 3, 5), (3, 128, 64, 8, 3))
+# Phase 11: bench.py: bench_processor (:1667-1728) at K x T a batch, one warm
+# and INGEST_BATCHES timed batches; the tiered cell over INGEST_TIER_STEPS
+# steps (3 planted 128-step batches); bench.py: bench_ooo (:2528) in batches
+# of OOO_BATCH records at grace OOO_GRACE ms, at (keys, batches) OOO_CELLS.
+INGEST_LANES = 4096
+INGEST_STEPS = 128
+INGEST_BATCHES = 4
+INGEST_TIER_STEPS = 384
+OOO_BATCH = 2048
+OOO_GRACE = 64
+OOO_CELLS = ((64, 8), (4096, 32))
+PHASES = ("pack_seconds", "dispatch_seconds", "device_seconds", "decode_seconds",
+          "drain_seconds", "gc_seconds")
 
 
 def log(msg: str) -> None:
@@ -1428,6 +1466,389 @@ def spike_phase(torch, dev, smi, report):
     })
 
 
+def canon_stream(matches):
+    """``[(key, Sequence)]`` -> plain data (each stage's events' offsets,
+    timestamps and values), order kept."""
+    return [(key, [(stage, [(e.offset, e.timestamp, e.value) for e in evs])
+                   for stage, evs in seq.as_map().items()])
+            for key, seq in matches]
+
+
+def processor_stream(K: int, T: int):
+    """``bench.py: bench_processor``'s stream (bench.py:1667-1728): lane k's
+    keys in every row of K records, seed 23, about 1 % matches (0.5 %
+    volume spikes over a sub-threshold base); every batch reuses the
+    columns, with timestamps ``b * K * T + arange(K * T)``."""
+    rng = np.random.default_rng(23)
+    N = K * T
+    keys = np.tile(np.arange(K, dtype=np.int64), T)
+    prices = rng.integers(90, 131, size=N).astype(np.int64)
+    volumes = np.where(rng.random(N) < 0.005, 1100,
+                       rng.integers(700, 1000, size=N)).astype(np.int64)
+    return keys, prices, volumes
+
+
+def ooo_trace(Record, K: int, n_batches: int):
+    """``bench.py: bench_ooo``'s trace (bench.py:2528): seed 17, distinct
+    event times 2 ms apart, stock values; in order and as its bounded-skew
+    shuffle (each record's ts plus U(0, grace))."""
+    rng = np.random.default_rng(17)
+    N = n_batches * OOO_BATCH
+    keys = rng.integers(0, K, size=N)
+    prices = rng.integers(90, 131, size=N)
+    vols = np.where(rng.random(N) < 0.005, 1100, rng.integers(700, 1000, size=N))
+    ts = np.arange(N, dtype=np.int64) * 2
+    recs = [Record(int(keys[i]), {"price": int(prices[i]), "volume": int(vols[i])}, int(ts[i]))
+            for i in range(N)]
+    skew = ts + rng.uniform(0, OOO_GRACE, size=N)
+    return recs, [recs[i] for i in np.argsort(skew, kind="stable")]
+
+
+def add_launches(report, name: str, path: str, n: int) -> None:
+    """Add a new path's launches of one kernel instance to its report entry."""
+    entry = next((e for e in report if e["name"] == name), None)
+    if entry is None:
+        fail(f"ingest: no kernel report entry {name!r} for the {path} path")
+    entry["launches_by_path"][path] = entry["launches_by_path"].get(path, 0) + n
+    entry["launches"] += n
+
+
+def ingest_phase(torch, dev, smi, report):
+    """Phase 11: the processor's ingestion surface on the card.
+
+    (a) the native packer and parser, built by g++ from the port's source,
+    equal to their plain versions on the phase's real columns and JSON
+    lines; (b) the columnar headline (``bench.py: bench_processor``: K=4096
+    x T=128, one warm and four timed pipelined batches) per step (B1) and as
+    whole scans (B2), equal to each other and its first batch to the record
+    path; (c) the first batch as JSON lines through the native parser into
+    ``process_columns``; (d) the lazy configuration over columns per step
+    and as whole scans (B1's lazy and drain instances, B2's lazy one), equal,
+    and the tiered cell over columns (B3) emitting the untiered stream; (e) the ingest guard on ``bench.py: bench_ooo``'s trace
+    at 64 and 4,096 keys, three ways and across a mid-stream checkpoint."""
+    import tempfile
+
+    from kafkastreams_cep_tpu_torch import CEPProcessor, EngineConfig, Query, Record, native
+    from kafkastreams_cep_tpu_torch.ops import scan_kernel, walk_kernel
+    from kafkastreams_cep_tpu_torch.runtime import (
+        IngestPolicy, restore_processor, save_checkpoint,
+    )
+    from kafkastreams_cep_tpu_torch.utils.serde import json_serde
+
+    skern, kern = scan_kernel.scan_pass_kernel, walk_kernel.walk_pass_kernel
+    t11 = time.perf_counter()
+    K, T = INGEST_LANES, INGEST_STEPS
+    N = K * T
+    keys, prices, volumes = processor_stream(K, T)
+    values = {"price": prices, "volume": volumes}
+
+    # (a) the native library against its plain versions ---------------------
+    try:
+        lib = native.build()
+    except Exception as e:  # noqa: BLE001 - any build failure fails the phase
+        fail(f"ingest: the native library did not build: {e}")
+    if not native.available():
+        fail("ingest: native.available() is False after a successful build")
+    lanes = keys.astype(np.int32)
+    keep = np.ones(N, np.uint8)
+    times = {}
+
+    def both(name, fn, plain):
+        t0 = time.perf_counter()
+        got = fn()
+        t1 = time.perf_counter()
+        want = plain()
+        times[name] = ((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3)
+        return got, want
+
+    (pos, qlen, mx), (pos_p, qlen_p, mx_p) = both(
+        "queue_positions", lambda: native.queue_positions(lanes, keep, K),
+        lambda: native.queue_positions_plain(lanes, keep, K))
+    if not (np.array_equal(pos, pos_p) and np.array_equal(qlen, qlen_p) and mx == mx_p == T):
+        fail("ingest: native queue_positions != its plain version")
+    for dtype, src in ((np.int32, prices), (np.int64, np.arange(N, dtype=np.int64)),
+                       (np.float32, volumes * 0.5)):
+        def pack(fn, dtype=dtype, src=src):
+            dst = np.zeros((K, T), dtype=dtype)
+            fn(dst, src, lanes, pos, keep)
+            return dst
+        got, want = both(f"pack_column[{np.dtype(dtype).name}]",
+                         lambda: pack(native.pack_column), lambda: pack(native.pack_column_plain))
+        if not np.array_equal(got, want):
+            fail(f"ingest: native pack_column != plain ({np.dtype(dtype).name})")
+
+    def valid(fn):
+        dst = np.zeros((K, T), dtype=bool)
+        fn(dst, lanes, pos, keep)
+        return dst
+
+    got, want = both("pack_valid", lambda: valid(native.pack_valid),
+                     lambda: valid(native.pack_valid_plain))
+    if not (np.array_equal(got, want) and got.all()):
+        fail("ingest: native pack_valid != plain")
+    serde = json_serde()
+    t0 = time.perf_counter()
+    text = b"\n".join(
+        serde.serialize({"name": f"k{k}", "key": k, "price": p, "volume": v, "ts": t})
+        for k, p, v, t in zip(keys.tolist(), prices.tolist(), volumes.tolist(), range(N)))
+    serialize_s = time.perf_counter() - t0
+    fields = ["key", "price", "volume", "ts"]
+    (jv, jk, jok), (pv, pk, pok) = both(
+        "parse_json_lines", lambda: native.parse_json_lines(text, fields, "name"),
+        lambda: native.parse_json_lines_plain(text, fields, "name"))
+    if not (jok.all() and np.array_equal(jok, pok) and np.array_equal(jv, pv) and jk == pk):
+        fail("ingest: native parse_json_lines != its plain version")
+    if jk[:3] != ["k0", "k1", "k2"] or not np.array_equal(jv[:, 0], keys):
+        fail("ingest: parsed JSON lines do not hold the serialized columns")
+    log(f"ingest (a): native library {lib.name} built by g++; C++ == plain on the "
+        f"headline batch ({N} records, K={K}); ms C++ / plain: "
+        + ", ".join(f"{n} {a:.2f} / {b:.2f}" for n, (a, b) in times.items())
+        + f"; serializing {N} JSON lines took {serialize_s:.2f} s (host)")
+
+    # (b) the columnar headline, per step and as whole scans -----------------
+    def processor(pattern, conf, scan=False, **kw):
+        if scan:
+            os.environ["CEP_SCAN_KERNEL"] = "1"
+        try:
+            proc = CEPProcessor(pattern, K, EngineConfig(**conf), device=dev, **kw)
+        finally:
+            os.environ.pop("CEP_SCAN_KERNEL", None)
+        if proc.uses_scan_kernel != scan:
+            fail(f"ingest: uses_scan_kernel {proc.uses_scan_kernel}, want {scan}")
+        return proc
+
+    def columnar(label, conf, scan=False, **kw):
+        """One warm batch and ``INGEST_BATCHES`` timed ones through a
+        pipelined columnar processor, then ``flush``: ``(first batch's
+        matches, the timed batches', counters, events/s, phase seconds,
+        launches)``."""
+        proc = processor(stock_pattern(Query), conf, scan, epoch=0, pipeline=True, **kw)
+        kern.reset_counts()
+        skern.reset_counts()
+
+        def feed(b):
+            return proc.process_columns(keys, values, b * N + np.arange(N, dtype=np.int64))
+
+        first = feed(0) + proc.flush()
+        torch.cuda.synchronize()
+        before = {n: getattr(proc.metrics, n) for n in PHASES}
+        t0 = time.perf_counter()
+        rest = []
+        for b in range(1, INGEST_BATCHES + 1):
+            rest += feed(b)
+        rest += proc.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        phases = {n[:-8]: getattr(proc.metrics, n) - before[n] for n in PHASES}
+        launches = ({f"walk_pass[{m}]" if m != "default" else "walk_pass": c
+                     for m, c in kern.launches_by_mode.items()}
+                    | {f"scan_pass[{m}]": c for m, c in skern.launches_by_mode.items()})
+        evps = INGEST_BATCHES * N / wall
+        log(f"ingest ({label}): {evps:,.0f} events/s over {INGEST_BATCHES} pipelined "
+            f"batches of K={K} x T={T} ({wall:.3f} s host wall, matches {len(first)} + "
+            f"{len(rest)}); phase seconds "
+            + ", ".join(f"{n} {s:.3f}" for n, s in phases.items())
+            + f"; launches {launches}; counters {proc.counters()} [{smi}]")
+        return canon_stream(first), canon_stream(rest), proc.counters(), launches
+
+    first, rest, counters, step_l = columnar("b, per step", HEADLINE)
+    if step_l.get("walk_pass") != (INGEST_BATCHES + 1) * T or len(step_l) != 1:
+        fail(f"ingest: per-step columnar launches {step_l}, want {(INGEST_BATCHES + 1) * T} B1")
+    s_first, s_rest, s_counters, scan_l = columnar("b, whole scan", HEADLINE, scan=True)
+    if scan_l != {"scan_pass[default]": INGEST_BATCHES + 1}:
+        fail(f"ingest: whole-scan columnar launches {scan_l}, want {INGEST_BATCHES + 1} B2")
+    if (s_first, s_rest, s_counters) != (first, rest, counters):
+        fail("ingest: the whole-scan columnar stream != the per-step one")
+    if not first or not rest:
+        fail("ingest: the columnar headline found no match")
+    rec_proc = processor(stock_pattern(Query), HEADLINE, epoch=0)
+    records = [Record(k, {"price": p, "volume": v}, t) for k, p, v, t in
+               zip(keys.tolist(), prices.tolist(), volumes.tolist(), range(N))]
+    kern.reset_counts()
+    t0 = time.perf_counter()
+    rec_first = canon_stream(rec_proc.process(records))
+    torch.cuda.synchronize()
+    rec_s = time.perf_counter() - t0
+    rec_l = kern.launches
+    del records
+    if rec_first != first:
+        fail("ingest: the first columnar batch != process() of the same records")
+    log(f"ingest (b): per step == whole scan ({len(first) + len(rest)} matches, equal "
+        f"counters {counters}); the first batch == process() of its {N} Records "
+        f"({len(first)} matches; {N / rec_s:,.0f} records/s, {rec_s:.2f} s host wall, "
+        f"phase seconds " + ", ".join(
+            f"{n[:-8]} {getattr(rec_proc.metrics, n):.3f}" for n in PHASES)
+        + f"; {rec_l} B1 launches) [{smi}]")
+    # The processor's host-to-device copies of one batch (``dev()``: pageable
+    # numpy grids, one copy a column) against copies staged through
+    # preallocated pinned buffers, on grids of the batch's shapes and dtypes.
+    grids = [np.ascontiguousarray(np.broadcast_to(keys[:K, None], (K, T)), dtype=dt)
+             for dt in (np.int32,) * 5 + (bool,)]
+    pinned = [torch.empty((K, T), dtype=torch.from_numpy(g).dtype).pin_memory() for g in grids]
+
+    def copy_ms(staged):
+        best = float("inf")
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for g, buf in zip(grids, pinned):
+                if staged:
+                    buf.numpy()[...] = g
+                    buf.to(dev, non_blocking=True)
+                else:
+                    torch.as_tensor(g, device=dev)
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        return best
+
+    log(f"ingest (b): one batch's {len(grids)} columns ({nbytes(map(torch.from_numpy, grids)) / 1e6:.1f} "
+        f"MB) to the card: pageable {copy_ms(False):.2f} ms, through pinned buffers "
+        f"{copy_ms(True):.2f} ms (best of 5, host clock around a synchronize) [{smi}]")
+    del grids, pinned
+    add_launches(report, "walk_pass", "columnar_headline", step_l["walk_pass"])
+    add_launches(report, "walk_pass", "record_headline", rec_l)
+    add_launches(report, "scan_pass[default]", "columnar_headline", INGEST_BATCHES + 1)
+
+    # (c) JSON lines -> native parser -> process_columns ----------------------
+    js_proc = processor(stock_pattern(Query), HEADLINE, epoch=0)
+    kern.reset_counts()
+    t0 = time.perf_counter()
+    jv, jk, jok = native.parse_json_lines(text, fields, "name")
+    js_first = canon_stream(js_proc.process_columns(
+        jv[:, 0].astype(np.int64),
+        {"price": jv[:, 1].astype(np.int64), "volume": jv[:, 2].astype(np.int64)},
+        jv[:, 3].astype(np.int64)))
+    torch.cuda.synchronize()
+    js_s = time.perf_counter() - t0
+    js_l = kern.launches
+    del text
+    if js_first != first:
+        fail("ingest: JSON lines through process_columns != the first columnar batch")
+    log(f"ingest (c): {N} JSON lines parsed by the native parser and fed to "
+        f"process_columns == the first columnar batch ({len(js_first)} matches; "
+        f"{N / js_s:,.0f} records/s parse + batch, {js_l} B1 launches) [{smi}]")
+    add_launches(report, "walk_pass", "json_lines", js_l)
+
+    # (d) lazy and tiered columns --------------------------------------------
+    # The stream is capacity-bound (every loss counter but run_drops counts),
+    # and lazy extraction pins slab rows until a drain, so the lazy engine
+    # sheds other work than the eager one: the lazy columns are held against
+    # the lazy whole scan (B2's lazy instance), exactly.
+    l_first, l_rest, l_counters, lazy_l = columnar("d, lazy per step", LAZY_PATH,
+                                                   drain_interval=1)
+    w_first, w_rest, w_counters, lazy_w = columnar("d, lazy whole scan", LAZY_PATH, scan=True,
+                                                   drain_interval=1)
+    if (w_first, w_rest, w_counters) != (l_first, l_rest, l_counters):
+        fail("ingest: the lazy columnar whole scan != the lazy per-step run")
+    if not l_first or not any("drain" in n for n in lazy_l) or not any(
+            n.startswith("scan_pass[lazy") for n in lazy_w):
+        fail(f"ingest: lazy columns: launches {lazy_l} and {lazy_w}, {len(l_first)} matches")
+    for label, launches in (("columnar_lazy", lazy_l), ("columnar_lazy_whole_scan", lazy_w)):
+        for name, n in launches.items():
+            add_launches(report, name, label, n)
+    log(f"ingest (d): lazy (E=96, E_hot=16, ring 512, attribution, a drain every batch) per "
+        f"step == as whole scans ({len(l_first) + len(l_rest)} matches; the headline slab's "
+        f"eager run {len(first) + len(rest)}); counters {l_counters}")
+    codes, _ = tier_cell_codes(K, INGEST_TIER_STEPS)
+    streams = {}
+    for label, conf, scan in (("untiered", TIER_CELL, False),
+                              ("tiered per step", dict(TIER_CELL, tiering=True), False),
+                              ("tiered whole scan", dict(TIER_CELL, tiering=True), True)):
+        proc = processor(bench_tier_pattern(Query), conf, scan, gc_events_interval=1)
+        kern.reset_counts()
+        skern.reset_counts()
+        out = []
+        t0 = time.perf_counter()
+        for c in range(INGEST_TIER_STEPS // TIER_CHUNK):
+            t = c * TIER_CHUNK + np.arange(TIER_CHUNK)
+            out += proc.process_columns(np.tile(np.arange(K), TIER_CHUNK),
+                                        codes[:, t].T.reshape(-1).astype(np.int64),
+                                        np.repeat(1000 + t, K))
+            if proc._col_batches:
+                fail(f"ingest: {label}: column batches outlived the event GC")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counters = proc.counters()
+        if any(counters[c] for c in DROP_COUNTERS):
+            fail(f"ingest: {label}: the tiered cell lost work {counters}")
+        streams[label] = canon_stream(out)
+        lt = {**{(f"walk_pass[{m}]" if m != "default" else "walk_pass"): c
+                 for m, c in kern.launches_by_mode.items()},
+              **{f"scan_pass[{m}]": c for m, c in skern.launches_by_mode.items()}}
+        for name, n in lt.items():
+            add_launches(report, name, f"columnar_tier_cell_{label.replace(' ', '_')}", n)
+        log(f"ingest (d): tier cell over columns, {label}: {len(out)} matches, "
+            f"{K * INGEST_TIER_STEPS / wall:,.0f} events/s ({wall:.3f} s host wall), "
+            f"launches {lt} [{smi}]")
+        if label == "tiered whole scan" and not any(n.startswith("scan_pass[") and "tiered" in n
+                                                    for n in lt):
+            fail(f"ingest: the tiered whole scan launched no B3 instance: {lt}")
+    if not streams["untiered"] or len({repr(s) for s in streams.values()}) != 1:
+        fail("ingest: the tiered columnar streams != the untiered one")
+
+    # (e) the ingest guard -----------------------------------------------------
+    policy = IngestPolicy(grace_ms=OOO_GRACE)
+    for keys_n, n_batches in OOO_CELLS:
+        in_order, shuffled = ooo_trace(Record, keys_n, n_batches)
+        B = OOO_BATCH
+
+        def guarded(recs, pol, upto=None, proc=None, start=0):
+            if proc is None:
+                proc = CEPProcessor(stock_pattern(Query), keys_n, EngineConfig(**HEADLINE),
+                                    epoch=0, ingest=pol, device=dev)
+            out = []
+            for b in range(start, upto if upto is not None else n_batches):
+                out += proc.process(recs[b * B:(b + 1) * B])
+            return proc, out
+
+        rates, outs = {}, {}
+        kern.reset_counts()
+        for label, recs, pol in (("no guard, in order", in_order, None),
+                                 ("guard, in order", in_order, policy),
+                                 ("guard, shuffled", shuffled, policy)):
+            proc, out = guarded(recs, pol, upto=2)  # warm-up batches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            proc, more = guarded(recs, pol, proc=proc, start=2)
+            more += proc.drain_ingest() + proc.flush()
+            torch.cuda.synchronize()
+            rates[label] = (n_batches - 2) * B / (time.perf_counter() - t0)
+            outs[label] = (canon_stream(out + more), proc.counters())
+            if pol is not None:
+                loss = proc._guard.loss_counters()
+                if any(loss.values()):
+                    fail(f"ingest: {label} at {keys_n} keys lost records: {loss}")
+        ref = outs["no guard, in order"]
+        if not ref[0] or any(o != ref for o in outs.values()):
+            fail(f"ingest: the guard's three ways differ at {keys_n} keys "
+                 f"({[len(o[0]) for o in outs.values()]} matches)")
+        # A checkpoint mid-stream with records held, restored on the card.
+        half = n_batches // 2
+        proc, out = guarded(shuffled, policy, upto=half)
+        held = proc._guard.held
+        if not held:
+            fail(f"ingest: no record held in the guard at the checkpoint ({keys_n} keys)")
+        with tempfile.TemporaryDirectory(dir=native.BUILD_DIR) as tmp:
+            path = os.path.join(tmp, "guard.ckpt")
+            save_checkpoint(proc, path)
+            proc = restore_processor(stock_pattern(Query), path, device=dev)
+        if proc._guard.held != held:
+            fail("ingest: the restored guard holds other records")
+        proc, more = guarded(shuffled, policy, proc=proc, start=half)
+        out += more + proc.drain_ingest() + proc.flush()
+        if (canon_stream(out), proc.counters()) != outs["guard, shuffled"]:
+            fail(f"ingest: the checkpointed guard run != the uninterrupted one ({keys_n} keys)")
+        guard_l = kern.launches
+        add_launches(report, "walk_pass", f"guard_{keys_n}_keys", guard_l)
+        log(f"ingest (e): bench_ooo trace, {keys_n} keys, {n_batches} batches of {B} "
+            f"records, grace {OOO_GRACE} ms: three ways equal ({len(ref[0])} matches, "
+            f"counters {ref[1]}), loss counters 0; records/s "
+            + ", ".join(f"{n} {r:,.0f}" for n, r in rates.items())
+            + f"; checkpoint after batch {half} with {held} records held, restored on the "
+            f"card, finishes equal; {guard_l} B1 launches [{smi}]")
+    log(f"ingest phase: {time.perf_counter() - t11:.1f} s")
+
+
 def main() -> None:
     import torch
 
@@ -2310,6 +2731,7 @@ def main() -> None:
                  name_of=name_of)
     bank_phase(torch, dev, smi, report, records, name_of)
     spike_phase(torch, dev, smi, report)
+    ingest_phase(torch, dev, smi, report)
 
     log(f"total: {time.perf_counter() - t_start:.1f} s after the card check")
     log(smi)

@@ -275,16 +275,15 @@ def walk_counter_values(state: EngineState):
     return (state.slab.walk_hops, state.slab.extract_hops, state.slab.drain_hops)
 
 
-def per_lane_counter_arrays(state: EngineState) -> Dict[str, torch.Tensor]:
-    """The loss, hot-tier and walk counters of ``state`` per lane (``[K]``
-    each, on the host, int64), read from the device in one transfer."""
+def per_lane_counter_arrays(state: EngineState) -> Dict[str, np.ndarray]:
+    """The loss, hot-tier and walk counters of ``state`` per lane, one host
+    int64 array per name (``[K]`` for a lane-batched state, a 0-d array
+    for a single lane's), read from the device in one transfer."""
     names = COUNTER_NAMES + HOT_COUNTER_NAMES + WALK_COUNTER_NAMES
-    vals = torch.stack([
-        v.reshape(-1).to(torch.int64)
-        for v in counter_values(state) + hot_counter_values(state)
-        + walk_counter_values(state)
-    ]).cpu()
-    return dict(zip(names, vals))
+    values = counter_values(state) + hot_counter_values(state) + walk_counter_values(state)
+    shape = tuple(values[0].shape)
+    vals = torch.stack([v.reshape(-1).to(torch.int64) for v in values]).cpu().numpy()
+    return {n: v.reshape(shape) for n, v in zip(names, vals)}
 
 
 def stage_counter_arrays(state: EngineState) -> Dict[str, np.ndarray]:

@@ -41,6 +41,7 @@ from kafkastreams_cep_tpu_torch.engine.matcher import (
     counter_values,
     hot_counter_values,
     map_value,
+    per_lane_counter_arrays,
     stage_counter_arrays,
     stage_report,
     scan_steps,
@@ -200,6 +201,12 @@ class BatchMatcher:
     def walk_counters(self, state: EngineState) -> Dict[str, int]:
         """Walk-cost counters summed over all lanes (not loss indicators)."""
         return summed(WALK_COUNTER_NAMES, walk_counter_values(state))
+
+    def per_lane_counters(self, state: EngineState) -> Dict[str, list]:
+        """Per-lane (un-summed) loss, hot-tier and walk counters: ``{name:
+        [K ints]}``, which lane is burning capacity."""
+        return {n: v.reshape(-1).tolist()
+                for n, v in per_lane_counter_arrays(state).items()}
 
     def conjunct_counters(self) -> Dict[str, Dict[str, Dict[str, Any]]]:
         """Measured per-conjunct tallies ``{stage: {conjunct_key: {evals,

@@ -236,6 +236,9 @@ class TieredBatchMatcher:
     def walk_counters(self, state: TieredState) -> Dict[str, int]:
         return self.inner.walk_counters(state.engine)
 
+    def per_lane_counters(self, state: TieredState) -> Dict[str, list]:
+        return self.inner.per_lane_counters(state.engine)
+
     def stage_counters(self, state: TieredState) -> Dict[str, Dict[str, Any]]:
         return self.inner.stage_counters(state.engine)
 

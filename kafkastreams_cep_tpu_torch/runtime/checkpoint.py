@@ -27,19 +27,23 @@ import numpy as np
 
 from kafkastreams_cep_tpu_torch.convert import state_arrays, state_from_arrays
 from kafkastreams_cep_tpu_torch.engine.matcher import EngineConfig
-from kafkastreams_cep_tpu_torch.runtime.processor import CEPProcessor
+from kafkastreams_cep_tpu_torch.runtime.ingest import DeadLetter, IngestGuard
+from kafkastreams_cep_tpu_torch.runtime.processor import CEPProcessor, Record
+from kafkastreams_cep_tpu_torch.utils.events import Event
 from kafkastreams_cep_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("runtime.checkpoint")
 
 FORMAT_VERSION = 3
 
-# Classes a snapshot's header may name, by module: the event type of either
-# package resolves to this package's copy, so restoring a snapshot written
-# by the JAX package imports nothing of it.
-_HEADER_CLASSES = {
-    ("kafkastreams_cep_tpu.utils.events", "Event"),
-    ("kafkastreams_cep_tpu_torch.utils.events", "Event"),
+# Classes of the JAX package a snapshot's header may name (the host event
+# mirror's events, the ingest guard's held records and dead letters), mapped
+# to this package's copies: restoring a snapshot written by the JAX package
+# imports nothing of it.
+_JAX_CLASSES = {
+    ("kafkastreams_cep_tpu.utils.events", "Event"): Event,
+    ("kafkastreams_cep_tpu.runtime.processor", "Record"): Record,
+    ("kafkastreams_cep_tpu.runtime.ingest", "DeadLetter"): DeadLetter,
 }
 
 
@@ -49,11 +53,8 @@ class CheckpointCorrupt(ValueError):
 
 class _Unpickler(pickle.Unpickler):
     def find_class(self, module, name):
-        if (module, name) in _HEADER_CLASSES:
-            from kafkastreams_cep_tpu_torch.utils.events import Event
-
-            return Event
-        return super().find_class(module, name)
+        cls = _JAX_CLASSES.get((module, name))
+        return cls if cls is not None else super().find_class(module, name)
 
 
 def save_checkpoint(
@@ -65,6 +66,10 @@ def save_checkpoint(
             "pipelined processor holds an undecoded batch; call flush() "
             "before checkpointing (a snapshot cannot carry device outputs)"
         )
+    if processor._col_batches:
+        # Column batches (process_columns) materialize their live rows into
+        # the picklable event mirror; dead rows drop.
+        processor._gc_events()
     tables = processor.batch.matcher.tables
     header = {
         "format_version": FORMAT_VERSION,
@@ -90,7 +95,9 @@ def save_checkpoint(
         "off_base": processor._off_base.copy(),
         "events": [dict(d) for d in processor._events],
         "value_proto": processor._value_proto,
-        "ingest": None,
+        # The ingest guard's held records, watermark, frontier, dead letters
+        # and loss counters, restored as they were.
+        "ingest": processor._guard.to_state() if processor._guard is not None else None,
         "latency": None,
     }
     buf = io.BytesIO()
@@ -141,15 +148,11 @@ def restore_processor(
     the checkpoint supplies only state, and a topology whose stage names,
     fold-state names or fold dtypes differ is refused.  A tiered snapshot
     (``engine/...`` and ``carry/...`` leaves) restores with its stencil
-    carry."""
+    carry; a snapshot with ingest-guard state restores the guard with its
+    held records and dead letters."""
     if ckpt is None:
         ckpt = load_checkpoint(path)
     header = ckpt["header"]
-    if header.get("ingest") is not None:
-        raise NotImplementedError(
-            "checkpoint carries ingest-guard state; the PyTorch processor has "
-            "no ingest guard yet, and dropping held records is not a restore"
-        )
     proc = CEPProcessor(
         pattern,
         header["num_lanes"],
@@ -190,6 +193,10 @@ def restore_processor(
     proc._off_base = np.asarray(header["off_base"]).copy()
     proc._events = [dict(d) for d in header["events"]]
     proc._value_proto = header["value_proto"]
+    if header.get("ingest") is not None:
+        # The guard runs on time.time until the caller sets a clock
+        # (``proc.set_clock``): clocks are not durable state.
+        proc._guard = IngestGuard.from_state(header["ingest"])
     logger.info(
         "restored processor from %s: %d keys assigned", path, len(proc._lane_of)
     )

@@ -21,11 +21,13 @@ pass ``epoch=0`` if a predicate matches on absolute time.
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Any, Dict, Hashable, List, NamedTuple, Optional, Sequence as Seq, Tuple
 
 import numpy as np
 import torch
 
+from kafkastreams_cep_tpu_torch import native
 from kafkastreams_cep_tpu_torch.engine.matcher import (
     OFFSET_LIMIT,
     TIER_COUNTER_NAMES,
@@ -36,9 +38,18 @@ from kafkastreams_cep_tpu_torch.engine.tiered import engine_view
 from kafkastreams_cep_tpu_torch.ops.decode import compact_drained, compact_matches
 from kafkastreams_cep_tpu_torch.parallel.batch import BatchMatcher
 from kafkastreams_cep_tpu_torch.parallel.tiered import TieredBatchMatcher
+from kafkastreams_cep_tpu_torch.runtime.ingest import (
+    REASON_LANE_OVERFLOW,
+    REASON_LATE,
+    REASON_SCHEMA,
+    REASON_TIME_RANGE,
+    Defect,
+    IngestGuard,
+    IngestPolicy,
+)
 from kafkastreams_cep_tpu_torch.utils.events import Event, Sequence
 from kafkastreams_cep_tpu_torch.utils.logging import get_logger
-from kafkastreams_cep_tpu_torch.utils.metrics import COUNTER_ATTRS, SECONDS_ATTRS, Metrics
+from kafkastreams_cep_tpu_torch.utils.metrics import Metrics, device_memory_stats
 
 logger = get_logger("runtime")
 
@@ -114,26 +125,22 @@ def _schema_dtype(leaf) -> np.dtype:
     return np.dtype(np.int32)
 
 
-def queue_positions(lanes: np.ndarray, keep: np.ndarray, num_lanes: int):
-    """Each kept record's position in its lane queue (arrival order), the
-    queue lengths, and the longest queue; dropped records get -1."""
-    pos = np.full(lanes.shape[0], -1, dtype=np.int32)
-    idx = np.flatnonzero(keep)
-    if idx.size:
-        kl = lanes[idx]
-        order = np.argsort(kl, kind="stable")
-        sor = kl[order]
-        starts = np.r_[0, np.flatnonzero(np.diff(sor)) + 1]
-        ranks = np.arange(sor.size) - np.repeat(starts, np.diff(np.r_[starts, sor.size]))
-        pos[idx[order]] = ranks
-    qlen = np.bincount(lanes[idx], minlength=num_lanes).astype(np.int32)
-    return pos, qlen, int(qlen.max()) if qlen.size else 0
+def treedef_str(treedef) -> str:
+    """A value structure as the JAX package prints its pytree definitions
+    (``PyTreeDef({'price': *, 'volume': *})``), so dead-letter details read
+    the same in both packages."""
+    def render(d):
+        if d is None:
+            return "*"
+        kind, keys, subs = d
+        if kind == "dict":
+            return "{" + ", ".join(f"{k!r}: {render(s)}" for k, s in zip(keys, subs)) + "}"
+        items = [render(s) for s in subs]
+        if kind == "tuple":
+            return "(" + ", ".join(items) + ("," if len(items) == 1 else "") + ")"
+        return "[" + ", ".join(items) + "]"
 
-
-def pack_column(dst, src, lanes, pos, keep) -> None:
-    """``dst[lanes[i], pos[i]] = src[i]`` for every kept record."""
-    m = keep.astype(bool)
-    dst[lanes[m], pos[m]] = np.asarray(src, dtype=dst.dtype)[m]
+    return f"PyTreeDef({render(treedef)})"
 
 
 class CEPProcessor:
@@ -169,6 +176,20 @@ class CEPProcessor:
     emitted stream is the untiered one.  ``profile`` (a measured
     ``per_stage`` snapshot) orders its conjuncts; it is ignored untiered.
 
+    **Columnar ingestion** (:meth:`process_columns`): ``[N]`` key, value and
+    timestamp arrays instead of :class:`Record` objects, validated and
+    packed with array ops (the native packer, ``native/``); events stay
+    packed ``[K, T]`` columns until a decode or the event GC touches them.
+
+    **Ingestion guard** (``ingest=IngestPolicy(...)``, ``runtime/ingest.py``):
+    records are validated one by one (defects dead-lettered with a typed
+    reason, or raised under ``on_bad_record="raise"``), held in a reorder
+    buffer until the watermark passes them, and released to the engine in
+    timestamp order; :meth:`drain_ingest` releases the rest at the end of
+    a stream.  ``clock`` (default ``time.time``) stamps the guard's admits
+    and the event-time-lag gauge; ``name`` labels the processor in
+    ``per_pattern`` and in dead-letter correlation ids.
+
     ``device`` is where the engine runs: ``"cuda"`` by default (raises when
     there is no GPU), ``"cpu"`` for the plain PyTorch path.
     """
@@ -188,6 +209,9 @@ class CEPProcessor:
         pipeline: bool = False,
         drain_interval: int = 1,
         profile=None,
+        name: Optional[str] = None,
+        ingest: Optional[IngestPolicy] = None,
+        clock=None,
         device="cuda",
     ):
         if config is not None and config.tiering:
@@ -225,8 +249,26 @@ class CEPProcessor:
         self._off_base = np.full(self.num_lanes, -1, dtype=np.int64)
         # Host event mirror, keyed by device (rebased) offset per lane.
         self._events: List[Dict[int, Event]] = [dict() for _ in range(self.num_lanes)]
+        # Columnar batches (process_columns) whose events are not yet
+        # materialized: (start [K], count [K], abs_ts [K, T], value leaves).
+        self._col_batches: List[tuple] = []
         self._value_proto = None
         self.metrics = Metrics()
+        self.name = name or topic
+        self._batch_seq = 0
+        # Event-time watermark: the largest record timestamp ingested
+        # (absolute ms), for the watermark and event-time-lag gauges.
+        self._watermark: Optional[int] = None
+        self._clock = clock if clock is not None else time.time
+        self._guard = IngestGuard(ingest, clock=self._clock) if ingest is not None else None
+
+    def set_clock(self, clock) -> None:
+        """Re-inject the host clock wherever it is read (the lag gauge and
+        the guard's admit stamps).  Clocks are not durable state: a
+        restored processor runs on ``time.time`` until one is set."""
+        self._clock = clock
+        if self._guard is not None:
+            self._guard._clock = clock
 
     @property
     def uses_scan_kernel(self) -> bool:
@@ -235,6 +277,22 @@ class CEPProcessor:
         return self.batch.uses_scan_kernel
 
     # -- key -> lane assignment (partition-assignment analog) ---------------
+
+    def lane(self, key: Hashable) -> int:
+        """The lane of ``key``, assigning the next free one to a new key."""
+        existing = self._lane_of.get(key)
+        if existing is not None:
+            return existing
+        lane = len(self._lane_of)
+        if lane >= self.num_lanes:
+            raise InputRejected(
+                f"key {key!r}: more than num_lanes={self.num_lanes} distinct "
+                "keys; size the processor for the key cardinality it serves"
+            )
+        self._lane_of[key] = lane
+        self._key_of[lane] = key
+        logger.info("assigned key %r to lane %d", key, lane)
+        return lane
 
     def _key_code(self, key: Hashable, lane: int) -> int:
         if isinstance(key, (int, np.integer)) and _I32.min <= key <= _I32.max:
@@ -262,8 +320,114 @@ class CEPProcessor:
     def process(self, records: Seq[Record]) -> List[Tuple[Hashable, Sequence]]:
         if not records:
             return []
+        self._batch_seq += 1
         with self._phase("pack"):
-            packed = self._pack_records(records)
+            if self._guard is not None:
+                released = self._ingest(list(records), f"{self.name}-{self._batch_seq}")
+                packed = self._pack_records(released) if released else None
+            else:
+                packed = self._pack_records(records)
+        if packed is None:
+            return []
+        return self._dispatch(*packed)
+
+    # -- the ingestion guard (runtime/ingest.py) ---------------------------
+
+    def _ingest(self, records: List[Record], corr: str) -> List[Record]:
+        """Admit one raw batch through the guard; returns the released
+        (watermark-passed, timestamp-ordered) records with their offsets
+        reset to auto: release order is the engine's log order, and the
+        source offsets already did their job (dedup at admission).  Every
+        record that validates is admitted (this package has no brownout
+        door)."""
+        guard = self._guard
+        strict = guard.policy.on_bad_record == "raise"
+        for idx, rec in enumerate(records):
+            defect = self._record_defect(rec)
+            if defect is None:
+                guard.push(rec)
+            elif defect.silent:
+                self.metrics.duplicates_dropped += 1
+            elif strict:
+                raise InputRejected(
+                    f"record {idx} (key {rec.key!r}): {defect.reason}: {defect.detail}"
+                )
+            else:
+                guard.quarantine(rec, defect.reason, defect.detail, corr)
+        return [r._replace(offset=None) if r.offset is not None else r
+                for r in guard.release()]
+
+    def _record_defect(self, rec: Record) -> Optional[Defect]:
+        """Validate one record against the schema, lane and time contracts
+        the batch path enforces atomically; commits the schema, the epoch
+        and the key's lane on first sight (the guard admits per record, so
+        there is no batch to reject).  None when admissible."""
+        guard = self._guard
+        if self._value_proto is None:
+            leaves0, treedef0 = tree_flatten(rec.value)
+            self._value_proto = tree_unflatten(treedef0, [_schema_dtype(l) for l in leaves0])
+        dtypes, treedef = tree_flatten(self._value_proto)
+        leaves, rec_def = tree_flatten(rec.value)
+        if rec_def != treedef:
+            return Defect(
+                REASON_SCHEMA,
+                f"value structure {treedef_str(rec_def)} differs from the schema "
+                f"{treedef_str(treedef)} fixed by the first record",
+            )
+        for field_i, (leaf, dt) in enumerate(zip(leaves, dtypes)):
+            if np.issubdtype(np.asarray(leaf).dtype, np.floating) and not np.issubdtype(dt, np.floating):
+                return Defect(
+                    REASON_SCHEMA,
+                    f"field #{field_i}: float value {leaf!r} in a field the "
+                    "schema (fixed by the first record) typed as int",
+                )
+        lane = self._lane_of.get(rec.key)
+        if lane is None:
+            if len(self._lane_of) >= self.num_lanes:
+                return Defect(
+                    REASON_LANE_OVERFLOW,
+                    f"key {rec.key!r} would exceed num_lanes={self.num_lanes}; "
+                    "size the processor for the key cardinality it serves",
+                )
+            lane = self.lane(rec.key)
+        if self.epoch is None:
+            self.epoch = int(rec.timestamp)
+        rel = int(rec.timestamp) - self.epoch
+        if not (_I32.min <= rel <= _I32.max):
+            return Defect(
+                REASON_TIME_RANGE,
+                f"timestamp {rec.timestamp} is {rel} ms from the processor "
+                f"epoch {self.epoch}, outside int32 device time (~±24.8 days)",
+            )
+        if rec.offset is not None:
+            hw = guard.source_hw.get(lane, 0)
+            if self.dedup and rec.offset < hw:
+                return Defect("duplicate", "", silent=True)
+            guard.source_hw[lane] = max(hw, int(rec.offset) + 1)
+        behind = guard.late_by(int(rec.timestamp))
+        if behind is not None:
+            return Defect(
+                REASON_LATE,
+                f"timestamp {rec.timestamp} is {behind} ms behind the watermark "
+                f"{guard.watermark} (grace {guard.policy.grace_ms} ms)",
+            )
+        return None
+
+    def drain_ingest(self) -> List[Tuple[Hashable, Sequence]]:
+        """End of stream: release every record the guard holds, watermark
+        regardless, and run them through the engine.  A no-op without a
+        guard or with an empty buffer; call :meth:`flush` afterwards for
+        pipelined or lazy processors."""
+        if self._guard is None:
+            return []
+        released = self._guard.drain()
+        if not released:
+            return []
+        released = [r._replace(offset=None) if r.offset is not None else r
+                    for r in released]
+        self._batch_seq += 1
+        with self._phase("pack"):
+            packed = self._pack_records(released)
         if packed is None:
             return []
         return self._dispatch(*packed)
@@ -343,11 +507,8 @@ class CEPProcessor:
             offsets.append(off)
             next_sim[lane] = max(next_sim[lane], off + 1)
 
-        for key, lane in lane_sim.items():
-            if key not in self._lane_of:
-                self._lane_of[key] = lane
-                self._key_of[lane] = key
-                logger.info("assigned key %r to lane %d", key, lane)
+        for key in lane_sim:  # in simulated order: each takes its simulated lane
+            self.lane(key)
 
         # Host-event mirror: events keep their source offsets, keyed by
         # device offset.
@@ -365,13 +526,15 @@ class CEPProcessor:
         self.metrics.duplicates_dropped += dropped
         if dropped:
             logger.info("dropped %d replayed records (high-water mark)", dropped)
+        wm = max(int(rec.timestamp) for rec in records)
+        self._watermark = wm if self._watermark is None else max(self._watermark, wm)
         if all(off is None for off in offsets):
             return None
 
         n = len(records)
         lanes_arr = np.asarray(lanes, dtype=np.int32)
-        keep = np.fromiter((o is not None for o in offsets), dtype=bool, count=n)
-        pos, _qlen, max_len = queue_positions(lanes_arr, keep, K)
+        keep = np.fromiter((o is not None for o in offsets), dtype=np.uint8, count=n)
+        pos, _qlen, max_len = native.queue_positions(lanes_arr, keep, K)
         T = _bucket(max_len)
         key_col = np.fromiter(
             (self._key_code(rec.key, lanes[r]) for r, rec in enumerate(records)),
@@ -390,29 +553,184 @@ class CEPProcessor:
         off = np.zeros((K, T), dtype=np.int32)
         valid = np.zeros((K, T), dtype=bool)
         rank_of = np.full((K, T), -1, dtype=np.int64)
-        pack_column(key_arr, key_col, lanes_arr, pos, keep)
-        pack_column(ts, np.asarray(rel_ts, dtype=np.int32), lanes_arr, pos, keep)
-        pack_column(off, off_col, lanes_arr, pos, keep)
-        pack_column(rank_of, np.arange(n, dtype=np.int64), lanes_arr, pos, keep)
-        pack_column(valid, np.ones(n, dtype=bool), lanes_arr, pos, keep)
+        native.pack_column(key_arr, key_col, lanes_arr, pos, keep)
+        native.pack_column(ts, np.asarray(rel_ts, dtype=np.int32), lanes_arr, pos, keep)
+        native.pack_column(off, off_col, lanes_arr, pos, keep)
+        native.pack_column(rank_of, np.arange(n, dtype=np.int64), lanes_arr, pos, keep)
+        native.pack_valid(valid, lanes_arr, pos, keep)
         val_leaves = []
         for i, dt in enumerate(dtypes):
             col = np.zeros((K, T), dtype=dt)
-            pack_column(col, np.asarray([lv[i] for lv in batch_leaves], dtype=dt),
-                        lanes_arr, pos, keep)
+            native.pack_column(col, np.asarray([lv[i] for lv in batch_leaves], dtype=dt),
+                               lanes_arr, pos, keep)
             val_leaves.append(col)
+        return self._device_batch(key_arr, val_leaves, treedef, ts, off, valid), rank_of, n - dropped
 
+    def _device_batch(self, key_arr, val_leaves, treedef, ts, off, valid) -> EventBatch:
+        """The packed ``[K, T]`` host columns as an ``EventBatch`` on the
+        engine's device."""
         def dev(a):
             return torch.as_tensor(a, device=self.device)
 
-        events = EventBatch(
+        return EventBatch(
             key=dev(key_arr),
             value=tree_unflatten(treedef, [dev(v) for v in val_leaves]),
             ts=dev(ts),
             off=dev(off),
             valid=dev(valid),
         )
-        return events, rank_of, n - dropped
+
+    def process_columns(self, keys, values, timestamps) -> List[Tuple[Hashable, Sequence]]:
+        """Columnar ingestion: ``[N]`` arrays instead of :class:`Record`
+        objects.
+
+        :meth:`process` spends microseconds of Python a record (validation,
+        Event construction); this path validates and packs with array ops
+        and builds an Event only when a match (or the event GC) touches it,
+        so match-sparse streams never pay for it: the packed columns are
+        the event mirror until then.
+
+        ``keys`` is an ``[N]`` array (numeric keys vectorize; object keys
+        take a Python mapping pass), ``values`` a tree of ``[N]`` arrays
+        with the schema's structure, ``timestamps`` ``[N]`` ints.  Offsets
+        are always auto-assigned (replay dedup needs the per-record path).
+        Emitted Events carry values rebuilt from the packed columns in the
+        schema's dtypes.  Refused when an ingestion guard is set."""
+        if self._guard is not None:
+            raise ValueError(
+                "the ingestion guard runs on the per-record path only; "
+                "process_columns bypasses per-record validation and the "
+                "reorder buffer (construct the processor without ingest=... "
+                "to use the columnar path)"
+            )
+        self._batch_seq += 1
+        with self._phase("pack"):
+            packed = self._pack_columns(keys, values, timestamps)
+        if packed is None:
+            return []
+        return self._dispatch(*packed)
+
+    def _pack_columns(self, keys, values, timestamps):
+        keys_arr = np.asarray(keys)
+        if keys_arr.ndim != 1:
+            raise InputRejected(f"keys must be a 1-D column, got shape {keys_arr.shape}")
+        ts_arr = np.asarray(timestamps, dtype=np.int64)
+        n = int(keys_arr.shape[0])
+        # One timestamp per record, checked before the native packer reads
+        # n elements of every column.
+        if ts_arr.shape != (n,):
+            raise InputRejected(
+                f"timestamps shape {ts_arr.shape} != ({n},); pass exactly one "
+                "timestamp per record"
+            )
+        if n == 0:
+            return None
+        K = self.num_lanes
+        if self.epoch is None:
+            self.epoch = int(ts_arr[0])
+        leaves_in, treedef_in = tree_flatten(values)
+        leaves_in = [np.asarray(l) for l in leaves_in]
+        if self._value_proto is None:
+            self._value_proto = tree_unflatten(
+                treedef_in, [_schema_dtype(l) for l in leaves_in])
+        dtypes, treedef = tree_flatten(self._value_proto)
+        if treedef_in != treedef:
+            raise InputRejected(
+                "value columns structure differs from the schema fixed by the "
+                "first batch"
+            )
+        for field_i, (l, dt) in enumerate(zip(leaves_in, dtypes)):
+            if l.shape != (n,):
+                raise InputRejected(f"field #{field_i}: value column shape {l.shape} != ({n},)")
+            if np.issubdtype(l.dtype, np.floating) and not np.issubdtype(dt, np.floating):
+                raise InputRejected(
+                    f"field #{field_i}: float column in a field the schema typed as int"
+                )
+
+        # Lane mapping, committed only after the overflow check.
+        if keys_arr.dtype == object:
+            uniq = list(dict.fromkeys(keys_arr.tolist()))
+        else:
+            vals, first = np.unique(keys_arr, return_index=True)
+            uniq = [v.item() for v in vals[np.argsort(first)]]
+        new = [k for k in uniq if k not in self._lane_of]
+        if len(self._lane_of) + len(new) > K:
+            raise InputRejected(
+                f"more than num_lanes={K} distinct keys (first overflowing key: "
+                f"{new[K - len(self._lane_of)]!r}); size the processor for the "
+                "key cardinality it serves"
+            )
+        for k in new:
+            self.lane(k)
+        if keys_arr.dtype == object:
+            lanes_arr = np.fromiter((self._lane_of[k] for k in keys_arr.tolist()),
+                                    dtype=np.int32, count=n)
+        else:
+            ku = np.fromiter(self._lane_of.keys(), dtype=keys_arr.dtype)
+            lv = np.fromiter(self._lane_of.values(), dtype=np.int32)
+            order = np.argsort(ku)
+            lanes_arr = lv[order][np.searchsorted(ku[order], keys_arr)].astype(np.int32)
+
+        rel = ts_arr - self.epoch
+        if rel.min() < _I32.min or rel.max() > _I32.max:
+            bad = int(np.argmax((rel < _I32.min) | (rel > _I32.max)))
+            raise InputRejected(
+                f"record {bad} (key {keys_arr[bad]!r}): timestamp {int(ts_arr[bad])} "
+                f"outside int32 device time relative to the processor epoch {self.epoch}"
+            )
+        wm = int(ts_arr.max())
+        self._watermark = wm if self._watermark is None else max(self._watermark, wm)
+
+        keep = np.ones(n, dtype=np.uint8)
+        pos, qlen, max_len = native.queue_positions(lanes_arr, keep, K)
+        # Auto offsets: a lane's rows take consecutive log positions from
+        # its high-water mark; a fresh lane's base pins to it.
+        fresh = (self._off_base < 0) & (qlen > 0)
+        self._off_base[fresh] = self._next_offset[fresh]
+        start_dev = self._next_offset - self._off_base  # [K] first device offset
+        dev_off = (start_dev[lanes_arr] + pos).astype(np.int64)
+        if dev_off.max() >= OFFSET_LIMIT:
+            raise InputRejected(
+                "per-lane log positions past 2^24 (the slab's f32 pointer "
+                "packing); rotate the processor through checkpoint/restore"
+            )
+        self._next_offset += qlen
+
+        T = _bucket(max_len)
+        # Key codes as _key_code gives them on the record path: an int32
+        # integer key passes through, anything else is its lane index.
+        if np.issubdtype(keys_arr.dtype, np.integer):
+            in_range = (keys_arr >= _I32.min) & (keys_arr <= _I32.max)
+            key_codes = np.where(in_range, keys_arr.astype(np.int64),
+                                 lanes_arr.astype(np.int64)).astype(np.int32)
+        elif keys_arr.dtype == object:
+            key_codes = np.fromiter(
+                (self._key_code(k, int(lanes_arr[i])) for i, k in enumerate(keys_arr.tolist())),
+                dtype=np.int32, count=n,
+            )
+        else:
+            key_codes = lanes_arr.astype(np.int32)
+        key_arr = np.zeros((K, T), dtype=np.int32)
+        ts = np.zeros((K, T), dtype=np.int32)
+        off = np.zeros((K, T), dtype=np.int32)
+        valid = np.zeros((K, T), dtype=bool)
+        rank_of = np.full((K, T), -1, dtype=np.int64)
+        abs_ts = np.zeros((K, T), dtype=np.int64)
+        native.pack_column(key_arr, key_codes, lanes_arr, pos, keep)
+        native.pack_column(ts, rel.astype(np.int32), lanes_arr, pos, keep)
+        native.pack_column(off, dev_off.astype(np.int32), lanes_arr, pos, keep)
+        native.pack_column(rank_of, np.arange(n, dtype=np.int64), lanes_arr, pos, keep)
+        native.pack_column(abs_ts, ts_arr, lanes_arr, pos, keep)
+        native.pack_valid(valid, lanes_arr, pos, keep)
+        val_leaves = [np.zeros((K, T), dtype=dt) for dt in dtypes]
+        for i, dt in enumerate(dtypes):
+            native.pack_column(val_leaves[i], leaves_in[i].astype(dt), lanes_arr, pos, keep)
+
+        # The packed columns are the event mirror until a match or the GC
+        # touches a row.
+        col_start = np.where(qlen > 0, start_dev, -1).astype(np.int64)
+        self._col_batches.append((col_start, qlen.astype(np.int64), abs_ts, val_leaves))
+        return self._device_batch(key_arr, val_leaves, treedef, ts, off, valid), rank_of, n
 
     def _dispatch(self, events, rank_of, n_records):
         base = self._step_base
@@ -573,15 +891,39 @@ class CEPProcessor:
             k = int(k)
             seq = Sequence()
             for w in range(int(n)):
-                seq.add(names[int(st[w])], self._events[k][int(of[w])])
+                seq.add(names[int(st[w])], self._event_at(k, int(of[w])))
             matches.append((self._key_of[k], seq))
         return matches
+
+    def _event_at(self, lane: int, off: int) -> Event:
+        """The event at (lane, device offset): the materialized mirror
+        first, then the column batches (newest first), kept on a hit."""
+        ev = self._events[lane].get(off)
+        if ev is not None:
+            return ev
+        for start, cnt, abs_ts, leaves in reversed(self._col_batches):
+            s = int(start[lane])
+            if s >= 0 and s <= off < s + int(cnt[lane]):
+                ev = self._materialize(lane, off, s, abs_ts, leaves)
+                self._events[lane][off] = ev
+                return ev
+        raise KeyError(f"lane {lane} has no event at device offset {off}")
+
+    def _materialize(self, lane, off, start, abs_ts, leaves) -> Event:
+        """The Event of one packed column row, its value in the schema's
+        dtypes (``.item()``: int32 -> int, float32 -> float)."""
+        t = off - start
+        _, treedef = tree_flatten(self._value_proto)
+        value = tree_unflatten(treedef, [l[lane, t].item() for l in leaves])
+        return Event(self._key_of[lane], value, int(abs_ts[lane, t]), self.topic,
+                     lane, off + int(self._off_base[lane]))
 
     def _gc_events(self) -> None:
         """Drop host events no longer reachable from device state: only
         events still in a lane's slab or pointed at by a live run can
         appear in a future match; under tiering, also the events of a
-        partial prefix held in the stencil carry."""
+        partial prefix held in the stencil carry.  Live rows still in column
+        batches materialize first; the batches then drop."""
         st = engine_view(self.state)
         slab_stage = st.slab.stage.cpu().numpy()
         slab_off = st.slab.off.cpu().numpy()
@@ -595,8 +937,17 @@ class CEPProcessor:
             if carry_off is not None:
                 live.update(carry_off[k][carry_off[k] >= 0].tolist())
             store = self._events[k]
+            for start, cnt, abs_ts, leaves in self._col_batches:
+                s = int(start[k])
+                if s < 0:
+                    continue
+                hi = s + int(cnt[k])
+                for o in live:
+                    if s <= o < hi and o not in store:
+                        store[o] = self._materialize(k, o, s, abs_ts, leaves)
             for o in [o for o in store if o not in live]:
                 del store[o]
+        self._col_batches.clear()
 
     # -- diagnostics --------------------------------------------------------
 
@@ -620,20 +971,71 @@ class CEPProcessor:
             return {n: 0 for n in TIER_COUNTER_NAMES}
         return fn(self.state)
 
-    def metrics_snapshot(self) -> Dict[str, Any]:
+    def metrics_snapshot(self, per_lane: bool = True) -> Dict[str, Any]:
         """Runtime counters and phase seconds, the engine's loss, hot-tier,
-        walk and tier counters, the tiering plan (``tier_plan``, tiered
-        processors only) and, under attribution, ``per_stage``."""
-        snap: Dict[str, Any] = {n: getattr(self.metrics, n)
-                                for n in COUNTER_ATTRS + SECONDS_ATTRS}
-        snap.update(self.counters())
-        snap.update(self.hot_counters())
+        walk and tier counters, the event-time ``watermark`` and
+        ``event_time_lag_ms`` (on the processor's clock), the guard's
+        ``stats()`` and ``dead_letters`` by reason (guarded processors
+        only), ``per_pattern`` (this processor under its ``name``), the
+        tiering plan (``tier_plan``, tiered processors only), ``per_stage``
+        under attribution, ``per_lane`` and ``per_key`` (skipped with
+        ``per_lane=False``: one more device read) and ``hbm`` (the card's
+        memory byte gauges, ``{}`` on the CPU)."""
+        snap: Dict[str, Any] = self.metrics.snapshot(self.counters())
+        hot = self.hot_counters()
+        snap.update(hot)
         snap.update(self.walk_counters())
-        snap.update(self.tier_counters())
+        tier = self.tier_counters()
+        snap.update(tier)
+        snap["watermark"] = self._watermark
+        snap["event_time_lag_ms"] = (
+            int(self._clock() * 1000) - self._watermark
+            if self._watermark is not None else None
+        )
+        if self._guard is not None:
+            snap.update(self._guard.stats())
+            snap["dead_letters"] = dict(self._guard.reason_counts)
+        snap["per_pattern"] = {
+            self.name: {
+                **self.counters(), **hot, **tier,
+                "records_in": self.metrics.records_in,
+                "matches_out": self.metrics.matches_out,
+            }
+        }
         plan = getattr(self.batch, "plan", None)
         if plan is not None:
             snap["tier_plan"] = plan.describe()
         per_stage = self.batch.stage_counters(self.state)
         if per_stage:
             snap["per_stage"] = per_stage
+        if per_lane:
+            snap["per_lane"] = self.batch.per_lane_counters(self.state)
+            snap["per_key"] = self.per_key_cost(per_lane_arrays=snap["per_lane"])
+        snap["hbm"] = device_memory_stats(self.device)
         return snap
+
+    def per_key_cost(self, top_k: int = 8, per_lane_arrays=None) -> Dict[str, Any]:
+        """The ``top_k`` keys by device walk work (walk + extract + drain
+        hops of their lane), each with its lane, hops and share of the
+        total: the hot-key signal."""
+        arrays = (per_lane_arrays if per_lane_arrays is not None
+                  else self.batch.per_lane_counters(self.state))
+        hops = (
+            np.asarray(arrays["walk_hops"], dtype=np.int64)
+            + np.asarray(arrays["extract_hops"], dtype=np.int64)
+            + np.asarray(arrays["drain_hops"], dtype=np.int64)
+        ).reshape(-1)
+        total = int(hops.sum())
+        order = np.argsort(hops, kind="stable")[::-1][: max(int(top_k), 1)]
+        top = []
+        for lane in order:
+            lane = int(lane)
+            if hops[lane] <= 0 or lane not in self._key_of:
+                continue
+            top.append({
+                "key": str(self._key_of[lane]),
+                "lane": lane,
+                "hops": int(hops[lane]),
+                "share": round(float(hops[lane]) / total, 4) if total else 0.0,
+            })
+        return {"total_hops": total, "top": top}
