@@ -45,7 +45,7 @@ Phases (any failure exits non-zero before the final line):
               timed on real mid-scan inputs, beside the kernel's bound;
 7. whole scan — the whole-scan kernel (``CEP_SCAN_KERNEL=1``): (b) equal to
               its plain version, bit for bit, in seven cases at K 1/37/4096
-              and T=32, in each case's own instance and (b2) in the
+              and T=16, in each case's own instance and (b2) in the
               two-tier, attribution and combined instances (one plain run
               over all three K's lanes side by side); (c) the K=4096 x T=256
               headline scan equal to the per-step path of phase 4 and timed
@@ -63,7 +63,7 @@ Phases (any failure exits non-zero before the final line):
 8. tiered    — ``EngineConfig.tiering``: (a) the tiered whole scan (B3) equal
               to its plain version on the hybrid corpus of
               ``tests/test_tiering.py``, eager, lazy and two-tier +
-              attribution, at K 1/37/4096, two scans of T=32; (b) the tiered
+              attribution, at K 1/37/4096, two scans of T=16; (b) the tiered
               cell, ``bench.py: bench_tier`` at K=4096 x T=1024 in 128-step
               batches, through the untiered per-step path, the tiered
               chunk-gated per-step path and the tiered whole scan: equal
@@ -119,7 +119,23 @@ Phases (any failure exits non-zero before the final line):
               every loss counter 0, records/s of each; a checkpoint taken
               mid-stream with records held restores on the card and finishes
               equal to the uninterrupted run.  The new paths' launches join
-              the kernel report's entries.
+              the kernel report's entries;
+12. surgery  — capacity, state surgery and the last engine switches: (a)
+              ``autosize`` on bench_processor's columns, its outcome logged
+              (so far it grows D past the 32 that B1 serves, and B1 raises),
+              and on bench_lossfree's staircase sample, where it reaches a
+              config whose probe is loss-free;
+              (b) a live processor on it migrated to a wider config equals
+              one wide from the start (stream, counters, canonical state at
+              the migration point), per step and as whole scans; (c) the
+              capacity-bound headline processor keeps its counters across a
+              migration; (d) ``plan_rebalance`` and ``move_lanes``; (e)
+              ``replan_processor`` on the tiered cell (B3); (f)
+              ``walker_budget=4`` equals budget 1 on the card; (g)
+              ``sequential_slab``'s step launches no kernel and equals the
+              batched path, and its lazy drain is one B1 launch equal to the
+              plain drain; (h) ``StencilMatcher`` equals one B2 whole scan at
+              ``bench_stencil``'s shape, with its events/s.
 
 The last two lines of standard output are the kernel report (one JSON
 object) and the device line ``{"ok": true, "device": {...}}``; the card's
@@ -247,6 +263,31 @@ OOO_GRACE = 64
 OOO_CELLS = ((64, 8), (4096, 32))
 PHASES = ("pack_seconds", "dispatch_seconds", "device_seconds", "decode_seconds",
           "drain_seconds", "gc_seconds")
+# Phase 12: bench_processor's columns (K x T a batch): the first
+# SURGERY_SAMPLE batches are an autosize sample whose result B1 refuses (D
+# grows past 32), and the headline processor's stream; walker_budget 4 over
+# BUDGET_STEPS headline steps; sequential_slab on the demo and on a
+# SEQ_LANES x SEQ_STEPS random batch at the WALK_PARITY row SEQ_CFG;
+# bench.py: bench_stencil (:1182-1200) at STENCIL_LANES x STENCIL_STEPS,
+# seed 7, its NFA counterpart as one whole scan at STENCIL_NFA (loss-free
+# there).
+SURGERY_LANES = 4096
+SURGERY_STEPS = 128
+SURGERY_SAMPLE = 2
+# bench.py: bench_lossfree (:197-220): autosize's sample, the staircase
+# trace (staircase_trace, :137-172) over STAIR_SAMPLE_LANES lanes and
+# STAIR_CYCLES cycles of 24 steps, whose loss-free config B1 serves.
+STAIR_SAMPLE_LANES = 128
+STAIR_CYCLES = 32
+REBALANCE_SHARDS = 4
+BUDGET_STEPS = 64
+SEQ_LANES = 37
+SEQ_STEPS = 32
+SEQ_CFG = "test_walk_kernel"
+SEQ_HANDLE_RING = 64  # the lazy case's ring: every completion of its batch stays pending
+STENCIL_LANES = 128
+STENCIL_STEPS = 8192
+STENCIL_NFA = dict(max_runs=8, slab_entries=16, slab_preds=4, dewey_depth=8, max_walk=6)
 
 
 def log(msg: str) -> None:
@@ -476,6 +517,16 @@ def torch_call_pattern(Query):
         Query().select("a").where(lambda k, v, ts, st: torch.abs(v["x"] - 3) < 2)
         .then().select("b").skip_till_next_match()
         .where(lambda k, v, ts, st: v["x"] == 7)
+        .build()
+    )
+
+
+def stencil_pattern(Query):
+    """bench.py: bench_stencil's strict three-stage sequence."""
+    return (
+        Query().select("rise").where(lambda k, v, ts, st: v["price"] > 110)
+        .then().select("surge").where(lambda k, v, ts, st: v["volume"] > 900)
+        .then().select("drop").where(lambda k, v, ts, st: v["price"] < 105)
         .build()
     )
 
@@ -1508,7 +1559,7 @@ def add_launches(report, name: str, path: str, n: int) -> None:
     """Add a new path's launches of one kernel instance to its report entry."""
     entry = next((e for e in report if e["name"] == name), None)
     if entry is None:
-        fail(f"ingest: no kernel report entry {name!r} for the {path} path")
+        fail(f"no kernel report entry {name!r} for the {path} path")
     entry["launches_by_path"][path] = entry["launches_by_path"].get(path, 0) + n
     entry["launches"] += n
 
@@ -1849,6 +1900,487 @@ def ingest_phase(torch, dev, smi, report):
     log(f"ingest phase: {time.perf_counter() - t11:.1f} s")
 
 
+def staircase_columns(K: int, cycles: int, cyc_len: int = 24):
+    """``bench.py: staircase_trace``'s prices and volumes ``[K, T]``: a
+    descending price staircase whose runs complete only in their own
+    24-step cycle (lane k's prices shifted by +k, the same matches)."""
+    evs = []
+    for c in range(cycles):
+        S, tv, cv = 2000 - 20 * c, 100 + 10 * c, 79 + 8 * c
+        evs += [(S, 1200), (S + 2, tv), (S + 2, tv), (S - 5, cv)]
+        evs += [(500, 900)] * (cyc_len - 4)
+    tr = np.array(evs, dtype=np.int64)
+    prices = tr[None, :, 0] + np.arange(K, dtype=np.int64)[:, None]
+    return prices, np.broadcast_to(tr[None, :, 1], prices.shape).copy()
+
+
+def staircase_batch(torch, EventBatch, K: int, cycles: int, device):
+    """The staircase as a ``[K, T]`` batch: ts = 2t, off = t."""
+    prices, volumes = staircase_columns(K, cycles)
+    T = prices.shape[1]
+    i32 = torch.int32
+    return EventBatch(
+        key=torch.arange(K, dtype=i32, device=device)[:, None].expand(K, T),
+        value={"price": torch.as_tensor(prices.astype(np.int32), device=device),
+               "volume": torch.as_tensor(volumes.astype(np.int32), device=device)},
+        ts=(torch.arange(T, dtype=i32, device=device) * 2)[None, :].expand(K, T),
+        off=torch.arange(T, dtype=i32, device=device)[None, :].expand(K, T),
+        valid=torch.ones((K, T), dtype=torch.bool, device=device),
+    )
+
+
+def canon_sorted(matches):
+    """``[(key, Sequence)]`` -> sorted plain data (stage -> offsets): the
+    same matches whatever their order."""
+    return sorted((repr(key), tuple((stage, tuple(e.offset for e in evs))
+                                    for stage, evs in seq.as_map().items()))
+                  for key, seq in matches)
+
+
+def trees_equal(a, b) -> bool:
+    """Two host state trees equal leaf for leaf, dtypes included."""
+    from kafkastreams_cep_tpu_torch.convert import state_arrays
+
+    x, y = state_arrays(a), state_arrays(b)
+    return x.keys() == y.keys() and all(
+        x[n].dtype == y[n].dtype and np.array_equal(x[n], y[n]) for n in x)
+
+
+def wider(cfg):
+    """``cfg`` with R, E, MP, D and W each grown."""
+    import dataclasses
+
+    return dataclasses.replace(
+        cfg, max_runs=cfg.max_runs + 8, slab_entries=cfg.slab_entries + 16,
+        slab_preds=cfg.slab_preds + 4, dewey_depth=cfg.dewey_depth + 4,
+        max_walk=cfg.max_walk + 4)
+
+
+def shape_of(cfg) -> str:
+    return (f"R={cfg.max_runs} E={cfg.slab_entries} E_hot={cfg.slab_hot_entries} "
+            f"MP={cfg.slab_preds} D={cfg.dewey_depth} W={cfg.max_walk} HB={cfg.handle_ring}")
+
+
+def surgery_phase(torch, dev, smi, report, records, name_of):
+    """Phase 12: capacity, state surgery and the last engine switches.
+
+    (a0) ``autosize`` from the headline config on bench_processor's first two
+    column batches, its outcome logged: the config reached, or B1's refusal
+    of a ``dewey_depth`` past 32 (no plain pass runs instead); (a) ``autosize`` on bench_lossfree's
+    sample (the staircase, 128 lanes x 768 steps) from the headline config,
+    then ``probe`` of the config it reached, every capacity counter 0 (B1 on
+    every probe step); (b) a processor on that config over two 128-step
+    batches of the staircase at K=4096, loss-free, migrated to a config with
+    R, E, MP, D and W grown, two more batches: its stream and counters equal
+    a processor on the wide config from the start, whose state at the
+    migration point equals the widened one through ``canonical_state``; per
+    step (B1) and with ``CEP_SCAN_KERNEL=1`` (B2); (c) a processor on the
+    capacity-bound headline config keeps its counters across a migration;
+    (d) ``plan_rebalance`` of that processor's per-lane hops over 4 blocks
+    and ``move_lanes``: the same matches, counters and permuted canonical
+    state one batch on; (e) ``replan_processor`` of the tiered cell's
+    processor under ``CEP_SCAN_KERNEL=1`` (B3): the same stream; (f)
+    ``walker_budget=4`` equal to budget 1 bit for bit on the headline per
+    step and the lazy path with a drain, no collisions, the same B1
+    launches; (g) ``sequential_slab`` on the stock demo and a K=37 random
+    batch: no kernel launched, matches and counters (but ``slab_missing``)
+    equal the batched path; then the lazy sequential matcher on that batch,
+    whose steps launch nothing and whose drain is one B1 launch equal to the
+    plain drain and to the batched path's drain; (h) ``StencilMatcher`` at bench_stencil's shape
+    equal to one B2 whole scan of the same query, with its events/s."""
+    from kafkastreams_cep_tpu_torch import BatchMatcher, CEPProcessor, EngineConfig, Query
+    from kafkastreams_cep_tpu_torch.engine import EventBatch, capacity_counters, sizing
+    from kafkastreams_cep_tpu_torch.engine.matcher import build_drain
+    from kafkastreams_cep_tpu_torch.engine.stencil import StencilMatcher
+    from kafkastreams_cep_tpu_torch.ops import scan_kernel, walk_kernel
+    from kafkastreams_cep_tpu_torch.runtime import (
+        migrate_processor, move_lanes, plan_rebalance, repartition_state, widen_state,
+    )
+    from kafkastreams_cep_tpu_torch.runtime.migrate import canonical_state, replan_processor
+
+    kern, skern = walk_kernel.walk_pass_kernel, scan_kernel.scan_pass_kernel
+    t12 = time.perf_counter()
+    K, T, N = SURGERY_LANES, SURGERY_STEPS, SURGERY_LANES * SURGERY_STEPS
+    keys, prices, volumes = processor_stream(K, T)
+    values = {"price": prices, "volume": volumes}
+    pattern = stock_pattern(Query)
+    i32 = torch.int32
+
+    def reset():
+        kern.reset_counts()
+        skern.reset_counts()
+
+    def launched():
+        return ({(f"walk_pass[{m}]" if m != "default" else "walk_pass"): c
+                 for m, c in kern.launches_by_mode.items() if c}
+                | {f"scan_pass[{m}]": c for m, c in skern.launches_by_mode.items() if c})
+
+    def record(path, launches):
+        for name, n in launches.items():
+            add_launches(report, name, path, n)
+
+    def lossless(counters):
+        return not any(capacity_counters(counters).values()) and not counters["walk_collisions"]
+
+    def feed(proc, b):
+        return proc.process_columns(keys, values, b * N + np.arange(N, dtype=np.int64))
+
+    def with_scan(scan, fn):
+        if scan:
+            os.environ["CEP_SCAN_KERNEL"] = "1"
+        try:
+            return fn()
+        finally:
+            os.environ.pop("CEP_SCAN_KERNEL", None)
+
+    # (a0) bench_processor's columns: autosize, whatever it reaches -----------
+    S = SURGERY_SAMPLE
+    t_all = np.arange(S * T)
+    rec = (t_all % T)[None, :] * K + np.arange(K)[:, None]  # record index in its batch
+    col_sample = EventBatch(
+        key=torch.arange(K, dtype=i32, device=dev)[:, None].expand(K, S * T),
+        value={"price": torch.as_tensor(prices[rec].astype(np.int32), device=dev),
+               "volume": torch.as_tensor(volumes[rec].astype(np.int32), device=dev)},
+        ts=torch.as_tensor(((t_all // T)[None, :] * N + rec).astype(np.int32), device=dev),
+        off=torch.arange(S * T, dtype=i32, device=dev)[None, :].expand(K, S * T),
+        valid=torch.ones((K, S * T), dtype=torch.bool, device=dev),
+    )
+    probes = []
+    real_probe = sizing.probe
+
+    def counting_probe(*a, **kw):
+        probes.append(a[2] if len(a) > 2 else kw["config"])
+        return real_probe(*a, **kw)
+
+    sizing.probe = counting_probe
+    reset()
+    t0 = time.perf_counter()
+    refused, reached = None, None
+    try:
+        reached = sizing.autosize(pattern, col_sample, start=EngineConfig(**HEADLINE),
+                                  device=dev)
+    except ValueError as e:
+        if "D <= 32" not in str(e):
+            raise
+        refused = str(e)  # B1's limit on the Dewey depth (ROADMAP.md §C)
+    finally:
+        sizing.probe = real_probe
+    torch.cuda.synchronize()
+    a0_s = time.perf_counter() - t0
+    a0_l = launched()
+    if not a0_l:
+        fail("surgery (a0): autosize on bench_processor's columns launched no kernel")
+    record("autosize_columns", a0_l)
+    outcome = (f"reached {shape_of(reached)}" if refused is None
+               else f"stopped where B1 refuses the shape ({refused!r})")
+    log(f"surgery (a0): autosize on bench_processor's first {S} column batches ({K} lanes x "
+        f"{S * T} steps) from the headline config probed {[shape_of(c) for c in probes]} and "
+        f"{outcome} after {a0_s:.2f} s; launches {a0_l} [{smi}]")
+
+    # (a) bench_lossfree's autosize: the staircase sample, from the headline config
+    stair = staircase_batch(torch, EventBatch, STAIR_SAMPLE_LANES, STAIR_CYCLES, dev)
+    probes.clear()
+    sizing.probe = counting_probe
+    reset()
+    t0 = time.perf_counter()
+    try:
+        cfg = sizing.autosize(pattern, stair, start=EngineConfig(**HEADLINE), device=dev)
+    finally:
+        sizing.probe = real_probe
+    torch.cuda.synchronize()
+    auto_s = time.perf_counter() - t0
+    auto_l = launched()
+    reset()
+    t0 = time.perf_counter()
+    rep = sizing.probe(pattern, stair, cfg, device=dev)
+    probe_s = time.perf_counter() - t0
+    probe_l = launched()
+    if not lossless(rep.counters) or not probe_l or not auto_l:
+        fail(f"surgery (a): the autosized config lost work on its sample or ran no "
+             f"kernel: {rep.counters}, launches {auto_l} and {probe_l}")
+    record("autosize", auto_l)
+    record("probe", probe_l)
+    T_st = int(stair.ts.shape[1])
+    log(f"surgery (a): autosize (bench.py: bench_lossfree's sample, {STAIR_SAMPLE_LANES} "
+        f"lanes x {T_st} steps of the staircase) from the headline config reached "
+        f"{shape_of(cfg)} after {len(probes) - 2} growth iterations (probes "
+        f"{[shape_of(c) for c in probes]}) in {auto_s:.2f} s; launches {auto_l}. Its probe: "
+        f"{probe_s:.2f} s, counters {rep.counters}, maxima runs {rep.max_alive_runs}, entries "
+        f"{rep.max_live_entries}, preds {rep.max_npreds}, version {rep.max_vlen}, match "
+        f"{rep.max_match_len}, matches a chunk {rep.max_matches_chunk}; launches {probe_l} "
+        f"[{smi}]")
+
+    # (b) live widening over the staircase's columns, per step and as whole scans
+    wide = wider(cfg)
+    st_prices, st_volumes = staircase_columns(K, STAIR_CYCLES)
+
+    def stair_feed(proc, b):
+        t = b * T + np.arange(T)
+        return proc.process_columns(
+            np.tile(np.arange(K), T),
+            {"price": st_prices[:, t].T.reshape(-1), "volume": st_volumes[:, t].T.reshape(-1)},
+            np.repeat(2 * t, K))
+
+    def proc_on(conf, scan, **kw):
+        proc = with_scan(scan, lambda: CEPProcessor(pattern, K, conf, epoch=0, device=dev, **kw))
+        if proc.uses_scan_kernel != scan:
+            fail(f"surgery: uses_scan_kernel {proc.uses_scan_kernel}, want {scan}")
+        return proc
+
+    def live(scan):
+        label = "whole scan" if scan else "per step"
+        reset()
+        narrow = proc_on(cfg, scan)
+        head = stair_feed(narrow, 0) + stair_feed(narrow, 1) + narrow.flush()
+        if not lossless(narrow.counters()) or not head:
+            fail(f"surgery (b, {label}): the autosized processor lost work on the "
+                 f"staircase: {narrow.counters()}, {len(head)} matches")
+        l_narrow = launched()
+        widened = canonical_state(widen_state(narrow.state, cfg, wide))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mig = with_scan(scan, lambda: migrate_processor(pattern, narrow, wide))
+        torch.cuda.synchronize()
+        mig_s = time.perf_counter() - t0
+        reset()
+        tail = stair_feed(mig, 2) + stair_feed(mig, 3) + mig.flush()
+        l_mig = launched()
+        reset()
+        wp = proc_on(wide, scan)
+        w_head = stair_feed(wp, 0) + stair_feed(wp, 1) + wp.flush()
+        at_migration = trees_equal(canonical_state(wp.state), widened)
+        w_tail = stair_feed(wp, 2) + stair_feed(wp, 3) + wp.flush()
+        l_wide = launched()
+        if not at_migration:
+            fail(f"surgery (b, {label}): the wide processor's state at the migration point "
+                 "!= the widened narrow state (canonical_state)")
+        if (canon_stream(head), canon_stream(tail), mig.counters()) != (
+                canon_stream(w_head), canon_stream(w_tail), wp.counters()):
+            fail(f"surgery (b, {label}): the migrated stream or counters != the wide "
+                 f"processor's: {mig.counters()} vs {wp.counters()}")
+        if not (l_narrow and l_mig and l_wide) or mig.uses_scan_kernel != scan:
+            fail(f"surgery (b, {label}): launches {l_narrow}, {l_mig}, {l_wide}")
+        tag = "whole_scan" if scan else "per_step"
+        record(f"migrate_{tag}", {n: l_narrow.get(n, 0) + l_mig.get(n, 0)
+                                  for n in set(l_narrow) | set(l_mig)})
+        record(f"wide_from_start_{tag}", l_wide)
+        log(f"surgery (b, {label}): {K} lanes of the staircase, migrated {shape_of(cfg)} -> "
+            f"{shape_of(wide)} after 2 loss-free batches of {T} steps in {mig_s * 1e3:.1f} ms; "
+            f"{len(head)} + {len(tail)} matches and counters {mig.counters()} == the wide "
+            f"processor from the start; canonical states equal at the migration point; "
+            f"launches narrow {l_narrow}, migrated {l_mig}, wide {l_wide} [{smi}]")
+
+    live(False)
+    live(True)
+
+    # (c) no forgiveness: the capacity-bound headline processor -----------------
+    reset()
+    hp = CEPProcessor(pattern, K, EngineConfig(**HEADLINE), epoch=0, device=dev)
+    feed(hp, 0)
+    before = hp.counters()
+    t0 = time.perf_counter()
+    hm = migrate_processor(pattern, hp, wider(EngineConfig(**HEADLINE)))
+    torch.cuda.synchronize()
+    hm_s = time.perf_counter() - t0
+    hl = launched()
+    if not any(capacity_counters(before).values()) or hm.counters() != before:
+        fail(f"surgery (c): counters {before} -> {hm.counters()} across the migration")
+    record("no_forgiveness", hl)
+    log(f"surgery (c): the headline processor's counters {before} carried across its "
+        f"migration to {shape_of(hm.batch.matcher.config)} unchanged ({hm_s * 1e3:.1f} ms); "
+        f"launches {hl}")
+
+    # (d) lanes moved: the migrated headline processor's hop loads ---------------
+    per_lane = hm.batch.per_lane_counters(hm.state)
+    loads = sum(np.asarray(per_lane[n], dtype=np.int64)
+                for n in ("walk_hops", "extract_hops", "drain_hops"))
+    perm = plan_rebalance(loads, REBALANCE_SHARDS)
+    if perm is None:
+        fail("surgery (d): plan_rebalance found no better plan for the live loads")
+    blocks = loads.reshape(REBALANCE_SHARDS, -1).sum(axis=1)
+    moved_blocks = loads[perm].reshape(REBALANCE_SHARDS, -1).sum(axis=1)
+    t0 = time.perf_counter()
+    moved = move_lanes(pattern, hm, perm)
+    torch.cuda.synchronize()
+    move_s = time.perf_counter() - t0
+    reset()
+    out_a = feed(hm, 1) + hm.flush()
+    la = launched()
+    reset()
+    out_b = feed(moved, 1) + moved.flush()
+    lb = launched()
+    if canon_sorted(out_a) != canon_sorted(out_b) or hm.counters() != moved.counters():
+        fail("surgery (d): the moved processor's matches or counters != the unmoved one's")
+    if not trees_equal(repartition_state(canonical_state(hm.state), perm),
+                       canonical_state(moved.state)):
+        fail("surgery (d): the moved state != the unmoved one permuted")
+    record("move_lanes", {n: la.get(n, 0) + lb.get(n, 0) for n in set(la) | set(lb)})
+    log(f"surgery (d): plan_rebalance over {REBALANCE_SHARDS} blocks of {K // REBALANCE_SHARDS}"
+        f" lanes: hop loads {blocks.tolist()} -> {moved_blocks.tolist()}; move_lanes in "
+        f"{move_s * 1e3:.1f} ms; one batch on, {len(out_a)} matches, counters and the "
+        f"permuted canonical state equal; launches {la} and {lb} [{smi}]")
+
+    # (e) replan, tiered, whole scans (B3) ------------------------------------
+    codes, _ = tier_cell_codes(K, INGEST_TIER_STEPS)
+    tconf = EngineConfig(**TIER_CELL, tiering=True, slab_hot_entries=16, stage_attribution=True)
+    tpat = bench_tier_pattern(Query)
+
+    def tier_feed(proc, c):
+        t = c * TIER_CHUNK + np.arange(TIER_CHUNK)
+        return proc.process_columns(np.tile(np.arange(K), TIER_CHUNK),
+                                    codes[:, t].T.reshape(-1).astype(np.int64),
+                                    np.repeat(1000 + t, K))
+
+    n_chunks = INGEST_TIER_STEPS // TIER_CHUNK
+    a, b = (with_scan(True, lambda: CEPProcessor(tpat, K, tconf, gc_events_interval=1,
+                                                 device=dev)) for _ in range(2))
+    reset()
+    out_a = [m for c in range(n_chunks) for m in tier_feed(a, c)]
+    la = launched()
+    reset()
+    out_b = tier_feed(b, 0)
+    profile = b.metrics_snapshot()["per_stage"]
+    t0 = time.perf_counter()
+    b2 = with_scan(True, lambda: replan_processor(tpat, b, profile))
+    replan_s = time.perf_counter() - t0
+    out_b += [m for c in range(1, n_chunks) for m in tier_feed(b2, c)]
+    lb = launched()
+    if (canon_stream(out_a) != canon_stream(out_b) or a.counters() != b2.counters()
+            or not out_a or any(a.counters()[c] for c in DROP_COUNTERS)):
+        fail(f"surgery (e): the replanned stream != the unreplanned one "
+             f"({len(out_a)} vs {len(out_b)} matches, {a.counters()} vs {b2.counters()})")
+    if not b2.uses_scan_kernel or not any("tiered" in n for n in lb):
+        fail(f"surgery (e): the replanned processor ran no B3 instance: {lb}")
+    record("replan", {n: la.get(n, 0) + lb.get(n, 0) for n in set(la) | set(lb)})
+    log(f"surgery (e): replan_processor of the tiered cell ({n_chunks} planted batches of "
+        f"{TIER_CHUNK} steps, tier {b2.batch.plan.tier}) after batch 1 in "
+        f"{replan_s * 1e3:.1f} ms: {len(out_b)} matches, equal to the unreplanned stream "
+        f"in order; launches {la} and {lb} [{smi}]")
+
+    # (f) walker_budget=4 on the card is budget 1 ------------------------------
+    ev = make_batch(torch, EventBatch, K, BUDGET_STEPS, 42, dev)
+    for label, conf, drain in (("headline", HEADLINE, False), ("lazy path", LAZY_PATH, True)):
+        runs = {}
+        for B in (1, 4):
+            bm = BatchMatcher(pattern, K, EngineConfig(**conf, walker_budget=B), device=dev)
+            reset()
+            st, out = bm.scan(bm.init_state(), ev)
+            if drain:
+                st, dout = bm.drain(st)
+                out = (out, dout)
+            torch.cuda.synchronize()
+            runs[B] = (st, out, bm.counters(st), launched())
+        err = max_abs_err(torch, runs[4][:2], runs[1][:2])
+        if err or runs[4][2] != runs[1][2] or runs[4][2]["walk_collisions"] or (
+                runs[4][3] != runs[1][3]) or not runs[4][3]:
+            fail(f"surgery (f, {label}): walker_budget 4 != budget 1 on the card: "
+                 f"max_abs_err {err}, counters {runs[4][2]} vs {runs[1][2]}, launches "
+                 f"{runs[4][3]} vs {runs[1][3]}")
+        record(f"walker_budget_4_{label.replace(' ', '_')}", runs[4][3])
+        record(f"walker_budget_1_{label.replace(' ', '_')}", runs[1][3])
+        log(f"surgery (f, {label}): walker_budget 4 == 1 bit for bit over {BUDGET_STEPS} "
+            f"steps{' and a drain' if drain else ''} (every state leaf, output and counter; "
+            f"walk_collisions 0); launches {runs[4][3]} each")
+
+    # (g) sequential_slab: no kernel in the step, the batched path's matches ---
+    reset()
+    proc = CEPProcessor(pattern, num_lanes=1, config=EngineConfig(**DEMO, sequential_slab=True),
+                        topic="StockEvents", device=dev)
+    t0 = time.perf_counter()
+    lines = [format_match(seq, name_of) for _, seq in proc.process(records)]
+    demo_s = time.perf_counter() - t0
+    if lines != EXPECTED or not lossless(proc.counters()) or launched():
+        fail(f"surgery (g): the sequential demo printed {lines}, counters "
+             f"{proc.counters()}, launches {launched()}")
+    E, MP, D, W, R, _, _ = WALK_PARITY[SEQ_CFG]
+    sconf = dict(max_runs=R, slab_entries=E, slab_preds=MP, dewey_depth=D, max_walk=W)
+    codes = np.random.default_rng(SEQ_LANES).integers(0, 5, size=(SEQ_LANES, SEQ_STEPS))
+    sev = letters_batch(torch, EventBatch, codes, dev)
+    bat = BatchMatcher(skip_till_any_pattern(Query), SEQ_LANES, EngineConfig(**sconf), device=dev)
+    seq = BatchMatcher(skip_till_any_pattern(Query), SEQ_LANES,
+                       EngineConfig(**sconf, sequential_slab=True), device=dev)
+    reset()
+    (sb, ob), bat_ms = once_ms(torch, lambda: bat.scan(bat.init_state(), sev))
+    lb = launched()
+    reset()
+    (sq, oq), seq_ms = once_ms(torch, lambda: seq.scan(seq.init_state(), sev))
+    lq = launched()
+    cb, cq = bat.counters(sb), seq.counters(sq)
+    if lq or lb != {"walk_pass": SEQ_STEPS} or max_abs_err(torch, oq, ob) or (
+            {k: v for k, v in cb.items() if k != "slab_missing"}
+            != {k: v for k, v in cq.items() if k != "slab_missing"}):
+        fail(f"surgery (g): sequential_slab on K={SEQ_LANES}: launches {lq} / {lb}, "
+             f"counters {cq} vs {cb}")
+    record("sequential_slab_batched_twin", lb)
+    # The lazy sequential matcher: its step runs no kernel, its drain is B1's.
+    lconf = dict(sconf, lazy_extraction=True, handle_ring=SEQ_HANDLE_RING)
+    lbat = BatchMatcher(skip_till_any_pattern(Query), SEQ_LANES, EngineConfig(**lconf),
+                        device=dev)
+    lseq = BatchMatcher(skip_till_any_pattern(Query), SEQ_LANES,
+                        EngineConfig(**lconf, sequential_slab=True), device=dev)
+    lbs, _ = lbat.scan(lbat.init_state(), sev)
+    lbd = lbat.drain(lbs)
+    reset()
+    lqs, _ = lseq.scan(lseq.init_state(), sev)
+    l_scan = launched()
+    reset()
+    lqd = lseq.drain(lqs)
+    torch.cuda.synchronize()
+    l_drain = launched()
+    want = build_drain(EngineConfig(**lconf, sequential_slab=True), walk_kernel.walk_pass_plain)(lqs)
+    pending = int(lqs.hr_count.sum())
+    err = max_abs_err(torch, lqd, want)
+    if l_scan or l_drain != {"walk_pass[drain]": 1} or err or not pending or max_abs_err(
+            torch, lqd[1], lbd[1]) or lseq.counters(lqd[0]) != lbat.counters(lbd[0]):
+        fail(f"surgery (g, lazy): sequential_slab's drain on K={SEQ_LANES}: launches "
+             f"{l_scan} / {l_drain}, {pending} handles, max_abs_err {err} against the plain "
+             f"drain, counters {lseq.counters(lqd[0])} vs {lbat.counters(lbd[0])}")
+    record("sequential_slab_drain", l_drain)
+    log(f"surgery (g, lazy): sequential_slab at {SEQ_CFG} with lazy extraction: its "
+        f"{SEQ_STEPS} steps launched nothing and its drain launched {l_drain}; the drain of "
+        f"{pending} handles equals the plain drain bit for bit (max_abs_err {err}) and the "
+        f"batched path's drain, counters equal")
+    log(f"surgery (g): sequential_slab, no kernel launched: the stock demo printed EXPECTED "
+        f"in {demo_s:.2f} s ({demo_s / len(records) * 1e3:.1f} ms a step); K={SEQ_LANES} x "
+        f"{SEQ_STEPS} at {SEQ_CFG} (R={R}, E={E}, MP={MP}, D={D}, W={W}): "
+        f"{int((oq.count > 0).sum())} matches and counters {cq} equal to the batched per-step "
+        f"path's (slab_missing {cq['slab_missing']} vs {cb['slab_missing']}); "
+        f"{seq_ms / SEQ_STEPS:.2f} ms a sequential step, {bat_ms / SEQ_STEPS:.3f} ms a batched "
+        f"one [{smi}]")
+
+    # (h) the stencil matcher against the NFA engine's whole scan --------------
+    KS, TS = STENCIL_LANES, STENCIL_STEPS
+    stev = make_batch(torch, EventBatch, KS, TS, 7, dev)
+    sm = StencilMatcher(stencil_pattern(Query), KS, device=dev)
+    s0 = sm.init_state()
+    _, sout = sm.scan(s0, stev)
+    nb = with_scan(True, lambda: BatchMatcher(stencil_pattern(Query), KS,
+                                              EngineConfig(**STENCIL_NFA), device=dev))
+    reset()
+    (nst, nout), nfa_ms = once_ms(torch, lambda: nb.scan(nb.init_state(), stev))
+    nl = launched()
+    if nl != {"scan_pass[default]": 1} or not lossless(nb.counters(nst)):
+        fail(f"surgery (h): the NFA whole scan: launches {nl}, counters {nb.counters(nst)}")
+    done = nout.count > 0  # [K, T, R]
+    row = done.to(i32).argmax(dim=-1, keepdim=True)
+    n_done = done.sum(dim=-1)
+    offs = nout.off.gather(2, row[..., None].expand(KS, TS, 1, nout.off.shape[-1]))[:, :, 0]
+    cnt = nout.count.gather(2, row)[..., 0]
+    hit = sout.hit
+    if not (torch.equal(hit, n_done > 0) and int(n_done.max()) <= 1
+            and torch.equal(cnt[hit], torch.full_like(cnt[hit], sm.n))
+            and torch.equal(offs[hit][:, :sm.n].flip(-1), sout.offs[hit])):
+        fail("surgery (h): the stencil's hits or offsets != the NFA engine's matches")
+    st_ms = cuda_ms(torch, lambda: sm.scan(s0, stev)[1].hit.sum(), 5)
+    record("stencil_nfa", nl)
+    log(f"surgery (h): StencilMatcher at bench_stencil's shape (K={KS} x T={TS}, seed 7): "
+        f"{int(hit.sum())} hits, hits and offsets equal to one B2 whole scan of the same "
+        f"query ({nfa_ms:.1f} ms, loss-free at {STENCIL_NFA}); stencil {st_ms:.3f} ms a "
+        f"scan = {KS * TS / st_ms * 1e3:,.0f} events/s (CUDA events, hit reduction consumed) "
+        f"[{smi}]")
+    log(f"surgery phase: {time.perf_counter() - t12:.1f} s")
+
+
 def main() -> None:
     import torch
 
@@ -1899,6 +2431,10 @@ def main() -> None:
             conf = TIER_CELL if name == "tier_cell" else TIER_PARITY
             mode = scan_kernel.mode_of(EngineConfig(**conf, **extra), tiered=True)
             jobs[(name, mode)] = (src, mode)
+    # Phase 12's NFA counterpart of the stencil.
+    mode = scan_kernel.mode_of(EngineConfig(**STENCIL_NFA))
+    jobs[("stencil", mode)] = (scan_codegen.generate(
+        lower(stencil_pattern(Query)), make_batch(torch, EventBatch, 1, 4, 0, dev).value), mode)
     t0 = time.perf_counter()
     build_errors = []
 
@@ -2732,6 +3268,7 @@ def main() -> None:
     bank_phase(torch, dev, smi, report, records, name_of)
     spike_phase(torch, dev, smi, report)
     ingest_phase(torch, dev, smi, report)
+    surgery_phase(torch, dev, smi, report, records, name_of)
 
     log(f"total: {time.perf_counter() - t_start:.1f} s after the card check")
     log(smi)

@@ -20,6 +20,7 @@ int32 (float32 states as their bit pattern), offsets stay below 2^24.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -48,9 +49,7 @@ I32 = torch.int32
 class EngineConfig:
     """Static shape/feature knobs for one matcher — the same fields and
     defaults as the JAX package's ``EngineConfig``, so a config (or a
-    checkpoint header's copy of one) means the same thing on both sides.
-    The fields outside this port's slice are accepted but refused by the
-    engine (see :func:`check_config`)."""
+    checkpoint header's copy of one) means the same thing on both sides."""
 
     max_runs: int = 16  # R — run-queue slots (overflow counted in run_drops)
     slab_entries: int = 64  # E — shared-buffer slots per key
@@ -61,10 +60,18 @@ class EngineConfig:
     slab_preds: int = 8  # MP — predecessor pointers per buffer entry
     dewey_depth: int = 12  # D — fixed Dewey width (overflow counted)
     max_walk: int = 16  # W — buffer walk bound = max match length
-    walker_budget: int = 1  # walkers per batch; 1 = the reference's order
+    # Walkers a lane's walk pass runs together in lockstep; 1 = the
+    # reference's sequential order.  Wider batches can part from it where
+    # two removal walkers meet at one entry in one hop (counted in
+    # ``walk_collisions``).  The CUDA walk-pass kernel serves every walker
+    # alone whatever the budget, as the JAX package's Pallas kernel does.
+    walker_budget: int = 1
     renorm_versions: bool = True  # Dewey renormalization at sweep time
     enforce_windows: bool = False  # deviation: functional within() pruning
-    sequential_slab: bool = False  # per-op slab path (not in this slice)
+    # Apply the slab ops one run at a time, op by op (the reference's
+    # literal order), instead of the batched walk pass; a switch for
+    # differential testing that runs no walk kernel.
+    sequential_slab: bool = False
     # Lazy extraction: a completed match leaves a handle in a per-lane ring
     # (its root pinned) instead of walking in-step; ``drain`` walks every
     # pending handle in one pass.
@@ -84,18 +91,9 @@ class EngineConfig:
 
 
 def check_config(cfg: EngineConfig) -> None:
-    """Refuse the configurations this port does not serve yet, rather than
-    silently running something else."""
-    off_slice = {
-        "sequential_slab": cfg.sequential_slab,
-        "walker_budget": cfg.walker_budget != 1,
-    }
-    bad = [k for k, v in off_slice.items() if v]
-    if bad:
-        raise NotImplementedError(
-            f"EngineConfig {bad}: not ported to the PyTorch engine yet "
-            "(the JAX package serves them)"
-        )
+    """Refuse values the engine cannot run with."""
+    if cfg.walker_budget < 1:
+        raise ValueError(f"walker_budget={cfg.walker_budget} must be >= 1")
     EH = cfg.slab_hot_entries
     if EH and (EH % 8 or not 0 < EH < cfg.slab_entries):
         raise ValueError(
@@ -1063,6 +1061,81 @@ def make_step(phases: StepPhases, walk_fn=walk_pass, qids=None):
     return step
 
 
+def make_sequential_step(phases: StepPhases, cfg: EngineConfig, qids=None):
+    """The ``sequential_slab`` step: the same chain and queue compaction as
+    :func:`make_step`, with the slab ops applied one run at a time in the
+    reference's literal order (``kafkastreams_cep_tpu/engine/matcher.py:
+    1028-1100``).  Per run in queue order: its consuming puts frame by
+    frame, its branch walks deepest first, then its removal walk if it
+    died; after every run, each completed match's extraction walk in queue
+    order (none under lazy extraction: ``finish`` appends handles).  Every
+    op is masked by its enable flag, so a step reads nothing back to the
+    host; no walk kernel runs."""
+    ph = phases
+    R, W, EH = cfg.max_runs, cfg.max_walk, cfg.slab_hot_entries
+
+    def step(state: EngineState, ev: EventBatch):
+        rec = ph.eval_chain(state, ev, qids)
+        K, H = rec.put_en.shape[0], rec.put_en.shape[2]
+        off = ev.off.to(I32)
+        slab = slab_mod.clone(state.slab)
+        for r in range(R):
+            prev_off = state.event_off[:, r]
+            for h in range(H):
+                en, prev = rec.put_en[:, r, h], rec.put_prev[:, r, h]
+                cur, ver, vlen = rec.put_cur[:, r, h], rec.put_ver[:, r, h], rec.put_vlen[:, r, h]
+                slab_mod._put_first_(slab, cur, off, ver, vlen, en & (prev < 0), EH)
+                slab_mod._put_(slab, cur, off, prev, prev_off, ver, vlen,
+                               en & (prev >= 0), EH)
+            for h in range(H - 1, -1, -1):
+                slab = slab_mod.branch(
+                    slab, rec.br_prev[:, r, h], prev_off, rec.br_ver[:, r, h],
+                    rec.br_vlen[:, r, h], W, rec.br_en[:, r, h], hot_entries=EH,
+                )
+            slab, _, _, _ = slab_mod.peek(
+                slab, state.id_pos[:, r].clamp(min=0), prev_off, state.ver[:, r],
+                state.vlen[:, r], W, remove=True,
+                enable=rec.dead[:, r] & (prev_off >= 0), hop_kind="walk",
+                hot_entries=EH,
+            )
+        out_stage = torch.full((K, R, W), -1, dtype=I32, device=off.device)
+        out_off = out_stage.clone()
+        out_count = torch.zeros((K, R), dtype=I32, device=off.device)
+        if not cfg.lazy_extraction:
+            final_en = rec.surv_alive & rec.surv_final & ev.valid[:, None]
+            for r in range(R):
+                fe = final_en[:, r]
+                slab, st_row, off_row, cnt = slab_mod.peek(
+                    slab, rec.surv_id[:, r], off, rec.surv_ver[:, r],
+                    rec.surv_vlen[:, r], W, remove=True, enable=fe, hot_entries=EH,
+                )
+                out_stage[:, r] = torch.where(fe[:, None], st_row, out_stage[:, r])
+                out_off[:, r] = torch.where(fe[:, None], off_row, out_off[:, r])
+                out_count[:, r] = torch.where(fe, cnt, out_count[:, r])
+        return ph.finish(state, ev, rec, slab, out_stage, out_off, out_count, qids)
+
+    return step
+
+
+def build_programs(phases: StepPhases, cfg: EngineConfig, qids=None):
+    """``(step, drain)`` for ``cfg``, chosen from the config alone as the
+    JAX package's ``parallel/batch.py: _select_walk_kernel`` does.
+
+    ``sequential_slab`` swaps the step for the per-op one
+    (:func:`make_sequential_step`), which no kernel computes.  Every other
+    step, and every drain, goes through :func:`walk_pass`: the kernel on
+    CUDA tensors, where ``walker_budget`` changes nothing, and the plain
+    pass on CPU tensors, where a budget above 1 runs its lockstep batches."""
+    walk_fn = functools.partial(walk_pass, budget=cfg.walker_budget)
+    if cfg.sequential_slab:
+        logger.info("sequential_slab: per-op slab step, no walk kernel in the "
+                    "step; the drain goes through the walk pass")
+        step = make_sequential_step(phases, cfg, qids)
+    else:
+        step = make_step(phases, walk_fn, qids)
+    return step, build_drain(cfg, walk_fn)
+
+
 class TPUMatcher:
     """A compiled array matcher for one pattern, over any number of lanes.
 
@@ -1083,8 +1156,7 @@ class TPUMatcher:
             self.tables.max_hops, self.config, self.device,
         )
         self.phases = _build_step(self.tables, self.config, self.device)
-        self.step = make_step(self.phases)
-        self.drain = build_drain(self.config)
+        self.step, self.drain = build_programs(self.phases, self.config)
 
     @property
     def names(self) -> List[str]:

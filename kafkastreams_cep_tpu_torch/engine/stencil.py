@@ -1,9 +1,15 @@
-"""The stencil prefix tier: a query's strict-contiguity prefix over a whole
-``[K, T]`` batch at once.
+"""The stencil tier: a strict sequence (or a query's strict-contiguity
+prefix) over a whole ``[K, T]`` batch at once.
 
-The counterpart of the prefix half of ``kafkastreams_cep_tpu/engine/
-stencil.py`` (``PrefixCarry``, ``PromoOutput``, ``StencilPrefix``; its note
-cites the reference).  A strict prefix of ``p`` stages neither branches nor
+The counterpart of ``kafkastreams_cep_tpu/engine/stencil.py`` (its note
+cites the reference): :class:`StencilMatcher` matches a whole branch-free
+strict sequence; ``PrefixCarry``, ``PromoOutput`` and ``StencilPrefix``
+serve the first tier of a tiered query.  A strict sequence of ``n`` stages
+completes at event ``t`` iff stage ``i``'s predicate holds on event
+``t-n+1+i`` for every ``i``: ``n`` boolean columns ANDed under shifts, with
+the trailing ``n-1`` valid events carried across batches.
+
+A strict prefix of ``p`` stages neither branches nor
 skips: the begin stage re-seeds a run at every event and strict contiguity
 kills a run at the first event its stage rejects, so the prefix completes
 at event ``t`` iff stage ``j`` accepted event ``t-p+1+j`` for every ``j``.
@@ -26,7 +32,7 @@ not as a Pallas kernel.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -184,3 +190,106 @@ def prefix_recurrence(p: int, carry: PrefixCarry, bools: torch.Tensor,
         fire=fire, offs=offs_out, anchor_ts=ext_ts[:, a:a + T].contiguous(),
         sver=ext_sver[:, 0:T].contiguous(),
     )
+
+
+class StencilState(NamedTuple):
+    """:class:`StencilMatcher`'s carry across batches: the trailing ``n-1``
+    valid events."""
+
+    bools: torch.Tensor  # [K, n-1, n] bool — per-stage predicate values
+    offs: torch.Tensor  # [K, n-1] int32 — event offsets (-1 = none yet)
+
+
+class StencilOutput(NamedTuple):
+    """``hit[k, t]``: a match completed at batch slot ``t``; ``offs[k, t,
+    i]``: the offset of that match's stage-``i`` event."""
+
+    hit: torch.Tensor  # [K, T] bool
+    offs: torch.Tensor  # [K, T, n] int32
+
+
+class StencilMatcher:
+    """The stencil matcher of one branch-free strict sequence (every stage
+    of cardinality one, strict contiguity, no folds: ``TransitionTables.
+    is_strict_seq``) over ``num_lanes`` lanes.
+
+    ``scan(state, events)`` consumes a ``[K, T]`` :class:`EventBatch` whose
+    valid slots form a per-lane prefix (the processor's padding) and
+    returns every completed match; no step depends on the one before, so
+    the whole batch is a few elementwise passes on the device of its
+    inputs.  ``device`` is where :meth:`init_state` puts the carry."""
+
+    def __init__(self, pattern, num_lanes: int, device="cuda"):
+        from kafkastreams_cep_tpu_torch.engine.matcher import resolve_device
+
+        self.tables: TransitionTables = (
+            pattern if isinstance(pattern, TransitionTables) else lower(pattern)
+        )
+        if not self.tables.is_strict_seq():
+            raise ValueError(
+                "pattern is not a branch-free strict sequence; use TPUMatcher"
+            )
+        self.device = resolve_device(device)
+        self.num_lanes = int(num_lanes)
+        n = self.tables.num_stages - 1
+        if np.any(self.tables.consume_op[:n] != OP_BEGIN):
+            raise ValueError("a strict sequence consumes every stage by BEGIN")
+        self.n = n
+        #: Stage names in chain order, for decoding matches.
+        self.stage_names: List[str] = self.tables.names[:n]
+        self._preds = [
+            self.tables.predicates[self.tables.consume_pred[i]] for i in range(n)
+        ]
+
+    def init_state(self) -> StencilState:
+        K, n = self.num_lanes, self.n
+        return StencilState(
+            bools=torch.zeros((K, max(n - 1, 0), n), dtype=torch.bool, device=self.device),
+            offs=torch.full((K, max(n - 1, 0)), -1, dtype=I32, device=self.device),
+        )
+
+    def scan(self, state: StencilState, ev: EventBatch
+             ) -> Tuple[StencilState, StencilOutput]:
+        n = self.n
+        K, T = ev.ts.shape
+        dev = ev.ts.device
+        valid = ev.valid.to(torch.bool)
+        empty = ArrayStates({})
+        bools = torch.stack(
+            [
+                torch.as_tensor(p(ev.key, ev.value, ev.ts, empty), device=dev)
+                .to(torch.bool).expand(K, T) & valid
+                for p in self._preds
+            ],
+            dim=-1,
+        )  # [K, T, n]
+        offs = ev.off.to(I32)
+        if n == 1:
+            return state, StencilOutput(hit=bools[..., 0], offs=offs[..., None])
+        ext_b = torch.cat([state.bools, bools], dim=1)  # [K, T+n-1, n]
+        ext_off = torch.cat([state.offs, offs], dim=1)
+        # hit[k, t] = AND_i ext_b[k, t+i, i]: stage i saw event t-n+1+i.
+        hit = ext_b[:, 0:T, 0]
+        for i in range(1, n):
+            hit = hit & ext_b[:, i:i + T, i]
+        match_offs = torch.stack([ext_off[:, i:i + T] for i in range(n)], dim=-1)
+        # The new carry: the trailing n-1 valid columns, one gather a leaf.
+        c = valid.sum(dim=1, dtype=I32)
+        carry = StencilState(_trailing(ext_b, c, n - 1), _trailing(ext_off, c, n - 1))
+        return carry, StencilOutput(hit, match_offs)
+
+    def decode(self, out: StencilOutput, events_by_offset, lane_keys=None):
+        """Host side: the matches as ``(lane, slot, Sequence)``, stages
+        added final first (the reference's backward buffer walk);
+        ``events_by_offset[k]`` maps lane ``k``'s offsets to events."""
+        from kafkastreams_cep_tpu_torch.utils.events import Sequence
+
+        hit = out.hit.cpu().numpy()
+        offs = out.offs.cpu().numpy()
+        matches = []
+        for k, t in zip(*np.nonzero(hit)):
+            seq = Sequence()
+            for i in range(self.n - 1, -1, -1):
+                seq.add(self.stage_names[i], events_by_offset[k][int(offs[k, t, i])])
+            matches.append((int(k), int(t), seq))
+        return matches

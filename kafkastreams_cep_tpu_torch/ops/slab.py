@@ -71,8 +71,8 @@ class SlabState(NamedTuple):
     pred_drops: torch.Tensor  # [K] int32 — pointer-list overflow drops
     missing: torch.Tensor  # [K] int32 — lookups the reference would NPE on
     trunc: torch.Tensor  # [K] int32 — walks cut short by the walk bound
-    collisions: torch.Tensor  # [K] int32 — lockstep walker meetings (0 here:
-    #   walkers always run one at a time)
+    collisions: torch.Tensor  # [K] int32 — lockstep walker meetings (0 at
+    #   walker_budget 1, where walkers run one at a time)
     hot_hits: torch.Tensor  # [K] int32 — two-tier telemetry (0: single tier)
     hot_misses: torch.Tensor  # [K] int32
     overflow_walks: torch.Tensor  # [K] int32
@@ -132,6 +132,13 @@ def find(slab: SlabState, stage, off):
     """Entry index of ``(stage, off)`` per lane and whether it exists."""
     hit = (slab.stage == stage[:, None]) & (slab.off == off[:, None])
     return _first(hit), hit.any(dim=1)
+
+
+def _all_done(active: torch.Tensor) -> bool:
+    """Whether no lane's walker is still active, read only for CPU tensors
+    (the remaining hops would change nothing); on the card the walk runs
+    its fixed hop count and reads nothing back to the host."""
+    return not active.is_cuda and not bool(active.any())
 
 
 def _lanes(slab: SlabState) -> torch.Tensor:
@@ -295,6 +302,8 @@ def branch(slab: SlabState, stage, off, ver, vlen, max_walk: int, enable,
     slots = torch.arange(MP, device=stage.device)
     active = enable.clone()
     for _ in range(max_walk):
+        if _all_done(active):
+            break
         hit = (slab.stage == stage[:, None]) & (slab.off == off[:, None])
         e, found = _first(hit), hit.any(dim=1)
         _hop_counts(slab, active, stage, hot_entries=hot_entries, hit=hit)
@@ -333,6 +342,8 @@ def peek(
     count = torch.zeros((K,), dtype=I32, device=stage.device)
     active = enable.clone()
     for i in range(max_walk):
+        if _all_done(active):
+            break
         hit = (slab.stage == stage[:, None]) & (slab.off == off[:, None])
         e, found = _first(hit), hit.any(dim=1)
         _hop_counts(slab, active, stage, kind=hop_kind,
@@ -579,10 +590,189 @@ def _puts_sequential(slab: SlabState, ops: PutOps, off,
     return slab
 
 
+def _hop_counts_lockstep(slab: SlabState, active, stage, want_out, kind: str,
+                         hot_entries: int, hit) -> None:
+    """:func:`_hop_counts` for ``[K, P]`` walkers in lockstep (in place):
+    each lane's counters take the sum over its ``P`` walkers."""
+    slab.walk_hops.add_(_count(active & ~want_out))
+    getattr(slab, f"{kind}_hops").add_(_count(active & want_out))
+    if hot_entries:
+        found = hit.any(dim=2)
+        found_hot = hit[:, :, :hot_entries].any(dim=2)
+        slab.hot_hits.add_(_count(active & found_hot))
+        slab.hot_misses.add_(_count(active & ~found_hot))
+        slab.overflow_walks.add_(_count(active & ~found_hot & found))
+    S = slab.stage_hops.shape[1]
+    if S:
+        oh = stage[..., None] == torch.arange(S, device=stage.device)
+        slab.stage_hops.add_((oh & active[..., None]).sum(dim=1, dtype=I32))
+
+
+def _take(x, idx):
+    """``x[k, idx[k, p], ...]`` per lane: gather along dim 1 (``idx [K, P]``)."""
+    i = idx.long().reshape(idx.shape + (1,) * (x.dim() - 2))
+    return x.gather(1, i.expand(idx.shape + x.shape[2:]))
+
+
+def walks_batched(
+    slab: SlabState, en, stage, off, ver, vlen, is_remove, want_out,
+    max_walk: int, collect: bool = True, hot_entries: int = 0,
+    drain: bool = False,
+):
+    """All of a lane's ``P`` walkers (``[K, P]``) in one lockstep pass —
+    ``kafkastreams_cep_tpu/ops/slab.py: walks_batched``, the protocol
+    behind ``EngineConfig.walker_budget > 1``.
+
+    Each hop every active walker looks up its entry; refcount deltas of
+    the walkers at one entry are summed (increments for branch walkers,
+    decrements for ``is_remove`` ones) and floored at zero once.  Only the
+    queue-last active remove walker at an entry may delete it or prune
+    the pointer it follows, and prunes are tombstones: every walker reads
+    the pointer lists as they stood when the pass began, and each entry
+    with a tombstone is compacted at the end.  Two or more remove walkers
+    at one entry in one hop is where this order can part from the
+    sequential one; every walker past the first counts one ``collisions``.
+    Emitting hops count as in :func:`walks_compacted`.
+
+    Returns ``(slab, out_stage [K, P, W], out_off [K, P, W], count [K, P])``
+    (meaningful only where ``want_out``)."""
+    slab = clone(slab)
+    K, E = slab.stage.shape
+    MP = slab.pstage.shape[2]
+    P, W = stage.shape[1], max_walk
+    dev = slab.stage.device
+    pidx = torch.arange(P, device=dev)
+    later = (pidx[None, :] > pidx[:, None])[None]  # [1, p, q]: q after p
+    is_remove = is_remove.to(torch.bool)
+    want_out = want_out.to(torch.bool)
+    kind = "drain" if drain else "extract"
+    # The pointer rows are read-only for the whole pass (prunes tombstone).
+    valid0 = torch.arange(MP, device=dev)[None, None, :] < slab.npreds[:, :, None]
+    dead = torch.zeros_like(valid0)
+    stage, off = stage.to(I32).clone(), off.to(I32).clone()
+    qver, qlen = ver.to(I32).clone(), vlen.to(I32).clone()
+    active = en.to(torch.bool).clone()
+    out_stage = torch.full((K, P, W), -1, dtype=I32, device=dev)
+    out_off = out_stage.clone()
+    count = torch.zeros((K, P), dtype=I32, device=dev)
+    ar = _lanes(slab)[:, None]
+    for _ in range(W):
+        if _all_done(active):
+            break
+        hit = (slab.stage[:, None, :] == stage[:, :, None]) & (
+            slab.off[:, None, :] == off[:, :, None]
+        )  # [K, P, E]
+        found = hit.any(dim=2)
+        _hop_counts_lockstep(slab, active, stage, want_out, kind, hot_entries, hit)
+        slab.missing.add_(_count(active & ~found))
+        active = active & found
+        ham = hit & active[..., None]
+        rm = ham & is_remove[..., None]
+        inc = (ham & ~is_remove[..., None]).sum(dim=1, dtype=I32)  # [K, E]
+        n_rm = rm.sum(dim=1, dtype=I32)
+        refs_e = torch.clamp(slab.refs + inc - n_rm, min=0)
+        refs_after = torch.where(ham, refs_e[:, None, :], 0).sum(dim=2, dtype=I32)
+        slab = slab._replace(refs=torch.where(ham.any(dim=1), refs_e, slab.refs))
+        # The queue-last active remove walker at each entry (the entry of a
+        # walker is its first hit) is the only one that may collect.
+        arm = active & is_remove
+        e = _first(hit)
+        last = arm & ~((e[:, None, :] == e[:, :, None]) & later & arm[:, None, :]).any(dim=2)
+        slab.collisions.add_(torch.clamp(n_rm - 1, min=0).sum(dim=1, dtype=I32))
+
+        live_p = _take(valid0 & ~dead, e) & active[..., None]  # [K, P, MP]
+        delete = last & collect & (refs_after == 0) & (_count(live_p) <= 1)
+        gone = (hit & delete[..., None]).any(dim=1)
+        slab = slab._replace(stage=torch.where(gone, -1, slab.stage),
+                             off=torch.where(gone, -1, slab.off))
+
+        emit = active & want_out
+        col = torch.clamp(count, max=W - 1).long()[..., None]
+        out_stage.scatter_(2, col, torch.where(emit, stage, out_stage.gather(2, col)[..., 0])[..., None])
+        out_off.scatter_(2, col, torch.where(emit, off, out_off.gather(2, col)[..., 0])[..., None])
+        count += emit.to(I32)
+
+        pv, pl = _take(slab.pver, e), _take(slab.pvlen, e)
+        ok = dewey_ops.is_compatible(qver[:, :, None, :], qlen[:, :, None], pv, pl) & live_p
+        j = _first(ok)
+        sel = ok.any(dim=2) & active
+        prune = sel & last & collect & (refs_after == 0)
+        tomb = torch.zeros((K, E, MP), dtype=I32, device=dev)
+        tomb.index_put_((ar.expand(K, P), e, j), prune.to(I32), accumulate=True)
+        dead |= tomb > 0
+        slab = slab._replace(npreds=slab.npreds - tomb.sum(dim=2, dtype=I32))
+
+        jj = j[..., None]
+        ns = _take(slab.pstage, e).gather(2, jj)[..., 0]
+        nactive = sel & (ns >= 0)
+        stage = torch.where(nactive, ns, stage)
+        off = torch.where(nactive, _take(slab.poff, e).gather(2, jj)[..., 0], off)
+        qlen = torch.where(nactive, pl.gather(2, jj)[..., 0], qlen)
+        qver = torch.where(
+            nactive[..., None],
+            pv.gather(2, jj[..., None].expand(K, P, 1, pv.shape[-1]))[:, :, 0],
+            qver,
+        )
+        # Extraction walkers get W emitting hops; both truncations count.
+        budget_out = emit & (count >= W)
+        slab.trunc.add_(_count(budget_out & nactive))
+        active = nactive & ~budget_out
+    slab.trunc.add_(_count(active))
+    any_dead = dead.any(dim=2)
+    if bool(any_dead.any()):
+        slab = _compact_pointers(slab, valid0 & ~dead, any_dead)
+    return slab, out_stage, out_off, count
+
+
+def _walks_lockstep(
+    slab: SlabState, en, stage, off, ver, vlen, is_remove, want_out,
+    max_walk: int, budget: int, out_base: int, out_rows: int,
+    hot_entries: int, drain: bool,
+):
+    """:func:`walks_compacted` at ``budget > 1``: each lane's enabled
+    walkers, in queue-order rank, in batches of ``budget`` run by
+    :func:`walks_batched`, one batch after another."""
+    K, P = en.shape
+    B, W, OR = budget, max_walk, out_rows
+    dev = slab.stage.device
+    en = en.to(torch.bool)
+    rank = torch.cumsum(en.to(I32), dim=1) - 1
+    n_batches = -(-int(_count(en).max()) // B) if K else 0
+    out_stage = torch.full((K, OR, W), -1, dtype=I32, device=dev)
+    out_off = out_stage.clone()
+    count = torch.zeros((K, OR), dtype=I32, device=dev)
+    bidx = torch.arange(B, device=dev)
+    for b in range(n_batches):
+        start = b * B
+        ohc = (en & (rank >= start) & (rank < start + B))[..., None] & (
+            (rank - start)[..., None] == bidx
+        )  # [K, P, B]: walker p sits in batch slot i
+        b_en = ohc.any(dim=1)
+        p_of = _first(ohc.transpose(1, 2))  # [K, B]
+
+        def gather(field):
+            v = _take(field, p_of)
+            m = b_en.reshape(b_en.shape + (1,) * (v.dim() - 2))
+            return torch.where(m, v, torch.zeros((), dtype=v.dtype, device=dev))
+
+        slab, b_stage, b_off, b_count = walks_batched(
+            slab, b_en, gather(stage), gather(off), gather(ver), gather(vlen),
+            gather(is_remove), gather(want_out), W, hot_entries=hot_entries,
+            drain=drain,
+        )
+        oho = ohc[:, out_base:out_base + OR]  # [K, OR, B]
+        got = oho.any(dim=2)
+        q = _first(oho)
+        out_stage = torch.where(got[..., None], _take(b_stage, q), out_stage)
+        out_off = torch.where(got[..., None], _take(b_off, q), out_off)
+        count = torch.where(got, _take(b_count, q), count)
+    return slab, out_stage, out_off, count
+
+
 def walks_compacted(
     slab: SlabState, en, stage, off, ver, vlen, is_remove, want_out,
     max_walk: int, out_base: int, out_rows: int, hot_entries: int = 0,
-    drain: bool = False,
+    drain: bool = False, budget: int = 1,
 ):
     """The step's walk pass, per lane, one walker at a time in queue order.
 
@@ -591,6 +781,8 @@ def walks_compacted(
     the reference's sequential order, and the ``walker_budget=1`` form of
     ``kafkastreams_cep_tpu/ops/slab.py: walks_compacted``.  Lanes are
     independent: batch ``b`` serves every lane's rank-``b`` walker.
+    ``budget > 1`` serves each lane's walkers ``budget`` at a time in
+    lockstep instead (:func:`walks_batched`; ``EngineConfig.walker_budget``).
 
     A walker tombstones the pointers it prunes and reads the pointer lists
     as they stood when it started; when it ends, each entry it pruned is
@@ -605,6 +797,11 @@ def walks_compacted(
     Returns ``(slab, out_stage [K, OR, W], out_off [K, OR, W],
     count [K, OR])``.
     """
+    if budget > 1:
+        return _walks_lockstep(
+            slab, en, stage, off, ver, vlen, is_remove, want_out, max_walk,
+            budget, out_base, out_rows, hot_entries, drain,
+        )
     slab = clone(slab)
     K, E = slab.stage.shape
     MP = slab.pstage.shape[2]

@@ -130,17 +130,19 @@ def walk_pass_plain(
     slab: SlabState, en, stage, off, ver, vlen, is_remove, want_out,
     max_walk: int, out_base: int, out_rows: int,
     put_ops: Optional[PutOps] = None, ev_off=None, hot_entries: int = 0,
-    drain: bool = False,
+    drain: bool = False, budget: int = 1,
 ):
     """The plain PyTorch slab phase: the step's consuming puts (when
     ``put_ops`` is given; op by op under two-tier), then its walkers one at
-    a time in queue order.  Returns ``(slab, out_stage [K, OR, W], out_off,
-    count [K, OR])``."""
+    a time in queue order (``budget`` at a time in lockstep when ``budget >
+    1``: ``EngineConfig.walker_budget``).  Returns ``(slab, out_stage [K,
+    OR, W], out_off, count [K, OR])``."""
     if put_ops is not None:
         slab = slab_mod.puts_batched(slab, put_ops, ev_off, hot_entries)
     return slab_mod.walks_compacted(
         slab, en, stage, off, ver, vlen, is_remove, want_out,
         max_walk, out_base, out_rows, hot_entries=hot_entries, drain=drain,
+        budget=budget,
     )
 
 
@@ -384,13 +386,24 @@ def walk_pass(
     slab: SlabState, en, stage, off, ver, vlen, is_remove, want_out,
     max_walk: int, out_base: int, out_rows: int,
     put_ops: Optional[PutOps] = None, ev_off=None, hot_entries: int = 0,
-    drain: bool = False,
+    drain: bool = False, budget: int = 1,
 ):
     """The step's (or the drain's) slab phase for ``[K]``-batched lanes: the
-    plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
-    fn = walk_pass_kernel if slab.stage.is_cuda else walk_pass_plain
-    return fn(
+    plain version for CPU tensors, the CUDA kernel for CUDA tensors.
+
+    ``budget`` is ``EngineConfig.walker_budget``.  The kernel serves every
+    walker alone in queue order whatever it is, as the JAX package's Pallas
+    kernel does (``kafkastreams_cep_tpu/engine/matcher.py:146``); the plain
+    version on the CPU runs the lockstep batches of ``budget`` walkers, as
+    the JAX package's jnp pass does."""
+    if slab.stage.is_cuda:
+        return walk_pass_kernel(
+            slab, en, stage, off, ver, vlen, is_remove, want_out,
+            max_walk, out_base, out_rows, put_ops=put_ops, ev_off=ev_off,
+            hot_entries=hot_entries, drain=drain,
+        )
+    return walk_pass_plain(
         slab, en, stage, off, ver, vlen, is_remove, want_out,
         max_walk, out_base, out_rows, put_ops=put_ops, ev_off=ev_off,
-        hot_entries=hot_entries, drain=drain,
+        hot_entries=hot_entries, drain=drain, budget=budget,
     )

@@ -19,6 +19,12 @@ generator cannot express
 (:class:`~kafkastreams_cep_tpu_torch.ops.scan_codegen.LoweringError`,
 raised on the host before any build) is logged and served by the per-step
 path for good; every other failure raises.
+
+The whole scan is the JAX package's whole-scan kernel, which serves every
+walker alone in the batched slab order whatever ``walker_budget`` and
+``sequential_slab`` say (``kafkastreams_cep_tpu/parallel/batch.py:
+359-380`` builds it without reading either); the two switches then shape
+only ``step`` and ``drain``.
 """
 
 from __future__ import annotations

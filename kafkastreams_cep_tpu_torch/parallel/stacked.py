@@ -37,10 +37,9 @@ from kafkastreams_cep_tpu_torch.engine.matcher import (
     EngineState,
     EventBatch,
     _build_step,
-    build_drain,
+    build_programs,
     counter_values,
     hot_counter_values,
-    make_step,
     map_value,
     per_lane_counter_arrays,
     resolve_device,
@@ -116,8 +115,7 @@ class StackedBankMatcher:
         )
         self.qids = torch.arange(self.Q, dtype=torch.int32, device=self.device
                                  ).repeat_interleave(self.K)  # [Q * K]
-        self.step = make_step(self.phases, qids=self.qids)
-        self._drain = build_drain(self.config)
+        self.step, self._drain = build_programs(self.phases, self.config, self.qids)
 
     def names_of(self, q: int) -> List[str]:
         return self.tables_list[q].names

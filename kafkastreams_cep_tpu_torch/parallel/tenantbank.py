@@ -62,10 +62,9 @@ from kafkastreams_cep_tpu_torch.engine.matcher import (
     EventBatch,
     StepOutput,
     _build_step,
-    build_drain,
+    build_programs,
     counter_values,
     hot_counter_values,
-    make_step,
     per_lane_counter_arrays,
     resolve_device,
     scan_steps,
@@ -263,8 +262,7 @@ class _GroupPrograms:
         Qg = group.Q
         self.phases = _build_step(group.tlist, cfg, device)
         self.qids = torch.arange(Qg, dtype=I32, device=device).repeat_interleave(K)
-        self.step = make_step(self.phases, qids=self.qids)
-        self.drain = build_drain(cfg)
+        self.step, self.drain = build_programs(self.phases, cfg, self.qids)
         self.promote = (build_promote_stacked(group.tlist, cfg, group.p)
                         if group.kind == "hybrid" else None)
         self.rows = torch.as_tensor(group.rows, dtype=torch.int64, device=device)

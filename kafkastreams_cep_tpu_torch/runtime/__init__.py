@@ -10,6 +10,13 @@ from kafkastreams_cep_tpu_torch.runtime.ingest import (
     IngestGuard,
     IngestPolicy,
 )
+from kafkastreams_cep_tpu_torch.runtime.migrate import (
+    migrate_processor,
+    move_lanes,
+    plan_rebalance,
+    repartition_state,
+    widen_state,
+)
 from kafkastreams_cep_tpu_torch.runtime.processor import (
     CEPProcessor,
     InputRejected,
@@ -26,6 +33,11 @@ __all__ = [
     "InputRejected",
     "Record",
     "load_checkpoint",
+    "migrate_processor",
+    "move_lanes",
+    "plan_rebalance",
+    "repartition_state",
     "restore_processor",
     "save_checkpoint",
+    "widen_state",
 ]

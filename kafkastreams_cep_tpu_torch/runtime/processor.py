@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from kafkastreams_cep_tpu_torch import native
+from kafkastreams_cep_tpu_torch.convert import state_arrays, state_from_arrays
 from kafkastreams_cep_tpu_torch.engine.matcher import (
     OFFSET_LIMIT,
     TIER_COUNTER_NAMES,
@@ -269,6 +270,12 @@ class CEPProcessor:
         self._clock = clock
         if self._guard is not None:
             self._guard._clock = clock
+
+    def place(self, state):
+        """A host tree of this processor's engine state (what
+        ``runtime/migrate.py`` returns) as tensors on its device, every
+        leaf checked against the engine's shape and dtype."""
+        return state_from_arrays(state_arrays(state), self.batch.init_state())
 
     @property
     def uses_scan_kernel(self) -> bool:

@@ -154,9 +154,16 @@ def test_oracle_differential_random_letters():
     ("sequential_slab", True), ("walker_budget", 2),
 ])
 def test_out_of_slice_configs_raise(field, value):
-    with pytest.raises(NotImplementedError):
-        TPUMatcher(ts.strict3(ts.TQuery), EngineConfig(**{field: value}),
-                   device="cpu")
+    """The two switches the port once refused build now, with the JAX
+    engine's state (their runs are held against JAX in
+    ``test_torch_sequential_slab.py`` and ``test_torch_walker_budget.py``);
+    only a budget below 1 raises."""
+    conf = dict(CONFIG, **{field: value})
+    tb = BatchMatcher(ts.strict3(ts.TQuery), 3, EngineConfig(**conf), device="cpu")
+    jb = JBatch(ts.strict3(ts.JQuery), 3, JConfig(**conf))
+    ts.assert_states_equal(jb.init_state(), tb.init_state(), field)
+    with pytest.raises(ValueError, match="walker_budget"):
+        TPUMatcher(ts.strict3(ts.TQuery), EngineConfig(walker_budget=0), device="cpu")
 
 
 @pytest.mark.parametrize("field,value", [

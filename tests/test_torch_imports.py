@@ -44,7 +44,8 @@ def test_files_found():
     for mod in ("engine/stencil.py", "engine/tiered.py", "parallel/tiered.py",
                 "compiler/multitenant.py", "engine/predmatrix.py", "parallel/stacked.py",
                 "parallel/tenantbank.py", "runtime/bank.py", "ops/spike_kernel.py",
-                "native/__init__.py", "runtime/ingest.py", "utils/serde.py"):
+                "native/__init__.py", "runtime/ingest.py", "utils/serde.py",
+                "engine/sizing.py", "runtime/migrate.py"):
         assert f"kafkastreams_cep_tpu_torch/{mod}" in FILES
     # The native packer builds from the port's own copy of the C++ source.
     assert (PKG / "native" / "src" / "ingest.cpp").is_file()

@@ -244,8 +244,9 @@ def test_unstackable_shapes_rejected():
         StackedBankMatcher([p2, p3], 8, EngineConfig(**CFG), device="cpu")
     with pytest.raises(ValueError, match="stacked patterns"):
         _build_step([lower(p2), lower(p3)], EngineConfig(**CFG), "cpu")
-    with pytest.raises(NotImplementedError):
-        StackedBankMatcher([p2, p2], 8, EngineConfig(**CFG, walker_budget=2), device="cpu")
+    # A walker budget is no shape: same-shape queries stack at any budget.
+    assert StackedBankMatcher([p2, p2], 8, EngineConfig(**CFG, walker_budget=2),
+                              device="cpu").Q == 2
 
 
 def test_choose_bank_modes():

@@ -203,3 +203,13 @@ def assert_states_equal(jax_state, torch_state, msg=""):
 
 def to_t(x):
     return torch.as_tensor(np.array(x))
+
+
+def from_jax(events) -> EventBatch:
+    """A JAX package ``EventBatch`` as the port's (CPU tensors)."""
+    def t(x):
+        if isinstance(x, dict):
+            return {k: t(v) for k, v in x.items()}
+        return to_t(x)
+
+    return EventBatch(*(t(x) for x in events))
