@@ -156,7 +156,10 @@ def main() -> None:
     items = [(args[0], scan_kernel.mode_of(args[1], promo is not None))
              for _, _, args, promo in cases]
     libs = this.build(*items)
-    other_libs = other.build(*[(src, other_mod.Mode(*mode)) for src, mode in items])
+    # An older tree's Mode may have fewer fields (no ``wide``): these
+    # instances are narrow in both.
+    n_other = len(other_mod.Mode._fields)
+    other_libs = other.build(*[(src, other_mod.Mode(*mode[:n_other])) for src, mode in items])
     same_sass = {}
     if "--sass" in sys.argv:
         for (mode, on, _, _), a, b in zip(cases, libs, other_libs):

@@ -16,11 +16,12 @@ Phases (any failure exits non-zero before the final line):
               held against one plain run; three slab configs, one of them
               with rows of no multiple of 16 bytes, with and without puts;
               and at K 1 and 37 a slab of E=1536 rows, past what a block of
-              eight lanes holds, so that its blocks serve fewer); then every
-              mode of the
+              eight lanes holds, so that its blocks serve fewer; and the wide
+              instances at E=24, MP=40, D=48 and E=16, MP=64, D=96, their
+              4,096 lanes 512 random ones tiled); then every mode of the
               walk-pass kernel — two-tier (E_hot 8 at E=16 and E=25, 16 at
-              E=48 and E=1536) x stage attribution x drain — on inputs whose
-              hot tier is full, so that puts demote;
+              E=24, E=48 and E=1536) x stage attribution x drain — on inputs
+              whose hot tier is full, so that puts demote;
 3. headline — ``BatchMatcher.scan`` at K=4096 lanes with the headline config
               (``bench.py``'s): the first 32 steps through the kernel and
               through the plain pass must agree bit for bit;
@@ -44,7 +45,8 @@ Phases (any failure exits non-zero before the final line):
 6. kernel timing — each mode of the walk-pass kernel and its plain version,
               timed on real mid-scan inputs, beside the kernel's bound;
 7. whole scan — the whole-scan kernel (``CEP_SCAN_KERNEL=1``): (b) equal to
-              its plain version, bit for bit, in seven cases at K 1/37/4096
+              its plain version, bit for bit, in nine cases at K 1/37/4096
+              (the two wide ones at K 1/37/512)
               and T=16, in each case's own instance and (b2) in the
               two-tier, attribution and combined instances (one plain run
               over all three K's lanes side by side); (c) the K=4096 x T=256
@@ -100,7 +102,7 @@ Phases (any failure exits non-zero before the final line):
               failed build fails), equal to their plain versions on the
               phase's real columns and lines; (b) ``bench.py:
               bench_processor``'s columnar stream (K=4096 x T=128, seed 23,
-              one warm and four timed pipelined batches, then ``flush``)
+              one warm and two timed pipelined batches, then ``flush``)
               per step (128 B1 launches a batch) and with
               ``CEP_SCAN_KERNEL=1`` (one B2 launch a batch): equal matches
               and counters, the first batch equal to ``process()`` of its
@@ -121,8 +123,8 @@ Phases (any failure exits non-zero before the final line):
               equal to the uninterrupted run.  The new paths' launches join
               the kernel report's entries;
 12. surgery  — capacity, state surgery and the last engine switches: (a)
-              ``autosize`` on bench_processor's columns, its outcome logged
-              (so far it grows D past the 32 that B1 serves, and B1 raises),
+              ``autosize`` on bench_processor's columns (it grows D past 32,
+              into B1's wide instances) to a config whose probe is loss-free,
               and on bench_lossfree's staircase sample, where it reaches a
               config whose probe is loss-free;
               (b) a live processor on it migrated to a wider config equals
@@ -136,6 +138,22 @@ Phases (any failure exits non-zero before the final line):
               batched path, and its lazy drain is one B1 launch equal to the
               plain drain; (h) ``StencilMatcher`` equals one B2 whole scan at
               ``bench_stencil``'s shape, with its events/s.
+13. supervisor — the port's ``Supervisor`` on the card: (a) bench_resilience's
+              generator at K=4096 (six batches of 32,768 records, a
+              checkpoint every two, an on-disk journal) fault-free, with
+              ``device.dispatch`` failing once at batch 4 (one recovery, a
+              ``recover`` flight dump read back) and crashed after batch 3
+              then resumed from its checkpoint and journal: the same
+              matches, in order, none twice; (b) ``auto_escalate`` from the
+              headline config over bench_processor's stream as Records
+              until an escalation grows D or MP past 32 (B1's and B2's wide
+              instances) and a later batch runs there: capacity counters 0
+              after it, the stream of a processor wide from the start, its
+              last batch as one whole scan equal, the wide instances timed
+              beside their bound; (c) the faulted run's trace spans, its
+              Prometheus text and one ``torch.profiler`` trace of two
+              supervised batches (the device's busy share).  The wide
+              instances also join phases 2 and 7's parity cases.
 
 The last two lines of standard output are the kernel report (one JSON
 object) and the device line ``{"ok": true, "device": {...}}``; the card's
@@ -203,16 +221,32 @@ WALK_PARITY = {
     "misaligned": (25, 3, 5, 6, 4, 2, 8),
     "headline": (48, 8, 12, 12, 24, 3, 16),
     "wide": (1536, 8, 12, 12, 24, 3, 16),
+    # B1's wide instances (MP or D above 32): two tombstone words a row and
+    # versions past the 32nd digit; then two words, three digit groups; on
+    # small slabs and queues (the plain version's [K, E, MP, D] versions
+    # are 0.6-1.6 GB at K=4096).
+    "d48_mp40": (24, 40, 48, 12, 8, 3, 16),
+    "d96_mp64": (16, 64, 96, 12, 4, 3, 8),
 }
 WALK_PARITY_LANES = {"wide": (1, 37)}
+# Random lanes generated for a wide config (numpy's per-slot generation takes
+# about 20 s at 4,096 lanes), tiled to the lane count it runs at.
+WALK_PARITY_TILE = {"d48_mp40": 512, "d96_mp64": 512}
 SOURCE = "kafkastreams_cep_tpu_torch/csrc/walk_pass.cu"
 REPLACES = "kafkastreams_cep_tpu/ops/walk_kernel.py:734"
 SCAN_SOURCE = "kafkastreams_cep_tpu_torch/csrc/scan_pass.cu"
 SCAN_REPLACES = "kafkastreams_cep_tpu/ops/scan_kernel.py:88"
-SCAN_STEPS = 32  # T of the whole-scan parity cases
+SCAN_STEPS = 16  # T of the whole-scan and tiered parity cases
+TIER_PARITY_SCANS = 1  # consecutive scans of each tiered parity case
 PLAIN_SCAN_STEPS = 4  # depth at which the whole scan's plain version is timed
 # The whole-scan cases' small config (tests/test_scan_kernel.py's).
 SMALL = dict(max_runs=8, slab_entries=24, slab_preds=4, dewey_depth=8, max_walk=8)
+# The slab of the wide instances' whole-scan and tiered cases (E=24, so that
+# the plain versions' [K, E, MP, D] versions stay near 750 MB at K=4096); the
+# wide whole-scan cases run at WIDE_SCAN_LANES (phase 13 runs B2's wide
+# instance at K=4096 on real inputs).
+WIDE = dict(slab_entries=24, slab_preds=40, dewey_depth=48)
+WIDE_SCAN_LANES = (1, 37, 512)
 # The lazy path without the hot tier and attribution: the whole-scan
 # kernel's lazy instance is single tier.
 LAZY_SINGLE = dict(HEADLINE, slab_entries=96, lazy_extraction=True, handle_ring=512)
@@ -256,7 +290,7 @@ SPIKE_SHAPES = ((32, 100, 20, 4, 6), (5, 33, 9, 3, 5), (3, 128, 64, 8, 3))
 # of OOO_BATCH records at grace OOO_GRACE ms, at (keys, batches) OOO_CELLS.
 INGEST_LANES = 4096
 INGEST_STEPS = 128
-INGEST_BATCHES = 4
+INGEST_BATCHES = 2
 INGEST_TIER_STEPS = 384
 OOO_BATCH = 2048
 OOO_GRACE = 64
@@ -264,8 +298,8 @@ OOO_CELLS = ((64, 8), (4096, 32))
 PHASES = ("pack_seconds", "dispatch_seconds", "device_seconds", "decode_seconds",
           "drain_seconds", "gc_seconds")
 # Phase 12: bench_processor's columns (K x T a batch): the first
-# SURGERY_SAMPLE batches are an autosize sample whose result B1 refuses (D
-# grows past 32), and the headline processor's stream; walker_budget 4 over
+# SURGERY_SAMPLE batches are an autosize sample (D grows past 32, which B1's
+# and B2's wide instances serve), and the headline processor's stream; walker_budget 4 over
 # BUDGET_STEPS headline steps; sequential_slab on the demo and on a
 # SEQ_LANES x SEQ_STEPS random batch at the WALK_PARITY row SEQ_CFG;
 # bench.py: bench_stencil (:1182-1200) at STENCIL_LANES x STENCIL_STEPS,
@@ -288,6 +322,19 @@ SEQ_HANDLE_RING = 64  # the lazy case's ring: every completion of its batch stay
 STENCIL_LANES = 128
 STENCIL_STEPS = 8192
 STENCIL_NFA = dict(max_runs=8, slab_entries=16, slab_preds=4, dewey_depth=8, max_walk=6)
+# Phase 13: bench.py: bench_resilience's generator (:1786-1850) at SUP_LANES
+# keys, SUP_BATCHES batches of SUP_BATCH records, a device fault at batch
+# SUP_FAULT_BATCH, a crash after batch SUP_CRASH_AFTER; then bench_processor's
+# stream as Records, ESC_STEPS steps (K x ESC_STEPS records) a batch, at most
+# ESC_BATCHES batches, escalation rounds a batch at most ESC_ROUNDS.
+SUP_LANES = 4096
+SUP_BATCH = 32768
+SUP_BATCHES = 6
+SUP_FAULT_BATCH = 4
+SUP_CRASH_AFTER = 3
+ESC_STEPS = 64
+ESC_BATCHES = 4
+ESC_ROUNDS = 8
 
 
 def log(msg: str) -> None:
@@ -590,6 +637,14 @@ def scan_cases(torch, EventBatch, Query, device):
             stock_pattern(Query),
             dict(HEADLINE, slab_entries=96, lazy_extraction=True, handle_ring=512),
             lambda K: make_batch(torch, EventBatch, K, T, 5, device), 1),
+        # The wide instances (MP or D above 32), eager and lazy.
+        "stock wide (E=24, MP=40, D=48)": (
+            stock_pattern(Query), dict(HEADLINE, **WIDE),
+            lambda K: make_batch(torch, EventBatch, K, T, 6, device), 1),
+        "stock wide lazily (E=24, MP=40, D=48, ring 512)": (
+            stock_pattern(Query),
+            dict(HEADLINE, **WIDE, lazy_extraction=True, handle_ring=512),
+            lambda K: make_batch(torch, EventBatch, K, T, 8, device), 1),
     }
 
 
@@ -715,7 +770,10 @@ def max_abs_err(torch, got, want) -> int:
         fail(f"shape/dtype mismatch {got.shape} {got.dtype} vs {want.shape} {want.dtype}")
     if not got.numel():
         return 0
-    return int((got.long() - want.long()).abs().max())
+    ne = got != want  # the differing elements only: a wide state is GBs
+    if not bool(ne.any()):
+        return 0
+    return int((got[ne].long() - want[ne].long()).abs().max())
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -781,6 +839,23 @@ def bound(slab_in, slab_out, leaves, other_in, other_out, E, MP, D):
             moved / 1e6, hops)
 
 
+def other_placement(skern, source, config, state, tiered=False):
+    """The pointer rows' other placement than the rule's (True: shared), or
+    None where that placement's arena does not fit a block (a wide slab's
+    rows in shared memory); the kernel then runs the rule's again."""
+    alt = not skern.arena(source, config, state, tiered=tiered)[0]
+    try:
+        skern.arena(source, config, state, pv_shared=alt, tiered=tiered)
+    except ValueError:
+        return None
+    return alt
+
+
+def placement_text(alt) -> str:
+    return {None: "the other placement does not fit", True: "pointer rows shared too",
+            False: "pointer rows in device memory too"}[alt]
+
+
 def walk_parity_arrays(walk_inputs, made: dict, name: str, hot: int):
     """The random walk-pass inputs of ``WALK_PARITY[name]`` with ``hot`` hot
     rows, at the config's most lanes, as numpy arrays: made once (seeded by
@@ -789,7 +864,10 @@ def walk_parity_arrays(walk_inputs, made: dict, name: str, hot: int):
     if (name, hot) not in made:
         E, MP, D, _, R, H, _ = WALK_PARITY[name]
         K = max(WALK_PARITY_LANES.get(name, PARITY_LANES))
-        made[name, hot] = walk_inputs.random_inputs(K, K, E, MP, D, R, H, hot_entries=hot)
+        n = min(K, WALK_PARITY_TILE.get(name, K))
+        arrs = walk_inputs.random_inputs(K, n, E, MP, D, R, H, hot_entries=hot)
+        reps = -(-K // n)
+        made[name, hot] = {f: np.concatenate([a] * reps)[:K] for f, a in arrs.items()}
     return made[name, hot]
 
 
@@ -849,7 +927,7 @@ def mode_parity(torch, kern, walk_kernel, walk_inputs, dev, max_err, made):
                 for drain in (False, True):
                     if not (hot or S or drain):
                         continue  # the default mode: phase 2's first cases
-                    mode = walk_kernel.mode_name(hot, S, drain)
+                    mode = walk_kernel.mode_name(hot, S, drain, walk_kernel.is_wide(MP, D))
                     Ks = WALK_PARITY_LANES.get(name, PARITY_LANES)
                     slab, wk, puts, ev_off = walk_inputs.as_tensors(
                         walk_parity_arrays(walk_inputs, made, name, hot), dev, stage_hops=S)
@@ -916,58 +994,63 @@ def tiered_phase(torch, dev, smi, log_entry, scan_bound, hybrid_src, tier_src,
     tier_err = {}
     t0 = time.perf_counter()
     promoted_total = 0
-    for pname, make_pattern in HYBRID.items():
-        for label, extra in TIER_MODES.items():
-            conf = dict(TIER_PARITY, **extra)
-            mode = scan_kernel.mode_name(EngineConfig(**conf), tiered=True)
-            rng = np.random.default_rng(len(pname) * 31 + len(label))
-            tall = tiered(make_pattern(Query), sum(PARITY_LANES), conf)
-            tks = [tiered(make_pattern(Query), Kc, conf) for Kc in PARITY_LANES]
-            if tall.plan.tier != "hybrid":
-                fail(f"{pname}: plan {tall.plan}, want hybrid")
-            eng_all, carry_all = tall.init_state()
-            sts = [tuple(tm.init_state()) for tm in tks]
-            alts = [st[0] for st in sts]
-            alt = not skern.arena(hybrid_src[pname], tks[0].matcher.config, alts[0],
-                                  tiered=True)[0]
-            for i in range(2):
-                evs = [letters_batch(torch, EventBatch, rng.choice(
-                    5, size=(Kc, SCAN_STEPS), p=[0.3, 0.25, 0.2, 0.2, 0.05]), dev,
-                    t0=i * SCAN_STEPS) for Kc in PARITY_LANES]
-                ev_all = cat_lanes(torch, EventBatch, evs)
-                carry_all, feed_all = tall._prefix.scan(carry_all, ev_all)
-                eng_all, o_p, n_p = scan_kernel.scan_pass_plain(
-                    tall.inner.phases, eng_all, ev_all, promo=(tall._promote, feed_all))
-                lo = 0
-                for j, (tm, Kc) in enumerate(zip(tks, PARITY_LANES)):
-                    eng, carry = sts[j]
-                    carry, feed = tm._prefix.scan(carry, evs[j])
-                    eng, o_k, n_k = scan_kernel.scan_pass(
-                        hybrid_src[pname], tm.matcher.config, tm.inner.phases, eng,
-                        evs[j], promo=(tm._promote, feed))
-                    alts[j], o_a, n_a = skern(hybrid_src[pname], tm.matcher.config, alts[j],
-                                              evs[j], (tm._promote, feed), pv_shared=alt)
-                    sts[j] = (eng, carry)
-                    torch.cuda.synchronize()
-                    err = max(max_abs_err(torch, eng, lanes(eng_all, lo, lo + Kc)),
-                              max_abs_err(torch, o_k, lanes(o_p, lo, lo + Kc)),
-                              max_abs_err(torch, n_k, n_p[lo:lo + Kc]),
-                              max_abs_err(torch, alts[j], lanes(eng_all, lo, lo + Kc)),
-                              max_abs_err(torch, o_a, lanes(o_p, lo, lo + Kc)),
-                              max_abs_err(torch, n_a, n_p[lo:lo + Kc]))
-                    tier_err[mode] = max(tier_err.get(mode, 0), err)
-                    promoted_total += int(n_k.sum())
-                    log(f"tiered parity: {pname} [{mode}] K={Kc} scan {i + 1}/2: "
-                        f"max_abs_err {err}; prefix fires {int(feed.fire.sum())}, promoted "
-                        f"{int(n_k.sum())}, match slots {int((o_k.count > 0).sum())}, "
-                        f"handles {int(eng.hr_count.sum())}, run_drops "
-                        f"{int(eng.run_drops.sum())}, demotions {int(eng.slab.demotions.sum())}")
-                    if err:
-                        fail(f"scan_pass[{mode}] kernel != plain ({pname}, K={Kc}, scan {i + 1})")
-                    lo += Kc
+    # Every hybrid pattern in every tiered mode, and one wide B3 instance.
+    tier_cases = [(pname, make_pattern, label, extra)
+                  for pname, make_pattern in HYBRID.items()
+                  for label, extra in TIER_MODES.items()]
+    tier_cases.append(("pn1_strict3_skip", HYBRID["pn1_strict3_skip"], "wide", WIDE))
+    for pname, make_pattern, label, extra in tier_cases:
+        conf = dict(TIER_PARITY, **extra)
+        mode = scan_kernel.mode_name(EngineConfig(**conf), tiered=True)
+        rng = np.random.default_rng(len(pname) * 31 + len(label))
+        tall = tiered(make_pattern(Query), sum(PARITY_LANES), conf)
+        tks = [tiered(make_pattern(Query), Kc, conf) for Kc in PARITY_LANES]
+        if tall.plan.tier != "hybrid":
+            fail(f"{pname}: plan {tall.plan}, want hybrid")
+        eng_all, carry_all = tall.init_state()
+        sts = [tuple(tm.init_state()) for tm in tks]
+        alts = [st[0] for st in sts]
+        alt = other_placement(skern, hybrid_src[pname], tks[0].matcher.config, alts[0],
+                              tiered=True)
+        for i in range(TIER_PARITY_SCANS):
+            evs = [letters_batch(torch, EventBatch, rng.choice(
+                5, size=(Kc, SCAN_STEPS), p=[0.3, 0.25, 0.2, 0.2, 0.05]), dev,
+                t0=i * SCAN_STEPS) for Kc in PARITY_LANES]
+            ev_all = cat_lanes(torch, EventBatch, evs)
+            carry_all, feed_all = tall._prefix.scan(carry_all, ev_all)
+            eng_all, o_p, n_p = scan_kernel.scan_pass_plain(
+                tall.inner.phases, eng_all, ev_all, promo=(tall._promote, feed_all))
+            lo = 0
+            for j, (tm, Kc) in enumerate(zip(tks, PARITY_LANES)):
+                eng, carry = sts[j]
+                carry, feed = tm._prefix.scan(carry, evs[j])
+                eng, o_k, n_k = scan_kernel.scan_pass(
+                    hybrid_src[pname], tm.matcher.config, tm.inner.phases, eng,
+                    evs[j], promo=(tm._promote, feed))
+                alts[j], o_a, n_a = skern(hybrid_src[pname], tm.matcher.config, alts[j],
+                                          evs[j], (tm._promote, feed), pv_shared=alt)
+                sts[j] = (eng, carry)
+                torch.cuda.synchronize()
+                err = max(max_abs_err(torch, eng, lanes(eng_all, lo, lo + Kc)),
+                          max_abs_err(torch, o_k, lanes(o_p, lo, lo + Kc)),
+                          max_abs_err(torch, n_k, n_p[lo:lo + Kc]),
+                          max_abs_err(torch, alts[j], lanes(eng_all, lo, lo + Kc)),
+                          max_abs_err(torch, o_a, lanes(o_p, lo, lo + Kc)),
+                          max_abs_err(torch, n_a, n_p[lo:lo + Kc]))
+                tier_err[mode] = max(tier_err.get(mode, 0), err)
+                promoted_total += int(n_k.sum())
+                log(f"tiered parity: {pname} [{mode}] K={Kc} scan {i + 1}/{TIER_PARITY_SCANS}: "
+                    f"max_abs_err {err}; prefix fires {int(feed.fire.sum())}, promoted "
+                    f"{int(n_k.sum())}, match slots {int((o_k.count > 0).sum())}, "
+                    f"handles {int(eng.hr_count.sum())}, run_drops "
+                    f"{int(eng.run_drops.sum())}, demotions {int(eng.slab.demotions.sum())}")
+                if err:
+                    fail(f"scan_pass[{mode}] kernel != plain ({pname}, K={Kc}, scan {i + 1})")
+                lo += Kc
     if not promoted_total:
         fail("no tiered parity case promoted a run")
-    log(f"tiered parity: {len(HYBRID)} patterns x {len(TIER_MODES)} modes x K {PARITY_LANES} "
+    log(f"tiered parity: {len(HYBRID)} patterns x {len(TIER_MODES)} modes and one wide case "
+        f"x K {PARITY_LANES} "
         f"x both placements bit for bit, {promoted_total} promotions ({time.perf_counter() - t0:.1f} s)")
 
     # (b) the tiered cell: three paths over the same K=4096 x T=1024 trace.
@@ -1555,9 +1638,19 @@ def ooo_trace(Record, K: int, n_batches: int):
     return recs, [recs[i] for i in np.argsort(skew, kind="stable")]
 
 
+#: Main-path launches of the wide instances made before phase 13, which
+#: times them and writes their report entries: {name: {path: launches}}.
+WIDE_LAUNCHES: dict = {}
+
+
 def add_launches(report, name: str, path: str, n: int) -> None:
-    """Add a new path's launches of one kernel instance to its report entry."""
+    """Add a new path's launches of one kernel instance to its report entry
+    (a wide instance's wait for phase 13's entry)."""
     entry = next((e for e in report if e["name"] == name), None)
+    if entry is None and "wide" in name:
+        by = WIDE_LAUNCHES.setdefault(name, {})
+        by[path] = by.get(path, 0) + n
+        return
     if entry is None:
         fail(f"no kernel report entry {name!r} for the {path} path")
     entry["launches_by_path"][path] = entry["launches_by_path"].get(path, 0) + n
@@ -1570,7 +1663,7 @@ def ingest_phase(torch, dev, smi, report):
     (a) the native packer and parser, built by g++ from the port's source,
     equal to their plain versions on the phase's real columns and JSON
     lines; (b) the columnar headline (``bench.py: bench_processor``: K=4096
-    x T=128, one warm and four timed pipelined batches) per step (B1) and as
+    x T=128, one warm and INGEST_BATCHES timed pipelined batches) per step (B1) and as
     whole scans (B2), equal to each other and its first batch to the record
     path; (c) the first batch as JSON lines through the native parser into
     ``process_columns``; (d) the lazy configuration over columns per step
@@ -1965,8 +2058,8 @@ def surgery_phase(torch, dev, smi, report, records, name_of):
     """Phase 12: capacity, state surgery and the last engine switches.
 
     (a0) ``autosize`` from the headline config on bench_processor's first two
-    column batches, its outcome logged: the config reached, or B1's refusal
-    of a ``dewey_depth`` past 32 (no plain pass runs instead); (a) ``autosize`` on bench_lossfree's
+    column batches, with no kernel-bound error: the config it reaches, whose
+    probe shows every capacity counter 0, or autosize's own ceiling, logged; (a) ``autosize`` on bench_lossfree's
     sample (the staircase, 128 lanes x 768 steps) from the headline config,
     then ``probe`` of the config it reached, every capacity counter 0 (B1 on
     every probe step); (b) a processor on that config over two 128-step
@@ -1990,7 +2083,7 @@ def surgery_phase(torch, dev, smi, report, records, name_of):
     equal to one B2 whole scan of the same query, with its events/s."""
     from kafkastreams_cep_tpu_torch import BatchMatcher, CEPProcessor, EngineConfig, Query
     from kafkastreams_cep_tpu_torch.engine import EventBatch, capacity_counters, sizing
-    from kafkastreams_cep_tpu_torch.engine.matcher import build_drain
+    from kafkastreams_cep_tpu_torch.engine.matcher import build_drain, step_events
     from kafkastreams_cep_tpu_torch.engine.stencil import StencilMatcher
     from kafkastreams_cep_tpu_torch.ops import scan_kernel, walk_kernel
     from kafkastreams_cep_tpu_torch.runtime import (
@@ -2055,27 +2148,42 @@ def surgery_phase(torch, dev, smi, report, records, name_of):
     sizing.probe = counting_probe
     reset()
     t0 = time.perf_counter()
-    refused, reached = None, None
+    stopped, reached = None, None
     try:
         reached = sizing.autosize(pattern, col_sample, start=EngineConfig(**HEADLINE),
                                   device=dev)
-    except ValueError as e:
-        if "D <= 32" not in str(e):
+    except RuntimeError as e:
+        if "counters still nonzero" not in str(e):
             raise
-        refused = str(e)  # B1's limit on the Dewey depth (ROADMAP.md §C)
+        stopped = str(e)  # autosize's own ceiling, as in the JAX package
     finally:
         sizing.probe = real_probe
+    if reached is not None:
+        check = capacity_counters(real_probe(pattern, col_sample, reached, device=dev).counters)
+        if any(check.values()):
+            fail(f"surgery (a0): the autosized config {shape_of(reached)} lost work on its "
+                 f"sample: {check}")
     torch.cuda.synchronize()
     a0_s = time.perf_counter() - t0
     a0_l = launched()
     if not a0_l:
         fail("surgery (a0): autosize on bench_processor's columns launched no kernel")
     record("autosize_columns", a0_l)
-    outcome = (f"reached {shape_of(reached)}" if refused is None
-               else f"stopped where B1 refuses the shape ({refused!r})")
+    outcome = (f"reached {shape_of(reached)}, every capacity counter 0 on its probe"
+               if stopped is None else f"stopped at autosize's ceiling ({stopped!r})")
     log(f"surgery (a0): autosize on bench_processor's first {S} column batches ({K} lanes x "
         f"{S * T} steps) from the headline config probed {[shape_of(c) for c in probes]} and "
         f"{outcome} after {a0_s:.2f} s; launches {a0_l} [{smi}]")
+    if reached is not None and (reached.slab_preds > 32 or reached.dewey_depth > 32):
+        # The instance the reached config runs, on the sample's real inputs
+        # at its middle step (the wide instances' report entries).
+        torch.cuda.empty_cache()
+        abm = BatchMatcher(pattern, K, reached, device=dev)
+        mid, _ = abm.scan(abm.init_state(), window(EventBatch, col_sample, 0, T))
+        wide_walk_entry(torch, report, abm.phases, mid, step_events(col_sample, T), reached,
+                        f"the autosized config ({shape_of(reached)}) at step {T} of its "
+                        f"sample, K={K}", {}, {}, smi)
+        del abm, mid
 
     # (a) bench_lossfree's autosize: the staircase sample, from the headline config
     stair = staircase_batch(torch, EventBatch, STAIR_SAMPLE_LANES, STAIR_CYCLES, dev)
@@ -2381,6 +2489,393 @@ def surgery_phase(torch, dev, smi, report, records, name_of):
     log(f"surgery phase: {time.perf_counter() - t12:.1f} s")
 
 
+def wide_walk_entry(torch, report, phases, state, ev, cfg, timed_on, paths, walk_err, smi):
+    """The walk-pass instance ``state``'s slab runs (a wide one) on one
+    step's real inputs ``ev``: held against its plain version, timed beside
+    its bound, and its report entry added with the main-path launches
+    ``paths`` and those ``WIDE_LAUNCHES`` holds for it."""
+    from kafkastreams_cep_tpu_torch.ops import walk_kernel
+
+    kern = walk_kernel.walk_pass_kernel
+    EH, S = int(cfg.slab_hot_entries), state.slab.stage_hops.shape[1]
+    mode = walk_kernel.mode_name(EH, S, False,
+                                 walk_kernel.is_wide(cfg.slab_preds, cfg.dewey_depth))
+    name = f"walk_pass[{mode}]"
+    r = phases.eval_chain(state, ev)
+    ops = phases.build_puts(state, r)
+    wk = phases.build_walkers(state, r, ev)
+    args = (state.slab, *wk, phases.max_walk, phases.out_base, phases.out_rows)
+    kw = dict(put_ops=ops, ev_off=ev.off, hot_entries=EH)
+    got = kern(*args, **kw)
+    # The plain version's temporaries are several copies of the pointer
+    # versions: past 2 GB of them it runs on the first lanes only (lanes are
+    # independent), held against the kernel's same lanes.
+    K = state.slab.pver.shape[0]
+    P = min(K, max(1, K * (1 << 31) // max(state.slab.pver.numel() * 4, 1)))
+    want, plain_ms = once_ms(torch, lambda: walk_kernel.walk_pass_plain(
+        *first_lanes(args, P), **first_lanes(kw, P)))
+    err = max_abs_err(torch, first_lanes(got, P), want)
+    if err:
+        fail(f"{name} on {timed_on}: kernel != plain (max_abs_err {err})")
+    ms = kernel_ms(torch, lambda: kern(*args, **kw), 10)
+    geo = walk_geometry(kern, args, kw)
+    bound_ms, bound_by, mb, hops = bound(
+        state.slab, got[0], walk_kernel.mode_fields(EH, S, False),
+        list(wk) + list(ops) + [ev.off], got[1:], cfg.slab_entries, cfg.slab_preds,
+        cfg.dewey_depth)
+    by_path = dict(WIDE_LAUNCHES.pop(name, {}), **paths)
+    log(f"{name}: {ms:.3f} ms/launch (plain {plain_ms:.1f} ms on {P} lanes) on {timed_on}: {mb:.1f} MB "
+        f"moved, {hops} hops -> bound {bound_ms:.4f} ms ({bound_by}); "
+        f"{walk_geometry_text(geo)}; launches {by_path} [{smi}]")
+    report.append({
+        "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": max(err, walk_err.get(mode, 0)), "ms": ms, "plain_ms": plain_ms,
+        "plain_lanes": P, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "timed_on": timed_on, "geometry": geo,
+    })
+
+
+def resilience_batches(Record, K: int, n: int, n_batches: int):
+    """``bench.py: bench_resilience``'s generator (bench.py:1786-1850): seed
+    5, keys uniform over K, prices 90-130, volumes 700-999 with 0.5 %
+    spikes to 1,100; ``n_batches`` batches of ``n`` records, timestamps
+    ``b * n + i``."""
+    rng = np.random.default_rng(5)
+    out = []
+    for b in range(n_batches):
+        keys = rng.integers(0, K, size=n)
+        prices = rng.integers(90, 131, size=n)
+        vols = np.where(rng.random(n) < 0.005, 1100, rng.integers(700, 1000, size=n))
+        out.append([Record(int(keys[i]), {"price": int(prices[i]), "volume": int(vols[i])},
+                           b * n + i) for i in range(n)])
+    return out
+
+
+def supervisor_phase(torch, dev, smi, report, scan_bound, scan_entry, walk_err, scan_err):
+    """Phase 13: the supervisor on the card.
+
+    (a) recovery, exactly once: bench_resilience's generator at K=4096, the
+    headline config, SUP_BATCHES batches of SUP_BATCH records,
+    ``checkpoint_every=2`` and an on-disk journal, three ways: fault-free,
+    ``device.dispatch`` failing once at batch SUP_FAULT_BATCH (one recovery,
+    a ``recover`` flight dump read back), and a supervisor dropped after
+    batch SUP_CRASH_AFTER and continued by ``Supervisor.resume``: the same
+    matches in the same order, none twice; (b) escalation past 32:
+    ``auto_escalate=EscalationPolicy(max_rounds=8)`` from the headline
+    config over bench_processor's stream as ``Record``s (K=4096, ESC_STEPS
+    steps a batch, at most ESC_BATCHES batches) until an escalation grew
+    ``dewey_depth`` or ``slab_preds`` past 32 and a later batch ran at that
+    width; every batch after the last escalation ends with its capacity
+    counters at 0; a processor at the final config from the start gives
+    the same stream, and its last batch as one whole scan (B2's wide
+    instance) gives the per-step stream; the wide instances timed beside
+    their bound; (c) a ``JsonlTraceSink`` on (a)'s faulted run, the
+    Prometheus text of its supervisor, and one ``torch.profiler`` trace of
+    two supervised batches (kernels seen, the device's busy share)."""
+    import shutil
+    import tempfile
+
+    from kafkastreams_cep_tpu_torch import CEPProcessor, EngineConfig, Query, Record
+    from kafkastreams_cep_tpu_torch.engine import EventBatch, capacity_counters
+    from kafkastreams_cep_tpu_torch.engine.matcher import step_events
+    from kafkastreams_cep_tpu_torch.engine.sizing import EscalationPolicy
+    from kafkastreams_cep_tpu_torch.ops import scan_codegen, scan_kernel, walk_kernel
+    from kafkastreams_cep_tpu_torch.runtime import (
+        FlightRecorder, Supervisor, move_lanes, read_dump,
+    )
+    from kafkastreams_cep_tpu_torch.utils import failpoints, metrics
+    from kafkastreams_cep_tpu_torch.utils.telemetry import (
+        InMemoryTraceSink, JsonlTraceSink, render_prometheus,
+    )
+
+    kern, skern = walk_kernel.walk_pass_kernel, scan_kernel.scan_pass_kernel
+    t13 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="cep_supervisor_")
+    pattern = stock_pattern(Query)
+    K = SUP_LANES
+
+    def reset():
+        kern.reset_counts()
+        skern.reset_counts()
+
+    def launched():
+        return ({(f"walk_pass[{m}]" if m != "default" else "walk_pass"): c
+                 for m, c in kern.launches_by_mode.items() if c}
+                | {f"scan_pass[{m}]": c for m, c in skern.launches_by_mode.items() if c})
+
+    def supervised(tag, **kw):
+        return Supervisor(pattern, K, EngineConfig(**HEADLINE), epoch=0, device=dev,
+                          checkpoint_path=os.path.join(work, f"{tag}.ckpt"),
+                          journal_path=os.path.join(work, f"{tag}.jrnl"), **kw)
+
+    try:
+        # (a) recovery, exactly once ----------------------------------------
+        batches = resilience_batches(Record, K, SUP_BATCH, SUP_BATCHES)
+        runs, a_launches = {}, {}
+
+        def run(label, fn):
+            reset()
+            t0 = time.perf_counter()
+            out, sup = fn()
+            torch.cuda.synchronize()
+            a_launches[label] = launched()
+            if set(a_launches[label]) != {"walk_pass"}:
+                fail(f"supervisor (a, {label}) ran {a_launches[label]}, want walk_pass only")
+            runs[label] = canon_stream(out)
+            log(f"supervisor (a) {label}: {len(out)} matches, recoveries {sup.recoveries}, "
+                f"checkpoints {sup.checkpoints} in {time.perf_counter() - t0:.2f} s; "
+                f"launches {a_launches[label]} [{smi}]")
+            return sup
+
+        def fault_free():
+            sup = supervised("clean", checkpoint_every=2)
+            return [m for b in batches for m in sup.process(b)], sup
+
+        sink_path = os.path.join(work, "trace.jsonl")
+        flight = FlightRecorder(path=os.path.join(work, "flight"))
+
+        def faulted():
+            sink = JsonlTraceSink(sink_path)
+            sup = supervised("fault", checkpoint_every=2, trace_sink=sink, flight=flight)
+            # device.dispatch fires once a batch: its hit SUP_FAULT_BATCH - 1
+            # is batch SUP_FAULT_BATCH's first dispatch.
+            failpoints.FAILPOINTS.arm("device.dispatch", hits=[SUP_FAULT_BATCH - 1])
+            try:
+                out = [m for b in batches for m in sup.process(b)]
+            finally:
+                failpoints.FAILPOINTS.clear()
+                sink.close()
+            return out, sup
+
+        def resumed():
+            sup = supervised("crash", checkpoint_every=2)
+            out = [m for b in batches[:SUP_CRASH_AFTER] for m in sup.process(b)]
+            del sup  # the crash: only the files remain
+            sup = Supervisor.resume(pattern, K, EngineConfig(**HEADLINE), epoch=0, device=dev,
+                                    checkpoint_path=os.path.join(work, "crash.ckpt"),
+                                    journal_path=os.path.join(work, "crash.jrnl"),
+                                    checkpoint_every=2)
+            out += [m for b in batches[SUP_CRASH_AFTER:] for m in sup.process(b)]
+            return out, sup
+
+        clean = run("fault-free", fault_free)
+        fsup = run("faulted", faulted)
+        rsup = run("resumed", resumed)
+        if fsup.recoveries != 1 or clean.recoveries or rsup.recoveries:
+            fail(f"supervisor (a): recoveries {clean.recoveries}/{fsup.recoveries}/"
+                 f"{rsup.recoveries}, want 0/1/0")
+        if not runs["fault-free"]:
+            fail("supervisor (a): the fault-free run emitted no match")
+        for label in ("faulted", "resumed"):
+            if runs[label] != runs["fault-free"]:
+                fail(f"supervisor (a): the {label} stream differs from the fault-free one")
+        keys = [repr(m) for m in runs["faulted"]]
+        if len(set(keys)) != len(keys):
+            fail("supervisor (a): a match was emitted twice")
+        dumps = [read_dump(p) for p in flight.dump_paths]
+        if not any(d["header"]["reason"] == "recover" and d["records"] for d in dumps):
+            fail(f"supervisor (a): no recover flight dump read back ({flight.dump_paths})")
+        for label, l in a_launches.items():
+            add_launches(report, "walk_pass", f"supervisor_{label}", l["walk_pass"])
+        log(f"supervisor (a): fault-free, faulted and resumed streams equal, "
+            f"{len(runs['fault-free'])} matches each, none twice; recover dump "
+            f"{dumps[0]['header']['records']} batch records (corr {dumps[0]['header']['corr']})")
+
+        # (c) observability of (a): spans, Prometheus text.
+        spans = {}
+        with open(sink_path) as f:
+            for line in f:
+                ev = json.loads(line)
+                spans[ev["name"]] = spans.get(ev["name"], 0) + 1
+        for name in ("supervisor.batch", "recover", "checkpoint", "batch", "phase.device"):
+            if not spans.get(name):
+                fail(f"supervisor (c): no {name!r} span in the trace: {spans}")
+        snap = fsup.metrics_snapshot(per_lane=False)
+        prom = render_prometheus(snap)
+        phases = snap["phases"]
+        if not ({"checkpoint", "recover", "escalate"} <= set(phases)
+                and phases["recover"]["count"] == 1):
+            fail(f"supervisor (c): phases {sorted(phases)}")
+        log(f"supervisor (c): trace spans {dict(sorted(spans.items()))}; Prometheus "
+            f"{len(prom.splitlines())} lines; checkpoint {phases['checkpoint']['count']} x "
+            f"{phases['checkpoint']['sum'] / max(phases['checkpoint']['count'], 1):.3f} s, "
+            f"recover {phases['recover']['sum']:.3f} s [{smi}]")
+
+        # (c) one torch.profiler trace of two supervised batches.
+        extra = resilience_batches(Record, K, SUP_BATCH, SUP_BATCHES + 2)[SUP_BATCHES:]
+        torch.cuda.synchronize()
+        with metrics.profile(os.path.join(work, "profile")) as prof:
+            for b in extra:
+                with metrics.annotate("supervised batch"):
+                    clean.process(b)
+            torch.cuda.synchronize()
+        busy, span_us, kernels = profile_busy(prof)
+        log(f"supervisor (c): profiler trace of 2 supervised batches: device kernels "
+            f"{kernels or 'none seen'}; " + (
+                f"device busy {busy / 1e3:.3f} ms of a {span_us / 1e3:.3f} ms window "
+                f"({100 * busy / span_us:.1f} %)" if span_us and kernels else
+                "no device time in the trace") + f" [{smi}]")
+        del clean, fsup, rsup, batches
+
+        # (b) escalation past 32 --------------------------------------------
+        T, N = ESC_STEPS, K * ESC_STEPS
+        ckeys, prices, volumes = processor_stream(K, T)
+
+        def esc_batch(b):
+            return [Record(int(ckeys[i]), {"price": int(prices[i]), "volume": int(volumes[i])},
+                           b * N + i) for i in range(N)]
+
+        sink = InMemoryTraceSink()
+        reset()
+        sup = supervised("esc", checkpoint_every=16, trace_sink=sink,
+                         auto_escalate=EscalationPolicy(max_rounds=ESC_ROUNDS))
+        streams, after_counters, wide_at, b_batches, escalated = [], [], None, [], []
+        t0 = time.perf_counter()
+        for b in range(ESC_BATCHES):
+            recs = esc_batch(b)
+            b_batches.append(recs)
+            before = sup.escalations
+            streams.append(canon_stream(sup.process(recs)))
+            escalated.append(sup.escalations > before)
+            cfg = sup.processor.batch.matcher.config
+            after_counters.append(capacity_counters(sup.processor.counters()))
+            log(f"supervisor (b) batch {b + 1}: {len(streams[-1])} matches, escalations "
+                f"{sup.escalations - before} (total {sup.escalations}), config {shape_of(cfg)}, "
+                f"capacity counters {after_counters[-1]}")
+            if wide_at is not None:
+                break  # a batch ran at the wide width after the escalation
+            if cfg.dewey_depth > 32 or cfg.slab_preds > 32:
+                wide_at = b
+        torch.cuda.synchronize()
+        esc_s = time.perf_counter() - t0
+        b_launches = launched()
+        final = sup.processor.batch.matcher.config
+        if wide_at is None:
+            fail(f"supervisor (b): no escalation grew D or MP past 32 in {ESC_BATCHES} batches "
+                 f"(config {shape_of(final)})")
+        # Hysteresis 1: a tripping batch is rolled back and re-processed wide,
+        # so every batch from the first escalation on ends loss-free.
+        first_esc = escalated.index(True)
+        bad = [(i, c) for i, c in enumerate(after_counters) if i >= first_esc and any(c.values())]
+        if bad:
+            fail(f"supervisor (b): capacity counters after the last escalation: {bad}")
+        esc_spans = sink.spans("escalate")
+        log(f"supervisor (b): {sup.escalations} escalations to {shape_of(final)} in "
+            f"{esc_s:.1f} s over {len(b_batches)} batches of {N} records; escalations "
+            + ", ".join(f"{s['new_config']} {s['duration_ms'] / 1e3:.2f} s" for s in esc_spans)
+            + f"; launches {b_launches} [{smi}]")
+        wide_mode = walk_kernel.mode_name(0, 0, False, True)
+        if not b_launches.get(f"walk_pass[{wide_mode}]"):
+            fail(f"supervisor (b): the wide B1 instance was not launched: {b_launches}")
+        add_launches(report, "walk_pass", "supervisor_escalation", b_launches.get("walk_pass", 0))
+        del sup
+
+        # The wide config from the start, per step; its last batch again as
+        # one whole scan (B2 at the wide shape) from the same state.
+        wproc = CEPProcessor(pattern, K, final, epoch=0, device=dev)
+        want = []
+        for recs in b_batches[:-1]:
+            want.append(canon_stream(wproc.process(recs)))
+        os.environ["CEP_SCAN_KERNEL"] = "1"
+        try:
+            sproc = move_lanes(pattern, wproc)  # the same state, whole scans
+        finally:
+            os.environ.pop("CEP_SCAN_KERNEL", None)
+        if not sproc.uses_scan_kernel:
+            fail("supervisor (b): CEP_SCAN_KERNEL=1 but the rebuilt processor does not scan")
+        state_before = wproc.state
+        reset()
+        scanned = canon_stream(sproc.process(b_batches[-1]))
+        torch.cuda.synchronize()
+        rescan = launched()
+        want.append(canon_stream(wproc.process(b_batches[-1])))
+        if want != streams:
+            fail("supervisor (b): the wide-from-start stream differs from the supervised one")
+        if scanned != want[-1]:
+            fail("supervisor (b): the whole scan of the last batch differs from its steps")
+        if any(capacity_counters(wproc.counters()).values()):
+            fail(f"supervisor (b): the wide-from-start processor lost work: {wproc.counters()}")
+        scan_mode = scan_kernel.mode_name(final)
+        if rescan != {f"scan_pass[{scan_mode}]": 1}:
+            fail(f"supervisor (b): the whole scan launched {rescan}, want one {scan_mode}")
+        log(f"supervisor (b): a processor at {shape_of(final)} from the start emits the "
+            f"supervised stream ({sum(map(len, want))} matches), and its last batch as one "
+            f"whole scan (scan_pass[{scan_mode}]) the per-step one [{smi}]")
+
+        # The wide instances on this stream's real inputs, beside their bound.
+        ph = wproc.batch.phases
+        nb = len(b_batches)
+        i32 = torch.int32
+        rec = (np.arange(T)[None, :] * K + np.arange(K)[:, None])
+        evb = EventBatch(
+            key=torch.arange(K, dtype=i32, device=dev)[:, None].expand(K, T).contiguous(),
+            value={"price": torch.as_tensor(prices[rec].astype(np.int32), device=dev),
+                   "volume": torch.as_tensor(volumes[rec].astype(np.int32), device=dev)},
+            ts=torch.as_tensor((nb * N + rec).astype(np.int32), device=dev),
+            off=(nb * T + torch.arange(T, dtype=i32, device=dev))[None, :].expand(K, T).contiguous(),
+            valid=torch.ones((K, T), dtype=torch.bool, device=dev),
+        )
+        state = state_before
+        wide_walk_entry(torch, report, ph, state, step_events(evb, 0), final,
+                        f"the escalated state ({shape_of(final)}), K={K}",
+                        {"supervisor_escalation": b_launches[f"walk_pass[{wide_mode}]"]},
+                        walk_err, smi)
+        torch.cuda.empty_cache()
+        source = scan_codegen.generate(wproc.batch.matcher.tables, evb.value)
+        conf = {f: getattr(final, f) for f in final.__dataclass_fields__}
+        s_out, o_out = scan_kernel.scan_pass(source, final, ph, state, evb)
+        s_ms = cuda_ms(torch, lambda: scan_kernel.scan_pass(source, final, ph, state, evb), 3)
+        head = window(EventBatch, evb, 0, PLAIN_SCAN_STEPS)
+        k4 = scan_kernel.scan_pass(source, final, ph, state, head)
+        p4, p_ms = once_ms(torch, lambda: scan_kernel.scan_pass_plain(ph, state, head))
+        s_err = max(max_abs_err(torch, k4[0], p4[0]), max_abs_err(torch, k4[1], p4[1]))
+        if s_err:
+            fail(f"scan_pass[{scan_mode}] on the escalated state: kernel != plain ({s_err})")
+        scan_by_path = dict(WIDE_LAUNCHES.pop(f"scan_pass[{scan_mode}]", {}),
+                            supervisor_rescan=1)
+        scan_entry(scan_mode, s_ms, p_ms, scan_bound(state, s_out, evb, o_out, conf),
+                   scan_by_path, f"the escalated state's next {T} steps, K={K}",
+                   max(s_err, scan_err.get(scan_mode, 0)),
+                   skern.geometry(source, final, state))
+        del wproc, sproc, state, state_before
+        if WIDE_LAUNCHES:
+            fail(f"wide instances launched on a main path with no report entry: "
+                 f"{WIDE_LAUNCHES}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"supervisor phase: {time.perf_counter() - t13:.1f} s")
+
+
+def profile_busy(prof):
+    """``(busy_us, window_us, kernels)`` of a ``torch.profiler`` trace: the
+    union of the device kernels' intervals, the span from the first to the
+    last event (host or device), and the kernels by name with their counts
+    (empty when the trace holds no device time)."""
+    events = list(prof.events())
+    dev_ev = [e for e in events if "cuda" in str(getattr(e, "device_type", "")).lower()
+              and e.time_range.end > e.time_range.start]
+    if not events:
+        return 0.0, 0.0, {}
+    lo = min(e.time_range.start for e in events)
+    hi = max(e.time_range.end for e in events)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in dev_ev):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    kernels = {}
+    for e in dev_ev:
+        name = e.name if len(e.name) < 60 else e.name[:57] + "..."
+        kernels[name] = kernels.get(name, 0) + 1
+    return busy, hi - lo, kernels
+
+
 def main() -> None:
     import torch
 
@@ -2411,7 +2906,7 @@ def main() -> None:
     cases = scan_cases(torch, EventBatch, Query, dev)
     sources = {name: scan_codegen.generate(lower(pat), make_ev(1).value)
                for name, (pat, _, make_ev, _) in cases.items()}
-    # Every instance a path below runs: the seven cases in their own mode
+    # Every instance a path below runs: the nine cases in their own mode
     # and in the two-tier, attribution and combined modes (the stock
     # cases' libraries also serve the demo, the headline and the lazy
     # path); the tiered instances of the hybrid corpus (whose
@@ -2431,6 +2926,8 @@ def main() -> None:
             conf = TIER_CELL if name == "tier_cell" else TIER_PARITY
             mode = scan_kernel.mode_of(EngineConfig(**conf, **extra), tiered=True)
             jobs[(name, mode)] = (src, mode)
+    mode = scan_kernel.mode_of(EngineConfig(**dict(TIER_PARITY, **WIDE)), tiered=True)
+    jobs[("pn1_strict3_skip", mode)] = (hybrid_src["pn1_strict3_skip"], mode)
     # Phase 12's NFA counterpart of the stencil.
     mode = scan_kernel.mode_of(EngineConfig(**STENCIL_NFA))
     jobs[("stencil", mode)] = (scan_codegen.generate(
@@ -2477,6 +2974,7 @@ def main() -> None:
     t0, made = time.perf_counter(), {}
     for name, (E, MP, D, W, R, H, _) in WALK_PARITY.items():
         Ks = WALK_PARITY_LANES.get(name, PARITY_LANES)
+        mode = walk_kernel.mode_name(0, 0, False, walk_kernel.is_wide(MP, D))
         slab, wk, puts, ev_off = walk_inputs.as_tensors(
             walk_parity_arrays(walk_inputs, made, name, 0), dev)
         PW = wk[0].shape[1]
@@ -2485,7 +2983,7 @@ def main() -> None:
             want = walk_kernel.walk_pass_plain(slab, *wk, W, PW - R, R, **kw)
             for K, (_, err) in lanes_equal(torch, kern, want, (slab, *wk, W, PW - R, R), kw,
                                            Ks, f"{name}, puts={with_puts}").items():
-                max_err["default"] = max(max_err["default"], err)
+                max_err[mode] = max(max_err.get(mode, 0), err)
                 log(f"parity: {name} K={K} puts={with_puts}: max_abs_err {err}")
     log(f"parity: default cases took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -2883,11 +3381,11 @@ def main() -> None:
     for name, (pat, conf, make_ev, scans) in cases.items():
         ccfg = EngineConfig(**conf)
         mode = scan_kernel.mode_name(ccfg)
-        for Kc in PARITY_LANES:
+        for Kc in (WIDE_SCAN_LANES if "wide" in name else PARITY_LANES):
             cbm = BatchMatcher(pat, Kc, ccfg, device=dev)
             ev = make_ev(Kc)
             s_k = s_a = s_p = cbm.init_state()
-            alt = not skern.arena(sources[name], ccfg, s_k)[0]
+            alt = other_placement(skern, sources[name], ccfg, s_k)
             for i in range(scans):
                 s_k, o_k = scan_kernel.scan_pass(sources[name], ccfg, cbm.phases, s_k, ev)
                 s_a, o_a = skern(sources[name], ccfg, s_a, ev, pv_shared=alt)
@@ -2895,18 +3393,19 @@ def main() -> None:
                 torch.cuda.synchronize()
                 err = max(max_abs_err(torch, s_k, s_p), max_abs_err(torch, o_k, o_p),
                           max_abs_err(torch, s_a, s_p), max_abs_err(torch, o_a, o_p))
-                scan_err[mode] = max(scan_err[mode], err)
+                scan_err[mode] = max(scan_err.get(mode, 0), err)
                 log(f"scan parity: {name} K={Kc} scan {i + 1}/{scans}: max_abs_err {err} "
-                    f"(pointer rows {'in device memory' if alt else 'shared'} too); "
+                    f"({placement_text(alt)}); "
                     f"match slots {int((o_k.count > 0).sum())}, handles "
                     f"{int(s_k.hr_count.sum())}, counters {cbm.counters(s_k)}")
                 if err:
                     fail(f"scan_pass kernel != plain ({name}, K={Kc}, scan {i + 1})")
                 ev = advance(ev)
-    log(f"scan parity: seven cases x K {PARITY_LANES} x both placements bit for bit "
+    log(f"scan parity: {len(cases)} cases x K {PARITY_LANES} (the wide ones {WIDE_SCAN_LANES}) "
+        f"x both placements bit for bit "
         f"({time.perf_counter() - t0:.1f} s)")
 
-    # (b2) the two-tier, attribution and combined instances: the seven cases
+    # (b2) the two-tier, attribution and combined instances: the nine cases
     # at each K against one plain run over all their lanes side by side
     # (lanes are independent), sliced per K.
     t0 = time.perf_counter()
@@ -2915,17 +3414,18 @@ def main() -> None:
         for m in SCAN_MODES:
             ccfg = EngineConfig(**conf, **mode_extra(m, conf))
             mode = scan_kernel.mode_name(ccfg)
-            evs = [make_ev(Kc) for Kc in PARITY_LANES]
-            pbm_all = BatchMatcher(pat, sum(PARITY_LANES), ccfg, device=dev)
+            Ks = WIDE_SCAN_LANES if "wide" in name else PARITY_LANES
+            evs = [make_ev(Kc) for Kc in Ks]
+            pbm_all = BatchMatcher(pat, sum(Ks), ccfg, device=dev)
             s_p = pbm_all.init_state()
-            s_ks = [BatchMatcher(pat, Kc, ccfg, device=dev).init_state() for Kc in PARITY_LANES]
+            s_ks = [BatchMatcher(pat, Kc, ccfg, device=dev).init_state() for Kc in Ks]
             s_as = list(s_ks)
-            alt = not skern.arena(sources[name], ccfg, s_ks[0])[0]
+            alt = other_placement(skern, sources[name], ccfg, s_ks[0])
             for i in range(scans):
                 s_p, o_p = scan_kernel.scan_pass_plain(
                     pbm_all.phases, s_p, cat_lanes(torch, EventBatch, evs))
                 lo = 0
-                for j, Kc in enumerate(PARITY_LANES):
+                for j, Kc in enumerate(Ks):
                     s_ks[j], o_k = scan_kernel.scan_pass(
                         sources[name], ccfg, pbm_all.phases, s_ks[j], evs[j])
                     s_as[j], o_a = skern(sources[name], ccfg, s_as[j], evs[j], pv_shared=alt)
@@ -2946,7 +3446,8 @@ def main() -> None:
                 evs = [advance(e) for e in evs]
     if not demoted:
         fail("no two-tier whole-scan parity case demoted an entry")
-    log(f"scan parity: seven cases x {len(SCAN_MODES)} modes x K {PARITY_LANES} x both "
+    log(f"scan parity: {len(cases)} cases x {len(SCAN_MODES)} modes x K {PARITY_LANES} (the "
+        f"wide ones {WIDE_SCAN_LANES}) x both "
         f"placements bit for bit, "
         f"{demoted} demotions ({time.perf_counter() - t0:.1f} s)")
 
@@ -3269,6 +3770,7 @@ def main() -> None:
     spike_phase(torch, dev, smi, report)
     ingest_phase(torch, dev, smi, report)
     surgery_phase(torch, dev, smi, report, records, name_of)
+    supervisor_phase(torch, dev, smi, report, scan_bound, scan_entry, max_err, scan_err)
 
     log(f"total: {time.perf_counter() - t_start:.1f} s after the card check")
     log(smi)

@@ -15,6 +15,7 @@ from kafkastreams_cep_tpu_torch.engine.matcher import (
 from kafkastreams_cep_tpu_torch.parallel.batch import BatchMatcher
 from kafkastreams_cep_tpu_torch.pattern.query import Query
 from kafkastreams_cep_tpu_torch.runtime.processor import CEPProcessor, Record
+from kafkastreams_cep_tpu_torch.runtime.supervisor import Supervisor
 
 __all__ = [
     "BatchMatcher",
@@ -23,5 +24,6 @@ __all__ = [
     "MatcherSession",
     "Query",
     "Record",
+    "Supervisor",
     "TPUMatcher",
 ]

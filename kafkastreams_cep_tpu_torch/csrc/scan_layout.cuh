@@ -37,7 +37,11 @@ struct RunOffsets {
 };
 
 struct ScanLayout {
-  size_t st, of, rf, np, dead;  // the slab's rows and tombstones [E]
+  size_t st, of, rf, np;        // the slab's rows [E]
+  size_t dead;                  // tombstones [E, words]: ceil(MP / 32) words a
+                                // row when MP > 32, else one
+  size_t q;                     // a walker's version [D] when MP or D is
+                                // above 32 (the wide instance), else 0
   size_t ps, po, pl, pv;        // pointer rows [E, MP] and [E, MP, D]; 0 when
                                 // they stay in device memory (pv_shared off)
   RunOffsets run[2];            // the run queue and the next one
@@ -59,9 +63,12 @@ CEP_LAYOUT_HD size_t cep_take(size_t* o, size_t n) {
 }
 
 // The arena of a lane with R runs, E slab rows of MP pointers, Dewey depth
-// D, H frames a run, NS fold states and S stages; attr: stage attribution.
-CEP_LAYOUT_HD ScanLayout scan_layout(int R, int E, int MP, int D, int H, int NS,
-                                     int S, bool attr, bool pv_shared) {
+// D, H frames a run, NS fold states and S stages; attr: stage attribution;
+// wide: the wide instance's tombstone words and walker version row (MP or
+// D above 32).  The kernel passes its template flag, so that a narrow
+// instance computes the layout it always did.
+CEP_LAYOUT_HD ScanLayout scan_layout_at(int R, int E, int MP, int D, int H, int NS,
+                                        int S, bool attr, bool pv_shared, bool wide) {
   const size_t I = 4, RH = (size_t)R * H, PW = RH + 2 * (size_t)R;
   const size_t EMP = (size_t)E * MP;
   ScanLayout l{};
@@ -70,7 +77,8 @@ CEP_LAYOUT_HD ScanLayout scan_layout(int R, int E, int MP, int D, int H, int NS,
   l.of = cep_take(&o, I * E);
   l.rf = cep_take(&o, I * E);
   l.np = cep_take(&o, I * E);
-  l.dead = cep_take(&o, I * E);
+  l.dead = cep_take(&o, I * E * (wide && MP > 32 ? (MP + 31) / 32 : 1));
+  if (wide) l.q = cep_take(&o, I * D);  // a narrow layout is the one before it
   if (pv_shared) {
     l.ps = cep_take(&o, I * EMP);
     l.po = cep_take(&o, I * EMP);
@@ -123,6 +131,12 @@ CEP_LAYOUT_HD ScanLayout scan_layout(int R, int E, int MP, int D, int H, int NS,
   l.b_en = cep_take(&o, RH);
   l.bytes = cep_take(&o, 0);
   return l;
+}
+
+// The arena of a lane of its own width.
+CEP_LAYOUT_HD ScanLayout scan_layout(int R, int E, int MP, int D, int H, int NS,
+                                     int S, bool attr, bool pv_shared) {
+  return scan_layout_at(R, E, MP, D, H, NS, S, attr, pv_shared, MP > 32 || D > 32);
 }
 
 // The placement rule: pointer rows in shared memory when the lane fits

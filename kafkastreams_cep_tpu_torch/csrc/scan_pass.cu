@@ -124,16 +124,25 @@
 // Contract (checked by ops/scan_kernel.py): contiguous tensors; the state's
 // bool leaves (alive, branching), the events' valid and bool leaves and
 // the promotion feed's fire as one-byte bools, everything else int32 or
-// float32; MP <= 32, D <= 32, at most 64 distinct predicates, p <= D;
-// unique (stage, off) keys per lane among live entries; the arena within
-// 227 KB.  Compile with -fmad=false: the folds and predicates round every
-// float operation, as the plain version does.
+// float32; at most 64 distinct predicates; 0 < p <= D and p below the
+// pattern's stage count (the narrow instances take the prefix stages'
+// identities as a kernel parameter, p <= D <= 32 = kMaxPromo; the wide
+// instance reads them from the generated header's cep_ident[0, p), which
+// the wrapper checks, so there p has no fixed bound); unique
+// (stage, off) keys per lane among live entries; any MP and D whose arena
+// fits 227 KB.  Wide slabs (MP or D above 32) build the kWide instance
+// (-DCEP_WIDE=1): walk_pass.cuh's wide walk, with ceil(MP / 32) tombstone
+// words a row, the pointer slots checked in groups of 32 and the walker's
+// version in the arena's row q [D]; the narrow instances keep their code.
+// Compile with -fmad=false: the folds and predicates round every float
+// operation, as the plain version does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "cep_pattern.h"
 #include "scan_layout.cuh"
+#include "walk_layout.cuh"  // walk_wide, walk_dead_words
 #include "walk_pass.cuh"
 
 namespace {
@@ -141,7 +150,7 @@ namespace {
 constexpr int H = CEP_H;   // frames per run per event
 constexpr int NS = CEP_NS;  // fold states
 constexpr int S = CEP_S;    // stages (the attribution width)
-constexpr int kMaxPromo = 32;  // prefix length p <= D <= 32
+constexpr int kMaxPromo = 32;  // a narrow instance's prefix length p <= D <= 32
 // Lanes (one-warp blocks) an SM must be able to hold: at most 128
 // registers a thread, so that registers never hold fewer lanes than a
 // 13 KB arena (scan_layout.cuh: kPvSharedMaxBytes) would.  The tiered
@@ -157,7 +166,7 @@ struct Args {
   int K, T, R, E, MP, D, W, HB, enforce_windows;
   int EH;  // hot rows (kTwoTier)
   int plen, promo_eval;  // prefix length p and the promoted run's eval stage
-  int promo_ident[kMaxPromo];  // the prefix stages' identities
+  int promo_ident[kMaxPromo];  // the prefix stages' identities (narrow instances)
   int lane_bytes;  // the arena (scan_layout)
   // events [K, T]
   const int *ev_key, *ev_ts, *ev_off;
@@ -434,14 +443,15 @@ __device__ __forceinline__ void place(const Runs& nq, int D, int j, int id,
     nq.agg[(size_t)j * NS + n] = agg ? agg[n] : cep_state_init[n];
 }
 
-template <bool kLazy, bool kTwoTier, bool kAttr, bool kPromo, bool kPvShared>
+template <bool kLazy, bool kTwoTier, bool kAttr, bool kPromo, bool kPvShared,
+          bool kWide>
 __global__ void __launch_bounds__(32, kPromo ? 1 : kMinLanes) scan_pass(Args a) {
   extern __shared__ __align__(16) unsigned char arena[];
   const int t = threadIdx.x;
   const int k = blockIdx.x;
   const int R = a.R, E = a.E, MP = a.MP, D = a.D, W = a.W, T = a.T;
   const int HB = a.HB, RH = R * H, PW = RH + 2 * R;
-  const ScanLayout ly = scan_layout(R, E, MP, D, H, NS, S, kAttr, kPvShared);
+  const ScanLayout ly = scan_layout_at(R, E, MP, D, H, NS, S, kAttr, kPvShared, kWide);
   auto at = [&](size_t b) { return reinterpret_cast<int*>(arena + b); };
   auto flag = [&](size_t b) { return reinterpret_cast<uint8_t*>(arena + b); };
 
@@ -454,6 +464,8 @@ __global__ void __launch_bounds__(32, kPromo ? 1 : kMinLanes) scan_pass(Args a) 
                    kPvShared ? at(ly.pl) : a.o_pvlen + e2,
                    kPvShared ? at(ly.pv) : a.o_pver + e3, E, MP, D};
   unsigned* dead = reinterpret_cast<unsigned*>(arena + ly.dead);
+  const int G = kWide ? walk_dead_words(MP) : 1;  // tombstone words a row
+  int* qs = at(ly.q);  // a walker's version (kWide)
   Runs q = runs_at(arena, ly.run[0]), nq = runs_at(arena, ly.run[1]);
   const Step L{
       at(ly.p_cur), at(ly.p_pst), at(ly.p_pof), at(ly.p_pvl), at(ly.p_ver),
@@ -488,8 +500,10 @@ __global__ void __launch_bounds__(32, kPromo ? 1 : kMinLanes) scan_pass(Args a) 
     s.of[i] = a.off[e1 + i];
     s.rf[i] = a.refs[e1 + i];
     s.np[i] = a.npreds[e1 + i];
-    dead[i] = 0;
+    if constexpr (!kWide) dead[i] = 0;
   }
+  if constexpr (kWide)
+    for (int i = t; i < E * G; i += 32) dead[i] = 0;
   for (int i = t; i < E * MP; i += 32) {
     s.ps[i] = a.pstage[e2 + i];
     s.po[i] = a.poff[e2 + i];
@@ -594,12 +608,21 @@ __global__ void __launch_bounds__(32, kPromo ? 1 : kMinLanes) scan_pass(Args a) 
       const int wq = L.w_list[i];
       const int row = wq - (RH + R);
       const int run = L.w_run[wq];
-      walk_one<kTwoTier, kAttr, false>(
-          s, dead, L.w_stage[wq], L.w_off[wq], L.w_vlen[wq],
-          t < D ? q.ver[(size_t)run * D + t] : 0, wq >= RH, row >= 0, W,
-          row >= 0 ? ost + row * W : nullptr,
-          row >= 0 ? oof + row * W : nullptr, row >= 0 ? ocnt + row : nullptr,
-          c);
+      if constexpr (kWide) {
+        for (int d = t; d < D; d += 32) qs[d] = q.ver[(size_t)run * D + d];
+        __syncwarp();
+        walk_one_wide<kTwoTier, kAttr, false>(
+            s, dead, L.w_stage[wq], L.w_off[wq], L.w_vlen[wq], qs, wq >= RH, row >= 0, W,
+            row >= 0 ? ost + row * W : nullptr,
+            row >= 0 ? oof + row * W : nullptr, row >= 0 ? ocnt + row : nullptr, c);
+      } else {
+        walk_one<kTwoTier, kAttr, false>(
+            s, dead, L.w_stage[wq], L.w_off[wq], L.w_vlen[wq],
+            t < D ? q.ver[(size_t)run * D + t] : 0, wq >= RH, row >= 0, W,
+            row >= 0 ? ost + row * W : nullptr,
+            row >= 0 ? oof + row * W : nullptr, row >= 0 ? ocnt + row : nullptr,
+            c);
+      }
     }
 
     // 5. Lazy extraction: ring append and root pin (scan_kernel.py:1137).
@@ -717,12 +740,12 @@ __global__ void __launch_bounds__(32, kPromo ? 1 : kMinLanes) scan_pass(Args a) 
       for (int d = t; d < D; d += 32) L.p_ver[d] = d == 0 ? a.pr_sver[ek] : 0;
       __syncwarp();
       for (int j = 0; j < a.plen; ++j)
-        put_op(s, c, j == 0, a.promo_ident[j], po[j],
-               j ? a.promo_ident[j - 1] : -1, j ? po[j - 1] : -1, j + 1,
-               L.p_ver, EHk);
+        put_op(s, c, j == 0, kWide ? cep_ident[j] : a.promo_ident[j], po[j],
+               j ? (kWide ? cep_ident[j - 1] : a.promo_ident[j - 1]) : -1,
+               j ? po[j - 1] : -1, j + 1, L.p_ver, EHk);
       if (t == 0) {
         q.alive[cnt] = 1;
-        q.id[cnt] = a.promo_ident[a.plen - 1];
+        q.id[cnt] = (kWide ? cep_ident : a.promo_ident)[a.plen - 1];
         q.eval[cnt] = a.promo_eval;
         q.vlen[cnt] = a.plen;
         q.event[cnt] = po[a.plen - 1];
@@ -793,16 +816,16 @@ __global__ void __launch_bounds__(32, kPromo ? 1 : kMinLanes) scan_pass(Args a) 
 }
 
 #ifndef CEP_LAZY
-#error "build one instance: -DCEP_LAZY=0|1 -DCEP_TWO_TIER=0|1 -DCEP_ATTR=0|1 -DCEP_PROMO=0|1"
+#error "build one instance: -DCEP_LAZY=0|1 -DCEP_TWO_TIER=0|1 -DCEP_ATTR=0|1 -DCEP_PROMO=0|1 -DCEP_WIDE=0|1"
 #endif
 constexpr bool kInstLazy = CEP_LAZY, kInstTwoTier = CEP_TWO_TIER,
-               kInstAttr = CEP_ATTR, kInstPromo = CEP_PROMO;
+               kInstAttr = CEP_ATTR, kInstPromo = CEP_PROMO, kInstWide = CEP_WIDE;
 
 // This library's kernel in one placement of the pointer rows, with the
 // arena's size set as its dynamic shared memory.
 template <bool kPvShared>
 cudaError_t kernel_for(int lane_bytes, void (**fn)(Args)) {
-  *fn = scan_pass<kInstLazy, kInstTwoTier, kInstAttr, kInstPromo, kPvShared>;
+  *fn = scan_pass<kInstLazy, kInstTwoTier, kInstAttr, kInstPromo, kPvShared, kInstWide>;
   cudaError_t e = cudaFuncSetAttribute(
       *fn, cudaFuncAttributeMaxDynamicSharedMemorySize, lane_bytes);
   if (e == cudaSuccess)
@@ -819,9 +842,10 @@ cudaError_t kernel_for(bool pv_shared, int lane_bytes, void (**fn)(Args)) {
 }  // namespace
 
 // This library's instance as bits: lazy 1, two-tier 2, attribution 4,
-// promotion 8.
+// promotion 8, wide 16.
 extern "C" int cep_scan_mode() {
-  return kInstLazy | kInstTwoTier << 1 | kInstAttr << 2 | kInstPromo << 3;
+  return kInstLazy | kInstTwoTier << 1 | kInstAttr << 2 | kInstPromo << 3 |
+         kInstWide << 4;
 }
 
 // The occupancy of the kernel in placement pv_shared with a lane_bytes
@@ -841,10 +865,12 @@ extern "C" int cep_scan_occupancy(int pv_shared, int lane_bytes, int* out) {
 }
 
 // dims: K, T, R, E, MP, D, W, HB, enforce_windows, EH, S, P, promo_eval,
-// pv_shared, lane_bytes, then the P prefix identities.  Returns a CUDA
-// error, or -1 when S is not the pattern's stage count, P is out of range
-// or lane_bytes is not the arena's size (its fold states not the
-// pattern's), -2 when the arena exceeds a block's shared memory.
+// pv_shared, lane_bytes, then the P prefix identities (the narrow instances
+// read them; at most kMaxPromo).  Returns a CUDA error, or -1 when S is not
+// the pattern's stage count, P is out of range, the slab's width is not this
+// instance's (walk_wide) or lane_bytes is not the arena's size (its fold
+// states not the pattern's), -2 when the arena exceeds a block's shared
+// memory.
 extern "C" int cep_scan_pass(const int* dims, void* const* ptrs,
                              void* stream) {
   Args a;
@@ -857,8 +883,9 @@ extern "C" int cep_scan_pass(const int* dims, void* const* ptrs,
   a.promo_eval = dims[12];
   const bool pv_shared = dims[13] != 0;
   a.lane_bytes = dims[14];
-  if ((kInstAttr && s_width != S) || a.plen < 0 || a.plen > kMaxPromo ||
-      (kInstPromo && a.plen == 0))
+  if ((kInstAttr && s_width != S) || a.plen < 0 || a.plen > a.D || a.plen >= CEP_S ||
+      (!kInstWide && a.plen > kMaxPromo) || (kInstPromo && a.plen == 0) ||
+      walk_wide(a.MP, a.D) != kInstWide)
     return -1;
   const size_t need = scan_layout(a.R, a.E, a.MP, a.D, H, NS, S, kInstAttr,
                                   pv_shared).bytes;

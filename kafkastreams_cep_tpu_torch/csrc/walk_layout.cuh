@@ -25,9 +25,17 @@ constexpr int kWalkLanes = 8;
 // the block's copy in and copy out).
 constexpr size_t kWalkSpanBytes = 1024;
 
+// Whether a slab of MP pointers a row and Dewey depth D takes the wide
+// instances (walk_pass.cuh: MP or D above 32), and the tombstone words a
+// row, ceil(MP / 32): one in the narrow instances.
+CEP_LAYOUT_HD bool walk_wide(int MP, int D) { return MP > 32 || D > 32; }
+CEP_LAYOUT_HD int walk_dead_words(int MP) { return MP > 32 ? (MP + 31) / 32 : 1; }
+
 struct WalkLayout {
-  size_t st, of, rf, np, dead;  // slab keys, refs, npreds, tombstones [L, E]
+  size_t st, of, rf, np;        // slab keys, refs, npreds [L, E]
+  size_t dead;                  // tombstones [L, E, ceil(MP / 32)]
   size_t row;                   // a hop's versions [L, MP * D]
+  size_t q;                     // the walker's version [L, D] (wide; else 0)
   size_t sh;                    // stage tally [L, S] (attribution; else 0 bytes)
   size_t p_sc, p_list, p_free;  // closed-form put scratch [L, PP, kScanPutCols],
                                 // the enabled ops [L, PP], the free rows [L, E]
@@ -39,9 +47,12 @@ struct WalkLayout {
 // The arena of a block of L lanes, each with E slab rows of MP pointers,
 // Dewey depth D, PP put ops (0 without puts; their versions stay in device
 // memory) and S stage tallies; puts: the ops run in closed form (the
-// two-tier slab needs no put scratch).
-CEP_LAYOUT_HD WalkLayout walk_layout(int L, int E, int MP, int D, int PP, int S,
-                                     bool puts) {
+// two-tier slab needs no put scratch); wide: the kWide instances'
+// tombstone words and walker version row (walk_wide).  The kernel passes
+// its template flag, so that a narrow instance computes the layout it
+// always did.
+CEP_LAYOUT_HD WalkLayout walk_layout_at(int L, int E, int MP, int D, int PP, int S,
+                                        bool puts, bool wide) {
   const size_t I = 4, LE = (size_t)L * E;
   const size_t LPP = puts ? (size_t)L * PP : 0, LOPS = (size_t)L * PP;
   WalkLayout l{};
@@ -50,8 +61,9 @@ CEP_LAYOUT_HD WalkLayout walk_layout(int L, int E, int MP, int D, int PP, int S,
   l.of = cep_take(&o, I * LE);
   l.rf = cep_take(&o, I * LE);
   l.np = cep_take(&o, I * LE);
-  l.dead = cep_take(&o, I * LE);
+  l.dead = cep_take(&o, I * LE * (wide ? walk_dead_words(MP) : 1));
   l.row = cep_take(&o, I * L * (size_t)MP * D);
+  if (wide) l.q = cep_take(&o, I * L * (size_t)D);  // a narrow layout is the one before it
   l.sh = cep_take(&o, I * L * (size_t)S);
   l.p_sc = cep_take(&o, I * LPP * kScanPutCols);
   l.p_list = cep_take(&o, I * LPP);
@@ -65,6 +77,12 @@ CEP_LAYOUT_HD WalkLayout walk_layout(int L, int E, int MP, int D, int PP, int S,
   l.spans = cep_take(&o, kWalkSpanBytes);
   l.bytes = cep_take(&o, 0);
   return l;
+}
+
+// The arena of a slab of its own width (walk_layout_at at walk_wide).
+CEP_LAYOUT_HD WalkLayout walk_layout(int L, int E, int MP, int D, int PP, int S,
+                                     bool puts) {
+  return walk_layout_at(L, E, MP, D, PP, S, puts, walk_wide(MP, D));
 }
 
 // The lanes a block serves: the most, up to kWalkLanes, whose arena fits a

@@ -78,6 +78,13 @@
 // 64 (within 5 % of 8, and slower on the stacked step): 8 is the one shape
 // at or under the previous kernel on every input.
 //
+// Wide slabs (MP or D above 32, walk_layout.cuh: walk_wide) run the kWide
+// instances: a row's tombstones are ceil(MP / 32) words, the pointer slots
+// are checked in groups of 32 (the first live, compatible one in slot
+// order, group by group), and the walker's version sits in the lane's
+// shared row q [D] instead of one digit a thread (walk_pass.cuh: walk_one).
+// The narrow instances keep their code: kWide is a template flag.
+//
 // Why the pointer rows stay in device memory: pver alone is E*MP*D int32
 // (18.4 KB of a headline lane), where the keys and scratch take 2-4 KB.
 // Timed with the rows in the arena on every real input where they fit
@@ -87,8 +94,9 @@
 //
 // Contract (checked by the Python wrapper): contiguous tensors, the flags
 // (put en/first, walker en/is_remove/want_out) as the engine's one-byte
-// bools and everything else int32; MP <= 32, D <= 32; any E whose one
-// lane's arena fits a block's 227 KB (about 9,000 rows at MP = D = 32);
+// bools and everything else int32; any MP, D and E whose one lane's arena
+// fits a block's 227 KB (the wrapper raises, naming the bytes, where it
+// does not);
 // hot_entries a multiple of 8 strictly inside (0, E) when set; unique
 // (stage, off) keys per lane among live entries.
 
@@ -236,7 +244,7 @@ __device__ __forceinline__ void block_move(const SpanList<kCap>& L, int tid, int
   }
 }
 
-template <bool kTwoTier, bool kAttr, bool kDrain>
+template <bool kTwoTier, bool kAttr, bool kDrain, bool kWide>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) walk_pass(Args a) {
   extern __shared__ __align__(16) unsigned char arena[];
   const int t = threadIdx.x, w = threadIdx.y, tid = w * 32 + t;
@@ -246,8 +254,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) walk_pass(Args a) {
   const int k = k0 + w;
   const int E = a.E, MP = a.MP, D = a.D, W = a.W, PW = a.PW, OR = a.out_rows;
   const int S = a.S, PP = a.PP;
-  const WalkLayout ly = walk_layout(L, E, MP, D, PP, S, a.with_puts && !kTwoTier);
+  const WalkLayout ly = walk_layout_at(L, E, MP, D, PP, S, a.with_puts && !kTwoTier, kWide);
   auto at = [&](size_t b) { return reinterpret_cast<int*>(arena + b); };
+  const int G = kWide ? slot_groups(MP) : 1;  // tombstone words a row
   const size_t b1 = (size_t)k0 * E, n1 = (size_t)nl * E;  // the block's spans
   const size_t b2 = b1 * MP, n2 = n1 * MP, b3 = b2 * D, n3 = n2 * D;
   const size_t bo = (size_t)k0 * OR, no = (size_t)nl * OR;
@@ -264,7 +273,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) walk_pass(Args a) {
     in.add(at(ly.of), a.off + b1, n1);
     in.add(at(ly.rf), a.refs + b1, n1);
     in.add(at(ly.np), a.npreds + b1, n1);
-    in.add(at(ly.dead), nullptr, n1, 0);
+    in.add(at(ly.dead), nullptr, n1 * G, 0);
     in.add(a.o_pstage + b2, a.pstage + b2, n2);
     in.add(a.o_poff + b2, a.poff + b2, n2);
     in.add(a.o_pvlen + b2, a.pvlen + b2, n2);
@@ -290,8 +299,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) walk_pass(Args a) {
     const SlabLane s{at(ly.st) + e1, at(ly.of) + e1, at(ly.rf) + e1, at(ly.np) + e1,
                      a.o_pstage + g2, a.o_poff + g2, a.o_pvlen + g2, a.o_pver + g3,
                      E, MP, D};
-    unsigned* dead = reinterpret_cast<unsigned*>(at(ly.dead)) + e1;
+    unsigned* dead = reinterpret_cast<unsigned*>(at(ly.dead)) + e1 * G;
     int* vrow = at(ly.row) + (size_t)w * MP * D;  // a hop's staged versions
+    int* qs = at(ly.q) + (size_t)w * D;  // the walker's version (kWide)
     Tally c;
     c.missing = a.missing[k];
     c.trunc = a.trunc[k];
@@ -371,12 +381,24 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) walk_pass(Args a) {
         const int row = base + j - a.out_base;
         const bool emits = row >= 0 && row < OR;
         const size_t orow = emits ? (size_t)k * OR + row : 0;
-        walk_one<kTwoTier, kAttr, kDrain, true>(
-            s, dead, __shfl_sync(kFull, ws, j), __shfl_sync(kFull, wo, j),
-            __shfl_sync(kFull, wl, j), qv, (f & 1) != 0, (f & 2) != 0, W,
-            emits ? a.out_stage + orow * W : nullptr,
-            emits ? a.out_off + orow * W : nullptr,
-            emits ? a.count + orow : nullptr, c, vrow);
+        if constexpr (kWide) {
+          // The whole version into the lane's row qs (qv is unused).
+          for (int d = t; d < D; d += 32) qs[d] = q_ver[(size_t)(base + j) * D + d];
+          __syncwarp();
+          walk_one_wide<kTwoTier, kAttr, kDrain, true>(
+              s, dead, __shfl_sync(kFull, ws, j), __shfl_sync(kFull, wo, j),
+              __shfl_sync(kFull, wl, j), qs, (f & 1) != 0, (f & 2) != 0, W,
+              emits ? a.out_stage + orow * W : nullptr,
+              emits ? a.out_off + orow * W : nullptr,
+              emits ? a.count + orow : nullptr, c, vrow);
+        } else {
+          walk_one<kTwoTier, kAttr, kDrain, true>(
+              s, dead, __shfl_sync(kFull, ws, j), __shfl_sync(kFull, wo, j),
+              __shfl_sync(kFull, wl, j), qv, (f & 1) != 0, (f & 2) != 0, W,
+              emits ? a.out_stage + orow * W : nullptr,
+              emits ? a.out_off + orow * W : nullptr,
+              emits ? a.count + orow : nullptr, c, vrow);
+        }
         if (!m) break;
         j = jn;
         qv = qv_next;
@@ -408,15 +430,19 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) walk_pass(Args a) {
 
 using Kernel = void (*)(Args);
 
-// The instance for mode bits (two-tier 1, attribution 2, drain 4), with
-// its arena's size set as its dynamic shared memory.
+// The instance for mode bits (two-tier 1, attribution 2, drain 4, wide 8),
+// with its arena's size set as its dynamic shared memory.
 cudaError_t kernel_for(int mode, int arena_bytes, Kernel* fn) {
-  static const Kernel table[8] = {
-      walk_pass<false, false, false>, walk_pass<true, false, false>,
-      walk_pass<false, true, false>,  walk_pass<true, true, false>,
-      walk_pass<false, false, true>,  walk_pass<true, false, true>,
-      walk_pass<false, true, true>,   walk_pass<true, true, true>};
-  *fn = table[mode & 7];
+  static const Kernel table[16] = {
+      walk_pass<false, false, false, false>, walk_pass<true, false, false, false>,
+      walk_pass<false, true, false, false>,  walk_pass<true, true, false, false>,
+      walk_pass<false, false, true, false>,  walk_pass<true, false, true, false>,
+      walk_pass<false, true, true, false>,   walk_pass<true, true, true, false>,
+      walk_pass<false, false, false, true>,  walk_pass<true, false, false, true>,
+      walk_pass<false, true, false, true>,   walk_pass<true, true, false, true>,
+      walk_pass<false, false, true, true>,   walk_pass<true, false, true, true>,
+      walk_pass<false, true, true, true>,    walk_pass<true, true, true, true>};
+  *fn = table[mode & 15];
   return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               arena_bytes);
 }
@@ -427,7 +453,7 @@ cudaError_t kernel_for(int mode, int arena_bytes, Kernel* fn) {
 extern "C" int cep_walk_lanes() { return kWalkLanes; }
 
 // The occupancy of the instance for mode bits (two-tier 1, attribution 2,
-// drain 4) in blocks of `lanes` lanes with an arena_bytes arena: out[0]
+// drain 4, wide 8) in blocks of `lanes` lanes with an arena_bytes arena: out[0]
 // lanes resident per SM, out[1] registers a thread, out[2] local memory
 // bytes a thread.  Returns a CUDA error.
 extern "C" int cep_walk_occupancy(int mode, int lanes, int arena_bytes, int* out) {
@@ -482,7 +508,7 @@ extern "C" int cep_walk_pass(const int* dims, void* const* ptrs,
   OUT(o_drain_hops); OUT(o_stage_hops);
 #undef IN
 #undef OUT
-  const int mode = (a.EH > 0) | (a.S > 0) << 1 | drain << 2;
+  const int mode = (a.EH > 0) | (a.S > 0) << 1 | drain << 2 | walk_wide(a.MP, a.D) << 3;
   Kernel fn;
   const cudaError_t e = kernel_for(mode, arena_bytes, &fn);
   if (e != cudaSuccess) return (int)e;

@@ -419,6 +419,116 @@ __device__ __forceinline__ void stage_row(int* row, const int* src, int n) {
   __syncwarp();
 }
 
+// Wide slabs: MP or D above 32 (the kWide instances).  A row's tombstones
+// are G = ceil(MP / 32) words, slot i's bit in word i / 32; a warp takes
+// the pointer slots in groups of 32, thread t slot 32 g + t of group g; and
+// the query version sits in the lane's shared row qs [D], which each thread
+// reads whole, in place of one digit a thread.  The narrow instances
+// (MP, D <= 32) keep the one-word, one-digit-a-thread code.
+
+__device__ __forceinline__ int slot_groups(int MP) { return (MP + 31) >> 5; }
+
+// The bits of group g's slots below n.
+__device__ __forceinline__ unsigned slots_below(int n, int g) {
+  const int m = n - 32 * g;
+  return m <= 0 ? 0u : m >= 32 ? kFull : (1u << m) - 1u;
+}
+
+// Slots of the row whose tombstone words are dw that were live when its
+// walker started (n0 of them: npreds plus the tombstones), in group g.
+__device__ __forceinline__ unsigned kept_slots(const unsigned* dw, int n0, int g) {
+  return slots_below(n0, g) & ~dw[g];
+}
+
+// compatible_live for one thread's pointer (p, plen) against the query
+// version q [D] of length qlen, reading the digits below min(plen, D): the
+// answer compatible_live gives that thread when its pointer is live.
+__device__ __forceinline__ bool compatible_one(const int* q, int qlen,
+                                               const int* p, int plen, int D) {
+  const int n = min(max(plen, 0), D);
+  bool full = true, butlast = true;
+  int last_q = 0, last_p = 0;
+  for (int d = 0; d < n; ++d) {
+    const int qd = q[d], pd = p[d];
+    const bool eq = qd == pd;
+    full = full && eq;
+    if (d < plen - 1) butlast = butlast && eq;
+    if (d == plen - 1) { last_q = qd; last_p = pd; }
+  }
+  return (qlen > plen && full) || (qlen == plen && butlast && last_q >= last_p);
+}
+
+// prune_row for G tombstone words a row: the survivors of each group move
+// to the front in slot order after those of the groups before it, zeros
+// behind, and the row's words are cleared.  A slot only moves to a lower
+// one, so each group (and each round of versions) is read whole before it
+// is written.
+__device__ __forceinline__ void prune_row_wide(const SlabLane& s, unsigned* dead,
+                                               int e) {
+  constexpr int kRound = 4;
+  const int t = threadIdx.x;
+  const int MP = s.MP, D = s.D, G = slot_groups(MP);
+  unsigned* dw = dead + (size_t)e * G;
+  int nd = 0;
+  for (int g = 0; g < G; ++g) nd += __popc(dw[g]);
+  const int n0 = s.np[e] + nd;
+  int *ps = s.ps + e * MP, *po = s.po + e * MP, *pl = s.pl + e * MP;
+  int* pv = s.pv + (size_t)e * MP * D;
+  int n_keep = 0;
+  for (int g = 0; g < G; ++g) {
+    const unsigned keep = kept_slots(dw, n0, g);
+    const int i = 32 * g + t;
+    const bool kept = i < MP && ((keep >> t) & 1u);
+    int a = 0, b = 0, c = 0;
+    if (kept) {
+      a = ps[i];
+      b = po[i];
+      c = pl[i];
+    }
+    __syncwarp();
+    if (kept) {
+      const int to = n_keep + __popc(keep & ((1u << t) - 1u));
+      ps[to] = a;
+      po[to] = b;
+      pl[to] = c;
+    }
+    __syncwarp();
+    n_keep += __popc(keep);
+  }
+  for (int i = n_keep + t; i < MP; i += 32) {
+    ps[i] = 0;
+    po[i] = 0;
+    pl[i] = 0;
+  }
+  for (int f0 = 0; f0 < MP * D; f0 += 32 * kRound) {
+    int v[kRound], to[kRound];
+#pragma unroll
+    for (int r = 0; r < kRound; ++r) {
+      const int f = f0 + 32 * r + t, k = f / D, g = k >> 5, b = k & 31;
+      to[r] = -1;
+      v[r] = 0;
+      if (f < MP * D) {
+        const unsigned keep = kept_slots(dw, n0, g);
+        if ((keep >> b) & 1u) {
+          int rank = __popc(keep & ((1u << b) - 1u));
+          for (int h = 0; h < g; ++h) rank += __popc(kept_slots(dw, n0, h));
+          v[r] = pv[f];
+          to[r] = rank * D + (f - k * D);
+        }
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < kRound; ++r)
+      if (to[r] >= 0) pv[to[r]] = v[r];
+    __syncwarp();
+  }
+  for (int f = n_keep * D + t; f < MP * D; f += 32) pv[f] = 0;
+  __syncwarp();
+  for (int g = t; g < G; g += 32) dw[g] = 0;
+  __syncwarp();
+}
+
 // Entry e's pointer slots after a walk pruned the ones dead[e] marks, by
 // the whole warp: the survivors move to the front in order, zeros behind,
 // and dead[e] is cleared.  A slot only moves to a lower one, so the
@@ -584,6 +694,114 @@ __device__ __forceinline__ void walk_one(const SlabLane& s, unsigned* dead,
   for (int base = 0; base < E; base += 32) {
     unsigned rows = __ballot_sync(kFull, base + t < E && dead[base + t] != 0);
     for (; rows; rows &= rows - 1) prune_row(s, dead, base + __ffs(rows) - 1);
+  }
+  if (t == 0 && ocnt) *ocnt = cnt;
+  __syncwarp();
+}
+
+// walk_one for wide slabs (MP or D above 32, the kWide instances): the same
+// walk, with G = ceil(MP / 32) tombstone words a row, the pointer slots
+// checked group by group (the first group with a live, compatible slot
+// gives the pointer: the first in slot order, as the one-word ballot does)
+// and the query version in qs [D] in shared memory, which the walk
+// overwrites with each next version.  A separate function, so that the
+// narrow instances keep walk_one's code as it was.
+template <bool kTwoTier, bool kAttr, bool kDrain, bool kStageRow = false>
+__device__ __forceinline__ void walk_one_wide(const SlabLane& s, unsigned* dead,
+                                              int cs, int co, int ql, int* qs,
+                                              bool rem, bool wot, int W, int* ost,
+                                              int* oof, int* ocnt, Tally& c,
+                                              int* row = nullptr) {
+  const int t = threadIdx.x;
+  const int E = s.E, MP = s.MP, D = s.D;
+  int *st = s.st, *of = s.of, *rf = s.rf, *np = s.np;
+  int *ps = s.ps, *po = s.po, *pl = s.pl, *pv = s.pv;
+  const int G = slot_groups(MP);
+  int cnt = 0;
+  bool active = true;
+  for (int h = 0; h < W && active; ++h) {
+    if constexpr (kDrain) {
+      if (wot) ++c.drain_hops; else ++c.walk_hops;
+    } else {
+      if (wot) ++c.extract_hops; else ++c.walk_hops;
+    }
+    if constexpr (kAttr) {
+      if (t == 0 && cs >= 0 && cs < c.S) ++c.sh[cs];
+    }
+    const int e = warp_find(st, of, E, cs, co);
+    if constexpr (kTwoTier) {
+      const bool hot = e >= 0 && e < c.EH;
+      c.hot_hits += hot;
+      c.hot_misses += !hot;
+      c.overflow_walks += e >= c.EH;
+    }
+    if (e < 0) { ++c.missing; active = false; break; }
+    const int refs_e = rf[e];
+    const int newref = rem ? max(refs_e - 1, 0) : refs_e + 1;
+    const int np_now = np[e];
+    unsigned* dw = dead + (size_t)e * G;
+    int nd = 0;
+    for (int g = 0; g < G; ++g) nd += __popc(dw[g]);
+    // Pointers live when the walker started, minus its tombstones.
+    const int n0 = min(np_now + nd, MP);
+    int nlive = 0;
+    for (int g = 0; g < G; ++g) nlive += __popc(kept_slots(dw, n0, g));
+    const bool del = rem && newref == 0 && nlive <= 1;
+    if constexpr (kStageRow) stage_row(row, pv + (size_t)e * MP * D, n0 * D);
+    // First live, version-compatible pointer, group by group; thread t
+    // holds slot 32 g + t's rows of the group last checked.
+    int j = -1, ps_m = 0, po_m = 0, pl_m = 0;
+    for (int g = 0; g < G && j < 0; ++g) {
+      const int i = 32 * g + t, ic = i < MP ? i : 0;
+      const bool lv = i < MP && ((kept_slots(dw, n0, g) >> t) & 1u);
+      const int mine = e * MP + ic;
+      pl_m = pl[mine];
+      ps_m = ps[mine];
+      po_m = po[mine];
+      const bool ok = lv && compatible_one(
+          qs, ql, kStageRow ? row + (size_t)ic * D : pv + (size_t)mine * D, pl_m, D);
+      const unsigned okm = __ballot_sync(kFull, ok);
+      if (okm) j = 32 * g + __ffs(okm) - 1;
+    }
+    __syncwarp();
+    if (t == 0) {
+      rf[e] = newref;
+      if (del) { st[e] = -1; of[e] = -1; }
+      if (wot && ost) {
+        ost[cnt] = cs;
+        oof[cnt] = co;
+      }
+    }
+    if (wot) ++cnt;
+    const bool sel = j >= 0;
+    const int jt = sel ? (j & 31) : 0;
+    const int ns = __shfl_sync(kFull, ps_m, jt);
+    const int ns_off = __shfl_sync(kFull, po_m, jt);
+    const int ns_len = __shfl_sync(kFull, pl_m, jt);
+    if (sel && rem && newref == 0) {
+      if (t == 0) { dw[j >> 5] |= 1u << (j & 31); np[e] = np_now - 1; }
+    }
+    const bool nactive = sel && ns >= 0;
+    if (nactive) {
+      cs = ns;
+      co = ns_off;
+      ql = ns_len;
+      const int* nv = kStageRow ? row + (size_t)j * D : pv + (size_t)(e * MP + j) * D;
+      for (int d = t; d < D; d += 32) qs[d] = nv[d];
+    }
+    const bool budget_out = wot && cnt >= W;
+    c.trunc += budget_out && nactive;
+    active = nactive && !budget_out;
+    __syncwarp();
+  }
+  c.trunc += active;
+  // Compact every entry this walker pruned, one row after another.
+  for (int base = 0; base < E; base += 32) {
+    bool pruned = false;
+    for (int g = 0; base + t < E && g < G; ++g)
+      pruned = pruned || dead[(size_t)(base + t) * G + g] != 0;
+    unsigned rows = __ballot_sync(kFull, pruned);
+    for (; rows; rows &= rows - 1) prune_row_wide(s, dead, base + __ffs(rows) - 1);
   }
   if (t == 0 && ocnt) *ocnt = cnt;
   __syncwarp();

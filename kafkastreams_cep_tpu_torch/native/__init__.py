@@ -43,11 +43,11 @@ _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 
-def build() -> Path:
-    """Compile ``src/ingest.cpp`` into ``build/libcepingest-<hash>.so``
+def build_library(src: Path, stem: str) -> Path:
+    """Compile the C++ source ``src`` into ``build/<stem>-<hash>.so``
     (reused when present) and return its path; raises when ``g++`` fails."""
-    tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"libcepingest-{tag}.so"
+    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    out = BUILD_DIR / f"{stem}-{tag}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -56,13 +56,19 @@ def build() -> Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         tmp_out = Path(tmp) / out.name
         subprocess.run(
-            ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", str(_SRC),
+            ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", str(src),
              "-o", str(tmp_out)],
             check=True, capture_output=True, timeout=120,
         )
         os.replace(tmp_out, out)
-    logger.info("built native ingest library: %s", out)
+    logger.info("built native library: %s", out)
     return out
+
+
+def build() -> Path:
+    """Compile ``src/ingest.cpp`` into ``build/libcepingest-<hash>.so``
+    (reused when present) and return its path; raises when ``g++`` fails."""
+    return build_library(_SRC, "libcepingest")
 
 
 def _load() -> Optional[ctypes.CDLL]:

@@ -386,6 +386,8 @@ class ScanSource:
     num_preds: int
     num_aggs: int
     hops: int  #: frames a run evaluates per event (``CEP_H``)
+    #: the stages' identities (``cep_ident``): a promotion's prefix reads them
+    idents: Tuple[int, ...] = ()
 
     @property
     def tag(self) -> str:
@@ -502,4 +504,5 @@ def generate(tables: TransitionTables, value) -> ScanSource:
         "}",
         "",
     ]
-    return ScanSource("\n".join(lines), kinds, G, A, int(tables.max_hops))
+    return ScanSource("\n".join(lines), kinds, G, A, int(tables.max_hops),
+                      tuple(int(x) for x in tables.ident))

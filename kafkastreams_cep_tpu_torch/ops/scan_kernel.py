@@ -57,7 +57,13 @@ from kafkastreams_cep_tpu_torch.engine.matcher import (
     tree_where,
 )
 from kafkastreams_cep_tpu_torch.ops.scan_codegen import ScanSource, value_leaves
-from kafkastreams_cep_tpu_torch.ops.walk_kernel import BUILD_DIR, _nvcc, walk_pass_plain
+from kafkastreams_cep_tpu_torch.ops.walk_kernel import (
+    BUILD_DIR,
+    _nvcc,
+    dead_words,
+    is_wide,
+    walk_pass_plain,
+)
 from kafkastreams_cep_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("ops.scan_kernel")
@@ -109,9 +115,13 @@ def lane_layout(R: int, E: int, MP: int, D: int, H: int, NS: int, S: int,
     each array's byte offset, every one 16-byte aligned, and ``"bytes"``,
     the arena's size.  The pointer rows (``ps``, ``po``, ``pl``, ``pv``)
     are in it only with ``pv_shared``; the stage tallies only under
-    ``attribution``."""
+    ``attribution``; a walker's version ``q`` only in the wide instance
+    (``MP`` or ``D`` above 32), whose rows take :func:`dead_words`
+    tombstone words."""
     RH, PW, EMP = R * H, R * H + 2 * R, E * MP
-    ints = [("st", E), ("of", E), ("rf", E), ("np", E), ("dead", E)]
+    wide = is_wide(MP, D)
+    ints = [("st", E), ("of", E), ("rf", E), ("np", E), ("dead", E * dead_words(MP))]
+    ints += [("q", D)] if wide else []
     if pv_shared:
         ints += [("ps", EMP), ("po", EMP), ("pl", EMP), ("pv", EMP * D)]
     for b in (0, 1):
@@ -127,7 +137,7 @@ def lane_layout(R: int, E: int, MP: int, D: int, H: int, NS: int, S: int,
              ("sh", S if attribution else 0)]
     arrays = [(f, 4 * n) for f, n in ints]
     arrays += [("p_en", RH), ("p_first", RH), ("w_en", PW), ("b_en", RH)]
-    out, o = {}, 0
+    out, o = {"q": 0}, 0  # no q in a narrow arena
     for f, n in arrays + [("bytes", 0)]:
         out[f] = o = (o + 15) & ~15
         o += n
@@ -145,12 +155,14 @@ def pv_in_shared(R: int, E: int, MP: int, D: int, H: int, NS: int, S: int,
 
 
 class Mode(NamedTuple):
-    """One kernel instance (its template parameters)."""
+    """One kernel instance (its template parameters); ``wide``: a slab
+    with ``slab_preds`` or ``dewey_depth`` above 32."""
 
     lazy: bool
     two_tier: bool
     attribution: bool
     tiered: bool
+    wide: bool = False
 
     @property
     def name(self) -> str:
@@ -162,13 +174,15 @@ class Mode(NamedTuple):
     @property
     def defines(self) -> Tuple[str, ...]:
         return (f"-DCEP_LAZY={int(self.lazy)}", f"-DCEP_TWO_TIER={int(self.two_tier)}",
-                f"-DCEP_ATTR={int(self.attribution)}", f"-DCEP_PROMO={int(self.tiered)}")
+                f"-DCEP_ATTR={int(self.attribution)}", f"-DCEP_PROMO={int(self.tiered)}",
+                f"-DCEP_WIDE={int(self.wide)}")
 
 
 def mode_of(config: EngineConfig, tiered: bool = False) -> Mode:
     """The kernel instance a config runs (``tiered``: with promotions)."""
     return Mode(bool(config.lazy_extraction), bool(config.slab_hot_entries),
-                bool(config.stage_attribution), bool(tiered))
+                bool(config.stage_attribution), bool(tiered),
+                is_wide(int(config.slab_preds), int(config.dewey_depth)))
 
 
 def mode_name(config: EngineConfig, tiered: bool = False) -> str:
@@ -352,9 +366,9 @@ class ScanPassKernel:
         dev = state.alive.device
         if dev.type != "cuda":
             raise ValueError(f"whole-scan kernel needs CUDA tensors, got {dev}")
-        if MP > 32 or D > 32:
-            raise ValueError(f"kernel needs MP <= 32 and D <= 32, got {MP}, {D}")
         mode = mode_of(config, promo is not None)
+        if mode.wide != is_wide(MP, D):
+            raise ValueError(f"config's slab width is not the state's (MP={MP}, D={D})")
         EH = int(config.slab_hot_entries)
         pv_shared, lane_bytes = self.arena(source, config, state, pv_shared,
                                            promo is not None)
@@ -419,10 +433,13 @@ class ScanPassKernel:
             P = promote.prefix_len
             if not 0 < P <= D:
                 raise ValueError(f"prefix length {P} outside 1..D={D}")
+            if tuple(promote.idents) != source.idents[:P] or P >= len(source.idents):
+                raise ValueError(f"promotion prefix {promote.idents} is not the first {P} "
+                                 f"stage identities of the generated source")
             pr = [flag(feed.fire, (K, T), "fire"), arg(feed.offs, (K, T, P), "offs"),
                   arg(feed.anchor_ts, (K, T), "anchor_ts"), arg(feed.sver, (K, T), "sver"),
                   promoted]
-            promo_dims = [P, promote.eval_pos] + list(promote.idents)
+            promo_dims = [P, promote.eval_pos, *promote.idents[:32]]
         else:
             pr = [None] * 5
             promo_dims = [0, 0]

@@ -31,10 +31,19 @@ NUM_STAGES = 4
 
 
 def _version(rng, D, n):
-    """``n`` random versions ``[n, D]`` with lengths ``[n]`` in 1..3."""
+    """``n`` random versions ``[n, D]`` with lengths ``[n]`` in 1..3; above
+    ``D = 32`` half of them are long instead (lengths ``D - 2`` to ``D``, one
+    shared prefix and two random last digits), so that compatibility is
+    decided by digits past the 32nd."""
     vlen = rng.integers(1, min(3, D) + 1, size=n).astype(np.int32)
     ver = rng.integers(0, 2, size=(n, D)).astype(np.int32)
     ver[:, 0] = 1
+    if D > 32:
+        long_ = rng.random(n) < 0.5
+        vlen[long_] = rng.integers(D - 2, D + 1, size=int(long_.sum()))
+        prefix = (np.arange(D) % 3 == 0).astype(np.int32)
+        last = np.arange(D)[None, :] >= vlen[:, None] - 2
+        ver[long_] = np.where(last[long_], ver[long_], prefix[None, :])
     ver[np.arange(D)[None, :] >= vlen[:, None]] = 0
     return ver, vlen
 
@@ -73,6 +82,12 @@ def random_inputs(seed: int, K: int, E: int, MP: int, D: int, R: int,
             n = int(rng.integers(0, MP + 1)) if rng.random() < 0.3 else int(
                 rng.integers(1, min(3, MP) + 1)
             )
+            # Past 32 slots a row, some rows fill past the first group and
+            # hide it behind versions no walker is compatible with, so that
+            # walks take later groups' pointers.
+            hide = MP > 32 and rng.random() < 0.3
+            if hide:
+                n = int(rng.integers(33, MP + 1))
             out["npreds"][k, e] = n
             older = np.flatnonzero(offs < offs[i])
             for s in range(n):
@@ -87,6 +102,8 @@ def random_inputs(seed: int, K: int, E: int, MP: int, D: int, R: int,
                 out["pstage"][k, e, s] = ps
                 out["poff"][k, e, s] = po
             ver, vlen = _version(rng, D, n)
+            if hide:
+                ver[:32], vlen[:32] = 2, 1
             out["pver"][k, e, :n] = ver
             out["pvlen"][k, e, :n] = vlen
         last = int(offs.max()) if n_live else 0

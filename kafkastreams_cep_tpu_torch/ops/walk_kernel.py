@@ -82,23 +82,38 @@ def includes(path: Path) -> List[Path]:
     return seen
 
 
+def is_wide(MP: int, D: int) -> bool:
+    """Whether a slab of ``MP`` pointers a row and Dewey depth ``D`` runs the
+    wide instances (``walk_layout.cuh: walk_wide``): ``MP`` or ``D`` above
+    32."""
+    return MP > 32 or D > 32
+
+
+def dead_words(MP: int) -> int:
+    """Tombstone words a slab row (``walk_layout.cuh: walk_dead_words``):
+    ``ceil(MP / 32)`` when ``MP > 32``, else one."""
+    return -(-MP // 32) if MP > 32 else 1
+
+
 def block_layout(E: int, MP: int, D: int, PP: int, S: int, puts: bool,
                  lanes: int = LANES_PER_BLOCK) -> Dict[str, int]:
     """One block's shared-memory arena (``walk_layout.cuh: walk_layout``):
     each array's byte offset, every one 16-byte aligned, and ``"bytes"``,
     the arena's size.  Each array holds the block's ``lanes`` lanes one after
-    another: the slab keys, a hop's staged versions (``row``), the stage
-    tally; the put scratch only with ``puts`` (the closed-form puts, single
-    tier); the ``PP`` put ops (0 without puts) always, without their
-    versions; ``spans`` is the block's copy tables."""
+    another: the slab keys and tombstones (:func:`dead_words` a row), a
+    hop's staged versions (``row``), the walker's version (``q``, wide
+    instances only), the stage tally; the put scratch only with ``puts``
+    (the closed-form puts, single tier); the ``PP`` put ops (0 without puts)
+    always, without their versions; ``spans`` is the block's copy tables."""
     LE, LPP = lanes * E, (lanes * PP if puts else 0)
-    ints = [("st", LE), ("of", LE), ("rf", LE), ("np", LE), ("dead", LE)]
-    ints += [("row", lanes * MP * D), ("sh", lanes * S),
+    ints = [("st", LE), ("of", LE), ("rf", LE), ("np", LE), ("dead", LE * dead_words(MP))]
+    ints += [("row", lanes * MP * D)] + ([("q", lanes * D)] if is_wide(MP, D) else [])
+    ints += [("sh", lanes * S),
              ("p_sc", LPP * PUT_COLS), ("p_list", LPP), ("p_free", LE if puts else 0)]
     ints += [(f, lanes * PP) for f in ("p_cur", "p_pst", "p_pof", "p_pvl")]
     arrays = [(f, 4 * n) for f, n in ints]
     arrays += [("p_en", lanes * PP), ("p_first", lanes * PP), ("spans", SPAN_BYTES)]
-    out, o = {}, 0
+    out, o = {"q": 0}, 0  # no q in a narrow arena
     for f, n in arrays + [("bytes", 0)]:
         out[f] = o = (o + 15) & ~15
         o += n
@@ -156,11 +171,12 @@ def check_hot_entries(hot_entries: int, num_entries: int) -> None:
         )
 
 
-def mode_name(hot_entries: int, stage_slots: int, drain: bool) -> str:
+def mode_name(hot_entries: int, stage_slots: int, drain: bool, wide: bool = False) -> str:
     """The kernel instance a call runs: ``"default"`` or the ``+``-joined
-    modes (``"two_tier"``, ``"attribution"``, ``"drain"``)."""
+    modes (``"two_tier"``, ``"attribution"``, ``"drain"``, ``"wide"``: MP or
+    D above 32)."""
     modes = [m for m, on in (("two_tier", hot_entries), ("attribution", stage_slots),
-                             ("drain", drain)) if on]
+                             ("drain", drain), ("wide", wide)) if on]
     return "+".join(modes) or "default"
 
 
@@ -269,7 +285,8 @@ class WalkPassKernel:
         per SM, and the registers and local memory of a thread."""
         lanes, nbytes = self.arena(slab, PP, hot_entries)
         self.build()
-        mode = int(bool(hot_entries)) | int(slab.stage_hops.shape[1] > 0) << 1 | int(drain) << 2
+        mode = (int(bool(hot_entries)) | int(slab.stage_hops.shape[1] > 0) << 1
+                | int(drain) << 2 | int(is_wide(*slab.pver.shape[2:])) << 3)
         occ = (ctypes.c_int * 3)()
         err = self._lib.cep_walk_occupancy(mode, lanes, nbytes, occ)
         if err:
@@ -297,15 +314,13 @@ class WalkPassKernel:
         dev = slab.stage.device
         if dev.type != "cuda":
             raise ValueError(f"walk-pass kernel needs CUDA tensors, got {dev}")
-        if MP > 32 or D > 32:
-            raise ValueError(f"kernel needs MP <= 32 and D <= 32, got {MP}, {D}")
         if out_base < 0 or out_base + OR > PW:
             raise ValueError(
                 f"output rows [{out_base}, {out_base + OR}) outside the "
                 f"{PW}-walker queue"
             )
         check_hot_entries(EH, E)
-        mode = mode_name(EH, S, drain)
+        mode = mode_name(EH, S, drain, is_wide(MP, D))
 
         def arg(x, shape, name, dtype=I32):
             if x.device != dev:

@@ -62,6 +62,27 @@ from kafkastreams_cep_tpu_torch.utils.logging import get_logger
 logger = get_logger("parallel.batch")
 
 
+#: Pointer-version elements a renormalization chunk of lanes holds at most.
+_RENORM_CHUNK = 1 << 26
+
+
+def lane_slice(x, a: int, b: int):
+    """Lanes ``[a, b)`` of a tensor or a named tuple of ``[K, ...]`` tensors."""
+    if isinstance(x, tuple):
+        vals = [lane_slice(v, a, b) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    return x[a:b]
+
+
+def lane_cat(parts):
+    """The lane-wise concatenation of equal-structured results."""
+    first = parts[0]
+    if isinstance(first, tuple):
+        vals = [lane_cat([p[i] for p in parts]) for i in range(len(first))]
+        return type(first)(*vals) if hasattr(first, "_fields") else tuple(vals)
+    return torch.cat(parts)
+
+
 def sweep_lanes(state: EngineState, depth: int, do_renorm: bool) -> EngineState:
     """Per-lane maintenance sweep: slab mark-sweep (frees entries no future
     buffer op can reach), then, when enabled, Dewey version
@@ -84,7 +105,7 @@ def sweep_lanes(state: EngineState, depth: int, do_renorm: bool) -> EngineState:
     )
     state = state._replace(slab=slab_mod.mark_sweep(state.slab, run_off, depth))
     if do_renorm:
-        ver2, vlen2, slab, _ = renorm_mod.renorm_lane(
+        args = (
             torch.cat([state.ver, state.hr_ver], dim=1),
             torch.cat([state.vlen, state.hr_vlen], dim=1),
             torch.cat([state.alive, pending], dim=1),
@@ -92,6 +113,15 @@ def sweep_lanes(state: EngineState, depth: int, do_renorm: bool) -> EngineState:
             torch.cat([state.id_pos, torch.zeros_like(state.hr_vlen)], dim=1),
             state.slab,
         )
+        # Lanes are independent: renormalize them in chunks whose pointer
+        # versions stay under _RENORM_CHUNK elements, so the int64
+        # temporaries of a wide slab (K x E x MP x D) fit beside the state.
+        K = state.alive.shape[0]
+        per = max(1, _RENORM_CHUNK // max(state.slab.pver[0].numel(), 1))
+        parts = [renorm_mod.renorm_lane(*(lane_slice(x, a, a + per) for x in args))
+                 for a in range(0, K, per)]
+        ver2, vlen2, slab, _ = (parts[0] if len(parts) == 1 else
+                                lane_cat(parts))
         state = state._replace(
             ver=ver2[:, :R], vlen=vlen2[:, :R],
             hr_ver=ver2[:, R:], hr_vlen=vlen2[:, R:], slab=slab,

@@ -85,6 +85,7 @@ from kafkastreams_cep_tpu_torch.engine.tiered import (
 )
 from kafkastreams_cep_tpu_torch.parallel.batch import sweep_lanes
 from kafkastreams_cep_tpu_torch.parallel.stacked import replicate_events, tile_states
+from kafkastreams_cep_tpu_torch.utils.failpoints import fire as _failpoint
 from kafkastreams_cep_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("parallel.tenantbank")
@@ -593,6 +594,7 @@ class TenantBankMatcher:
             raise ValueError(f"no query {q} in a bank of {self.N}")
         if self.iso.quarantined[q]:
             return
+        _failpoint("quarantine.enter")
         self.iso.quarantined[q] = True
         logger.warning("tenant %s (q%d) quarantined", self.query_names[q], q)
         self._rebuild_enforcement()

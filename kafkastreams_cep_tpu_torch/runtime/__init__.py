@@ -17,25 +17,38 @@ from kafkastreams_cep_tpu_torch.runtime.migrate import (
     repartition_state,
     widen_state,
 )
+from kafkastreams_cep_tpu_torch.runtime.flight import FlightRecorder, read_dump
 from kafkastreams_cep_tpu_torch.runtime.processor import (
     CEPProcessor,
     InputRejected,
     Record,
 )
+from kafkastreams_cep_tpu_torch.runtime.supervisor import (
+    AdaptPolicy,
+    HealthReport,
+    Supervisor,
+    check_health,
+)
 
 __all__ = [
+    "AdaptPolicy",
     "CEPBank",
     "CEPProcessor",
     "CheckpointCorrupt",
     "DeadLetter",
+    "FlightRecorder",
+    "HealthReport",
     "IngestGuard",
     "IngestPolicy",
     "InputRejected",
     "Record",
+    "Supervisor",
+    "check_health",
     "load_checkpoint",
     "migrate_processor",
     "move_lanes",
     "plan_rebalance",
+    "read_dump",
     "repartition_state",
     "restore_processor",
     "save_checkpoint",

@@ -30,6 +30,7 @@ from kafkastreams_cep_tpu_torch.engine.matcher import EngineConfig
 from kafkastreams_cep_tpu_torch.runtime.ingest import DeadLetter, IngestGuard
 from kafkastreams_cep_tpu_torch.runtime.processor import CEPProcessor, Record
 from kafkastreams_cep_tpu_torch.utils.events import Event
+from kafkastreams_cep_tpu_torch.utils.failpoints import fire as _failpoint
 from kafkastreams_cep_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("runtime.checkpoint")
@@ -60,7 +61,12 @@ class _Unpickler(pickle.Unpickler):
 def save_checkpoint(
     processor: CEPProcessor, path: str, extra: Optional[Dict[str, Any]] = None
 ) -> None:
-    """Snapshot a processor's full state to ``path`` (a single file)."""
+    """Snapshot a processor's full state to ``path`` (a single file).
+    ``extra`` rides in the header for the caller's own bookkeeping (the
+    supervisor's journal sequence number)."""
+    # Fault site (utils/failpoints.py): a snapshot that fails before
+    # anything is written.
+    _failpoint("checkpoint.save")
     if processor._pending is not None:
         raise ValueError(
             "pipelined processor holds an undecoded batch; call flush() "

@@ -35,6 +35,7 @@ import numpy as np
 from kafkastreams_cep_tpu_torch.convert import _numpy, to_numpy
 from kafkastreams_cep_tpu_torch.engine.matcher import EngineConfig, EngineState
 from kafkastreams_cep_tpu_torch.ops.slab import SlabState
+from kafkastreams_cep_tpu_torch.utils.failpoints import fire as _failpoint
 from kafkastreams_cep_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("runtime.migrate")
@@ -270,8 +271,9 @@ def _rebuild(pattern, proc, config: EngineConfig, **kw):
 
 def _carry_host_state(new, proc) -> None:
     """Continuity of everything but the engine state: the host bookkeeping
-    (by copy, as a checkpoint restore would), the metrics, the ingest guard
-    and the clock (by reference: one stream, one meter)."""
+    (by copy, as a checkpoint restore would), the metrics, the flight
+    recorder with its burst baseline, the ingest guard and the clock (by
+    reference: one stream, one meter)."""
     new._lane_of = dict(proc._lane_of)
     new._key_of = dict(proc._key_of)
     new._next_offset = proc._next_offset.copy()
@@ -283,6 +285,8 @@ def _carry_host_state(new, proc) -> None:
     new._watermark = proc._watermark
     new._batch_seq = proc._batch_seq
     new.metrics = proc.metrics
+    new.flight = proc.flight
+    new._dlq_base = proc._dlq_base
     new._guard = proc._guard
 
 
@@ -320,6 +324,8 @@ def replan_processor(pattern, proc, profile):
     config = proc.batch.matcher.config
     if not getattr(config, "tiering", False):
         raise ValueError("replan_processor requires a tiered processor")
+    # Fault site: a replan that dies here leaves the old processor intact.
+    _failpoint("replan.swap")
     new_proc = _rebuild(pattern, proc, config, profile=profile)
     new_proc.state = new_proc.place(to_numpy(proc.state))
     _carry_host_state(new_proc, proc)
@@ -395,6 +401,8 @@ def move_lanes(pattern, proc, perm=None, mesh=_KEEP_MESH):
             else np.asarray(perm, dtype=np.int64).reshape(-1))
     if perm.shape[0] != k or not np.array_equal(np.sort(perm), np.arange(k)):
         raise ValueError(f"perm must be a permutation of range({k}): {perm.tolist()}")
+    # Fault site: a move that dies here leaves the old processor intact.
+    _failpoint("rebalance.move")
     inv = np.empty(k, dtype=np.int64)
     inv[perm] = np.arange(k, dtype=np.int64)
     new_proc = _rebuild(pattern, proc, proc.batch.matcher.config)

@@ -50,7 +50,9 @@ from kafkastreams_cep_tpu_torch.runtime.ingest import (
 )
 from kafkastreams_cep_tpu_torch.utils.events import Event, Sequence
 from kafkastreams_cep_tpu_torch.utils.logging import get_logger
+from kafkastreams_cep_tpu_torch.utils.failpoints import fire as _failpoint
 from kafkastreams_cep_tpu_torch.utils.metrics import Metrics, device_memory_stats
+from kafkastreams_cep_tpu_torch.utils.telemetry import TraceSink, maybe_span
 
 logger = get_logger("runtime")
 
@@ -214,7 +216,18 @@ class CEPProcessor:
         ingest: Optional[IngestPolicy] = None,
         clock=None,
         device="cuda",
+        trace_sink: Optional[TraceSink] = None,
+        flight=None,
+        mesh=None,
+        latency=None,
     ):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh=: the sharded processor is not ported yet (ROADMAP.md §A item 8)")
+        if latency is not None and latency is not False:
+            raise NotImplementedError(
+                "latency=: the latency ledger (utils/latency.py) is not ported yet "
+                "(ROADMAP.md §A item 6)")
         if config is not None and config.tiering:
             self.batch = TieredBatchMatcher(pattern, num_lanes, config,
                                             profile=profile, device=device)
@@ -262,6 +275,16 @@ class CEPProcessor:
         self._watermark: Optional[int] = None
         self._clock = clock if clock is not None else time.time
         self._guard = IngestGuard(ingest, clock=self._clock) if ingest is not None else None
+        # Telemetry (utils/telemetry.py): an optional span sink; every batch
+        # emits one "batch" span with nested phase spans (pack, dispatch,
+        # drain, device, decode, gc).  None costs one check a phase.
+        self.trace = trace_sink
+        # Flight recorder (runtime/flight.py): a bounded ring of per-batch
+        # records, appended at the end of every batch and dumped as JSONL on
+        # a crash, recovery, escalation or quarantine burst.  None costs one
+        # check a batch.
+        self.flight = flight
+        self._dlq_base = 0  # dead-letter total at the last batch (burst detection)
 
     def set_clock(self, clock) -> None:
         """Re-inject the host clock wherever it is read (the lag gauge and
@@ -321,22 +344,34 @@ class CEPProcessor:
 
     @contextlib.contextmanager
     def _phase(self, name: str):
-        with self.metrics.timed(f"{name}_seconds"):
-            yield
+        """One batch phase: a nested trace span, the ``{name}_seconds``
+        accumulator and the ``phases[name]`` latency histogram."""
+        with maybe_span(self.trace, f"phase.{name}"):
+            with self.metrics.timed(f"{name}_seconds"):
+                yield
 
     def process(self, records: Seq[Record]) -> List[Tuple[Hashable, Sequence]]:
         if not records:
             return []
         self._batch_seq += 1
-        with self._phase("pack"):
-            if self._guard is not None:
-                released = self._ingest(list(records), f"{self.name}-{self._batch_seq}")
-                packed = self._pack_records(released) if released else None
-            else:
-                packed = self._pack_records(records)
-        if packed is None:
-            return []
-        return self._dispatch(*packed)
+        with maybe_span(self.trace, "batch", path="records", batch=self._batch_seq,
+                        records=len(records)) as sp:
+            with self._phase("pack"):
+                if self._guard is not None:
+                    released = self._ingest(list(records), f"{self.name}-{self._batch_seq}")
+                    sp["released"] = len(released)
+                    packed = self._pack_records(released) if released else None
+                else:
+                    packed = self._pack_records(records)
+            if packed is None:
+                # Nothing released this batch: still a flight tick (a
+                # quarantine burst can empty a batch).
+                self._flight_tick()
+                return []
+            sp["lanes"] = len(self._lane_of)
+            matches = self._dispatch(*packed)
+            sp["matches"] = len(matches)
+            return matches
 
     # -- the ingestion guard (runtime/ingest.py) ---------------------------
 
@@ -348,6 +383,9 @@ class CEPProcessor:
         record that validates is admitted (this package has no brownout
         door)."""
         guard = self._guard
+        # Fault site: before any guard or lane bookkeeping changes, so the
+        # batch is refused whole, nothing half-admitted.
+        _failpoint("ingest.admit")
         strict = guard.policy.on_bad_record == "raise"
         for idx, rec in enumerate(records):
             defect = self._record_defect(rec)
@@ -361,8 +399,12 @@ class CEPProcessor:
                 )
             else:
                 guard.quarantine(rec, defect.reason, defect.detail, corr)
-        return [r._replace(offset=None) if r.offset is not None else r
-                for r in guard.release()]
+        released = guard.release()
+        # Fault site: the buffer moved (records admitted, releases popped)
+        # but the engine never saw them; recovery restores the buffer from
+        # the snapshot and re-admits from the journal.
+        _failpoint("ingest.release")
+        return [r._replace(offset=None) if r.offset is not None else r for r in released]
 
     def _record_defect(self, rec: Record) -> Optional[Defect]:
         """Validate one record against the schema, lane and time contracts
@@ -433,11 +475,15 @@ class CEPProcessor:
         released = [r._replace(offset=None) if r.offset is not None else r
                     for r in released]
         self._batch_seq += 1
-        with self._phase("pack"):
-            packed = self._pack_records(released)
-        if packed is None:
-            return []
-        return self._dispatch(*packed)
+        with maybe_span(self.trace, "batch", path="ingest-drain", batch=self._batch_seq,
+                        records=len(released)) as sp:
+            with self._phase("pack"):
+                packed = self._pack_records(released)
+            if packed is None:
+                return []
+            matches = self._dispatch(*packed)
+            sp["matches"] = len(matches)
+            return matches
 
     def _pack_records(self, records: Seq[Record]):
         """Validate, lane-assign and pad one record batch to ``[K, T]``
@@ -611,11 +657,16 @@ class CEPProcessor:
                 "to use the columnar path)"
             )
         self._batch_seq += 1
-        with self._phase("pack"):
-            packed = self._pack_columns(keys, values, timestamps)
-        if packed is None:
-            return []
-        return self._dispatch(*packed)
+        with maybe_span(self.trace, "batch", path="columns", batch=self._batch_seq) as sp:
+            with self._phase("pack"):
+                packed = self._pack_columns(keys, values, timestamps)
+            if packed is None:
+                return []
+            sp["records"] = packed[2]
+            sp["lanes"] = len(self._lane_of)
+            matches = self._dispatch(*packed)
+            sp["matches"] = len(matches)
+            return matches
 
     def _pack_columns(self, keys, values, timestamps):
         keys_arr = np.asarray(keys)
@@ -740,6 +791,12 @@ class CEPProcessor:
         return self._device_batch(key_arr, val_leaves, treedef, ts, off, valid), rank_of, n
 
     def _dispatch(self, events, rank_of, n_records):
+        # Fault sites (utils/failpoints.py; no-ops unless armed):
+        # ``device.dispatch`` fails before the scan, the state untouched;
+        # ``device.result`` after the state advanced but before the batch's
+        # matches reach the caller, the window the supervisor's restore and
+        # replay must cover.
+        _failpoint("device.dispatch")
         base = self._step_base
         with self._phase("dispatch"):
             self.state, out = self.batch.scan(self.state, events)
@@ -754,6 +811,7 @@ class CEPProcessor:
         with self._phase("device"):
             if not self.pipeline and self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+        _failpoint("device.result")
         gc_due = self.gc_events and (
             (self.metrics.batches + 1) % self.gc_events_interval == 0
         )
@@ -774,7 +832,22 @@ class CEPProcessor:
             with self._phase("gc"):
                 self._gc_events()
         self.metrics.matches_out += len(matches)
+        self._flight_tick()
         return matches
+
+    def _flight_tick(self) -> None:
+        """Record this batch in the flight ring (runtime/flight.py), and
+        dump it when the guard dead-lettered a burst's worth of records in
+        one batch.  One ``None`` check without a recorder."""
+        if self.flight is None:
+            return
+        corr = f"{self.name}-{self._batch_seq}"
+        self.flight.observe(self, corr=corr)
+        if self._guard is not None:
+            total = int(sum(self._guard.reason_counts.values()))
+            if total - self._dlq_base >= self.flight.quarantine_burst:
+                self.flight.dump("quarantine_burst", corr=corr)
+            self._dlq_base = total
 
     def flush(self) -> List[Tuple[Hashable, Sequence]]:
         """Decode the pipelined in-flight batch (a no-op in serial mode or
@@ -986,7 +1059,8 @@ class CEPProcessor:
         only), ``per_pattern`` (this processor under its ``name``), the
         tiering plan (``tier_plan``, tiered processors only), ``per_stage``
         under attribution, ``per_lane`` and ``per_key`` (skipped with
-        ``per_lane=False``: one more device read) and ``hbm`` (the card's
+        ``per_lane=False``: one more device read), ``phases`` (each batch
+        phase's latency histogram: count, sum, p50, p99) and ``hbm`` (the card's
         memory byte gauges, ``{}`` on the CPU)."""
         snap: Dict[str, Any] = self.metrics.snapshot(self.counters())
         hot = self.hot_counters()

@@ -1,0 +1,880 @@
+"""Failure detection and recovery: the rebalance and changelog-restore
+analog, over the port's :class:`CEPProcessor`.
+
+The reference leaves fault tolerance to Kafka Streams: every store is
+changelog-backed, so a reassigned task replays the changelog to rebuild its
+run queue, buffer and aggregates (``CEPProcessor.java:117-134,144-149``).
+Here the same contract is split in two:
+
+* **checkpoint**, the changelog snapshot: the supervisor persists the
+  processor's full state (``runtime/checkpoint.py``) every
+  ``checkpoint_every`` batches, with the gap covered by a record journal;
+* **journal and replay**, the changelog tail: the batches since the last
+  checkpoint are kept on the host (and, with ``journal_path``, in a
+  CRC-framed file, ``native/journal.py``); on a failure the supervisor
+  restores the checkpoint and replays them, which is deterministic (the
+  engine is a pure function of state and records), so the processor lands
+  in exactly the state it had before the failure.
+
+Any exception out of a batch's dispatch but :class:`InputRejected` (a bad
+batch, not a bad device) triggers the recovery, on the same device; matches
+the replay re-derives are suppressed, so the caller sees every match once.
+With ``auto_escalate`` a batch that trips a capacity counter is rolled back,
+the live state migrated onto a wider config (``runtime/migrate.py``) and the
+batch re-processed there.  :meth:`Supervisor.health` reports the loss
+counters and state-validity probes.
+
+This is the JAX package's supervisor (``kafkastreams_cep_tpu/runtime/
+supervisor.py``) without its mesh half (shard evacuation, straggler
+watermarks, hot-key rebalancing) and its brownout and latency halves:
+``shard_policy``, ``shard_probe``, ``overload_policy``, and the processor's
+``mesh`` and ``latency``, raise ``NotImplementedError`` naming the
+``ROADMAP.md`` item that ports them.  Checkpoints and journals are the JAX
+package's formats, so either package resumes the other's.
+"""
+
+from __future__ import annotations
+
+import itertools
+import os
+import pickle
+import tempfile
+import time
+from dataclasses import dataclass, field
+from typing import Hashable, List, Optional, Sequence as Seq, Tuple
+
+import numpy as np
+
+from kafkastreams_cep_tpu_torch.engine import sizing
+from kafkastreams_cep_tpu_torch.engine.matcher import EngineConfig
+from kafkastreams_cep_tpu_torch.engine.sizing import EscalationPolicy
+from kafkastreams_cep_tpu_torch.engine.tiered import engine_view
+from kafkastreams_cep_tpu_torch.native.journal import Journal
+from kafkastreams_cep_tpu_torch.runtime import checkpoint as ckpt_mod
+from kafkastreams_cep_tpu_torch.runtime import migrate as migrate_mod
+from kafkastreams_cep_tpu_torch.runtime.processor import CEPProcessor, InputRejected, Record
+from kafkastreams_cep_tpu_torch.utils.events import Sequence
+from kafkastreams_cep_tpu_torch.utils.failpoints import fire as _failpoint
+from kafkastreams_cep_tpu_torch.utils.logging import get_logger
+from kafkastreams_cep_tpu_torch.utils.telemetry import (
+    MetricsRegistry,
+    maybe_span,
+    positive_delta,
+    timed_histogram,
+)
+
+logger = get_logger("runtime.supervisor")
+
+#: Arguments of the JAX package's supervisor (and processor) this package
+#: does not serve yet, with the ROADMAP.md item that ports each.
+_NOT_PORTED = {
+    "shard_policy": "§A item 8 (the mesh: shard evacuation and rebalancing)",
+    "shard_probe": "§A item 8 (the mesh: shard evacuation and rebalancing)",
+    "mesh": "§A item 8 (the mesh)",
+    "overload_policy": "§A item 6 (the brownout ladder, runtime/overload.py)",
+    "latency": "§A item 6 (the latency ledger, utils/latency.py)",
+}
+
+
+@dataclass
+class HealthReport:
+    """One health probe of a live processor."""
+
+    healthy: bool
+    warnings: List[str] = field(default_factory=list)
+    errors: List[str] = field(default_factory=list)
+    counters: dict = field(default_factory=dict)
+
+
+def check_health(processor: CEPProcessor) -> HealthReport:
+    """Probe a processor's engine state for capacity loss and corruption.
+
+    *Warnings* are capacity events (bounded-shape drops: runs, slab
+    entries, pointer lists, Dewey width, walk length): matching may have
+    lost branches, which the reference (an unbounded heap) never does;
+    *errors* are states no healthy run reaches (NaN fold state, negative
+    refcounts) and mean corruption."""
+    counters = processor.counters()
+    warnings = [f"{name}={val} capacity drops" for name, val in counters.items() if val]
+    errors = []
+    # Fold state is typed-encoded int32 (float32 states as bit patterns);
+    # only float-typed columns can hold NaN.
+    eng = engine_view(processor.state)
+    agg = eng.agg.cpu().numpy()
+    dtypes = processor.batch.matcher.tables.state_dtypes
+    flt = [i for i, d in enumerate(dtypes) if d == "float32"]
+    if flt and np.isnan(np.ascontiguousarray(agg[..., flt]).view(np.float32)).any():
+        errors.append("NaN in fold-aggregate state")
+    if bool((eng.slab.refs < 0).any()):
+        errors.append("negative slab refcount")
+    return HealthReport(healthy=not errors, warnings=warnings, errors=errors,
+                        counters=counters)
+
+
+@dataclass
+class AdaptPolicy:
+    """When the supervisor re-derives the execution plan from measured
+    selectivity (adaptive recompilation).
+
+    The lazy-chain conjunct order and tier split (``compiler/tiering.py``)
+    are derived once; a stream whose selectivity drifts leaves that plan
+    stale (correct, but doing the expensive conjunct's work first).  At
+    every checkpoint boundary the supervisor compares the windowed
+    per-stage (and per-conjunct, under ``stage_attribution``) accept
+    fraction with the one the live plan was derived from; sustained drift
+    triggers ``runtime.migrate.replan_processor``, which swaps the
+    processor in place with the state transferred verbatim, so matches,
+    emission order and loss counters are invariant to the swap point.
+
+    A boundary *trips* when a tracked selectivity with at least
+    ``min_evals`` windowed evaluations moved more than ``drift_threshold``
+    (absolute) from its plan-time value; ``replan_streak`` consecutive
+    tripping boundaries (``cooldown`` boundaries after the last swap) fire
+    the replan.  A swap that fails (the ``replan.swap`` fault site) keeps
+    the old processor and plan and counts in ``replan_failures``."""
+
+    drift_threshold: float = 0.25
+    min_evals: int = 256
+    replan_streak: int = 2
+    cooldown: int = 1
+
+
+class Supervisor:
+    """A checkpointing, health-probing, auto-recovering processor wrapper.
+
+    ``pattern`` must be re-compilable user code (predicates and folds live
+    in code, never in checkpoints); the supervisor owns the processor it
+    creates, on ``device`` (a processor keyword, ``"cuda"`` by default).
+
+    ``process(records)`` behaves like :meth:`CEPProcessor.process`, and:
+
+    * every ``checkpoint_every`` batches the full state is checkpointed
+      (atomic rename, so a crash mid-write keeps the previous snapshot);
+    * if the processor raises, the supervisor restores the latest
+      checkpoint on the same device, replays the journaled batches since
+      it (suppressing their already-emitted matches), retries the failing
+      batch (``max_retries`` times, after a backoff) and counts the
+      recovery in ``recoveries``;
+    * with ``journal_path`` every batch is also appended to a CRC-framed
+      on-disk journal (``native/journal.py``, C++ write path), so
+      :meth:`Supervisor.resume` recovers from a process crash;
+      ``journal_sync=True`` fsyncs each append;
+    * with ``auto_escalate`` (``True`` for the default
+      :class:`~kafkastreams_cep_tpu_torch.engine.sizing.EscalationPolicy`,
+      or a policy), a batch that trips a capacity counter is rolled back,
+      the state migrated onto a strictly wider config and the batch
+      re-processed there (``escalations``); a snapshot right after pins the
+      wide config for later recoveries and resumes;
+    * with ``adapt_policy`` (``True`` or an :class:`AdaptPolicy`) a tiered
+      processor under ``stage_attribution`` is replanned at checkpoint
+      boundaries when its measured selectivity drifts (``replans``).
+    """
+
+    _instance_ids = itertools.count()
+
+    def __init__(
+        self,
+        pattern,
+        num_lanes: int,
+        config: Optional[EngineConfig] = None,
+        checkpoint_path: Optional[str] = None,
+        checkpoint_every: int = 16,
+        max_retries: int = 1,
+        journal_path: Optional[str] = None,
+        journal_sync: bool = False,
+        auto_escalate=False,
+        retry_backoff_ms: float = 50.0,
+        retry_backoff_cap_ms: float = 5000.0,
+        processor: Optional[CEPProcessor] = None,
+        shard_policy=None,
+        shard_probe=None,
+        adapt_policy=None,
+        overload_policy=None,
+        _resuming: bool = False,
+        **proc_kwargs,
+    ):
+        given = dict(shard_policy=shard_policy, shard_probe=shard_probe,
+                     overload_policy=overload_policy, mesh=proc_kwargs.get("mesh"),
+                     latency=proc_kwargs.get("latency"))
+        for name, value in given.items():
+            if value is not None and value is not False:
+                raise NotImplementedError(
+                    f"Supervisor({name}=...): not ported yet (ROADMAP.md {_NOT_PORTED[name]})")
+        proc_kwargs.pop("mesh", None)
+        proc_kwargs.pop("latency", None)
+        if auto_escalate is True:
+            self._policy: Optional[EscalationPolicy] = EscalationPolicy()
+        elif auto_escalate:
+            self._policy = auto_escalate
+        else:
+            self._policy = None
+        self._pattern = pattern
+        self._proc_kwargs = dict(proc_kwargs)
+        self.device = self._proc_kwargs.get("device", "cuda")
+        # ``processor`` lets resume() hand over a restored processor.
+        self.processor = processor or CEPProcessor(pattern, num_lanes, config,
+                                                   **self._proc_kwargs)
+        # Per-instance default path: two supervisors in one process never
+        # clobber each other's snapshots.
+        self.checkpoint_path = checkpoint_path or os.path.join(
+            tempfile.gettempdir(),
+            f"cep_supervisor_{os.getpid()}_{next(self._instance_ids)}.ckpt",
+        )
+        self.checkpoint_every = int(checkpoint_every)
+        self.max_retries = int(max_retries)
+        # Exponential retry backoff with deterministic jitter: a fault that
+        # survives the instant retry is usually environmental, and retrying
+        # back to back turns one fault into a train.  The jitter derives
+        # from (seq, attempt), so a retry always waits the same time.
+        # Tests patch ``self._sleep``.
+        self.retry_backoff_ms = float(retry_backoff_ms)
+        self.retry_backoff_cap_ms = float(retry_backoff_cap_ms)
+        self.retry_backoff_ms_total = 0.0
+        self._sleep = time.sleep
+        self._journal: List[List[Record]] = []  # batches since the last checkpoint
+        self._disk_journal = Journal(journal_path, sync=journal_sync) if journal_path else None
+        if not _resuming:
+            # A fresh supervisor over a previous run's files: that history
+            # would leak into a later resume() (its checkpoint, with a
+            # higher seq, restored and the new run's frames skipped).
+            # Starting fresh declares it abandoned: remove both, loudly.
+            if (self._disk_journal is not None and os.path.exists(journal_path)
+                    and os.path.getsize(journal_path) > 0):
+                logger.warning(
+                    "journal %s holds frames from a previous run; truncating "
+                    "(use Supervisor.resume to continue that history)", journal_path)
+                self._disk_journal.truncate()
+            if self._disk_journal is not None and os.path.exists(journal_path + ".prev"):
+                os.remove(journal_path + ".prev")
+            if os.path.exists(self.checkpoint_path):
+                logger.warning(
+                    "checkpoint %s belongs to a previous run; removing (use "
+                    "Supervisor.resume to continue that history)", self.checkpoint_path)
+                os.remove(self.checkpoint_path)
+            if os.path.exists(self.checkpoint_path + ".prev"):
+                os.remove(self.checkpoint_path + ".prev")
+        self._has_checkpoint = False
+        self._batches_since_ckpt = 0
+        # Monotone batch sequence number, stamped into journal frames and
+        # the checkpoint header, so resume() can tell which frames a
+        # snapshot already holds.
+        self._seq = 0
+        self.recoveries = 0
+        self.checkpoints = 0
+        self.checkpoint_failures = 0
+        self.journal_failures = 0
+        self.escalations = 0
+        self.ingest_escalations = 0
+        # Escalation baselines: the loss counters are cumulative, so a trip
+        # is a positive delta against the snapshot after the last batch.
+        self._ingest_base: Optional[dict] = None
+        self._counter_base: Optional[dict] = None
+        self._trip_streak = 0
+        # Matches a checkpoint flushed out of a pipelined processor but not
+        # yet returned (drained at the end of process(); kept across a
+        # failed snapshot so nothing is lost).
+        self._unclaimed: List[Tuple[Hashable, Sequence]] = []
+        if adapt_policy is True:
+            self._adapt_policy: Optional[AdaptPolicy] = AdaptPolicy()
+        elif adapt_policy:
+            self._adapt_policy = adapt_policy
+        else:
+            self._adapt_policy = None
+        self.replans = 0
+        self.replan_failures = 0
+        # Selectivity the live plan was derived from, and the cumulative
+        # (evals, accepts) at the previous boundary; both reset on every
+        # rollback rebuild (_restore_tail).
+        self._plan_sel: Optional[dict] = None
+        self._sel_prev: Optional[dict] = None
+        self._replan_streak = 0
+        self._boundaries_since_replan = 10**9  # no cooldown before the first
+        # After a failed append the on-disk journal is no longer a complete
+        # history; journaling waits for the next checkpoint's clean base.
+        self._journal_suspended = False
+        # Telemetry: the supervisor shares the processor's trace sink (the
+        # ``trace_sink=`` processor keyword) and owns the lifecycle latency
+        # histograms (checkpoint, recover, escalate, replan).
+        self.trace = self._proc_kwargs.get("trace_sink")
+        self.telemetry = MetricsRegistry()
+        for n in ("checkpoint", "recover", "escalate", "replan"):
+            self.telemetry.histogram(f"phase.{n}")
+        # Flight recorder (the ``flight=`` processor keyword): the
+        # supervisor dumps it on a crash, a recovery and an escalation, and
+        # re-attaches it to every rebuilt processor (checkpoints carry no
+        # telemetry wiring).
+        self.flight = self._proc_kwargs.get("flight")
+        if self.flight is not None:
+            self.processor.flight = self.flight
+
+    @classmethod
+    def resume(
+        cls,
+        pattern,
+        num_lanes: int,
+        config: Optional[EngineConfig] = None,
+        checkpoint_path: Optional[str] = None,
+        journal_path: Optional[str] = None,
+        **kwargs,
+    ) -> "Supervisor":
+        """Rebuild a supervisor after a process crash.
+
+        Restores ``checkpoint_path`` where it exists (else starts fresh) on
+        ``device`` (a keyword, ``"cuda"`` by default), then replays the
+        on-disk journal chain's intact prefix, suppressing the replayed
+        matches (the crashed process emitted them).  Frames at or below the
+        checkpoint's sequence number are skipped, so a crash between a
+        snapshot and the journal's rotation cannot replay a batch twice.  A
+        snapshot that fails its integrity check falls back to the ``.prev``
+        snapshot (or a fresh processor), and the journal chain (``.prev``
+        frames, then the live ones) replays the whole gap."""
+        proc = None
+        base_seq = 0
+        candidates = []
+        if checkpoint_path:
+            candidates = [p for p in (checkpoint_path, checkpoint_path + ".prev")
+                          if os.path.exists(p)]
+        for path in candidates:
+            try:
+                ckpt = ckpt_mod.load_checkpoint(path)
+                proc = ckpt_mod.restore_processor(pattern, path, ckpt=ckpt,
+                                                  device=kwargs.get("device", "cuda"))
+                base_seq = int(ckpt["header"].get("extra", {}).get("seq", 0))
+                break
+            except ckpt_mod.CheckpointCorrupt:
+                logger.exception("checkpoint %s is corrupt; falling back (the journal "
+                                 "chain's replay covers the gap)", path)
+        sup = cls(pattern, num_lanes, config, checkpoint_path=checkpoint_path,
+                  journal_path=journal_path, processor=proc, _resuming=True, **kwargs)
+        sup._has_checkpoint = proc is not None
+        sup._seq = base_seq
+        # A restored processor carries no telemetry wiring, and no clock.
+        sup.processor.trace = sup.trace
+        sup.processor.flight = sup.flight
+        clock = sup._proc_kwargs.get("clock")
+        if clock is not None:
+            sup.processor.set_clock(clock)
+        replayed = skipped = 0
+        if sup._disk_journal is not None:
+            gap = False
+            for jr in (Journal(journal_path + ".prev"), sup._disk_journal):
+                for payload in jr.replay():
+                    seq, batch = pickle.loads(payload)
+                    if seq <= base_seq:
+                        skipped += 1  # already inside the snapshot
+                        continue
+                    if seq != sup._seq + 1:
+                        # A seq gap: the journal is not a complete history
+                        # (a failed append suspends journaling, so this
+                        # should not happen); stop at the last contiguous
+                        # frame rather than build a state that never saw
+                        # the missing batches.
+                        logger.error("journal seq gap (%d -> %d); stopping replay at "
+                                     "the last contiguous frame", sup._seq, seq)
+                        gap = True
+                        break
+                    sup.processor.process(batch)  # matches already emitted
+                    sup._journal.append(batch)
+                    sup._batches_since_ckpt += 1
+                    sup._seq = seq
+                    replayed += len(batch)
+                if gap:
+                    break
+        # A pipelined replay leaves its last batch undecoded: drain it
+        # (suppressed) so it cannot leak out of the next process() call.
+        sup.processor.flush()
+        if sup._policy is not None:
+            sup._counter_base = sup._capacity_counters()
+            sup._ingest_base = sup._ingest_loss_counters()
+        logger.info("resumed from %s + %s: %d journaled records replayed (%d "
+                    "pre-snapshot frames skipped)", checkpoint_path, journal_path,
+                    replayed, skipped)
+        return sup
+
+    # -- checkpointing ------------------------------------------------------
+
+    def checkpoint(self) -> List[Tuple[Hashable, Sequence]]:
+        """Snapshot now (atomically) and rotate the journals.
+
+        A pipelined processor is flushed first (a snapshot cannot carry an
+        undecoded batch); the flushed matches are returned, or, when the
+        snapshot fails, kept and returned by the next :meth:`process`."""
+        with maybe_span(self.trace, "checkpoint", seq=self._seq), \
+                timed_histogram(self.telemetry, "phase.checkpoint"):
+            if self.processor.pipeline:
+                self._unclaimed.extend(self.processor.flush())
+            tmp = self.checkpoint_path + ".tmp"
+            ckpt_mod.save_checkpoint(self.processor, tmp, extra={"seq": self._seq})
+            # Fault site: between writing the snapshot and installing it.
+            _failpoint("checkpoint.rename")
+            # One generation kept: the outgoing snapshot as ``.prev`` and
+            # its journal as ``.prev`` frames, so a snapshot that later
+            # fails its digest falls back with the chain covering the gap.
+            if os.path.exists(self.checkpoint_path):
+                os.replace(self.checkpoint_path, self.checkpoint_path + ".prev")
+            os.replace(tmp, self.checkpoint_path)
+            self._has_checkpoint = True
+            self._journal.clear()
+            if self._disk_journal is not None:
+                self._rotate_journal()
+                self._journal_suspended = False  # a clean base again
+            self._batches_since_ckpt = 0
+            self.checkpoints += 1
+        return self._drain_unclaimed()
+
+    def _rotate_journal(self) -> None:
+        """Retire the journal's frames (all inside the snapshot just
+        installed) into ``.prev`` and start the live journal empty."""
+        jr = self._disk_journal.path
+        if os.path.exists(jr):
+            os.replace(jr, jr + ".prev")
+        else:
+            # Nothing to retire, but a ``.prev`` from two checkpoints ago
+            # must not outlive its snapshot.
+            try:
+                os.remove(jr + ".prev")
+            except FileNotFoundError:
+                pass
+
+    def _drain_unclaimed(self) -> List[Tuple[Hashable, Sequence]]:
+        out, self._unclaimed = self._unclaimed, []
+        return out
+
+    def drain_ingest(self) -> List[Tuple[Hashable, Sequence]]:
+        """End-of-stream drain of the ingestion guard's reorder buffer,
+        made durable: the drain is not journaled (no input batch replays
+        it), so the state after it is pinned by an immediate snapshot.
+        Terminal by convention."""
+        matches = self.processor.drain_ingest()
+        matches += self.processor.flush()
+        try:
+            matches = matches + self.checkpoint()
+        except Exception:
+            self.checkpoint_failures += 1
+            logger.exception("post-drain checkpoint failed; a resume will re-drain (the "
+                             "drained matches were already emitted)")
+        return matches
+
+    # -- the supervised hot path -------------------------------------------
+
+    def process(self, records: Seq[Record]) -> List[Tuple[Hashable, Sequence]]:
+        records = list(records)
+        # Correlation id: the journal seq this batch gets on success; the
+        # recovery and escalation spans of this batch carry it too.
+        corr = f"batch-{self._seq + 1}"
+        with maybe_span(self.trace, "supervisor.batch", corr=corr, seq=self._seq + 1,
+                        records=len(records)) as sp:
+            matches = self._process_supervised(records, corr)
+            sp["matches"] = len(matches)
+            return matches
+
+    def _process_supervised(self, records: List[Record],
+                            corr: str) -> List[Tuple[Hashable, Sequence]]:
+        for attempt in range(self.max_retries + 1):
+            try:
+                # Per attempt (a recovery resets the pipeline): whether the
+                # previous batch is still undecoded, which an escalation
+                # then recomputes too.
+                had_pending = getattr(self.processor, "_pending", None) is not None
+                matches = self.processor.process(records)
+                break
+            except InputRejected:
+                # A bad batch, not a bad device: replay cannot help, and the
+                # processor's validation left the state untouched.
+                raise
+            except Exception:
+                if attempt >= self.max_retries:
+                    # Retries exhausted: ship the last batches' context first.
+                    if self.flight is not None:
+                        self.flight.dump("crash", corr=corr)
+                    raise
+                logger.exception("processor failed on a %d-record batch; recovering",
+                                 len(records))
+                self._recover(corr)
+                self._backoff(attempt)
+        if self._policy is not None:
+            matches = self._maybe_escalate(records, matches, had_pending, corr)
+        self._journal.append(records)
+        self._seq += 1
+        if self._disk_journal is not None and not self._journal_suspended:
+            # Journal after success, before returning matches.  A failed
+            # append (disk full) must not raise: the state already advanced
+            # and a caller's retry would apply the batch twice.  Count it
+            # and suspend journaling until the next checkpoint (a later
+            # frame after a missing seq would replay into a wrong state).
+            try:
+                self._disk_journal.append(pickle.dumps((self._seq, records)))
+            except Exception:
+                self.journal_failures += 1
+                self._journal_suspended = True
+                logger.exception("journal append failed; journaling suspended until the "
+                                 "next checkpoint (batch %d+ not crash-durable)", self._seq)
+        self._batches_since_ckpt += 1
+        # A suspended journal leaves acknowledged batches out of the crash
+        # history: snapshot now rather than at the cadence.
+        if self._journal_suspended or self._batches_since_ckpt >= self.checkpoint_every:
+            # A replan here is pinned by the snapshot right after it.
+            if self._adapt_policy is not None:
+                self._maybe_replan(corr)
+            # A failed snapshot must not lose the batch's matches: the
+            # journal still covers everything since the last good one.
+            try:
+                matches = matches + self.checkpoint()
+            except Exception:
+                self.checkpoint_failures += 1
+                logger.exception("checkpoint failed; journal retained")
+        if self._policy is not None:
+            self._maybe_escalate_ingest()
+        if self._unclaimed:
+            matches = matches + self._drain_unclaimed()
+        return matches
+
+    def _backoff(self, attempt: int) -> None:
+        """Sleep before re-dispatching a faulted batch: exponential in the
+        attempt, capped, with jitter seeded by ``(seq, attempt)``.
+        ``retry_backoff_ms=0`` retries at once."""
+        if self.retry_backoff_ms <= 0:
+            return
+        delay_ms = min(self.retry_backoff_cap_ms, self.retry_backoff_ms * (2.0 ** attempt))
+        rng = np.random.default_rng((self._seq + 1, attempt))
+        delay_ms *= 0.5 + 0.5 * float(rng.random())  # jitter in [0.5, 1.0)
+        self.retry_backoff_ms_total += delay_ms
+        logger.info("retry backoff: %.1f ms before attempt %d", delay_ms, attempt + 2)
+        self._sleep(delay_ms / 1000.0)
+
+    def _rewire(self) -> None:
+        """Attach the supervisor's trace sink, flight recorder and clock to
+        a rebuilt processor (checkpoints and migrations carry none)."""
+        self.processor.trace = self.trace
+        self.processor.flight = self.flight
+        clock = self._proc_kwargs.get("clock")
+        if clock is not None:
+            self.processor.set_clock(clock)
+
+    def _restore_tail(self) -> int:
+        """Restore the last checkpoint on the same device and replay the
+        journal since it, dropping the replayed matches (already emitted).
+        With no checkpoint yet the journal is the whole history, replayed
+        from a fresh processor.  Shared by recovery and escalation."""
+        if self._has_checkpoint:
+            try:
+                self.processor = ckpt_mod.restore_processor(
+                    self._pattern, self.checkpoint_path, device=self.device)
+            except ckpt_mod.CheckpointCorrupt:
+                # resume()'s fallback: the previous-good snapshot, whose
+                # journal the in-memory one then covers.
+                logger.exception("checkpoint %s is corrupt during recovery; restoring "
+                                 "the previous-good snapshot", self.checkpoint_path)
+                self.processor = ckpt_mod.restore_processor(
+                    self._pattern, self.checkpoint_path + ".prev", device=self.device)
+            self._rewire()
+        else:
+            self.processor = CEPProcessor(self._pattern, self.processor.num_lanes,
+                                          self.processor.batch.matcher.config,
+                                          **self._proc_kwargs)
+        replayed = 0
+        for batch in self._journal:
+            self.processor.process(batch)  # matches already emitted
+            replayed += len(batch)
+        # A pipelined replay leaves its last batch undecoded: drain it here
+        # (suppressed) or it would come out of the next process() again.
+        self.processor.flush()
+        # The restored processor carries the default plan and reverted
+        # attribution counters: the replanner's baselines are stale.
+        self._plan_sel = None
+        self._sel_prev = None
+        self._replan_streak = 0
+        return replayed
+
+    def _recover(self, corr: Optional[str] = None) -> None:
+        if self.flight is not None:
+            # Before the rollback: the ring still holds the faulted batch.
+            self.flight.dump("recover", corr=corr)
+        with maybe_span(self.trace, "recover", corr=corr, seq=self._seq) as sp, \
+                timed_histogram(self.telemetry, "phase.recover"):
+            replayed = self._restore_tail()
+            sp["replayed_records"] = replayed
+            sp["from_checkpoint"] = self._has_checkpoint
+        self.recoveries += 1
+        # The counters reverted with the state: re-take the escalation
+        # baselines before the retry re-runs the failing batch.
+        if self._policy is not None:
+            self._counter_base = self._capacity_counters()
+            self._ingest_base = self._ingest_loss_counters()
+        logger.info("recovered: checkpoint=%s, %d journaled records replayed",
+                    self._has_checkpoint, replayed)
+
+    # -- adaptive replanning --------------------------------------------------
+
+    @staticmethod
+    def _sel_counts(per_stage: dict) -> dict:
+        """A ``stage_counters`` snapshot as cumulative ``{key: (evals,
+        accepts)}`` rows: ``(stage,)`` per stage and ``(stage,
+        conjunct_key)`` per measured conjunct."""
+        counts: dict = {}
+        for name, row in per_stage.items():
+            if not isinstance(row, dict):
+                continue
+            counts[(name,)] = (int(row.get("stage_evals", 0) or 0),
+                               int(row.get("stage_accepts", 0) or 0))
+            cj = row.get("conjuncts")
+            if isinstance(cj, dict):
+                for key, crow in cj.items():
+                    if isinstance(crow, dict):
+                        counts[(name, key)] = (int(crow.get("evals", 0) or 0),
+                                               int(crow.get("accepts", 0) or 0))
+        return counts
+
+    def _maybe_replan(self, corr: Optional[str] = None) -> None:
+        """Swap the processor onto a re-derived plan when the measured
+        selectivity drifted from the plan's (see :class:`AdaptPolicy`).
+        Runs at checkpoint boundaries; the swap
+        (``migrate.replan_processor``: config unchanged, state verbatim) is
+        pinned by the checkpoint right after it.  A failed swap keeps the
+        old processor and plan."""
+        policy = self._adapt_policy
+        if policy is None:
+            return
+        if not getattr(self.processor.batch.matcher.config, "tiering", False):
+            return  # replan_processor needs the tiered matcher
+        per_stage = self.processor.batch.stage_counters(self.processor.state)
+        if not per_stage:
+            return  # stage_attribution off: nothing measured
+        counts = self._sel_counts(per_stage)
+        prev, self._sel_prev = self._sel_prev, counts
+        self._boundaries_since_replan += 1
+        if self._plan_sel is None:
+            # The first boundary with data pins the plan's baseline.
+            self._plan_sel = {key: ac / ev for key, (ev, ac) in counts.items()
+                              if ev >= policy.min_evals}
+            return
+        for key, (ev, ac) in counts.items():
+            if key not in self._plan_sel and ev >= policy.min_evals:
+                self._plan_sel[key] = ac / ev
+        if prev is None:
+            return  # no window yet (the first boundary after a rollback)
+        drifted = []
+        for key, (ev, ac) in counts.items():
+            pev, pac = prev.get(key, (0, 0))
+            wev, wac = ev - pev, ac - pac
+            base = self._plan_sel.get(key)
+            # wev < 0: the tally restarted under this key (a replan resets
+            # the conjunct accumulator); wait for a full window.
+            if base is None or wev < policy.min_evals:
+                continue
+            wsel = wac / wev
+            if abs(wsel - base) > policy.drift_threshold:
+                drifted.append((key, round(base, 4), round(wsel, 4)))
+        if not drifted:
+            self._replan_streak = 0
+            return
+        self._replan_streak += 1
+        if (self._replan_streak < policy.replan_streak
+                or self._boundaries_since_replan <= policy.cooldown):
+            return
+        with maybe_span(self.trace, "replan", corr=corr, seq=self._seq,
+                        drifted=[{"key": "/".join(k), "plan": b, "window": w}
+                                 for k, b, w in drifted]), \
+                timed_histogram(self.telemetry, "phase.replan"):
+            if self.processor.pipeline:
+                # The undecoded batch belongs to the old plan's dispatch.
+                self._unclaimed.extend(self.processor.flush())
+            try:
+                self.processor = migrate_mod.replan_processor(
+                    self._pattern, self.processor, per_stage)
+            except Exception:
+                self.replan_failures += 1
+                # replan_processor changes nothing before it succeeds.
+                logger.exception("adaptive replan failed; keeping the current plan")
+                self._replan_streak = 0
+                return
+            self._rewire()
+            self.replans += 1
+            self._replan_streak = 0
+            self._boundaries_since_replan = 0
+            # The new plan was derived from this profile; the window
+            # restarts with the rebuilt matcher's conjunct accumulator.
+            self._plan_sel = {key: ac / ev for key, (ev, ac) in counts.items()
+                              if ev >= policy.min_evals}
+            self._sel_prev = None
+        logger.warning("adaptive replan #%d: selectivity drift %s (plan -> window); plan "
+                       "re-derived from the measured profile", self.replans,
+                       [("/".join(k), b, w) for k, b, w in drifted])
+
+    # -- elastic capacity escalation ----------------------------------------
+
+    def _capacity_counters(self) -> dict:
+        return sizing.capacity_counters(self.processor.counters())
+
+    def _ingest_loss_counters(self) -> dict:
+        guard = getattr(self.processor, "_guard", None)
+        if guard is None:
+            return {}
+        return sizing.ingest_capacity_counters(guard.loss_counters())
+
+    def _maybe_escalate(self, records, matches, had_pending: bool = False,
+                        corr: Optional[str] = None) -> List[Tuple[Hashable, Sequence]]:
+        """Detect capacity loss in the batch just processed and recover it.
+
+        A trip is a positive delta of the cumulative loss counters over the
+        snapshot after the previous batch.  After ``hysteresis``
+        consecutive tripping batches: roll back to the state before the
+        batch, migrate it onto the next wider config, snapshot it (so later
+        recoveries and resumes replay at the new width) and re-process the
+        batch, returning the re-run's matches in place of the lossy
+        attempt's (never emitted).  Repeats up to ``policy.max_rounds``
+        while the re-run still trips; at the policy's ceiling it warns and
+        keeps counting."""
+        policy = self._policy
+        counters = self._capacity_counters()
+        base = self._counter_base
+        if base is None:
+            # The first observation (a fresh or restored processor).
+            base = {k: 0 for k in counters} if self._seq == 0 else counters
+        tripped = positive_delta(counters, base)
+        if not tripped:
+            self._counter_base = counters
+            self._trip_streak = 0
+            return matches
+        self._trip_streak += 1
+        if self._trip_streak < policy.hysteresis:
+            logger.warning("capacity trip %s tolerated (%d/%d before escalation); this "
+                           "batch's lost branches are NOT recovered", tripped,
+                           self._trip_streak, policy.hysteresis)
+            self._counter_base = counters
+            return matches
+        # Serial mode: ``matches`` is the lossy attempt's, superseded by the
+        # re-run.  Pipelined: the return can mix the previous batch's clean
+        # matches with this batch's lossy ones, so when the previous batch
+        # was still in flight it is popped from the journal and recomputed
+        # from the rollback point too; both re-runs are flushed.
+        pipeline = self.processor.pipeline
+        kept: List[Tuple[Hashable, Sequence]] = []
+        rerun = [] if pipeline else matches
+        redo_prev = pipeline and had_pending and bool(self._journal)
+        rolled = False
+        for _round in range(policy.max_rounds):
+            cfg = self.processor.batch.matcher.config
+            new_cfg = sizing.escalate(cfg, tripped, policy)
+            if new_cfg is None:
+                logger.warning("escalation exhausted at the policy ceiling (counters %s); "
+                               "degrading to warn-and-count", tripped)
+                self._counter_base = counters
+                return (kept + rerun) if rolled else matches
+            new_dims = {k: getattr(new_cfg, k) for k in
+                        ("max_runs", "slab_entries", "slab_preds", "dewey_depth", "max_walk")}
+            with maybe_span(self.trace, "escalate", corr=corr, round=_round,
+                            tripped=dict(tripped), new_config=new_dims) as esp, \
+                    timed_histogram(self.telemetry, "phase.escalate"):
+                if self.flight is not None:
+                    # The context of the trip, before the rollback drops it.
+                    self.flight.note(escalation=self.escalations + 1, tripped=dict(tripped))
+                    self.flight.dump("escalate", corr=corr)
+                if redo_prev:
+                    prev_batch = self._journal.pop()
+                # Roll back to the state before the batch; a pending decode
+                # belongs to the lossy attempt and dies with it.
+                self._restore_tail()
+                self.processor = migrate_mod.migrate_processor(
+                    self._pattern, self.processor, new_cfg)
+                self._rewire()
+                self.escalations += 1
+                logger.warning("capacity escalation #%d: %s after counters %s; "
+                               "re-processing the %d-record batch at the new width",
+                               self.escalations, new_dims, tripped, len(records))
+                if redo_prev:
+                    # The in-flight previous batch, whose matches rode the
+                    # discarded lossy return (a wider config drops nothing
+                    # the narrow one kept, so this re-run is clean).
+                    kept = list(self.processor.process(prev_batch))
+                    kept += self.processor.flush()
+                    self._journal.append(prev_batch)
+                    redo_prev = False
+                # Pin the wide config before re-processing: a recovery or
+                # resume from here on replays at the new width.
+                try:
+                    self.checkpoint()
+                except Exception:
+                    self.checkpoint_failures += 1
+                    logger.exception("post-escalation checkpoint failed; a recovery "
+                                     "before the next good snapshot replays at the OLD width")
+                pre = self._capacity_counters()
+                rerun = self.processor.process(records)
+                if pipeline:
+                    rerun = rerun + self.processor.flush()
+                rolled = True
+                counters = self._capacity_counters()
+                tripped = positive_delta(counters, pre)
+                esp["still_tripped"] = bool(tripped)
+            if not tripped:
+                break
+        else:
+            logger.warning("batch still trips %s after %d escalation rounds; keeping the "
+                           "widest result", tripped, policy.max_rounds)
+        self._counter_base = counters
+        self._trip_streak = 0
+        return kept + rerun
+
+    def _maybe_escalate_ingest(self) -> None:
+        """Grow the ingestion guard's policy when a batch tripped an ingest
+        loss counter (late drops grow the grace, evictions the buffer
+        depth).  Forward only: the dropped records are already
+        dead-lettered.  The widened policy is pinned by a snapshot."""
+        guard = getattr(self.processor, "_guard", None)
+        if guard is None:
+            return
+        counters = self._ingest_loss_counters()
+        base = self._ingest_base
+        if base is None:
+            base = {k: 0 for k in counters}
+        tripped = positive_delta(counters, base)
+        self._ingest_base = counters
+        if not tripped:
+            return
+        new_policy = sizing.escalate_ingest(guard.policy, tripped, growth=self._policy.growth)
+        if new_policy is None:
+            logger.warning("ingest loss %s but the guard policy cannot grow; records remain "
+                           "in the dead-letter queue", tripped)
+            return
+        old = guard.policy
+        guard.policy = new_policy
+        self.ingest_escalations += 1
+        logger.warning("ingest escalation #%d: grace_ms %d -> %d, reorder_depth %d -> %d "
+                       "after loss %s (already-dropped records stay in the dead-letter "
+                       "queue)", self.ingest_escalations, old.grace_ms, new_policy.grace_ms,
+                       old.reorder_depth, new_policy.reorder_depth, tripped)
+        try:
+            # Pipeline-flush matches go to the caller through _unclaimed.
+            self._unclaimed.extend(self.checkpoint())
+        except Exception:
+            self.checkpoint_failures += 1
+            logger.exception("post-ingest-escalation checkpoint failed; a recovery before "
+                             "the next good snapshot replays under the OLD ingest policy")
+
+    # -- diagnostics --------------------------------------------------------
+
+    def health(self) -> HealthReport:
+        return check_health(self.processor)
+
+    def metrics_snapshot(self, per_lane: bool = True) -> dict:
+        """The processor's snapshot plus the supervisor's lifecycle
+        telemetry: the event counts and their latency histograms (``phases``
+        gains ``checkpoint``, ``recover``, ``escalate`` and ``replan``)."""
+        out = self.processor.metrics_snapshot(per_lane=per_lane)
+        out["recoveries"] = self.recoveries
+        out["checkpoints"] = self.checkpoints
+        out["checkpoint_failures"] = self.checkpoint_failures
+        out["journal_failures"] = self.journal_failures
+        out["escalations"] = self.escalations
+        out["ingest_escalations"] = self.ingest_escalations
+        out["replans"] = self.replans
+        out["replan_failures"] = self.replan_failures
+        if self.flight is not None:
+            out["flight_dumps"] = self.flight.dumps
+        out["retry_backoff_ms_total"] = round(self.retry_backoff_ms_total, 3)
+        phases = dict(out.get("phases") or {})
+        phases.update({name[len("phase."):]: inst.snapshot()
+                       for name, inst in self.telemetry.items()
+                       if name.startswith("phase.")})
+        out["phases"] = phases
+        return out

@@ -1,16 +1,31 @@
-"""Runtime counters of one processor: records, matches, batches, drops,
-and wall seconds per batch phase.
+"""Runtime counters of one processor: records, matches, batches, drops and
+wall seconds per batch phase, backed by a
+:class:`~kafkastreams_cep_tpu_torch.utils.telemetry.MetricsRegistry`, so
+every timed phase also lands in a fixed-log-bucket latency histogram
+(count, sum, p50, p99 in ``snapshot()["phases"]``) and processor metrics
+merge across bank members (``registry.merge``).
 
 The processor reads and writes them as attributes
 (``metrics.records_in += n``) and times its phases with
-``with metrics.timed("decode_seconds"):``.
+``with metrics.timed("decode_seconds"):``.  :func:`profile` captures a
+``torch.profiler`` trace of a window (host spans and, on the card, its
+kernels) and :func:`annotate` names a host region inside one.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
+
+from kafkastreams_cep_tpu_torch.utils.telemetry import (
+    LATENCY_EDGES_S,
+    MetricsRegistry,
+    merge_counter_dicts,
+)
+
+__all__ = ["COUNTER_ATTRS", "SECONDS_ATTRS", "PHASE_NAMES", "Metrics", "profile",
+           "annotate", "device_memory_stats", "merge_counter_dicts"]
 
 #: Integer runtime counters, in snapshot order.
 COUNTER_ATTRS = (
@@ -21,7 +36,8 @@ COUNTER_ATTRS = (
     "decode_fallbacks",
 )
 
-#: Wall-time accumulators, one per batch phase.
+#: Wall-time accumulators; each also feeds the phase histogram of the same
+#: stem ("device_seconds" -> phases["device"]).
 SECONDS_ATTRS = (
     "device_seconds",
     "decode_seconds",
@@ -31,37 +47,104 @@ SECONDS_ATTRS = (
     "gc_seconds",
 )
 
+#: The batch phases every processor pre-registers, so snapshots of runs
+#: that never hit a phase (gc off, eager extraction) carry the same keys.
+PHASE_NAMES = ("pack", "dispatch", "drain", "device", "decode", "gc")
+
+
+def _counter_property(name: str) -> property:
+    def get(self) -> float:
+        return self.registry.counter(name).value
+
+    def set(self, v) -> None:
+        self.registry.counter(name).value = v
+
+    return property(get, set)
+
 
 class Metrics:
-    """Mutable counters for one processor."""
+    """Mutable counters for one processor (or bank member), registry-backed.
 
-    def __init__(self):
+    Counter attributes read and write registry counters; ``timed(attr)``
+    adds the wall seconds of its body to the ``attr`` counter and observes
+    the phase's latency histogram."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
+        self.registry = registry or MetricsRegistry()
         for n in COUNTER_ATTRS:
-            setattr(self, n, 0)
-        for n in SECONDS_ATTRS:
-            setattr(self, n, 0.0)
+            self.registry.counter(n)
+        for n in SECONDS_ATTRS:  # seconds are floats from the start
+            self.registry.counter(n).value = 0.0
+        for n in PHASE_NAMES:
+            self.registry.histogram(f"phase.{n}", LATENCY_EDGES_S)
 
     def snapshot(self, engine_counters: Dict[str, int]) -> Dict[str, float]:
         """One flat dict: the runtime counters, the phase seconds (rounded
         to the microsecond), ``events_per_second_device`` once a device
-        phase was timed, and ``engine_counters``."""
-        out: Dict[str, float] = {n: getattr(self, n) for n in COUNTER_ATTRS}
+        phase was timed, ``engine_counters`` and the per-phase latency
+        histograms (``"phases"``)."""
+        out: Dict[str, float] = {n: self.registry.counter(n).value for n in COUNTER_ATTRS}
         for n in SECONDS_ATTRS:
-            out[n] = round(getattr(self, n), 6)
+            out[n] = round(self.registry.counter(n).value, 6)
         if out["device_seconds"] > 0:
             out["events_per_second_device"] = round(
                 out["records_in"] / out["device_seconds"], 1)
         out.update(engine_counters)
+        out["phases"] = self.phases()
         return out
+
+    def phases(self) -> Dict[str, dict]:
+        """Per-phase latency histogram snapshots (count, sum, p50, p99)."""
+        return {
+            name[len("phase."):]: inst.snapshot()
+            for name, inst in self.registry.items()
+            if name.startswith("phase.")
+        }
 
     @contextlib.contextmanager
     def timed(self, attr: str) -> Iterator[None]:
-        """Add the wall seconds of the ``with`` body to ``attr``."""
+        """Add the wall seconds of the ``with`` body to ``attr`` and observe
+        them in the phase's histogram."""
         t0 = time.perf_counter()
         try:
             yield
         finally:
-            setattr(self, attr, getattr(self, attr) + time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            self.registry.counter(attr).value += dt
+            phase = attr[:-8] if attr.endswith("_seconds") else attr
+            self.registry.histogram(f"phase.{phase}", LATENCY_EDGES_S).observe(dt)
+
+
+for _n in COUNTER_ATTRS + SECONDS_ATTRS:
+    setattr(Metrics, _n, _counter_property(_n))
+del _n
+
+
+@contextlib.contextmanager
+def profile(log_dir: str) -> Iterator[object]:
+    """Capture a ``torch.profiler`` trace of the enclosed block: host spans,
+    and the card's kernels when a GPU is present.  The trace is written as
+    a Chrome/TensorBoard JSON file under ``log_dir`` when the block ends;
+    the profiler is yielded, so the caller can read ``key_averages()`` or
+    ``events()`` after the block."""
+    import torch
+    from torch.profiler import ProfilerActivity, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities,
+                                on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
+
+
+@contextlib.contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """Name a host-side region inside an active profiler trace."""
+    import torch
+
+    with torch.profiler.record_function(name):
+        yield
 
 
 def device_memory_stats(device=None) -> Dict[str, int]:
@@ -75,12 +158,3 @@ def device_memory_stats(device=None) -> Dict[str, int]:
         return {}
     return {k: int(v) for k, v in torch.cuda.memory_stats(device).items()
             if isinstance(v, (int, float)) and "bytes" in k}
-
-
-def merge_counter_dicts(dicts) -> dict:
-    """Key-wise sum of plain counter dicts (bank members, shard reports)."""
-    out: dict = {}
-    for d in dicts:
-        for k, v in d.items():
-            out[k] = out.get(k, 0) + v
-    return out

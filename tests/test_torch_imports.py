@@ -45,10 +45,14 @@ def test_files_found():
                 "compiler/multitenant.py", "engine/predmatrix.py", "parallel/stacked.py",
                 "parallel/tenantbank.py", "runtime/bank.py", "ops/spike_kernel.py",
                 "native/__init__.py", "runtime/ingest.py", "utils/serde.py",
-                "engine/sizing.py", "runtime/migrate.py"):
+                "engine/sizing.py", "runtime/migrate.py", "runtime/supervisor.py",
+                "runtime/flight.py", "native/journal.py", "utils/failpoints.py",
+                "utils/telemetry.py", "utils/metrics.py"):
         assert f"kafkastreams_cep_tpu_torch/{mod}" in FILES
     # The native packer builds from the port's own copy of the C++ source.
     assert (PKG / "native" / "src" / "ingest.cpp").is_file()
+    # And the journal's C++ write path from its own copy.
+    assert (PKG / "native" / "src" / "journal.cpp").is_file()
 
 
 @pytest.mark.parametrize("rel", FILES)

@@ -393,9 +393,13 @@ def test_jax_checkpoint_loads_without_the_jax_package(tmp_path):
 
 
 def assert_snapshots_equal(jsnap, tsnap):
-    """Every key JAX reports but ``phases``, ``latency``, ``trace_cache``
-    and ``hbm`` is equal; the wall-clock keys are present in both."""
+    """Every key JAX reports but ``latency``, ``trace_cache`` and ``hbm`` is
+    equal; the wall-clock keys are present in both, and ``phases`` has the
+    same phases, each observed as many times."""
     skip = {"phases", "latency", "trace_cache", "hbm"}
+    assert {k: v["count"] for k, v in tsnap["phases"].items()} == {
+        k: v["count"] for k, v in jsnap["phases"].items()}
+    tsnap = {k: v for k, v in tsnap.items() if k != "phases"}
     jkeys = set(jsnap) - skip
     if "events_per_second_device" in jkeys and "events_per_second_device" not in tsnap:
         assert tsnap["device_seconds"] == 0.0  # rounded away on a fast CPU run

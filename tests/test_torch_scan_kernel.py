@@ -395,12 +395,13 @@ def test_switch_off_uses_per_step_path(monkeypatch, scan_calls, mode):
     assert not scan_calls
 
 
-def kernel_equals_plain(dev, kernel=None):
+def kernel_equals_plain(dev, kernel=None, base=None):
     """Every instance of the whole-scan kernel (eager or lazy x single or
     two-tier x with or without attribution; and tiered: eager, lazy,
     two-tier + attribution), in both placements of the pointer rows,
-    against its plain version on ``dev``; ``kernel`` (default: the CUDA
-    kernel) takes the wrapper's arguments."""
+    against its plain version on ``dev``, at ``base`` (default ``CFG``);
+    ``kernel`` (default: the CUDA kernel) takes the wrapper's arguments."""
+    base = base or CFG
     from kafkastreams_cep_tpu_torch.parallel.tiered import TieredBatchMatcher
 
     kernel = kernel or scan_kernel.scan_pass_kernel
@@ -421,7 +422,7 @@ def kernel_equals_plain(dev, kernel=None):
 
     events = on_dev(stock_events(K, T, 9))
     for lazy, hot, attr in itertools.product((False, True), repeat=3):
-        conf = dict(CFG, slab_hot_entries=8 if hot else 0, stage_attribution=attr)
+        conf = dict(base, slab_hot_entries=8 if hot else 0, stage_attribution=attr)
         if lazy:
             conf.update(lazy_extraction=True, handle_ring=64)
         tb = BatchMatcher(ts.stock(ts.TQuery), K, EngineConfig(**conf), device=dev)
@@ -441,7 +442,7 @@ def kernel_equals_plain(dev, kernel=None):
     for extra in ({}, dict(lazy_extraction=True, handle_ring=64),
                   dict(slab_hot_entries=8, stage_attribution=True)):
         tm = TieredBatchMatcher(prefix_n_minus_1(ts.TQuery), K,
-                                EngineConfig(**CFG, tiering=True, **extra), device=dev)
+                                EngineConfig(**base, tiering=True, **extra), device=dev)
         source = scan_codegen.generate(tm.matcher.tables, letters.value)
         eng, carry = tm.init_state()
         _, feed = tm._prefix.scan(carry, letters)
@@ -461,6 +462,19 @@ def test_kernel_equals_plain_on_gpu(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     kernel_equals_plain(torch.device("cuda"))
+
+
+#: The wide instances' config: pointer lists and versions past 32.
+WIDE_CFG = dict(CFG, slab_preds=40, dewey_depth=48)
+
+
+@pytest.mark.cuda
+def test_wide_kernel_equals_plain_on_gpu():
+    """On a GPU: every wide instance (``slab_preds``/``dewey_depth`` above
+    32) equals its plain version bit for bit, as the narrow ones do."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    kernel_equals_plain(torch.device("cuda"), base=WIDE_CFG)
 
 
 def test_tiered_scan_path_equals_jax_tiered_scan_kernel(monkeypatch):

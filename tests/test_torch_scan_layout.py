@@ -41,7 +41,7 @@ import chip_smoke as cs  # noqa: E402
 #: The fields of ``ScanLayout`` in the order the shim writes them (the
 #: Python mirror's names; ``run<b>.<f>`` for the two run buffers).
 FIELDS = (
-    ["st", "of", "rf", "np", "dead", "ps", "po", "pl", "pv"]
+    ["st", "of", "rf", "np", "dead", "q", "ps", "po", "pl", "pv"]
     + [f"run{b}.{f}" for b in (0, 1)
        for f in scan_kernel._RUN_ARRAYS + ("ver", "agg")]
     + ["p_cur", "p_pst", "p_pof", "p_pvl", "p_ver", "p_sc", "p_list", "p_free",
@@ -58,7 +58,7 @@ extern "C" void layout(const int* d, long long* out) {
   const ScanLayout l = scan_layout(d[0], d[1], d[2], d[3], d[4], d[5], d[6],
                                    d[7] != 0, d[8] != 0);
   const size_t v[] = {
-      l.st, l.of, l.rf, l.np, l.dead, l.ps, l.po, l.pl, l.pv, RUN(l.run[0]),
+      l.st, l.of, l.rf, l.np, l.dead, l.q, l.ps, l.po, l.pl, l.pv, RUN(l.run[0]),
       RUN(l.run[1]), l.p_cur, l.p_pst, l.p_pof, l.p_pvl, l.p_ver, l.p_sc,
       l.p_list, l.p_free,
       l.w_stage, l.w_off, l.w_vlen, l.w_run, l.w_list, l.r_id, l.r_eval,
@@ -88,6 +88,9 @@ CONFIGS = {
     "TIER_CELL": ("bench_tier", True, True),
     "SMALL": ("stock", False, True),
     "MIXED_CFG": ("mixed", False, False),
+    "WIDE_SCAN": ("stock", False, False),
+    "WIDE_TIER": ("hybrid", True, False),
+    "ESCALATED": ("stock", False, False),
 }
 
 
@@ -122,8 +125,23 @@ def pattern_dims(kind):
     return tables.max_hops, max(tables.num_states, 1), tables.num_stages
 
 
+#: Configurations besides chip_smoke.py's constants: its wide whole-scan
+#: and tiered cases, and the headline config escalated to D=48, MP=16
+#: (EscalationPolicy's doubling; at E=96 its pointer rows, 295 KB of pver
+#: a lane, stay in device memory).
+EXTRA = {
+    "WIDE_SCAN": dict(cs.HEADLINE, **cs.WIDE),
+    "WIDE_TIER": dict(cs.TIER_PARITY, **cs.WIDE),
+    "ESCALATED": dict(cs.HEADLINE, slab_entries=96, slab_preds=16, dewey_depth=48),
+}
+
+
+def conf_of(name):
+    return EXTRA[name] if name in EXTRA else getattr(cs, name)
+
+
 def dims_of(name):
-    conf = getattr(cs, name)
+    conf = conf_of(name)
     H, NS, S = pattern_dims(CONFIGS[name][0])
     return (conf["max_runs"], conf["slab_entries"], conf["slab_preds"],
             conf["dewey_depth"], H, NS, S)
@@ -159,7 +177,7 @@ def test_layout_matches_mirror(lib, name):
 def test_pointer_rows_placement(lib, name):
     dims = dims_of(name)
     _, tiered, placed = CONFIGS[name]
-    attr = bool(getattr(cs, name).get("stage_attribution", False))
+    attr = bool(conf_of(name).get("stage_attribution", False))
     shared = scan_kernel.pv_in_shared(*dims, attr, tiered)
     assert lib.pv_rule((ctypes.c_int * 9)(*dims, int(attr), int(tiered))) == shared
     assert shared == placed

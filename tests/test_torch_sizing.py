@@ -143,3 +143,26 @@ def test_escalate_ingest_equals_jax(policy, tripped, ceiling):
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
     stats = dict(tripped, admitted=10)
     assert sizing.ingest_capacity_counters(stats) == jsizing.ingest_capacity_counters(stats)
+
+
+def test_sweep_in_lane_chunks_equals_one_pass(monkeypatch):
+    """The sweep renormalizes lanes in chunks bounded by their pointer
+    versions' size (``parallel/batch.py: _RENORM_CHUNK``, so a wide slab's
+    temporaries fit on the card); lanes are independent, so any chunking
+    gives the one-pass state, which is the JAX sweep's."""
+    import numpy as np
+
+    from kafkastreams_cep_tpu_torch import BatchMatcher
+    from kafkastreams_cep_tpu_torch.convert import state_arrays
+    from kafkastreams_cep_tpu_torch.parallel import batch as batch_mod
+
+    cfg = EngineConfig(max_runs=8, slab_entries=16, slab_preds=4, dewey_depth=8, max_walk=8)
+    bm = BatchMatcher(ts.straddle(ts.TQuery), 9, cfg, device="cpu")
+    st, _ = bm.scan(bm.init_state(), ts.events("x", np.random.default_rng(3), 9, 24))
+    whole = state_arrays(bm.sweep(st))
+    assert any((whole[k] != state_arrays(st)[k]).any() for k in ("ver", "slab/pver"))
+    monkeypatch.setattr(batch_mod, "_RENORM_CHUNK", 2 * 16 * 4 * 8)  # two lanes a chunk
+    chunked = state_arrays(bm.sweep(st))
+    assert whole.keys() == chunked.keys()
+    for k in whole:
+        np.testing.assert_array_equal(whole[k], chunked[k], err_msg=k)

@@ -43,10 +43,14 @@ CONFIGS = {
     # Rows of E*4, E*MP*4 and E*MP*D*4 bytes, none a multiple of 16: the
     # kernel's block copies take their scalar heads and tails.
     "misaligned": (25, 3, 5, 6, 4, 2),
+    # The kernel's wide instances (MP and D above 32): two tombstone words a
+    # row, long versions and rows whose first 32 pointers no walker takes.
+    "d48_mp40": (24, 40, 48, 12, 8, 3),
 }
 #: The GPU tests' configs besides: lanes whose arena is too large for eight
-#: a block, so that the kernel's blocks serve 5-7.
-CUDA_CONFIGS = dict(CONFIGS, wide=(1536, 8, 12, 12, 24, 3))
+#: a block, so that the kernel's blocks serve 5-7; and three tombstone words
+#: and three digit groups a row on a small slab.
+CUDA_CONFIGS = dict(CONFIGS, wide=(1536, 8, 12, 12, 24, 3), d96_mp64=(16, 64, 96, 12, 8, 3))
 JAX_CLASSES = {"SlabState": jslab.SlabState, "PutOps": jslab.PutOps}
 
 
@@ -269,12 +273,12 @@ def test_cuda_kernel_modes_equal_plain(K, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("config", ["misaligned", "wide"])
+@pytest.mark.parametrize("config", ["misaligned", "wide", "d48_mp40", "d96_mp64"])
 @pytest.mark.parametrize("mode", ("default",) + MODES)
 def test_cuda_kernel_misaligned_equals_plain(mode, config):
     """K=37 lanes (the last block holds fewer than the others) of the
-    misaligned config, and of the wide one, whose blocks serve fewer than
-    eight lanes."""
+    misaligned config, of the wide one, whose blocks serve fewer than
+    eight lanes, and of the two slabs past 32 pointers and digits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the walk-pass kernel has no CPU build")
     if mode == "default":

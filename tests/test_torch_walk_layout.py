@@ -39,14 +39,14 @@ from kafkastreams_cep_tpu_torch.ops.slab import SlabState
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import chip_smoke as cs  # noqa: E402
 
-FIELDS = ("st", "of", "rf", "np", "dead", "row", "sh", "p_sc", "p_list", "p_free",
+FIELDS = ("st", "of", "rf", "np", "dead", "row", "q", "sh", "p_sc", "p_list", "p_free",
           "p_cur", "p_pst", "p_pof", "p_pvl", "p_en", "p_first", "spans", "bytes")
 
 SHIM = r"""
 #include "walk_layout.cuh"
 extern "C" void layout(const int* d, long long* out) {
   const WalkLayout l = walk_layout(d[0], d[1], d[2], d[3], d[4], d[5], d[6] != 0);
-  const size_t v[] = {l.st, l.of, l.rf, l.np, l.dead, l.row, l.sh, l.p_sc,
+  const size_t v[] = {l.st, l.of, l.rf, l.np, l.dead, l.row, l.q, l.sh, l.p_sc,
                       l.p_list, l.p_free, l.p_cur, l.p_pst, l.p_pof, l.p_pvl,
                       l.p_en, l.p_first, l.spans, l.bytes};
   for (size_t i = 0; i < sizeof(v) / sizeof(v[0]); ++i) out[i] = (long long)v[i];
@@ -55,6 +55,8 @@ extern "C" int lanes_rule(const int* d) {
   return walk_lanes(d[0], d[1], d[2], d[3], d[4], d[5] != 0);
 }
 extern "C" int lanes() { return kWalkLanes; }
+extern "C" int wide(int MP, int D) { return walk_wide(MP, D); }
+extern "C" int dead_words(int MP) { return walk_dead_words(MP); }
 extern "C" long long smem_per_block() { return (long long)kSmemPerBlock; }
 extern "C" int put_cols() { return kScanPutCols; }
 extern "C" long long span_bytes() { return (long long)kWalkSpanBytes; }
@@ -115,6 +117,13 @@ CONFIGS = {
     "parity wide": (_parity(1536, 8, 12, 24, 3), 5),
     "parity wide two_tier+attribution": (_parity(1536, 8, 12, 24, 3, 16, 4), 7),
     "parity wide drain": (_parity(1536, 8, 12, 24, 3, drain=True), 7),
+    "parity d48_mp40": (_parity(24, 40, 48, 8, 3), 8),
+    "parity d48_mp40 two_tier+attribution+drain": (_parity(24, 40, 48, 8, 3, 16, 4, True), 8),
+    "parity d96_mp64": (_parity(16, 64, 96, 4, 3), 8),
+    "parity d96_mp64 two_tier+attribution": (_parity(16, 64, 96, 4, 3, 8, 4), 8),
+    # The headline config escalated to D=48 (EscalationPolicy's doubling)
+    # and its pointer lists to 16.
+    "escalated headline": ((96, 16, 48, 72, 0, True), 8),
 }
 
 
@@ -144,6 +153,14 @@ def c_layout(lib, dims, lanes):
 
 def c_lanes(lib, dims):
     return lib.lanes_rule((ctypes.c_int * 6)(*map(int, dims)))
+
+
+@pytest.mark.parametrize("MP, D", [(1, 1), (8, 12), (32, 32), (33, 5), (8, 33), (40, 48),
+                                   (64, 96), (65, 200)])
+def test_wide_rule_matches_mirror(lib, MP, D):
+    """Which slabs run the wide instances, and their tombstone words a row."""
+    assert bool(lib.wide(MP, D)) == walk_kernel.is_wide(MP, D) == (MP > 32 or D > 32)
+    assert lib.dead_words(MP) == walk_kernel.dead_words(MP) == max(1, -(-MP // 32))
 
 
 def test_constants_match(lib):
@@ -199,6 +216,17 @@ def test_slab_past_eight_lanes_is_served_in_smaller_blocks(lib, E, lanes):
     assert got == lanes == c_lanes(lib, (E, 8, 12, 72, 0, True))
     assert nbytes == walk_kernel.block_layout(E, 8, 12, 72, 0, True, lanes)["bytes"]
     assert nbytes <= walk_kernel.SMEM_PER_BLOCK
+
+
+def test_escalated_headline_fits_eight_lanes_a_block():
+    """At the escalated headline shape (E=96, MP=16, D=48) a lane's keys,
+    tombstones, staged row and query version take KBs while its pver
+    (96 x 16 x 48 int32, 295 KB) stays in device memory."""
+    slab = _slab(96, 16, 48)
+    lanes, nbytes = walk_kernel.WalkPassKernel.arena(slab, 72)
+    assert lanes == walk_kernel.LANES_PER_BLOCK
+    assert nbytes // lanes < 10 * 1024
+    assert slab.pver[0].numel() * 4 == 96 * 16 * 48 * 4
 
 
 def test_arena_too_large_for_a_block_raises(lib):
