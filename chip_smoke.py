@@ -154,6 +154,23 @@ Phases (any failure exits non-zero before the final line):
               Prometheus text and one ``torch.profiler`` trace of two
               supervised batches (the device's busy share).  The wide
               instances also join phases 2 and 7's parity cases.
+14. tenant    — the host oracle, the latency ledger, the tenant runtime and
+              the examples: (a) five patterns (the stock demo, strict3,
+              kleene_any, skip_till_any, windowed) over 37 lanes x 64 steps
+              of seeded records through a per-step ``CEPProcessor`` at a
+              loss-free config: every lane's Sequences equal the port
+              ``OracleNFA``'s, in order (and, for information, bench.py's
+              sampled recall/precision on two lanes of the headline run and
+              the oracle's events/s); (b) bench_processor's columns with and
+              without ``latency=True``, per step (pipelined) and as whole
+              scans: equal streams and counters, the ledger's segments
+              summing to its e2e total; (c) ``TenantCEP`` on the mixed bank
+              at 4,096 lanes a query, 3 batches of 8 steps as Records: equal
+              to ``CEPBank``, across a checkpoint and restore, under a
+              ``TenantSupervisor`` with a ``device.dispatch`` fault, with a
+              quarantined query, and with an ``AdmissionPolicy`` whose
+              ledger reconciles; the tenant cell through ``TenantCEP`` for
+              information; (d) the four ``examples/torch_*.py`` on the card.
 
 The last two lines of standard output are the kernel report (one JSON
 object) and the device line ``{"ok": true, "device": {...}}``; the card's
@@ -163,6 +180,7 @@ script imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import collections
 import json
 import logging
 import os
@@ -335,6 +353,22 @@ SUP_CRASH_AFTER = 3
 ESC_STEPS = 64
 ESC_BATCHES = 4
 ESC_ROUNDS = 8
+# Phase 14: the oracle, the latency ledger, the tenant runtime, the examples.
+ORACLE_LANES = 37
+ORACLE_STEPS = 64
+# Loss-free on every (a) trace below (all capacity counters 0), B1's
+# narrow instances (D, MP <= 32).
+ORACLE_CFG = dict(max_runs=32, slab_entries=128, slab_preds=32, dewey_depth=32, max_walk=16)
+RECALL_LANES = 2
+# bench_oracle's stream; the oracle's state grows per event (2,000 events
+# take minutes on the host), so its first 500, the figure bench.py also prints.
+ORACLE_BENCH_EVENTS = 500
+LAT_LANES = 4096
+LAT_STEPS = 128
+TEN_LANES = 4096
+TEN_STEPS = 8
+TEN_BATCHES = 3
+CELL_BATCHES = 2  # the tenant cell through TenantCEP: one warm, one timed
 
 
 def log(msg: str) -> None:
@@ -2847,6 +2881,466 @@ def supervisor_phase(torch, dev, smi, report, scan_bound, scan_entry, walk_err, 
     log(f"supervisor phase: {time.perf_counter() - t13:.1f} s")
 
 
+def planted_letters(rng, T: int, plant: float, body, noise):
+    """A letters lane: ``body`` planted with probability ``plant`` between
+    pairs of ``noise`` letters."""
+    out = []
+    while len(out) < T:
+        if rng.random() < plant:
+            out += list(body(rng))
+        else:
+            out += [int(x) for x in rng.choice(noise, size=2)]
+    return out[:T]
+
+
+def oracle_values(name: str, rng, K: int, T: int):
+    """``[K][T]`` host values of phase 14 (a)'s traces: sparse enough that
+    ORACLE_CFG loses nothing, dense enough that every lane matches."""
+    if name == "stock":
+        p = rng.integers(90, 131, size=(K, T))
+        v = np.where(rng.random((K, T)) < 0.03, 1100, rng.integers(700, 1000, size=(K, T)))
+        return [[{"price": int(p[k, t]), "volume": int(v[k, t])} for t in range(T)]
+                for k in range(K)]
+    if name == "strict3":
+        body = lambda r: [0, 1] + [2] * int(r.integers(1, 3)) + ([3] if r.random() < 0.7 else [])
+        return [planted_letters(rng, T, 0.5, body, [0, 1, 2, 3, 4]) for _ in range(K)]
+    if name == "skip_till_any":
+        return [planted_letters(rng, T, 0.12, lambda r: [0, 1, 2, 3], [1, 4, 4])
+                for _ in range(K)]
+    xs = rng.choice([0, 3, 5, 8, 9, 9] if name == "kleene_any" else [0, 1, 2, 2, 4], size=(K, T))
+    return [[{"x": int(xs[k, t])} for t in range(T)] for k in range(K)]
+
+
+def plain_seq(seq):
+    """A Sequence as plain data: each stage's events' offsets, timestamps
+    and values, order kept."""
+    return [(stage, [(e.offset, e.timestamp, e.value) for e in evs])
+            for stage, evs in seq.as_map().items()]
+
+
+def tenant_cell_patterns(Query):
+    """bench.py: bench_tenants' N=TENANT_N rules and its [TENANT_K,
+    TENANT_STEPS] symbol codes (seed 29), as phase 9 (b) draws them."""
+    rng = np.random.default_rng(29)
+    pool = [(int(a), int(b)) for a, b in rng.integers(1, 8, size=(16, 2))]
+    codes = rng.integers(8, 64, size=(TENANT_K, TENANT_STEPS)).astype(np.int32)
+    planted = [(int(rng.integers(0, TENANT_K)), int(rng.integers(0, TENANT_STEPS - 3)))
+               for _ in range(6)]
+    z = rng.zipf(1.5, size=TENANT_N)
+    params = []
+    for i in range(TENANT_N):
+        a, b = pool[int(z[i] - 1) % len(pool)]
+        params.append((a, b, int(rng.integers(1, 8))))
+    for j, (k, t) in enumerate(planted):
+        codes[k, t:t + 3] = params[j % TENANT_N]
+    return {f"t{i}": tenant_pattern(Query, *p) for i, p in enumerate(params)}, codes
+
+
+def tenant_phase(torch, dev, smi, report):
+    """Phase 14: the host oracle, the latency ledger, the tenant runtime and
+    the port's examples on the card.
+
+    (a) ORACLE_LANES x ORACLE_STEPS seeded records of five patterns (the
+    stock demo, strict3, kleene_any, skip_till_any, windowed) through a
+    per-step ``CEPProcessor`` on the card at ORACLE_CFG, every capacity
+    counter 0: each lane's Sequences equal the port ``OracleNFA``'s, in
+    order; for information, bench.py's recall/precision on RECALL_LANES
+    lanes of the headline run and the oracle's events/s over bench_oracle's
+    stream; (b) bench_processor's columns (LAT_LANES x LAT_STEPS, seed 23,
+    one warm and one timed batch) per step (pipelined) and as whole scans
+    with and without ``latency=True``: equal matches and counters, the
+    committed segments summing to the e2e total; (c) ``TenantCEP`` on the
+    mixed bank (TEN_LANES lanes a query, TEN_BATCHES batches of TEN_STEPS
+    steps as Records, offsets running on): (c1) its stream equals
+    ``CEPBank``'s, every capacity counter 0; (c2) a checkpoint after batch
+    1 restores on the card and continues equal; (c3) ``TenantSupervisor``
+    with a ``device.dispatch`` fault at batch 2 equals the fault-free run
+    with one recovery; (c4) a quarantined hybrid query leaves the others
+    equal, and an ``AdmissionPolicy`` on one flooding tenant reconciles
+    with the ledger on; (c5) for information, the tenant cell through
+    ``TenantCEP``; (d) the four ``examples/torch_*.py`` ``main()`` on the
+    card at their defaults."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from kafkastreams_cep_tpu_torch import CEPProcessor, EngineConfig, OracleNFA, Query, Record
+    from kafkastreams_cep_tpu_torch.engine import capacity_counters
+    from kafkastreams_cep_tpu_torch.ops import scan_kernel, walk_kernel
+    from kafkastreams_cep_tpu_torch.runtime import (
+        AdmissionPolicy, CEPBank, TenantCEP, TenantSupervisor, restore_tenant,
+        save_tenant_checkpoint,
+    )
+    from kafkastreams_cep_tpu_torch.utils import failpoints
+    from kafkastreams_cep_tpu_torch.utils.latency import SEGMENTS, LatencyLedger
+
+    kern, skern = walk_kernel.walk_pass_kernel, scan_kernel.scan_pass_kernel
+    t14 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="cep_tenant_")
+    section = {}
+
+    def reset():
+        kern.reset_counts()
+        skern.reset_counts()
+
+    def launched():
+        return ({(f"walk_pass[{m}]" if m != "default" else "walk_pass"): c
+                 for m, c in kern.launches_by_mode.items() if c}
+                | {f"scan_pass[{m}]": c for m, c in skern.launches_by_mode.items() if c})
+
+    def record(path, launches, bank=False):
+        """Add one path's launches to the kernel report; a bank caller's
+        default-mode B1 launches go to the ``walk_pass[bank]`` entry."""
+        for name, n in launches.items():
+            add_launches(report, "walk_pass[bank]" if bank and name == "walk_pass" else name,
+                         path, n)
+
+    def timed_section(name, t0):
+        section[name] = time.perf_counter() - t0
+
+    try:
+        # (a) the oracle on the card ------------------------------------------
+        t0 = time.perf_counter()
+        K, T = ORACLE_LANES, ORACLE_STEPS
+        pats = {"stock": stock_pattern, "strict3": strict3_pattern,
+                "kleene_any": kleene_any_pattern, "skip_till_any": skip_till_any_pattern,
+                "windowed": windowed_pattern}
+        a_launches, summary = {}, []
+        for i, (name, build) in enumerate(pats.items()):
+            vals = oracle_values(name, np.random.default_rng(101 + i), K, T)
+            recs = [Record(k, vals[k][t], 3 * t) for t in range(T) for k in range(K)]
+            proc = CEPProcessor(build(Query), K, EngineConfig(**ORACLE_CFG), epoch=0,
+                                device=dev)
+            reset()
+            got = proc.process(recs)
+            torch.cuda.synchronize()
+            for path_name, n in launched().items():
+                a_launches[path_name] = a_launches.get(path_name, 0) + n
+            if any(capacity_counters(proc.counters()).values()):
+                fail(f"tenant (a) {name}: capacity counters {proc.counters()}")
+            per_lane = {k: [] for k in range(K)}
+            for key, seq in got:
+                per_lane[key].append(plain_seq(seq))
+            n_oracle = 0
+            for k in range(K):
+                oracle = OracleNFA.from_pattern(build(Query))
+                want = [plain_seq(seq) for t in range(T)
+                        for seq in oracle.match(k, vals[k][t], 3 * t, topic=proc.topic,
+                                                partition=k, offset=t)]
+                n_oracle += len(want)
+                if per_lane[k] != want:
+                    fail(f"tenant (a) {name}: lane {k} emits {len(per_lane[k])} Sequences, "
+                         f"the oracle {len(want)}, or they differ")
+            if not n_oracle:
+                fail(f"tenant (a) {name}: the trace matched nothing")
+            summary.append(f"{name} {n_oracle}")
+        if set(a_launches) != {"walk_pass"}:
+            fail(f"tenant (a): launches {a_launches}, want walk_pass only")
+        record("oracle_lanes", a_launches)
+        log(f"tenant (a): {K} lanes x {T} steps, per step on the card at {shape_of(EngineConfig(**ORACLE_CFG))}, "
+            f"capacity counters 0: every lane's Sequences equal the port oracle's in order "
+            f"(matches: {', '.join(summary)}); launches {a_launches} [{smi}]")
+        # For information: bench.py's recall/precision on the headline run.
+        from kafkastreams_cep_tpu_torch import BatchMatcher
+        from kafkastreams_cep_tpu_torch.engine.matcher import EventBatch
+
+        hb = BatchMatcher(stock_pattern(Query), LANES, EngineConfig(**HEADLINE), device=dev)
+        events = make_batch(torch, EventBatch, LANES, STEPS, 42, dev)
+        reset()
+        _, hout = hb.scan(hb.init_state(), events)
+        torch.cuda.synchronize()
+        record("oracle_recall_headline", launched())
+        lanes_s = list(range(0, LANES, max(LANES // RECALL_LANES, 1)))[:RECALL_LANES]
+        prices = events.value["price"].cpu().numpy()
+        volumes = events.value["volume"].cpu().numpy()
+        count = hout.count[lanes_s].cpu().numpy()
+        stage = hout.stage[lanes_s].cpu().numpy()
+        off = hout.off[lanes_s].cpu().numpy()
+        del hout
+        tot_o = tot_e = tot_hit = 0
+        for j, lane in enumerate(lanes_s):
+            oracle = OracleNFA.from_pattern(stock_pattern(Query))
+            for t in range(STEPS):
+                ms = oracle.match(None, {"price": int(prices[lane, t]),
+                                         "volume": int(volumes[lane, t])}, 2 * t, offset=t)
+                want = collections.Counter(
+                    tuple(sorted((n, tuple(e.offset for e in evs)) for n, evs in m.as_map().items()))
+                    for m in ms)
+                got = collections.Counter()
+                for r in range(count.shape[2]):
+                    n = int(count[j, t, r])
+                    if n:
+                        m = {}
+                        for w in range(n):
+                            m.setdefault(hb.names[int(stage[j, t, r, w])], []).append(
+                                int(off[j, t, r, w]))
+                        got[tuple(sorted((a, tuple(b)) for a, b in m.items()))] += 1
+                tot_o += sum(want.values())
+                tot_e += sum(got.values())
+                tot_hit += sum((want & got).values())
+        recall = tot_hit / tot_o if tot_o else 1.0
+        precision = tot_hit / tot_e if tot_e else 1.0
+        rng = np.random.default_rng(42)
+        bp = rng.integers(90, 131, size=ORACLE_BENCH_EVENTS)
+        bv = rng.integers(600, 1101, size=ORACLE_BENCH_EVENTS)
+        oracle = OracleNFA.from_pattern(stock_pattern(Query))
+        t1 = time.perf_counter()
+        n_bench = sum(len(oracle.match(None, {"price": int(bp[i]), "volume": int(bv[i])},
+                                       2 * i, offset=i)) for i in range(ORACLE_BENCH_EVENTS))
+        oracle_s = time.perf_counter() - t1
+        log(f"tenant (a), for information: recall_sampled {recall:.4f} / precision_sampled "
+            f"{precision:.4f} vs the port oracle on lanes {lanes_s} of the headline run "
+            f"(K={LANES} x T={STEPS}, {tot_o} oracle matches); the oracle: "
+            f"{ORACLE_BENCH_EVENTS} events of bench_oracle's stream in {oracle_s:.2f} s "
+            f"({ORACLE_BENCH_EVENTS / oracle_s:,.0f} events/s, host), {n_bench} matches")
+        del hb, events
+        timed_section("a", t0)
+
+        # (b) the latency ledger ----------------------------------------------
+        t0 = time.perf_counter()
+        K, T = LAT_LANES, LAT_STEPS
+        N = K * T
+        keys, prices, volumes = processor_stream(K, T)
+        values = {"price": prices, "volume": volumes}
+        b_launches = {}
+
+        def columns(scan, latency):
+            if scan:
+                os.environ["CEP_SCAN_KERNEL"] = "1"
+            try:
+                proc = CEPProcessor(stock_pattern(Query), K, EngineConfig(**HEADLINE), epoch=0,
+                                    pipeline=not scan, latency=latency, device=dev)
+            finally:
+                os.environ.pop("CEP_SCAN_KERNEL", None)
+            if proc.uses_scan_kernel != scan:
+                fail(f"tenant (b): uses_scan_kernel {proc.uses_scan_kernel}, want {scan}")
+            reset()
+            out, ledgers = [], []
+            for b in range(2):
+                out += proc.process_columns(keys, values, b * N + np.arange(N, dtype=np.int64))
+                out += proc.flush()
+                if latency:
+                    # The warm batch (with the first scan's library build)
+                    # and the timed one each get a ledger of their own.
+                    ledgers.append(proc.ledger)
+                    proc.ledger = LatencyLedger(clock=proc._clock)
+            torch.cuda.synchronize()
+            for name, n in launched().items():
+                b_launches[name] = b_launches.get(name, 0) + n
+            return canon_stream(out), proc.counters(), ledgers
+
+        for scan in (False, True):
+            label = "whole scan" if scan else "per step, pipelined"
+            on, on_c, ledgers = columns(scan, True)
+            off_, off_c, _ = columns(scan, None)
+            if (on, on_c) != (off_, off_c) or not on:
+                fail(f"tenant (b) {label}: latency=True changed the stream or counters "
+                     f"({len(on)} vs {len(off_)} matches)")
+            for which, ledger in zip(("warm", "timed"), ledgers):
+                lat = ledger.snapshot()
+                segs = lat["segments"]
+                total = sum(segs[n]["sum"] for n in SEGMENTS)
+                e2e = segs["e2e_total"]["sum"]
+                if (lat["records"] != N or lat["deferred_batches"]
+                        or abs(total - e2e) > 1e-9 * abs(e2e) + 1e-9):
+                    fail(f"tenant (b) {label}, {which}: ledger records {lat['records']}, "
+                         f"deferred {lat['deferred_batches']}, segment sums {total} vs e2e {e2e}")
+                log(f"tenant (b) {label}, {which} batch: {lat['records']} records, segment "
+                    f"sums = e2e total ({e2e:.6f} s); p50/p99 (s): " + ", ".join(
+                        f"{n} {segs[n]['p50']:.6g}/{segs[n]['p99']:.6g}"
+                        for n in SEGMENTS + ("e2e_total",)) + f" [{smi}]")
+            log(f"tenant (b) {label}: latency=True == off ({len(on)} matches, counters equal)")
+        if set(b_launches) != {"walk_pass", "scan_pass[default]"}:
+            fail(f"tenant (b): launches {b_launches}, want walk_pass and scan_pass[default]")
+        record("latency_columns", b_launches)
+        timed_section("b", t0)
+
+        # (c) the tenant runtime ----------------------------------------------
+        t0 = time.perf_counter()
+        K, T = TEN_LANES, TEN_STEPS
+        names = [f"q{i}" for i in range(5)]
+
+        def patterns():
+            return dict(zip(names, mixed_patterns(Query)))
+
+        def tbatch(b):
+            xs = np.random.default_rng(31 + b).integers(0, 10, size=(K, T))
+            return [Record(k, {"x": int(xs[k, t])}, b * T + t) for t in range(T) for k in range(K)]
+
+        batches = [tbatch(b) for b in range(TEN_BATCHES)]
+
+        def tstream(matches):
+            return [(q, k, plain_seq(seq)) for q, k, seq in matches]
+
+        cfg = EngineConfig(**MIXED_CFG)
+        bank = CEPBank(patterns(), K, cfg, device=dev)
+        reset()
+        want = [sorted(tstream(bank.process(b)), key=lambda m: names.index(m[0]))
+                for b in batches]
+        torch.cuda.synchronize()
+        record("tenant_cepbank", launched())
+        tenant = TenantCEP(patterns(), K, cfg, device=dev)
+        reset()
+        t1 = time.perf_counter()
+        got = [tstream(tenant.process(b)) for b in batches]
+        torch.cuda.synchronize()
+        c1_s = time.perf_counter() - t1
+        c1_l = launched()
+        record("tenant_runtime", c1_l, bank=True)
+        lost = {q: capacity_counters(c) for q, c in tenant.per_query_counters().items()
+                if any(capacity_counters(c).values())}
+        lost.update({q: capacity_counters(c) for q, c in bank.counters().items()
+                     if any(capacity_counters(c).values())})
+        if lost:
+            fail(f"tenant (c1): capacity counters {lost}")
+        # Per query, CEPBank emits in arrival order as TenantCEP does; the
+        # two differ only in how they interleave queries (declaration order
+        # in both), so compare query by query.
+        for b in range(TEN_BATCHES):
+            for q in names:
+                if ([m for m in got[b] if m[0] == q] != [m for m in want[b] if m[0] == q]):
+                    fail(f"tenant (c1): batch {b} query {q} differs from CEPBank's")
+        n_matches = sum(map(len, got))
+        if not n_matches:
+            fail("tenant (c1): the mixed bank matched nothing")
+        log(f"tenant (c1): TenantCEP == CEPBank on {TEN_BATCHES} batches of {K * T} records "
+            f"({K} lanes a query x {T} steps, offsets running on): {n_matches} matches, "
+            f"capacity counters 0; {TEN_BATCHES * K * T / c1_s:,.0f} records/s ({c1_s:.2f} s "
+            f"host wall), launches {c1_l} [{smi}]")
+        # (c2) checkpoint after batch 1, restore on the card.
+        t2 = TenantCEP(patterns(), K, cfg, device=dev)
+        reset()
+        t2.process(batches[0])
+        path = os.path.join(work, "tenant.ckpt")
+        t1 = time.perf_counter()
+        save_tenant_checkpoint(t2, path)
+        save_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        t3 = restore_tenant(patterns(), path, device=dev)
+        restore_s = time.perf_counter() - t1
+        cont = [tstream(t3.process(b)) for b in batches[1:]]
+        torch.cuda.synchronize()
+        record("tenant_restore", launched(), bank=True)
+        if cont != got[1:]:
+            fail("tenant (c2): the restored runtime's batches 2.. differ from (c1)'s")
+        log(f"tenant (c2): checkpoint after batch 1 ({os.path.getsize(path) / 1e6:.1f} MB, "
+            f"save {save_s:.2f} s, restore {restore_s:.2f} s) continues equal to (c1)")
+        del t2, t3
+        # (c3) the supervisor with a device.dispatch fault at batch 2.
+        sup = TenantSupervisor(patterns(), K, cfg, checkpoint_path=os.path.join(work, "sup.ckpt"),
+                               retry_backoff_ms=0.0, device=dev)
+        reset()
+        failpoints.FAILPOINTS.arm("device.dispatch", hits=[1])
+        try:
+            t1 = time.perf_counter()
+            sgot = [tstream(sup.process(b)) for b in batches]
+            torch.cuda.synchronize()
+            c3_s = time.perf_counter() - t1
+        finally:
+            failpoints.FAILPOINTS.clear()
+        record("tenant_supervisor", launched(), bank=True)
+        if sgot != got or sup.recoveries != 1:
+            fail(f"tenant (c3): recoveries {sup.recoveries}, stream equal {sgot == got}")
+        log(f"tenant (c3): TenantSupervisor with device.dispatch failing at batch 2: one "
+            f"recovery, the stream equal to the fault-free one ({c3_s:.2f} s)")
+        del sup
+        # (c4) quarantine hybrid q1 after batch 1; admission on one flooder.
+        qt = TenantCEP(patterns(), K, cfg, device=dev)
+        reset()
+        qgot = [tstream(qt.process(batches[0]))]
+        qt.quarantine("q1", "manual")
+        qgot += [tstream(qt.process(b)) for b in batches[1:]]
+        if qgot[0] != got[0] or any(
+                [m for m in qgot[b] if m[0] != "q1"] != [m for m in got[b] if m[0] != "q1"]
+                or any(m[0] == "q1" for m in qgot[b]) for b in range(1, TEN_BATCHES)):
+            fail("tenant (c4): quarantining q1 changed another query or q1 emitted")
+        pol = AdmissionPolicy(rate_per_batch=K, burst=K,
+                              key_tenant=lambda k: "flood" if k < K // 2 else f"t{k % 7}")
+        at = TenantCEP(patterns(), K, cfg, admission=pol, latency=True, device=dev)
+        for b in batches:
+            at.process(b)
+        torch.cuda.synchronize()
+        record("tenant_quarantine_admission", launched(), bank=True)
+        ledger = at.admission_ledger()
+        bad = {t: r for t, r in ledger.items()
+               if r["offered"] != r["admitted"] + r["shed"] + r["quarantined_dropped"]}
+        shed = {t: r["shed"] for t, r in ledger.items() if r["shed"]}
+        lat = at.metrics_snapshot()["latency"]
+        if bad or set(shed) != {"flood"} or lat["records"] != sum(
+                r["admitted"] for r in ledger.values()):
+            fail(f"tenant (c4): admission ledger {ledger}, latency records {lat['records']}")
+        log(f"tenant (c4): q1 quarantined after batch 1, the other queries equal (c1) and "
+            f"q1 silent; admission (rate {K} a batch a tenant): offered == admitted + shed + "
+            f"quarantined_dropped for all {len(ledger)} tenants, flood "
+            f"{ledger['flood']}; ledger e2e p50/p99 "
+            f"{lat['segments']['e2e_total']['p50']:.6g}/{lat['segments']['e2e_total']['p99']:.6g} s "
+            f"over {lat['records']} records [{smi}]")
+        del qt, at, bank, tenant
+        # (c5) for information: the tenant cell through TenantCEP.
+        cell, codes = tenant_cell_patterns(Query)
+        Kc, Tc = codes.shape
+        t1 = time.perf_counter()
+        ct = TenantCEP(cell, Kc, EngineConfig(**TENANT_CFG), device=dev)
+        build_s = time.perf_counter() - t1
+        reset()
+        rates = []
+        for b in range(CELL_BATCHES):
+            recs = [Record(k, int(codes[k, t]), b * Tc + t) for t in range(Tc) for k in range(Kc)]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ct.process(recs)
+            torch.cuda.synchronize()
+            rates.append(len(recs) / (time.perf_counter() - t1))
+        record("tenant_cell_runtime", launched(), bank=True)
+        if any(capacity_counters(ct.counters()).values()):
+            fail(f"tenant (c5): the tenant cell lost work: {ct.counters()}")
+        log(f"tenant (c5), for information: TenantCEP over the tenant cell ({TENANT_N} "
+            f"queries, {Kc} keys, {Tc} steps a batch): built in {build_s:.2f} s; "
+            f"{rates[-1]:,.0f} records/s on the timed batch (warm {rates[0]:,.0f}) [{smi}]")
+        del ct
+        timed_section("c", t0)
+
+        # (d) the examples ----------------------------------------------------
+        t0 = time.perf_counter()
+        ex_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples")
+        sys.path.insert(0, ex_dir)
+        try:
+            import torch_highrate_pipeline
+            import torch_ooo_pipeline
+            import torch_resilient_pipeline
+            import torch_stock_demo
+        finally:
+            sys.path.remove(ex_dir)
+        d_launches = {}
+        for name, mod in (("stock_demo", torch_stock_demo), ("ooo", torch_ooo_pipeline),
+                          ("resilient", torch_resilient_pipeline),
+                          ("highrate", torch_highrate_pipeline)):
+            buf = io.StringIO()
+            reset()
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                ok = mod.main(device=dev)
+            torch.cuda.synchronize()
+            lines = buf.getvalue().splitlines()
+            if name == "stock_demo" and (not ok or lines != EXPECTED):
+                fail(f"tenant (d): torch_stock_demo printed {lines}")
+            for path_name, n in launched().items():
+                d_launches[path_name] = d_launches.get(path_name, 0) + n
+            log(f"tenant (d) examples/torch_{name}: passed in {time.perf_counter() - t1:.2f} s, "
+                f"{len(lines)} lines, last: {lines[-1] if lines else ''!r}")
+        record("examples", d_launches)
+        log(f"tenant (d): the four port examples ran on the card; launches {d_launches}")
+        timed_section("d", t0)
+        if WIDE_LAUNCHES:
+            fail(f"wide instances launched on a phase 14 path with no report entry: "
+                 f"{WIDE_LAUNCHES}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"tenant phase: {time.perf_counter() - t14:.1f} s (" + ", ".join(
+        f"({k}) {v:.1f} s" for k, v in section.items()) + ")")
+
+
 def profile_busy(prof):
     """``(busy_us, window_us, kernels)`` of a ``torch.profiler`` trace: the
     union of the device kernels' intervals, the span from the first to the
@@ -3771,6 +4265,7 @@ def main() -> None:
     ingest_phase(torch, dev, smi, report)
     surgery_phase(torch, dev, smi, report, records, name_of)
     supervisor_phase(torch, dev, smi, report, scan_bound, scan_entry, max_err, scan_err)
+    tenant_phase(torch, dev, smi, report)
 
     log(f"total: {time.perf_counter() - t_start:.1f} s after the card check")
     log(smi)

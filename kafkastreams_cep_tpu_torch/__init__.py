@@ -12,6 +12,7 @@ from kafkastreams_cep_tpu_torch.engine.matcher import (
     MatcherSession,
     TPUMatcher,
 )
+from kafkastreams_cep_tpu_torch.nfa.oracle import OracleNFA
 from kafkastreams_cep_tpu_torch.parallel.batch import BatchMatcher
 from kafkastreams_cep_tpu_torch.pattern.query import Query
 from kafkastreams_cep_tpu_torch.runtime.processor import CEPProcessor, Record
@@ -22,6 +23,7 @@ __all__ = [
     "CEPProcessor",
     "EngineConfig",
     "MatcherSession",
+    "OracleNFA",
     "Query",
     "Record",
     "Supervisor",

@@ -51,16 +51,24 @@ def _numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def _is_plain_seq(x) -> bool:
+    return isinstance(x, (tuple, list)) and not hasattr(x, "_fields")
+
+
 def state_arrays(state, prefix: str = "") -> Dict[str, np.ndarray]:
     """Any state NamedTuple (either package's) -> ``{name: ndarray}`` with
-    the checkpoint's leaf names (``alive``, ..., ``slab/stage``, ...)."""
+    the checkpoint's leaf names: fields by name (``alive``, ...,
+    ``slab/stage``), the elements of a plain tuple by index (a tenant
+    bank's ``engine/0/alive``, ``carry/1/...``), as JAX's
+    ``tree_flatten_with_path`` names them."""
     out: Dict[str, np.ndarray] = {}
-    for f in state._fields:
-        v = getattr(state, f)
-        if hasattr(v, "_fields"):
+    items = (enumerate(state) if _is_plain_seq(state)
+             else ((f, getattr(state, f)) for f in state._fields))
+    for f, v in items:
+        if hasattr(v, "_fields") or _is_plain_seq(v):
             out.update(state_arrays(v, f"{prefix}{f}/"))
         else:
-            out[prefix + f] = _numpy(v)
+            out[prefix + str(f)] = _numpy(v)
     return out
 
 
@@ -68,11 +76,14 @@ def state_from_arrays(arrays: Mapping[str, np.ndarray], template, prefix: str = 
     """Rebuild ``template``'s structure from ``state_arrays`` output, on
     ``template``'s device.  Shapes and dtypes must match exactly: a cast
     could turn float fold states' bit patterns into other values."""
+    if _is_plain_seq(template):
+        return type(template)(state_from_arrays(arrays, t, f"{prefix}{i}/")
+                              for i, t in enumerate(template))
     leaves = {}
     for f in template._fields:
         t = getattr(template, f)
         name = prefix + f
-        if hasattr(t, "_fields"):
+        if hasattr(t, "_fields") or _is_plain_seq(t):
             leaves[f] = state_from_arrays(arrays, t, name + "/")
             continue
         if name not in arrays:

@@ -29,9 +29,20 @@ from kafkastreams_cep_tpu_torch.runtime.supervisor import (
     Supervisor,
     check_health,
 )
+from kafkastreams_cep_tpu_torch.runtime.tenant import (
+    AdmissionPolicy,
+    QuarantinePolicy,
+    TenantCEP,
+    TenantMisbehave,
+    TenantSupervisor,
+    load_tenant_checkpoint,
+    restore_tenant,
+    save_tenant_checkpoint,
+)
 
 __all__ = [
     "AdaptPolicy",
+    "AdmissionPolicy",
     "CEPBank",
     "CEPProcessor",
     "CheckpointCorrupt",
@@ -42,15 +53,22 @@ __all__ = [
     "IngestPolicy",
     "InputRejected",
     "Record",
+    "QuarantinePolicy",
     "Supervisor",
+    "TenantCEP",
+    "TenantMisbehave",
+    "TenantSupervisor",
     "check_health",
     "load_checkpoint",
+    "load_tenant_checkpoint",
     "migrate_processor",
     "move_lanes",
     "plan_rebalance",
     "read_dump",
     "repartition_state",
     "restore_processor",
+    "restore_tenant",
     "save_checkpoint",
+    "save_tenant_checkpoint",
     "widen_state",
 ]

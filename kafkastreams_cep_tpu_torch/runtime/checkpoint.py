@@ -31,6 +31,7 @@ from kafkastreams_cep_tpu_torch.runtime.ingest import DeadLetter, IngestGuard
 from kafkastreams_cep_tpu_torch.runtime.processor import CEPProcessor, Record
 from kafkastreams_cep_tpu_torch.utils.events import Event
 from kafkastreams_cep_tpu_torch.utils.failpoints import fire as _failpoint
+from kafkastreams_cep_tpu_torch.utils.latency import LatencyLedger
 from kafkastreams_cep_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("runtime.checkpoint")
@@ -104,7 +105,9 @@ def save_checkpoint(
         # The ingest guard's held records, watermark, frontier, dead letters
         # and loss counters, restored as they were.
         "ingest": processor._guard.to_state() if processor._guard is not None else None,
-        "latency": None,
+        # The latency ledger's committed histograms and parked bundles
+        # (utils/latency.py), restored on the wall clock.
+        "latency": processor.ledger.to_state() if processor.ledger is not None else None,
     }
     buf = io.BytesIO()
     np.savez(buf, **state_arrays(processor.state))
@@ -155,7 +158,8 @@ def restore_processor(
     fold-state names or fold dtypes differ is refused.  A tiered snapshot
     (``engine/...`` and ``carry/...`` leaves) restores with its stencil
     carry; a snapshot with ingest-guard state restores the guard with its
-    held records and dead letters."""
+    held records and dead letters, and one with a latency ledger the
+    ledger."""
     if ckpt is None:
         ckpt = load_checkpoint(path)
     header = ckpt["header"]
@@ -203,6 +207,13 @@ def restore_processor(
         # The guard runs on time.time until the caller sets a clock
         # (``proc.set_clock``): clocks are not durable state.
         proc._guard = IngestGuard.from_state(header["ingest"])
+        # The flight recorder's burst detection diffs against the dead-letter
+        # total: re-base it so a restore never reads the history as a burst.
+        proc._dlq_base = int(sum(proc._guard.reason_counts.values()))
+    if header.get("latency") is not None:
+        # On the wall clock: callers with a pinned clock re-inject it with
+        # ``proc.set_clock`` (a supervisor does).
+        proc.ledger = LatencyLedger.from_state(header["latency"])
     logger.info(
         "restored processor from %s: %d keys assigned", path, len(proc._lane_of)
     )

@@ -272,8 +272,10 @@ def _rebuild(pattern, proc, config: EngineConfig, **kw):
 def _carry_host_state(new, proc) -> None:
     """Continuity of everything but the engine state: the host bookkeeping
     (by copy, as a checkpoint restore would), the metrics, the flight
-    recorder with its burst baseline, the ingest guard and the clock (by
-    reference: one stream, one meter)."""
+    recorder with its burst baseline, the ingest guard and the latency
+    ledger (by reference: one stream, one meter; its committed histograms
+    and parked bundles survive the rebuild, whose clock is the live
+    one's)."""
     new._lane_of = dict(proc._lane_of)
     new._key_of = dict(proc._key_of)
     new._next_offset = proc._next_offset.copy()
@@ -288,6 +290,7 @@ def _carry_host_state(new, proc) -> None:
     new.flight = proc.flight
     new._dlq_base = proc._dlq_base
     new._guard = proc._guard
+    new.ledger = proc.ledger
 
 
 def migrate_processor(pattern, proc, new_config: EngineConfig, mesh=None):

@@ -49,6 +49,7 @@ from kafkastreams_cep_tpu_torch.runtime.ingest import (
     IngestPolicy,
 )
 from kafkastreams_cep_tpu_torch.utils.events import Event, Sequence
+from kafkastreams_cep_tpu_torch.utils.latency import LatencyLedger
 from kafkastreams_cep_tpu_torch.utils.logging import get_logger
 from kafkastreams_cep_tpu_torch.utils.failpoints import fire as _failpoint
 from kafkastreams_cep_tpu_torch.utils.metrics import Metrics, device_memory_stats
@@ -193,6 +194,11 @@ class CEPProcessor:
     and the event-time-lag gauge; ``name`` labels the processor in
     ``per_pattern`` and in dead-letter correlation ids.
 
+    **Latency ledger** (``latency=True`` or a ``utils/latency.py:
+    LatencyLedger``): every batch is stamped at release, dispatch, device
+    completion and emit on ``clock``, and the deltas fold into per-segment
+    histograms (``metrics_snapshot()["latency"]``) that ride checkpoints.
+
     ``device`` is where the engine runs: ``"cuda"`` by default (raises when
     there is no GPU), ``"cpu"`` for the plain PyTorch path.
     """
@@ -224,10 +230,6 @@ class CEPProcessor:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh=: the sharded processor is not ported yet (ROADMAP.md §A item 8)")
-        if latency is not None and latency is not False:
-            raise NotImplementedError(
-                "latency=: the latency ledger (utils/latency.py) is not ported yet "
-                "(ROADMAP.md §A item 6)")
         if config is not None and config.tiering:
             self.batch = TieredBatchMatcher(pattern, num_lanes, config,
                                             profile=profile, device=device)
@@ -274,6 +276,14 @@ class CEPProcessor:
         # (absolute ms), for the watermark and event-time-lag gauges.
         self._watermark: Optional[int] = None
         self._clock = clock if clock is not None else time.time
+        # Latency-attribution ledger (utils/latency.py): ``True`` builds one
+        # on this processor's clock, a ledger is adopted as it is (a
+        # supervisor's restore, bank members sharing one), None or False
+        # leaves it off: one ``None`` check a call site, no device work.
+        if latency is True:
+            self.ledger: Optional[LatencyLedger] = LatencyLedger(clock=self._clock)
+        else:
+            self.ledger = latency or None
         self._guard = IngestGuard(ingest, clock=self._clock) if ingest is not None else None
         # Telemetry (utils/telemetry.py): an optional span sink; every batch
         # emits one "batch" span with nested phase spans (pack, dispatch,
@@ -287,12 +297,15 @@ class CEPProcessor:
         self._dlq_base = 0  # dead-letter total at the last batch (burst detection)
 
     def set_clock(self, clock) -> None:
-        """Re-inject the host clock wherever it is read (the lag gauge and
-        the guard's admit stamps).  Clocks are not durable state: a
-        restored processor runs on ``time.time`` until one is set."""
+        """Re-inject the host clock wherever it is read (the lag gauge, the
+        guard's admit stamps and the latency ledger's stamps).  Clocks are
+        not durable state: a restored processor runs on ``time.time`` until
+        one is set."""
         self._clock = clock
         if self._guard is not None:
             self._guard._clock = clock
+        if self.ledger is not None:
+            self.ledger.clock = clock
 
     def place(self, state):
         """A host tree of this processor's engine state (what
@@ -356,6 +369,9 @@ class CEPProcessor:
         self._batch_seq += 1
         with maybe_span(self.trace, "batch", path="records", batch=self._batch_seq,
                         records=len(records)) as sp:
+            # The ledger's release stamp: batch entry (the guard releases
+            # mid-pack, so validation counts as queue time).
+            lat_t0 = self._clock() if self.ledger is not None else None
             with self._phase("pack"):
                 if self._guard is not None:
                     released = self._ingest(list(records), f"{self.name}-{self._batch_seq}")
@@ -369,9 +385,21 @@ class CEPProcessor:
                 self._flight_tick()
                 return []
             sp["lanes"] = len(self._lane_of)
-            matches = self._dispatch(*packed)
+            lat = self._lat_start(packed[2], lat_t0)
+            matches = self._dispatch(*packed, lat)
             sp["matches"] = len(matches)
             return matches
+
+    def _lat_start(self, n: int, release):
+        """A ledger bundle for a batch of ``n`` released records (None
+        without a ledger); the guard's admit stamps ride along."""
+        if self.ledger is None:
+            return None
+        return self.ledger.start_batch(
+            f"{self.name}-{self._batch_seq}", n,
+            admit=self._guard.last_release_stamps if self._guard is not None else None,
+            release=release,
+        )
 
     # -- the ingestion guard (runtime/ingest.py) ---------------------------
 
@@ -469,6 +497,7 @@ class CEPProcessor:
         pipelined or lazy processors."""
         if self._guard is None:
             return []
+        lat_t0 = self._clock() if self.ledger is not None else None
         released = self._guard.drain()
         if not released:
             return []
@@ -481,7 +510,7 @@ class CEPProcessor:
                 packed = self._pack_records(released)
             if packed is None:
                 return []
-            matches = self._dispatch(*packed)
+            matches = self._dispatch(*packed, self._lat_start(packed[2], lat_t0))
             sp["matches"] = len(matches)
             return matches
 
@@ -658,13 +687,14 @@ class CEPProcessor:
             )
         self._batch_seq += 1
         with maybe_span(self.trace, "batch", path="columns", batch=self._batch_seq) as sp:
+            lat_t0 = self._clock() if self.ledger is not None else None
             with self._phase("pack"):
                 packed = self._pack_columns(keys, values, timestamps)
             if packed is None:
                 return []
             sp["records"] = packed[2]
             sp["lanes"] = len(self._lane_of)
-            matches = self._dispatch(*packed)
+            matches = self._dispatch(*packed, self._lat_start(packed[2], lat_t0))
             sp["matches"] = len(matches)
             return matches
 
@@ -790,7 +820,7 @@ class CEPProcessor:
         self._col_batches.append((col_start, qlen.astype(np.int64), abs_ts, val_leaves))
         return self._device_batch(key_arr, val_leaves, treedef, ts, off, valid), rank_of, n
 
-    def _dispatch(self, events, rank_of, n_records):
+    def _dispatch(self, events, rank_of, n_records, lat=None):
         # Fault sites (utils/failpoints.py; no-ops unless armed):
         # ``device.dispatch`` fails before the scan, the state untouched;
         # ``device.result`` after the state advanced but before the batch's
@@ -798,6 +828,8 @@ class CEPProcessor:
         # replay must cover.
         _failpoint("device.dispatch")
         base = self._step_base
+        if lat is not None:
+            lat.dispatch = self._clock()
         with self._phase("dispatch"):
             self.state, out = self.batch.scan(self.state, events)
             self._step_base += int(events.ts.shape[1])
@@ -808,9 +840,19 @@ class CEPProcessor:
         if self.lazy and (self.metrics.batches + 1) % self.drain_interval == 0:
             with self._phase("drain"):
                 self.state, drain_out = self.batch.drain(self.state)
+        done = None
         with self._phase("device"):
             if not self.pipeline and self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+            elif lat is not None and self.device.type == "cuda":
+                # Pipelined: the batch's outputs are waited for at its
+                # decode, one call later; this event marks their end.
+                done = torch.cuda.Event()
+                done.record()
+        if lat is not None and not self.pipeline:
+            # Serial mode just synchronized: the device is done.  A
+            # pipelined batch takes its stamp at its decode (_decode_pending).
+            lat.complete = self._clock()
         _failpoint("device.result")
         gc_due = self.gc_events and (
             (self.metrics.batches + 1) % self.gc_events_interval == 0
@@ -819,21 +861,57 @@ class CEPProcessor:
         self.metrics.batches += 1
         with self._phase("decode"):
             if self.pipeline:
-                prev, self._pending = self._pending, (out, rank_of, drain_out, base)
-                matches = self._decode(*prev) if prev is not None else []
+                prev, self._pending = (self._pending,
+                                       (out, rank_of, drain_out, base, lat, done))
+                matches = self._decode_pending(prev) if prev is not None else []
                 if gc_due:
                     # The event GC must not prune events the pending
                     # decode still references: drain first.
                     pend, self._pending = self._pending, None
-                    matches += self._decode(*pend)
+                    matches += self._decode_pending(pend)
             else:
                 matches = self._decode(out, rank_of, drain_out, base)
+                self._lat_finish(lat, (not self.lazy) or drain_out is not None)
         if gc_due:
             with self._phase("gc"):
                 self._gc_events()
         self.metrics.matches_out += len(matches)
         self._flight_tick()
         return matches
+
+    def _decode_pending(self, pend) -> List[Tuple[Hashable, Sequence]]:
+        """Decode a pipelined batch ``(out, rank_of, drain_out, base, lat,
+        done)``: its latency bundle takes the complete stamp once its
+        outputs are ready (``done``, the CUDA event recorded after its
+        kernels; on the CPU the scan ran synchronously), then commits or
+        parks at the decode's end."""
+        out, rank_of, drain_out, base, lat, done = pend
+        if lat is not None:
+            if done is not None:
+                done.synchronize()
+            lat.complete = self._clock()
+        matches = self._decode(out, rank_of, drain_out, base)
+        self._lat_finish(lat, (not self.lazy) or drain_out is not None)
+        return matches
+
+    def _lat_finish(self, lat, emitted: bool) -> None:
+        """Commit or park one batch's latency bundle at its decode.
+
+        ``emitted`` means the batch's matches just left the device (an
+        eager decode, or a drain that carried its handles): the bundle,
+        and every parked earlier bundle whose handles rode the same drain,
+        commit at one emit stamp.  Otherwise (lazy, no drain due) it parks
+        until the drain that emits it.  A bundle whose batch failed dies
+        with the rollback and is re-observed on replay: exactly-once
+        counts, honest wall clock."""
+        if lat is None or self.ledger is None:
+            return
+        if emitted:
+            emit = self._clock()
+            self.ledger.commit_deferred(emit)
+            self.ledger.commit(lat, emit)
+        else:
+            self.ledger.defer(lat)
 
     def _flight_tick(self) -> None:
         """Record this batch in the flight ring (runtime/flight.py), and
@@ -858,7 +936,7 @@ class CEPProcessor:
         if self._pending is not None:
             pend, self._pending = self._pending, None
             with self._phase("decode"):
-                matches = self._decode(*pend)
+                matches = self._decode_pending(pend)
         if self.lazy:
             with self._phase("drain"):
                 self.state, dout = self.batch.drain(self.state)
@@ -866,6 +944,9 @@ class CEPProcessor:
                 # Everything pending predates "now": ordered by (completion
                 # step, lane, run row).
                 matches += self._decode_drained(dout, None, self._step_base)
+            if self.ledger is not None:
+                # This drain emitted every parked batch's matches.
+                self.ledger.commit_deferred(self._clock())
         self.metrics.matches_out += len(matches)
         return matches
 
@@ -1060,7 +1141,8 @@ class CEPProcessor:
         tiering plan (``tier_plan``, tiered processors only), ``per_stage``
         under attribution, ``per_lane`` and ``per_key`` (skipped with
         ``per_lane=False``: one more device read), ``phases`` (each batch
-        phase's latency histogram: count, sum, p50, p99) and ``hbm`` (the card's
+        phase's latency histogram: count, sum, p50, p99), ``latency`` (the
+        ledger's snapshot, with ``latency=`` only) and ``hbm`` (the card's
         memory byte gauges, ``{}`` on the CPU)."""
         snap: Dict[str, Any] = self.metrics.snapshot(self.counters())
         hot = self.hot_counters()
@@ -1092,6 +1174,10 @@ class CEPProcessor:
         if per_lane:
             snap["per_lane"] = self.batch.per_lane_counters(self.state)
             snap["per_key"] = self.per_key_cost(per_lane_arrays=snap["per_lane"])
+        if self.ledger is not None:
+            # Segment, stall and per-query histograms, exemplars and the SLO
+            # burn (rendered as cep_latency_seconds{segment=} and the rest).
+            snap["latency"] = self.ledger.snapshot()
         snap["hbm"] = device_memory_stats(self.device)
         return snap
 

@@ -24,13 +24,18 @@ the live state migrated onto a wider config (``runtime/migrate.py``) and the
 batch re-processed there.  :meth:`Supervisor.health` reports the loss
 counters and state-validity probes.
 
+With a latency ledger on the processor (the ``latency=`` processor
+keyword), recover and replan wall time land in its stall histograms,
+tagged with the batch's correlation id, and an SLO burn rate first
+crossing 1.0 dumps the flight recorder.
+
 This is the JAX package's supervisor (``kafkastreams_cep_tpu/runtime/
 supervisor.py``) without its mesh half (shard evacuation, straggler
-watermarks, hot-key rebalancing) and its brownout and latency halves:
-``shard_policy``, ``shard_probe``, ``overload_policy``, and the processor's
-``mesh`` and ``latency``, raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item that ports them.  Checkpoints and journals are the JAX
-package's formats, so either package resumes the other's.
+watermarks, hot-key rebalancing) and its brownout half: ``shard_policy``,
+``shard_probe``, ``overload_policy`` and the processor's ``mesh`` raise
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
+Checkpoints and journals are the JAX package's formats, so either package
+resumes the other's.
 """
 
 from __future__ import annotations
@@ -72,7 +77,6 @@ _NOT_PORTED = {
     "shard_probe": "§A item 8 (the mesh: shard evacuation and rebalancing)",
     "mesh": "§A item 8 (the mesh)",
     "overload_policy": "§A item 6 (the brownout ladder, runtime/overload.py)",
-    "latency": "§A item 6 (the latency ledger, utils/latency.py)",
 }
 
 
@@ -194,14 +198,12 @@ class Supervisor:
         **proc_kwargs,
     ):
         given = dict(shard_policy=shard_policy, shard_probe=shard_probe,
-                     overload_policy=overload_policy, mesh=proc_kwargs.get("mesh"),
-                     latency=proc_kwargs.get("latency"))
+                     overload_policy=overload_policy, mesh=proc_kwargs.get("mesh"))
         for name, value in given.items():
             if value is not None and value is not False:
                 raise NotImplementedError(
                     f"Supervisor({name}=...): not ported yet (ROADMAP.md {_NOT_PORTED[name]})")
         proc_kwargs.pop("mesh", None)
-        proc_kwargs.pop("latency", None)
         if auto_escalate is True:
             self._policy: Optional[EscalationPolicy] = EscalationPolicy()
         elif auto_escalate:
@@ -306,6 +308,9 @@ class Supervisor:
         self.flight = self._proc_kwargs.get("flight")
         if self.flight is not None:
             self.processor.flight = self.flight
+        # The SLO burn latch (_slo_tick): one flight dump per excursion
+        # over burn 1.0, not one a batch while burning.
+        self._slo_burning = False
 
     @classmethod
     def resume(
@@ -510,6 +515,9 @@ class Supervisor:
                 logger.exception("journal append failed; journaling suspended until the "
                                  "next checkpoint (batch %d+ not crash-durable)", self._seq)
         self._batches_since_ckpt += 1
+        # The SLO observation before the cadence snapshot, so the batch's
+        # tick is pinned together with the batch.
+        self._slo_tick(corr)
         # A suspended journal leaves acknowledged batches out of the crash
         # history: snapshot now rather than at the cadence.
         if self._journal_suspended or self._batches_since_ckpt >= self.checkpoint_every:
@@ -590,11 +598,13 @@ class Supervisor:
         if self.flight is not None:
             # Before the rollback: the ring still holds the faulted batch.
             self.flight.dump("recover", corr=corr)
+        t0 = time.perf_counter()
         with maybe_span(self.trace, "recover", corr=corr, seq=self._seq) as sp, \
                 timed_histogram(self.telemetry, "phase.recover"):
             replayed = self._restore_tail()
             sp["replayed_records"] = replayed
             sp["from_checkpoint"] = self._has_checkpoint
+        self._observe_stall("recover", time.perf_counter() - t0, corr)
         self.recoveries += 1
         # The counters reverted with the state: re-take the escalation
         # baselines before the retry re-runs the failing batch.
@@ -603,6 +613,32 @@ class Supervisor:
             self._ingest_base = self._ingest_loss_counters()
         logger.info("recovered: checkpoint=%s, %d journaled records replayed",
                     self._has_checkpoint, replayed)
+
+    def _observe_stall(self, cause: str, seconds: float, corr: Optional[str]) -> None:
+        """One lifecycle stall (recover or replan wall time) into the
+        latency ledger, tagged with the ``corr`` id of the batch it
+        handled.  The live (rebuilt) processor's ledger takes it: the
+        pre-failure ledger rolled back with the state it described."""
+        ledger = getattr(self.processor, "ledger", None)
+        if ledger is not None:
+            ledger.observe_stall(cause, seconds, corr=corr)
+
+    def _slo_tick(self, corr: str) -> None:
+        """When the ledger's SLO burn rate first crosses 1.0, note it in the
+        flight ring and dump the ring (the post-mortem then holds the
+        batches that spent the budget); re-arms once it falls back."""
+        ledger = getattr(self.processor, "ledger", None)
+        if ledger is None or ledger.slo is None:
+            return
+        burn = ledger.slo.burn_rate()
+        if burn > 1.0 and not self._slo_burning:
+            self._slo_burning = True
+            logger.warning("SLO burn rate %.3f exceeds budget (corr=%s)", burn, corr)
+            if self.flight is not None:
+                self.flight.note(slo_burn=round(burn, 3))
+                self.flight.dump("slo_burn", corr=corr)
+        elif burn <= 1.0 and self._slo_burning:
+            self._slo_burning = False
 
     # -- adaptive replanning --------------------------------------------------
 
@@ -672,6 +708,7 @@ class Supervisor:
         if (self._replan_streak < policy.replan_streak
                 or self._boundaries_since_replan <= policy.cooldown):
             return
+        t0 = time.perf_counter()
         with maybe_span(self.trace, "replan", corr=corr, seq=self._seq,
                         drifted=[{"key": "/".join(k), "plan": b, "window": w}
                                  for k, b, w in drifted]), \
@@ -697,6 +734,7 @@ class Supervisor:
             self._plan_sel = {key: ac / ev for key, (ev, ac) in counts.items()
                               if ev >= policy.min_evals}
             self._sel_prev = None
+        self._observe_stall("replan", time.perf_counter() - t0, corr)
         logger.warning("adaptive replan #%d: selectivity drift %s (plan -> window); plan "
                        "re-derived from the measured profile", self.replans,
                        [("/".join(k), b, w) for k, b, w in drifted])

@@ -132,3 +132,101 @@ def test_checkpoint_sites_are_failures_not_corruption(tmp_path, site):
     assert sup.checkpoint_failures == 1 and open(ck, "rb").read() == good
     out = sup.process([Record("k", ts.C, 3, offset=2)])
     assert sup.checkpoints == 2 and len(out) == 1
+
+
+# -- the ingest, surgery and reporter sites -----------------------------------------
+
+
+def guarded_stream():
+    vals = [ts.A, ts.B, ts.C, ts.X, ts.A, ts.B, ts.C, ts.X, ts.A, ts.B, ts.C]
+    return [(k, v, 1000 + 2 * i + j, i) for i, v in enumerate(vals) for j, k in enumerate("ab")]
+
+
+@pytest.mark.parametrize("site", ["ingest.admit", "ingest.release"])
+def test_ingest_sites_recover_as_the_jax_supervisor(tmp_path, site):
+    """A fault at the guard's admission (nothing admitted) or at its release
+    (the buffer moved, the engine saw nothing) on the third batch: the
+    supervisor restores the buffer and re-admits, and the stream equals
+    the fault-free one, in both packages alike."""
+    from kafkastreams_cep_tpu.engine import EngineConfig as JConfig
+    from kafkastreams_cep_tpu.runtime import IngestPolicy as JPolicy
+    from kafkastreams_cep_tpu.runtime import Record as JRecord
+    from kafkastreams_cep_tpu.runtime import Supervisor as JSupervisor
+    from kafkastreams_cep_tpu_torch.runtime import IngestPolicy
+
+    def run(side, armed):
+        jax_side = side == "jax"
+        S, R = (JSupervisor, JRecord) if jax_side else (Supervisor, Record)
+        mod = jfp if jax_side else fp
+        conf = JConfig(**CFG.__dict__) if jax_side else CFG
+        kw = {} if jax_side else {"device": "cpu"}
+        sup = S(ts.strict3(ts.JQuery if jax_side else ts.TQuery), 2, conf,
+                checkpoint_path=str(tmp_path / f"{side}{armed}.ckpt"), checkpoint_every=2,
+                retry_backoff_ms=0, gc_interval=0, epoch=0,
+                ingest=(JPolicy if jax_side else IngestPolicy)(grace_ms=4), **kw)
+        recs = [R(*r) for r in guarded_stream()]
+        out = []
+        with mod.FAILPOINTS.session({site: [2]} if armed else {}):
+            for i in range(0, len(recs), 4):
+                out += sup.process(recs[i:i + 4])
+            hits = mod.FAILPOINTS.hits(site)
+        out += sup.drain_ingest()
+        return ts.canon_matches(out), sup.recoveries, hits
+
+    clean = run("torch", False)
+    got = run("torch", True)
+    assert got == run("jax", True)
+    assert got[0] == clean[0] and got[0] and got[1] == 1 and got[2] > 2
+
+
+def test_surgery_sites_leave_the_processor_intact():
+    """``replan.swap`` and ``rebalance.move`` fire before anything changes:
+    the armed call raises, and the live processor goes on to emit the
+    stream of one never touched."""
+    from kafkastreams_cep_tpu_torch.runtime import CEPProcessor
+    from kafkastreams_cep_tpu_torch.runtime.migrate import move_lanes, replan_processor
+
+    tiered = EngineConfig(max_runs=32, slab_entries=96, slab_preds=12, dewey_depth=20,
+                          max_walk=12, tiering=True, stage_attribution=True)
+    recs = [Record(k, v, 1000 + 2 * i + j) for i, v in enumerate(
+        [ts.A, ts.B, ts.C, ts.C, ts.D, ts.A, ts.B, ts.C, ts.D]) for j, k in enumerate("ab")]
+    ref = CEPProcessor(ts.skip_till_any(ts.TQuery), 2, tiered, gc_interval=0, device="cpu")
+    proc = CEPProcessor(ts.skip_till_any(ts.TQuery), 2, tiered, gc_interval=0, device="cpu")
+    want = ref.process(recs[:8]) + ref.process(recs[8:])
+    got = proc.process(recs[:8])
+    profile = proc.metrics_snapshot(per_lane=False)["per_stage"]
+    for site, call in (("replan.swap", lambda: replan_processor(
+            ts.skip_till_any(ts.TQuery), proc, profile)),
+            ("rebalance.move", lambda: move_lanes(ts.skip_till_any(ts.TQuery), proc, [1, 0]))):
+        with fp.FAILPOINTS.session({site: [0]}):
+            with pytest.raises((fp.InjectedFault, fp.InjectedIOError)) as got_exc:
+                call()
+            assert fp.FAILPOINTS.hits(site) == 1
+        with jfp.FAILPOINTS.session({site: [0]}):
+            with pytest.raises((jfp.InjectedFault, jfp.InjectedIOError)) as want_exc:
+                jfp.fire(site)
+        assert type(got_exc.value).__name__ == type(want_exc.value).__name__
+    got += proc.process(recs[8:])
+    assert ts.canon_matches(got) == ts.canon_matches(want) and want
+
+
+def test_report_write_leaves_no_torn_line(tmp_path):
+    """``report.write`` fires between serializing a metrics record and its
+    single write: the failed flush adds nothing, as in the JAX reporter."""
+    import json
+
+    from kafkastreams_cep_tpu_torch.utils.telemetry import JsonlTraceSink, Reporter
+
+    path = str(tmp_path / "metrics.jsonl")
+    sink = JsonlTraceSink(path)
+    reporter = Reporter(lambda: {"records_in": 7}, sink, every_batches=1)
+    with fp.FAILPOINTS.session({"report.write": [1]}):
+        reporter.tick()
+        with pytest.raises(OSError):
+            reporter.tick()
+        reporter.tick()
+    sink.close()
+    with open(path) as f:
+        lines = f.read().splitlines()
+    assert len(lines) == 2
+    assert all(json.loads(line)["snapshot"] == {"records_in": 7} for line in lines)

@@ -1,7 +1,9 @@
-"""The PyTorch port stands alone: no module of ``kafkastreams_cep_tpu_torch``
-and none of its scripts (``chip_smoke.py``, ``chip_ab_walk_pass.py``,
-``chip_ab_scan_pass.py``, ``chip_phases_scan_pass.py``) imports ``jax`` or anything of the JAX package ``kafkastreams_cep_tpu`` (the
-port keeps its own copies of what it needs).  Only the tests import both."""
+"""The PyTorch port stands alone: no module of ``kafkastreams_cep_tpu_torch``,
+none of its scripts (``chip_smoke.py``, ``chip_ab_walk_pass.py``,
+``chip_ab_scan_pass.py``, ``chip_phases_scan_pass.py``) and none of its
+examples (``examples/torch_*.py``) imports ``jax`` or anything of the JAX
+package ``kafkastreams_cep_tpu`` (the port keeps its own copies of what it
+needs).  Only the tests import both."""
 
 import ast
 from pathlib import Path
@@ -12,9 +14,12 @@ ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "kafkastreams_cep_tpu_torch"
 SCRIPTS = ("chip_smoke.py", "chip_ab_walk_pass.py", "chip_ab_scan_pass.py",
            "chip_phases_scan_pass.py", "chip_phases_walk_pass.py")
+EXAMPLES = ("torch_stock_demo.py", "torch_ooo_pipeline.py", "torch_resilient_pipeline.py",
+            "torch_highrate_pipeline.py")
 FILES = sorted(
     p.relative_to(ROOT).as_posix()
-    for p in [*PKG.rglob("*.py"), *(ROOT / s for s in SCRIPTS)]
+    for p in [*PKG.rglob("*.py"), *(ROOT / s for s in SCRIPTS),
+              *(ROOT / "examples").glob("torch_*.py")]
     if (PKG / "build") not in p.parents  # build outputs, not sources
 )
 FORBIDDEN = ("jax", "jaxlib", "kafkastreams_cep_tpu")
@@ -47,8 +52,12 @@ def test_files_found():
                 "native/__init__.py", "runtime/ingest.py", "utils/serde.py",
                 "engine/sizing.py", "runtime/migrate.py", "runtime/supervisor.py",
                 "runtime/flight.py", "native/journal.py", "utils/failpoints.py",
-                "utils/telemetry.py", "utils/metrics.py"):
+                "utils/telemetry.py", "utils/metrics.py", "nfa/__init__.py",
+                "nfa/dewey.py", "nfa/buffer.py", "nfa/oracle.py", "utils/latency.py",
+                "runtime/tenant.py"):
         assert f"kafkastreams_cep_tpu_torch/{mod}" in FILES
+    for ex in EXAMPLES:
+        assert f"examples/{ex}" in FILES
     # The native packer builds from the port's own copy of the C++ source.
     assert (PKG / "native" / "src" / "ingest.cpp").is_file()
     # And the journal's C++ write path from its own copy.

@@ -80,8 +80,8 @@ def bounded_shuffle(records, skew, seed):
     return [records[i] for i in np.argsort(key, kind="stable")]
 
 
-def pair(builder=ts.strict3, num_lanes=2, grace=GRACE, **pol):
-    kw = dict(epoch=0, gc_interval=0)
+def pair(builder=ts.strict3, num_lanes=2, grace=GRACE, latency=None, **pol):
+    kw = dict(epoch=0, gc_interval=0, latency=latency)
     jproc = JProcessor(builder(ts.JQuery), num_lanes, JConfig(**CFG), clock=Clock(),
                        ingest=JPolicy(grace_ms=grace, **pol), **kw)
     tproc = CEPProcessor(builder(ts.TQuery), num_lanes, EngineConfig(**CFG), clock=Clock(),
@@ -393,10 +393,11 @@ def test_jax_checkpoint_loads_without_the_jax_package(tmp_path):
 
 
 def assert_snapshots_equal(jsnap, tsnap):
-    """Every key JAX reports but ``latency``, ``trace_cache`` and ``hbm`` is
-    equal; the wall-clock keys are present in both, and ``phases`` has the
-    same phases, each observed as many times."""
-    skip = {"phases", "latency", "trace_cache", "hbm"}
+    """Every key JAX reports but ``trace_cache`` and ``hbm`` is equal (the
+    ``latency`` ledger too, on the pinned clock); the wall-clock keys are
+    present in both, and ``phases`` has the same phases, each observed as
+    many times."""
+    skip = {"phases", "trace_cache", "hbm"}
     assert {k: v["count"] for k, v in tsnap["phases"].items()} == {
         k: v["count"] for k, v in jsnap["phases"].items()}
     tsnap = {k: v for k, v in tsnap.items() if k != "phases"}
@@ -418,13 +419,13 @@ def test_metrics_snapshot_equals_jax(guarded):
     recs = bounded_shuffle(trace(keys=("k0", "k1", "k2")), GRACE, 5)
     recs.insert(7, ("k0", {"bad": 1}, 1010, None))
     if guarded:
-        jproc, tproc = pair(builder=ts.skip_till_any, num_lanes=3)
+        jproc, tproc = pair(builder=ts.skip_till_any, num_lanes=3, latency=True)
     else:
         recs = [r for r in sorted(recs, key=lambda r: r[2]) if not isinstance(r[1], dict)]
         jproc = JProcessor(ts.skip_till_any(ts.JQuery), 3, JConfig(**CFG), epoch=0,
-                           clock=Clock(), name="q1")
+                           clock=Clock(), name="q1", latency=True)
         tproc = CEPProcessor(ts.skip_till_any(ts.TQuery), 3, EngineConfig(**CFG), epoch=0,
-                             clock=Clock(), name="q1", device="cpu")
+                             clock=Clock(), name="q1", device="cpu", latency=True)
     for i in range(0, len(recs), 6):
         j = jproc.process([JRecord(*r) for r in recs[i:i + 6]])
         t = tproc.process([Record(*r) for r in recs[i:i + 6]])
@@ -434,6 +435,7 @@ def test_metrics_snapshot_equals_jax(guarded):
     assert tsnap["per_key"]["total_hops"] > 0 and tsnap["per_key"]["top"]
     assert ("dead_letters" in tsnap) == guarded
     assert tsnap["watermark"] is not None and tsnap["event_time_lag_ms"] is not None
+    assert tsnap["latency"]["records"] == tproc.metrics.records_in > 0
     assert "per_lane" not in tproc.metrics_snapshot(per_lane=False)
     for top_k in (1, 2, 8):
         assert tproc.per_key_cost(top_k) == jproc.per_key_cost(top_k)

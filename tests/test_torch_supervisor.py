@@ -549,12 +549,42 @@ def test_chaos_schedule_ends_in_the_jax_oracle(tmp_path, mode, seed):
 
 @pytest.mark.parametrize("kwarg, item", [
     ("overload_policy", "item 6"), ("shard_policy", "item 8"), ("shard_probe", "item 8"),
-    ("mesh", "item 8"), ("latency", "item 6"),
+    ("mesh", "item 8"),
 ])
 def test_unported_arguments_raise(tmp_path, kwarg, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §A {item}"):
         sup_of(PKGS["torch"], tmp_path, "n", **{kwarg: True})
-    if kwarg in ("mesh", "latency"):
+    if kwarg == "mesh":
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md §A {item}"):
             TProcessor(ts.strict3(ts.TQuery), 1, TConfig(**DEFAULT), device="cpu",
                        **{kwarg: object()})
+
+
+def test_latency_builds_a_ledger_on_supervisor_and_processor(tmp_path):
+    """The latency door is open: ``latency=True`` builds a ledger on the
+    supervised processor and on a bare one, on their clock, and a
+    recovery's stall lands in it as in the JAX supervisor."""
+    from kafkastreams_cep_tpu_torch.utils.latency import LatencyLedger
+
+    def clock():
+        clock.t += 0.5
+        return clock.t
+
+    clock.t = 1000.0
+    proc = TProcessor(ts.strict3(ts.TQuery), 1, TConfig(**DEFAULT), device="cpu",
+                      clock=clock, latency=True)
+    assert isinstance(proc.ledger, LatencyLedger) and proc.ledger.clock is clock
+
+    def run(p, tag):
+        sup = sup_of(p, tmp_path, tag, latency=True, retry_backoff_ms=0)
+        vals = [ts.A, ts.B, ts.C, ts.X, ts.A, ts.B, ts.C, ts.X, ts.A, ts.B, ts.C, ts.X]
+        recs = [p.Record("k", v, 1000 + i) for i, v in enumerate(vals)]
+        with p.fp.FAILPOINTS.session({"device.dispatch": [1]}):
+            out = [m for i in range(0, len(recs), 3) for m in sup.process(recs[i:i + 3])]
+        led = sup.processor.ledger
+        return (sup.recoveries, led.records_committed, sorted(led.snapshot()["stalls"]),
+                ts.canon_matches(out))
+
+    got = both(lambda p, name: run(p, name))
+    assert got["torch"] == got["jax"]
+    assert got["torch"][0] == 1 and got["torch"][2] == ["recover"]
