@@ -171,6 +171,21 @@ Phases (any failure exits non-zero before the final line):
               quarantined query, and with an ``AdmissionPolicy`` whose
               ledger reconciles; the tenant cell through ``TenantCEP`` for
               information; (d) the four ``examples/torch_*.py`` on the card.
+15. overload  — the brownout ladder, the built-program cache and the
+              profiler CLI: (a) a ``Supervisor`` with an event-time
+              ``OverloadPolicy``, a guard, a journal and a checkpoint over
+              4,096 lanes: five flood batches of 32,768 records climb a
+              level a batch to L4, a sparse tail brings it back to L0, per
+              step (B1) crashed at L3 and resumed, and as whole scans (B2):
+              equal levels, dead letters and streams, equal to an
+              unsupervised run of the admitted records, the loss ledger
+              reconciled, capacity counters 0; (b) the processor restored
+              from its checkpoint with the cache off and on, with the
+              cache's hits; (c) ``python -m kafkastreams_cep_tpu_torch.profile``
+              ``step``, ``phases``, ``selectivity`` at K=4096, T=256,
+              ``latency`` (whole scans) at T=16 and ``ablate`` at T=32,
+              started together and run in turns, each printing one JSON
+              object.
 
 The last two lines of standard output are the kernel report (one JSON
 object) and the device line ``{"ok": true, "device": {...}}``; the card's
@@ -181,6 +196,7 @@ script imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import logging
 import os
@@ -369,6 +385,34 @@ TEN_LANES = 4096
 TEN_STEPS = 8
 TEN_BATCHES = 3
 CELL_BATCHES = 2  # the tenant cell through TenantCEP: one warm, one timed
+# Phase 15: the brownout ladder, the built-program cache and the profiler.
+OVL_LANES = 4096
+OVL_BATCH = 32768  # records a flood batch: phase 13's bench_resilience batch
+OVL_FLOOD = 5  # flood batches: up one level each to L4, then one at L4
+OVL_SUBSIDE = 8  # sparse tail batches: two a level back to L0
+OVL_GRACE = 16384  # ms: the flood ticks 1 ms a record, so a grace's worth is held
+OVL_DEPTH = 17000  # reorder depth: the held grace fits, at 0.96 of it
+OVL_STEP = 20000  # ms between tail records: past the grace, the backlog drains
+OVL_CFG = dict(max_runs=8, slab_entries=16, slab_preds=4, dewey_depth=8, max_walk=8)
+#: tests/test_overload.py's POLICY: the wall-clock signals neutralised, the
+#: pressure from the reorder hold alone, one level a flood batch.
+OVL_POLICY = dict(burn_ref=1e9, queue_ref=1e9, ring_ref=1e9, hold_age_ref=1e9,
+                  hold_ref=0.05, enter_streak=1, exit_streak=2)
+OVL_CRASH_LEVEL = 3
+OVL_DEAD_CAP = 1 << 17  # the guard keeps every dead letter of the stream
+#: Phase 15 (c): the profiler's subcommands, each ``(name, arguments, env)``:
+#: the headline shape (bench.py:347-349's config, K=4096, T=256) where the
+#: subcommand scans a ``[K, T]`` batch; ``latency`` makes its batch as
+#: K x T ``Record``s through the processor, at T=16 (65,536 records: at
+#: T=256 the host's record path took 59 s); the ablation at T=32.
+PROFILE_RUNS = (
+    ("step", ["--k", "4096", "--t", "256", "--reps", "1"], {}),
+    ("phases", ["--k", "4096", "--t", "256", "--reps", "3"], {}),
+    ("selectivity", ["--k", "4096", "--t", "256", "--runs", "24", "--slab", "48",
+                     "--reps", "1"], {}),
+    ("latency", ["--k", "4096", "--t", "16", "--batches", "1"], {"CEP_SCAN_KERNEL": "1"}),
+    ("ablate", ["--k", "4096", "--t", "32", "--reps", "2"], {}),
+)
 
 
 def log(msg: str) -> None:
@@ -3341,6 +3385,332 @@ def tenant_phase(torch, dev, smi, report):
         f"({k}) {v:.1f} s" for k, v in section.items()) + ")")
 
 
+def overload_batches(Record, K: int, n: int):
+    """Phase 15's stream: OVL_FLOOD flood batches of ``n`` records (seed 37:
+    keys uniform over ``K``, values 0-2, one record a millisecond, offsets
+    running on per key), then OVL_SUBSIDE single records OVL_STEP ms apart."""
+    rng = np.random.default_rng(37)
+    offs = np.zeros(K, dtype=np.int64)
+    batches, t = [], 0
+    for _ in range(OVL_FLOOD):
+        keys = rng.integers(0, K, size=n)
+        vals = rng.integers(0, 3, size=n)
+        recs = []
+        for k, v in zip(keys.tolist(), vals.tolist()):
+            t += 1
+            recs.append(Record(k, v, t, offset=int(offs[k])))
+            offs[k] += 1
+        batches.append(recs)
+    for _ in range(OVL_SUBSIDE):
+        t += OVL_STEP
+        k = int(rng.integers(0, K))
+        batches.append([Record(k, 4, t, offset=int(offs[k]))])
+        offs[k] += 1
+    return batches
+
+
+def start_profilers(work):
+    """Every PROFILE_RUNS command as ``python -m
+    kafkastreams_cep_tpu_torch.profile name argv --device DEVICE --wait-go``
+    from the script's directory, started together and returned at once:
+    each sets itself up and waits for its turn (``profile.start_waiting``)."""
+    from kafkastreams_cep_tpu_torch import profile
+
+    return profile.start_waiting(
+        [[name, *argv, "--device", DEVICE] for name, argv, _ in PROFILE_RUNS], work,
+        envs=[env for _, _, env in PROFILE_RUNS],
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def finish_profilers(started, smi):
+    """Run the started profiler processes in turns, one on the card at a
+    time, each once it is set up: ``{name: its one JSON object}``, after
+    checking each printed exactly one line on stdout and exited 0."""
+    from kafkastreams_cep_tpu_torch import profile
+
+    docs = {}
+    for (name, argv, _), (proc, prefix) in zip(PROFILE_RUNS, started):
+        t0 = time.perf_counter()
+        rc, out, err = profile.run_in_turn(proc, prefix)
+        lines = out.strip().splitlines()
+        if rc or len(lines) != 1:
+            fail(f"profile {name}: rc {rc}, {len(lines)} stdout lines; stderr {err[-3000:]}")
+        doc = json.loads(lines[0])
+        if not isinstance(doc, dict) or doc.get("profile") != name:
+            fail(f"profile {name}: printed {lines[0][:300]}")
+        for line in err.strip().splitlines()[-12:]:
+            log(f"profile {name} | {line}")
+        log(f"profile {name} {' '.join(argv)}: one JSON object; its turn "
+            f"{time.perf_counter() - t0:.1f} s [{smi}]")
+        docs[name] = doc
+    return docs
+
+
+def overload_phase(torch, dev, smi, report):
+    """Phase 15: the brownout ladder, the built-program cache and the
+    profiler CLI on the card.
+
+    (a) a ``Supervisor`` with the event-time OVL_POLICY, an ingest guard
+    (grace OVL_GRACE ms, depth OVL_DEPTH), a journal and a checkpoint path
+    over OVL_LANES lanes of strict3 at OVL_CFG: OVL_FLOOD flood batches of
+    OVL_BATCH records climb a level a batch to L4, OVL_SUBSIDE sparse ones
+    bring it back to L0; per step (B1), crashed once the ladder reaches
+    OVL_CRASH_LEVEL and resumed from its files, and as whole scans (B2):
+    the same level trajectory, dead letters by (key, offset) and match
+    stream, equal to an unsupervised processor's run of the admitted
+    records on the card, every offered record admitted, shed or
+    dead-lettered, every capacity counter 0; (b) the whole-scan processor
+    restored from its checkpoint as a recovery does, cold
+    (``CEP_TRACE_CACHE=0``) and warm, with the first whole scan after it;
+    (c) ``python -m kafkastreams_cep_tpu_torch.profile`` PROFILE_RUNS,
+    started together at the phase's start (their set-up overlaps (a) and
+    (b)) and run in turns after (b), each one JSON object, ``phases`` naming
+    B1 and ``latency`` B2 beside their bounds."""
+    import shutil
+    import tempfile
+
+    from kafkastreams_cep_tpu_torch import CEPProcessor, EngineConfig, Query, Record
+    from kafkastreams_cep_tpu_torch.engine import capacity_counters
+    from kafkastreams_cep_tpu_torch.ops import scan_kernel, walk_kernel
+    from kafkastreams_cep_tpu_torch.runtime import (
+        IngestPolicy, OverloadPolicy, Supervisor, restore_processor,
+    )
+    from kafkastreams_cep_tpu_torch.utils import tracecache
+
+    kern, skern = walk_kernel.walk_pass_kernel, scan_kernel.scan_pass_kernel
+    t15 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="cep_overload_")
+    K, cfg = OVL_LANES, EngineConfig(**OVL_CFG)
+    section = {}
+    # The guard logs a warning a dead letter: tens of thousands a run here.
+    ingest_log = logging.getLogger("kafkastreams_cep_tpu_torch.runtime.ingest")
+    ingest_level = ingest_log.level
+    ingest_log.setLevel(logging.ERROR)
+
+    def reset():
+        kern.reset_counts()
+        skern.reset_counts()
+
+    def launched():
+        return ({(f"walk_pass[{m}]" if m != "default" else "walk_pass"): c
+                 for m, c in kern.launches_by_mode.items() if c}
+                | {f"scan_pass[{m}]": c for m, c in skern.launches_by_mode.items() if c})
+
+    def ingest():
+        return IngestPolicy(grace_ms=OVL_GRACE, reorder_depth=OVL_DEPTH,
+                            dead_letter_cap=OVL_DEAD_CAP)
+
+    def supervised(tag, resume=False):
+        kw = dict(checkpoint_path=os.path.join(work, f"{tag}.ckpt"),
+                  journal_path=os.path.join(work, f"{tag}.jrnl"), checkpoint_every=100,
+                  gc_interval=0, overload_policy=OverloadPolicy(**OVL_POLICY),
+                  ingest=ingest(), device=dev)
+        args = (strict3_pattern(Query), K, cfg)
+        return Supervisor.resume(*args, **kw) if resume else Supervisor(*args, **kw)
+
+    started = []
+    try:
+        # (c)'s profiler processes start now and set themselves up (imports,
+        # the device's context) beside (a) and (b); they wait to measure
+        # until (c) gives each its turn.
+        started = start_profilers(work)
+        # (a) the ladder at real size --------------------------------------------
+        t0 = time.perf_counter()
+        batches = overload_batches(Record, K, OVL_BATCH)
+        offered = sum(len(b) for b in batches)
+        log(f"overload (a): {OVL_FLOOD} flood batches of {OVL_BATCH} records and "
+            f"{OVL_SUBSIDE} tail records over {K} keys made in "
+            f"{time.perf_counter() - t0:.2f} s")
+        runs = {}
+
+        def brownout(label, scan, crash_at=None):
+            if scan:
+                os.environ["CEP_SCAN_KERNEL"] = "1"
+            try:
+                reset()
+                t1 = time.perf_counter()
+                sup = supervised(label)
+                out, levels, secs, crashed = [], [], [], False
+                for b in batches:
+                    at = sup._overload.level
+                    tb = time.perf_counter()
+                    out += sup.process(b)
+                    torch.cuda.synchronize()
+                    secs.append((at, time.perf_counter() - tb))
+                    levels.append(sup._overload.level)
+                    if crash_at is not None and not crashed and levels[-1] == crash_at:
+                        del sup  # the crash: only the checkpoint and journal remain
+                        sup = supervised(label, resume=True)
+                        proc = sup.processor
+                        if (sup._overload.level != crash_at
+                                or proc.overload_admit_fraction
+                                != sup._overload.admit_fraction()
+                                or not proc.telemetry_defer):
+                            fail(f"overload (a, {label}): resumed at L{sup._overload.level}, "
+                                 f"admit {proc.overload_admit_fraction}")
+                        crashed = True
+                out += sup.processor.drain_ingest() + sup.processor.flush()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+                paths = launched()
+            finally:
+                os.environ.pop("CEP_SCAN_KERNEL", None)
+            g = sup.processor._guard
+            lc = g.loss_counters()
+            cap = capacity_counters(sup.processor.counters())
+            runs[label] = dict(sup=sup, levels=levels, stream=canon_stream(out),
+                               dead=[(d.record.key, d.record.offset, d.reason)
+                                     for d in g.dead_letters],
+                               secs=secs, launches=paths)
+            per_level = {}
+            for at, sec in secs:
+                per_level.setdefault(at, []).append(sec)
+            log(f"overload (a) {label}: levels {levels}; {len(out)} matches; shed "
+                f"{g.overload_shed}, admitted {g.admitted}, late {lc['late_dropped']}, "
+                f"quarantined {lc['quarantined']} of {offered} offered; transitions "
+                f"{sup._overload.transitions}, checkpoints {sup.checkpoints}; seconds a batch "
+                "by level " + ", ".join(f"L{lv} {np.mean(v):.3f} (n={len(v)})"
+                                        for lv, v in sorted(per_level.items()))
+                + f"; capacity counters {cap}; launches {paths}; {wall:.2f} s [{smi}]")
+            if any(cap.values()):
+                fail(f"overload (a, {label}): capacity counters {cap}")
+            if offered != g.admitted + lc["overload_shed"] + lc["late_dropped"] + lc[
+                    "quarantined"]:
+                fail(f"overload (a, {label}): the loss ledger does not reconcile")
+            return runs[label]
+
+        # The per-step run crashes once it reaches OVL_CRASH_LEVEL and goes
+        # on from its files; the whole-scan run does not crash.
+        step = brownout("per_step_crash_at_l3", scan=False, crash_at=OVL_CRASH_LEVEL)
+        whole = brownout("whole_scan", scan=True)
+        if max(step["levels"]) != 4 or step["levels"][-1] != 0:
+            fail(f"overload (a): levels {step['levels']}: want L4 reached and L0 at the end")
+        if not step["sup"].processor._guard.overload_shed:
+            fail("overload (a): nothing was shed")
+        if whole["levels"] != step["levels"]:
+            fail(f"overload (a): whole-scan levels {whole['levels']} != {step['levels']}")
+        if whole["dead"] != step["dead"]:
+            fail("overload (a): the whole-scan run's dead letters differ from the per-step run's")
+        if whole["stream"] != step["stream"]:
+            fail("overload (a): the whole-scan stream differs from the per-step run's")
+        if set(step["launches"]) != {"walk_pass"}:
+            fail(f"overload (a): the per-step run launched {step['launches']}")
+        if set(whole["launches"]) != {"scan_pass[default]"}:
+            fail(f"overload (a): the whole-scan run launched {whole['launches']}")
+        for label, run in runs.items():
+            for name, n in run["launches"].items():
+                add_launches(report, name, f"overload_{label}", n)
+        # The admitted subset through an unsupervised processor on the card.
+        dead = {(k, o) for k, o, _ in step["dead"]}
+        reset()
+        proc = CEPProcessor(strict3_pattern(Query), K, cfg, gc_interval=0, ingest=ingest(),
+                            device=dev)
+        want = []
+        for b in batches:
+            keep = [r for r in b if (r.key, r.offset) not in dead]
+            if keep:
+                want += proc.process(keep)
+        want += proc.drain_ingest() + proc.flush()
+        torch.cuda.synchronize()
+        for name, n in launched().items():
+            add_launches(report, name, "overload_admitted", n)
+        if canon_stream(want) != step["stream"] or not want:
+            fail(f"overload (a): the survivors ({len(step['stream'])}) differ from the "
+                 f"admitted subset's run ({len(want)})")
+        if any(capacity_counters(proc.counters()).values()):
+            fail(f"overload (a): the admitted run lost work: {proc.counters()}")
+        log(f"overload (a): the per-step run (crashed at L{OVL_CRASH_LEVEL} and resumed) and "
+            f"the whole-scan run equal (levels, {len(step['dead'])} dead letters, "
+            f"{len(want)} matches) and equal the admitted subset's unsupervised run [{smi}]")
+        section["a"] = time.perf_counter() - t0
+
+        # (b) the built-program cache -------------------------------------------
+        t0 = time.perf_counter()
+        ck = os.path.join(work, "whole_scan.ckpt")
+        last = batches[-1][0]
+        rebuilt = {}
+        for label, setting in (("cold", "0"), ("warm", None)):
+            if setting is None:
+                os.environ.pop("CEP_TRACE_CACHE", None)
+            else:
+                os.environ["CEP_TRACE_CACHE"] = setting
+            os.environ["CEP_SCAN_KERNEL"] = "1"
+            try:
+                before = tracecache.stats()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                rproc = restore_processor(strict3_pattern(Query), ck, device=dev)
+                torch.cuda.synchronize()
+                restore_s = time.perf_counter() - t1
+                t1 = time.perf_counter()
+                rproc.process([Record(last.key, 0, last.timestamp + OVL_STEP)])
+                rproc.drain_ingest()
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t1
+                after = tracecache.stats()
+            finally:
+                os.environ.pop("CEP_TRACE_CACHE", None)
+                os.environ.pop("CEP_SCAN_KERNEL", None)
+            rebuilt[label] = (restore_s, first_s, before, after)
+            log(f"overload (b) {label} rebuild (CEP_TRACE_CACHE="
+                f"{setting if setting is not None else 'unset'}): restore_processor "
+                f"{restore_s:.4f} s, then its first whole scan {first_s:.4f} s; trace_cache "
+                f"{before} -> {after} [{smi}]")
+        if rebuilt["warm"][3]["hits"] <= rebuilt["warm"][2]["hits"]:
+            fail("overload (b): the warm rebuild hit no cache entry")
+        if rebuilt["cold"][3] != rebuilt["cold"][2]:
+            fail("overload (b): the cold rebuild touched the cache")
+        section["b"] = time.perf_counter() - t0
+
+        # (c) the profiler CLI ----------------------------------------------------
+        # Its processes share the card with this one: hand this process's
+        # cached blocks back first.
+        t0 = time.perf_counter()
+        del runs, step, whole, proc, want, rproc
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"overload (c): this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+            f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+        docs = finish_profilers(started, smi)
+        for row in docs["phases"]["kernels"]:
+            if row["kernel"] != "B1" or not row["ms"] > 0 or not row["bound_ms"] > 0:
+                fail(f"profile phases: row {row}")
+            log(f"profile phases: {row['name']} on {row['on']}: {row['ms']} ms, bound "
+                f"{row['bound_ms']} ms ({row['bound_by']}, {row['mb']} MB) [{smi}]")
+        kernels = docs["latency"]["device_cost"]["kernels"]
+        b2 = kernels.get("scan_pass")
+        if not b2 or b2.get("kernel") != "B2" or not b2.get("ms") or not b2.get("bound_ms"):
+            fail(f"profile latency: no B2 row with ms and bound in {kernels}")
+        log(f"profile latency: {kernels}; segments "
+            + ", ".join(f"{n} p50 {v.get('p50')} p99 {v.get('p99')}"
+                        for n, v in docs["latency"]["segments"].items()) + f" [{smi}]")
+        for pt in docs["step"]["points"]:
+            log(f"profile step: K={pt['k']} T={pt['t']}: {pt['scan_ms']} ms a scan, "
+                f"{pt['evps']:,.0f} events/s, {pt['walk_pass_launches']} B1 launches in "
+                f"{pt['scans']} scans [{smi}]")
+            add_launches(report, "walk_pass", "profile_step", pt["walk_pass_launches"])
+        add_launches(report, "scan_pass[default]", "profile_latency", b2["launches"])
+        sel = docs["selectivity"]
+        log(f"profile selectivity: attribution off {sel['evps_attr_off']:,.0f} ev/s, on "
+            f"{sel['evps_attr_on']:,.0f} ev/s ({sel['overhead_pct']} %) [{smi}]")
+        abl = docs["ablate"]
+        if abl.get("error"):
+            fail(f"profile ablate: {abl}")
+        log(f"profile ablate: {abl['total_ms_per_step']} ms a step; " + ", ".join(
+            f"{n} {v['ms_per_step']} ms ({v['share']})" for n, v in abl["breakdown"].items())
+            + f" [{smi}]")
+        section["c"] = time.perf_counter() - t0
+    finally:
+        for proc, _ in started:  # a failure before (c)'s end leaves them waiting
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        ingest_log.setLevel(ingest_level)
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"overload phase: {time.perf_counter() - t15:.1f} s (" + ", ".join(
+        f"({k}) {v:.1f} s" for k, v in section.items()) + ")")
+
+
 def profile_busy(prof):
     """``(busy_us, window_us, kernels)`` of a ``torch.profiler`` trace: the
     union of the device kernels' intervals, the span from the first to the
@@ -3422,6 +3792,10 @@ def main() -> None:
             jobs[(name, mode)] = (src, mode)
     mode = scan_kernel.mode_of(EngineConfig(**dict(TIER_PARITY, **WIDE)), tiered=True)
     jobs[("pn1_strict3_skip", mode)] = (hybrid_src["pn1_strict3_skip"], mode)
+    # Phase 15's brownout stream (strict3 over int values) as whole scans.
+    mode = scan_kernel.mode_of(EngineConfig(**OVL_CFG))
+    jobs[("overload", mode)] = (scan_codegen.generate(lower(strict3_pattern(Query)), letters),
+                                mode)
     # Phase 12's NFA counterpart of the stencil.
     mode = scan_kernel.mode_of(EngineConfig(**STENCIL_NFA))
     jobs[("stencil", mode)] = (scan_codegen.generate(
@@ -4266,6 +4640,7 @@ def main() -> None:
     surgery_phase(torch, dev, smi, report, records, name_of)
     supervisor_phase(torch, dev, smi, report, scan_bound, scan_entry, max_err, scan_err)
     tenant_phase(torch, dev, smi, report)
+    overload_phase(torch, dev, smi, report)
 
     log(f"total: {time.perf_counter() - t_start:.1f} s after the card check")
     log(smi)

@@ -1144,7 +1144,7 @@ class TPUMatcher:
     from the JAX package so each module finds its counterpart."""
 
     def __init__(self, pattern, config: Optional[EngineConfig] = None,
-                 device="cuda"):
+                 device="cuda", phases: Optional[StepPhases] = None):
         self.device = resolve_device(device)
         self.tables: TransitionTables = (
             pattern if isinstance(pattern, TransitionTables) else lower(pattern)
@@ -1155,7 +1155,11 @@ class TPUMatcher:
             self.tables.num_stages, self.tables.names,
             self.tables.max_hops, self.config, self.device,
         )
-        self.phases = _build_step(self.tables, self.config, self.device)
+        # ``phases`` hands over a build of the same tables, config and
+        # device (``parallel/batch.py`` takes it from utils/tracecache.py);
+        # the step and drain closures are made anew either way, so they
+        # call the walk pass in effect now.
+        self.phases = phases or _build_step(self.tables, self.config, self.device)
         self.step, self.drain = build_programs(self.phases, self.config)
 
     @property

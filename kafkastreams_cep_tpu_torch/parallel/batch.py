@@ -29,11 +29,14 @@ only ``step`` and ``drain``.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Any, Dict, Optional
 
 import torch
 
+from kafkastreams_cep_tpu_torch.compiler.multitenant import tables_key
+from kafkastreams_cep_tpu_torch.compiler.tables import TransitionTables, lower
 from kafkastreams_cep_tpu_torch.compiler.tiering import build_conjunct_tally
 from kafkastreams_cep_tpu_torch.engine.matcher import (
     COUNTER_NAMES,
@@ -47,7 +50,9 @@ from kafkastreams_cep_tpu_torch.engine.matcher import (
     counter_values,
     hot_counter_values,
     map_value,
+    _build_step,
     per_lane_counter_arrays,
+    resolve_device,
     stage_counter_arrays,
     stage_report,
     scan_steps,
@@ -57,6 +62,7 @@ from kafkastreams_cep_tpu_torch.engine.matcher import (
 from kafkastreams_cep_tpu_torch.ops import renorm as renorm_mod
 from kafkastreams_cep_tpu_torch.ops import scan_codegen, scan_kernel
 from kafkastreams_cep_tpu_torch.ops import slab as slab_mod
+from kafkastreams_cep_tpu_torch.utils import tracecache
 from kafkastreams_cep_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("parallel.batch")
@@ -138,7 +144,20 @@ class BatchMatcher:
 
     def __init__(self, pattern, num_lanes: int,
                  config: Optional[EngineConfig] = None, device="cuda"):
-        self.matcher = TPUMatcher(pattern, config, device)
+        tables = pattern if isinstance(pattern, TransitionTables) else lower(pattern)
+        config = config or EngineConfig()
+        device = resolve_device(device)
+        # The step phases (the tables and predicate plan on the device) and
+        # the generated whole-scan sources are structural functions of
+        # (tables, config, device): a rebuilt matcher of a known pattern (a
+        # recovery, an escalation, a restore) takes them from the process
+        # cache (utils/tracecache.py).  The lane count is not in the key:
+        # nothing built depends on it.
+        tk = tables_key(tables)
+        self._cache_key = (None if tk is None
+                           else (tk, dataclasses.astuple(config), str(device)))
+        phases = self._cached("batch.step", lambda: _build_step(tables, config, device))
+        self.matcher = TPUMatcher(tables, config, device, phases=phases)
         self.num_lanes = int(num_lanes)
         self.device = self.matcher.device
         self.step = self.matcher.step
@@ -156,7 +175,13 @@ class BatchMatcher:
         self.uses_scan_kernel = os.environ.get("CEP_SCAN_KERNEL", "0") in (
             "1", "interpret",
         )
-        self._scan_sources: Dict[str, scan_codegen.ScanSource] = {}
+        self._scan_sources: Dict[str, scan_codegen.ScanSource] = self._cached(
+            "batch.scan", dict)
+
+    def _cached(self, namespace: str, build):
+        """``build()`` through the process cache under this matcher's key
+        (an unkeyable pattern builds uncached)."""
+        return tracecache.lookup(namespace, self._cache_key, build)
 
     @property
     def names(self):

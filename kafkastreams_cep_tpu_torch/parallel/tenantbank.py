@@ -48,6 +48,7 @@ import torch
 from kafkastreams_cep_tpu_torch.compiler.multitenant import (
     BankPlan,
     TenantQuota,
+    bank_key,
     plan_bank,
 )
 from kafkastreams_cep_tpu_torch.compiler.tiering import TIER_HYBRID, TIER_NFA
@@ -85,6 +86,7 @@ from kafkastreams_cep_tpu_torch.engine.tiered import (
 )
 from kafkastreams_cep_tpu_torch.parallel.batch import sweep_lanes
 from kafkastreams_cep_tpu_torch.parallel.stacked import replicate_events, tile_states
+from kafkastreams_cep_tpu_torch.utils import tracecache
 from kafkastreams_cep_tpu_torch.utils.failpoints import fire as _failpoint
 from kafkastreams_cep_tpu_torch.utils.logging import get_logger
 
@@ -390,7 +392,7 @@ class TenantBankMatcher:
             g.tlist.append(qp.tables)
         self._groups: List[_EngineGroup] = list(groups.values())
         for g in self._groups:
-            g.programs = _GroupPrograms(g, self.config, self.K, self.device)
+            g.programs = self._cached_group_programs(g)
         self._hybrid_idx = [i for i, g in enumerate(self._groups) if g.kind == "hybrid"]
         logger.info(
             "tenant bank: %d queries -> %d prefix groups (%d columns, shared hit "
@@ -407,7 +409,45 @@ class TenantBankMatcher:
                 self._col_users.setdefault(int(cid), set()).add(q)
         self._disabled_cols: frozenset = frozenset()
         self._gactive: List[np.ndarray] = [np.ones(g.Q, bool) for g in self._groups]
-        self._screen = self._build_screen() if self._pgroups else None
+        self._screen = self._cached_screen()
+
+    # -- the process cache (utils/tracecache.py) ----------------------------
+
+    def _cached_group_programs(self, g: _EngineGroup) -> "_GroupPrograms":
+        """One engine group's programs, shared by every bank whose group has
+        the same member tables, config, kind, prefix rows and lanes (the
+        per-lane qid table is built at ``Qg * K`` lanes) on the same
+        device."""
+        key = bank_key(g.tlist)
+        if key is not None:
+            key = (key, dataclasses.astuple(self.config), g.kind, g.p, tuple(g.rows),
+                   self.K, str(self.device))
+        return tracecache.lookup("tenant.group_programs", key,
+                                 lambda: _GroupPrograms(g, self.config, self.K, self.device))
+
+    def _struct_key(self):
+        """The bank's structural fingerprint: its queries' tables, the config
+        and the prefix and engine grouping (None when a query is
+        unkeyable)."""
+        bkey = bank_key([qp.tables for qp in self.bank.queries])
+        if bkey is None:
+            return None
+        struct = (
+            tuple((pg.p, pg.sigs.tobytes(), tuple(pg.stencil_rows)) for pg in self._pgroups),
+            tuple((g.kind, g.p, g.pg, tuple(g.rows), tuple(g.qids)) for g in self._groups),
+        )
+        return (bkey, dataclasses.astuple(self.config), struct)
+
+    def _cached_screen(self):
+        """The shared screen, keyed by the bank's structure, the disabled
+        columns (a quarantined tenant's private columns are constant False
+        in the matrix evaluator), the lanes and the device."""
+        if not self._pgroups:
+            return None
+        key = self._struct_key()
+        if key is not None:
+            key = (key, tuple(sorted(self._disabled_cols)), self.K, str(self.device))
+        return tracecache.lookup("tenant.screen", key, self._build_screen)
 
     # -- the shared screen ---------------------------------------------------
 
@@ -620,7 +660,7 @@ class TenantBankMatcher:
             cid for cid, users in self._col_users.items() if users and users <= quarantined)
         self._gactive = [np.asarray([q not in quarantined for q in g.qids], bool)
                          for g in self._groups]
-        self._screen = self._build_screen() if self._pgroups else None
+        self._screen = self._cached_screen()
 
     def iso_state(self) -> Dict[str, object]:
         """The enforcement ledger, for a checkpoint."""

@@ -18,6 +18,7 @@ from kafkastreams_cep_tpu_torch.runtime.migrate import (
     widen_state,
 )
 from kafkastreams_cep_tpu_torch.runtime.flight import FlightRecorder, read_dump
+from kafkastreams_cep_tpu_torch.runtime.overload import OverloadController, OverloadPolicy
 from kafkastreams_cep_tpu_torch.runtime.processor import (
     CEPProcessor,
     InputRejected,
@@ -52,6 +53,8 @@ __all__ = [
     "IngestGuard",
     "IngestPolicy",
     "InputRejected",
+    "OverloadController",
+    "OverloadPolicy",
     "Record",
     "QuarantinePolicy",
     "Supervisor",

@@ -18,11 +18,7 @@ from kafkastreams_cep_tpu_torch.engine.matcher import EngineConfig
 from kafkastreams_cep_tpu_torch.runtime.processor import CEPProcessor, Record
 from kafkastreams_cep_tpu_torch.utils.events import Sequence
 from kafkastreams_cep_tpu_torch.utils.logging import get_logger
-from kafkastreams_cep_tpu_torch.utils.metrics import (
-    COUNTER_ATTRS,
-    SECONDS_ATTRS,
-    merge_counter_dicts,
-)
+from kafkastreams_cep_tpu_torch.utils.metrics import Metrics, merge_counter_dicts
 
 logger = get_logger("runtime.bank")
 
@@ -34,16 +30,17 @@ class CEPBank:
     record.  ``process`` returns ``(query_name, key, Sequence)`` triples:
     per query in declaration order, each query's matches in its
     processor's emission order.  ``device`` is where every member runs
-    (``"cuda"`` by default)."""
+    (``"cuda"`` by default); every member shares ``trace_sink`` and is
+    named after its query."""
 
     def __init__(self, patterns: Dict[str, object], num_lanes: int,
                  config: Optional[EngineConfig] = None, topic: str = "stream",
-                 epoch: Optional[int] = None, device="cuda"):
+                 epoch: Optional[int] = None, trace_sink=None, device="cuda"):
         if not patterns:
             raise ValueError("a bank needs at least one pattern")
         self.processors: Dict[str, CEPProcessor] = {
-            name: CEPProcessor(pattern, num_lanes, config, topic=topic,
-                               epoch=epoch, device=device)
+            name: CEPProcessor(pattern, num_lanes, config, topic=topic, epoch=epoch,
+                               trace_sink=trace_sink, name=name, device=device)
             for name, pattern in patterns.items()
         }
         logger.info("bank of %d queries: %s", len(patterns), list(patterns))
@@ -58,20 +55,21 @@ class CEPBank:
         return {name: p.counters() for name, p in self.processors.items()}
 
     def metrics_snapshot(self) -> Dict[str, object]:
-        """Bank-wide telemetry: the members' runtime counters and phase
-        seconds summed, their engine loss, hot-tier and walk counters
-        summed, ``per_stage`` merged by stage name (selectivity re-derived
-        from the merged tallies) and the un-merged ``per_pattern``
-        breakdown."""
+        """Bank-wide telemetry: the members' registries merged (runtime
+        counters summed, phase latency histograms aggregated exactly: the
+        merge is associative, so this equals one registry that observed
+        every member's batches) and snapshotted with the members' engine
+        loss, hot-tier and walk counters summed; ``per_stage`` merged by
+        stage name (selectivity re-derived from the merged tallies) and the
+        un-merged ``per_pattern`` breakdown."""
         procs = list(self.processors.values())
-        snap: Dict[str, object] = {
-            n: sum(getattr(p.metrics, n) for p in procs) for n in COUNTER_ATTRS
-        }
-        for n in SECONDS_ATTRS:
-            snap[n] = round(sum(getattr(p.metrics, n) for p in procs), 6)
-        snap.update(merge_counter_dicts(
+        reg = procs[0].metrics.registry
+        for p in procs[1:]:
+            reg = reg.merge(p.metrics.registry)
+        engine = merge_counter_dicts(
             [{**p.counters(), **p.hot_counters(), **p.walk_counters()} for p in procs]
-        ))
+        )
+        snap: Dict[str, object] = Metrics(registry=reg).snapshot(engine)
         per_stage: Dict[str, Dict[str, object]] = {}
         for p in procs:
             for stage, row in p.batch.stage_counters(p.state).items():

@@ -42,12 +42,15 @@ from kafkastreams_cep_tpu_torch.parallel.tiered import TieredBatchMatcher
 from kafkastreams_cep_tpu_torch.runtime.ingest import (
     REASON_LANE_OVERFLOW,
     REASON_LATE,
+    REASON_OVERLOAD_SHED,
     REASON_SCHEMA,
     REASON_TIME_RANGE,
     Defect,
     IngestGuard,
     IngestPolicy,
 )
+from kafkastreams_cep_tpu_torch.runtime.overload import shed_keep
+from kafkastreams_cep_tpu_torch.utils import tracecache
 from kafkastreams_cep_tpu_torch.utils.events import Event, Sequence
 from kafkastreams_cep_tpu_torch.utils.latency import LatencyLedger
 from kafkastreams_cep_tpu_torch.utils.logging import get_logger
@@ -295,6 +298,14 @@ class CEPProcessor:
         # check a batch.
         self.flight = flight
         self._dlq_base = 0  # dead-letter total at the last batch (burst detection)
+        # Brownout actuators, set by the supervisor's OverloadController
+        # (runtime/overload.py), never by callers: ``overload_admit_fraction``
+        # None is the open door, else the fraction of admissible records the
+        # ingest door keeps (a deterministic within-batch stride; 0.0 at L4
+        # refuses all); ``telemetry_defer`` skips the per-lane and per-key
+        # device gathers of metrics_snapshot while browned out.
+        self.overload_admit_fraction: Optional[float] = None
+        self.telemetry_defer = False
 
     def set_clock(self, clock) -> None:
         """Re-inject the host clock wherever it is read (the lag gauge, the
@@ -407,17 +418,36 @@ class CEPProcessor:
         """Admit one raw batch through the guard; returns the released
         (watermark-passed, timestamp-ordered) records with their offsets
         reset to auto: release order is the engine's log order, and the
-        source offsets already did their job (dedup at admission).  Every
-        record that validates is admitted (this package has no brownout
-        door)."""
+        source offsets already did their job (dedup at admission).  While
+        the brownout door is throttled (``overload_admit_fraction``), the
+        admissible records the stride drops are dead-lettered as
+        ``overload_shed``."""
         guard = self._guard
         # Fault site: before any guard or lane bookkeeping changes, so the
         # batch is refused whole, nothing half-admitted.
         _failpoint("ingest.admit")
         strict = guard.policy.on_bad_record == "raise"
+        admit_frac = self.overload_admit_fraction
+        n_admissible = 0
         for idx, rec in enumerate(records):
             defect = self._record_defect(rec)
             if defect is None:
+                # The brownout shed (L3+) comes after validation and replay
+                # dedup (a re-submitted shed record dedups silently), and
+                # its stride counts admissible records only, so a replayed
+                # batch sheds the same records.
+                keep = admit_frac is None or shed_keep(n_admissible, admit_frac)
+                n_admissible += 1
+                if not keep:
+                    # Fault site: the shed is decided but not recorded; the
+                    # recovery replays the batch and sheds the same records.
+                    _failpoint("overload.shed")
+                    guard.quarantine(rec, REASON_OVERLOAD_SHED,
+                                     f"brownout admit fraction {admit_frac}", corr)
+                    # Its event time still counts: the watermark advances and
+                    # the held backlog drains while the door is shut.
+                    guard.observe_time(rec.timestamp)
+                    continue
                 guard.push(rec)
             elif defect.silent:
                 self.metrics.duplicates_dropped += 1
@@ -1140,10 +1170,11 @@ class CEPProcessor:
         only), ``per_pattern`` (this processor under its ``name``), the
         tiering plan (``tier_plan``, tiered processors only), ``per_stage``
         under attribution, ``per_lane`` and ``per_key`` (skipped with
-        ``per_lane=False``: one more device read), ``phases`` (each batch
-        phase's latency histogram: count, sum, p50, p99), ``latency`` (the
-        ledger's snapshot, with ``latency=`` only) and ``hbm`` (the card's
-        memory byte gauges, ``{}`` on the CPU)."""
+        ``per_lane=False`` or while ``telemetry_defer`` is set: one more
+        device read), ``phases`` (each batch phase's latency histogram:
+        count, sum, p50, p99), ``latency`` (the ledger's snapshot, with
+        ``latency=`` only), ``hbm`` (the card's memory byte gauges, ``{}`` on
+        the CPU) and ``trace_cache`` (``utils/tracecache.py: stats()``)."""
         snap: Dict[str, Any] = self.metrics.snapshot(self.counters())
         hot = self.hot_counters()
         snap.update(hot)
@@ -1171,7 +1202,9 @@ class CEPProcessor:
         per_stage = self.batch.stage_counters(self.state)
         if per_stage:
             snap["per_stage"] = per_stage
-        if per_lane:
+        # Brownout L1+ defers the per-lane and per-key gathers: the one part
+        # of the snapshot that reads the device.
+        if per_lane and not self.telemetry_defer:
             snap["per_lane"] = self.batch.per_lane_counters(self.state)
             snap["per_key"] = self.per_key_cost(per_lane_arrays=snap["per_lane"])
         if self.ledger is not None:
@@ -1179,6 +1212,10 @@ class CEPProcessor:
             # burn (rendered as cep_latency_seconds{segment=} and the rest).
             snap["latency"] = self.ledger.snapshot()
         snap["hbm"] = device_memory_stats(self.device)
+        # The built-program cache (utils/tracecache.py): entries against
+        # capacity and the hit, miss and eviction totals; an eviction storm
+        # is rebuild thrash.
+        snap["trace_cache"] = tracecache.stats()
         return snap
 
     def per_key_cost(self, top_k: int = 8, per_lane_arrays=None) -> Dict[str, Any]:

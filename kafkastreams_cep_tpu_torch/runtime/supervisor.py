@@ -29,13 +29,22 @@ keyword), recover and replan wall time land in its stall histograms,
 tagged with the batch's correlation id, and an SLO burn rate first
 crossing 1.0 dumps the flight recorder.
 
+With ``overload_policy`` the supervisor runs the brownout ladder
+(``runtime/overload.py``): one controller tick a batch on host signals
+(SLO burn, reorder hold depth and age, queue p99, deferred drains), and a
+transition protocol that fires the ``overload.enter``/``overload.exit``
+failpoints, applies the level's actuators (drain cadence, telemetry
+deferral, the admission squeeze of :meth:`Supervisor.attach_admission`,
+the ingest door's shed) and pins the level with a checkpoint; the level
+rides ``extra["overload"]``, so a recovery, a resume and a replay land in
+it.
+
 This is the JAX package's supervisor (``kafkastreams_cep_tpu/runtime/
 supervisor.py``) without its mesh half (shard evacuation, straggler
-watermarks, hot-key rebalancing) and its brownout half: ``shard_policy``,
-``shard_probe``, ``overload_policy`` and the processor's ``mesh`` raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
-Checkpoints and journals are the JAX package's formats, so either package
-resumes the other's.
+watermarks, hot-key rebalancing): ``shard_policy``, ``shard_probe`` and the
+processor's ``mesh`` raise ``NotImplementedError`` naming the
+``ROADMAP.md`` item that ports them.  Checkpoints and journals are the JAX
+package's formats, so either package resumes the other's.
 """
 
 from __future__ import annotations
@@ -57,6 +66,8 @@ from kafkastreams_cep_tpu_torch.engine.tiered import engine_view
 from kafkastreams_cep_tpu_torch.native.journal import Journal
 from kafkastreams_cep_tpu_torch.runtime import checkpoint as ckpt_mod
 from kafkastreams_cep_tpu_torch.runtime import migrate as migrate_mod
+from kafkastreams_cep_tpu_torch.runtime.overload import MAX_LEVEL as _OVERLOAD_MAX_LEVEL
+from kafkastreams_cep_tpu_torch.runtime.overload import OverloadController
 from kafkastreams_cep_tpu_torch.runtime.processor import CEPProcessor, InputRejected, Record
 from kafkastreams_cep_tpu_torch.utils.events import Sequence
 from kafkastreams_cep_tpu_torch.utils.failpoints import fire as _failpoint
@@ -76,7 +87,6 @@ _NOT_PORTED = {
     "shard_policy": "§A item 8 (the mesh: shard evacuation and rebalancing)",
     "shard_probe": "§A item 8 (the mesh: shard evacuation and rebalancing)",
     "mesh": "§A item 8 (the mesh)",
-    "overload_policy": "§A item 6 (the brownout ladder, runtime/overload.py)",
 }
 
 
@@ -171,7 +181,10 @@ class Supervisor:
       wide config for later recoveries and resumes;
     * with ``adapt_policy`` (``True`` or an :class:`AdaptPolicy`) a tiered
       processor under ``stage_attribution`` is replanned at checkpoint
-      boundaries when its measured selectivity drifts (``replans``).
+      boundaries when its measured selectivity drifts (``replans``);
+    * with ``overload_policy`` (``True`` for the default
+      :class:`~kafkastreams_cep_tpu_torch.runtime.overload.OverloadPolicy`,
+      or a policy) the brownout ladder runs (module docstring).
     """
 
     _instance_ids = itertools.count()
@@ -198,7 +211,7 @@ class Supervisor:
         **proc_kwargs,
     ):
         given = dict(shard_policy=shard_policy, shard_probe=shard_probe,
-                     overload_policy=overload_policy, mesh=proc_kwargs.get("mesh"))
+                     mesh=proc_kwargs.get("mesh"))
         for name, value in given.items():
             if value is not None and value is not False:
                 raise NotImplementedError(
@@ -311,6 +324,24 @@ class Supervisor:
         # The SLO burn latch (_slo_tick): one flight dump per excursion
         # over burn 1.0, not one a batch while burning.
         self._slo_burning = False
+        # The brownout ladder: ``True`` takes the default OverloadPolicy, a
+        # policy tunes it, None or False leaves it off.  The controller is
+        # durable supervisor state: its level rides the checkpoint header
+        # (``extra["overload"]``) and every transition pins a snapshot, so
+        # a recovery, a resume or a replay lands in the same level.
+        if overload_policy is True:
+            self._overload: Optional[OverloadController] = OverloadController()
+        elif overload_policy:
+            self._overload = OverloadController(overload_policy)
+        else:
+            self._overload = None
+        # The caller's admission front door (runtime/tenant.py
+        # TenantAdmission, or a bare AdmissionLimiter) that L2 squeezes; see
+        # attach_admission().
+        self._admission = None
+        if self._overload is not None:
+            self._overload.base_drain = self.processor.drain_interval
+            self._overload_wire()
 
     @classmethod
     def resume(
@@ -335,6 +366,7 @@ class Supervisor:
         frames, then the live ones) replays the whole gap."""
         proc = None
         base_seq = 0
+        overload_state = None
         candidates = []
         if checkpoint_path:
             candidates = [p for p in (checkpoint_path, checkpoint_path + ".prev")
@@ -344,7 +376,9 @@ class Supervisor:
                 ckpt = ckpt_mod.load_checkpoint(path)
                 proc = ckpt_mod.restore_processor(pattern, path, ckpt=ckpt,
                                                   device=kwargs.get("device", "cuda"))
-                base_seq = int(ckpt["header"].get("extra", {}).get("seq", 0))
+                extra = ckpt["header"].get("extra", {})
+                base_seq = int(extra.get("seq", 0))
+                overload_state = extra.get("overload")
                 break
             except ckpt_mod.CheckpointCorrupt:
                 logger.exception("checkpoint %s is corrupt; falling back (the journal "
@@ -359,6 +393,12 @@ class Supervisor:
         clock = sup._proc_kwargs.get("clock")
         if clock is not None:
             sup.processor.set_clock(clock)
+        # The pinned brownout level before the replay: every journaled batch
+        # ran at it (a transition snapshots and truncates the journal), so
+        # the replay sheds under the same actuators.
+        if sup._overload is not None and overload_state:
+            sup._overload.load_state(overload_state)
+        sup._overload_wire()
         replayed = skipped = 0
         if sup._disk_journal is not None:
             gap = False
@@ -379,6 +419,7 @@ class Supervisor:
                         gap = True
                         break
                     sup.processor.process(batch)  # matches already emitted
+                    sup._overload_replay_tick()
                     sup._journal.append(batch)
                     sup._batches_since_ckpt += 1
                     sup._seq = seq
@@ -409,7 +450,10 @@ class Supervisor:
             if self.processor.pipeline:
                 self._unclaimed.extend(self.processor.flush())
             tmp = self.checkpoint_path + ".tmp"
-            ckpt_mod.save_checkpoint(self.processor, tmp, extra={"seq": self._seq})
+            extra = {"seq": self._seq}
+            if self._overload is not None:
+                extra["overload"] = self._overload.to_state()
+            ckpt_mod.save_checkpoint(self.processor, tmp, extra=extra)
             # Fault site: between writing the snapshot and installing it.
             _failpoint("checkpoint.rename")
             # One generation kept: the outgoing snapshot as ``.prev`` and
@@ -515,9 +559,13 @@ class Supervisor:
                 logger.exception("journal append failed; journaling suspended until the "
                                  "next checkpoint (batch %d+ not crash-durable)", self._seq)
         self._batches_since_ckpt += 1
-        # The SLO observation before the cadence snapshot, so the batch's
-        # tick is pinned together with the batch.
+        # The SLO and overload observations before the cadence snapshot, so
+        # the batch's tick is pinned together with the batch (a snapshot
+        # one tick behind would resume streaks an uncrashed run never had,
+        # and the batch inside it is never replayed to catch up).  A
+        # transition here pins its own snapshot.
         self._slo_tick(corr)
+        self._overload_tick(corr)
         # A suspended journal leaves acknowledged batches out of the crash
         # history: snapshot now rather than at the cadence.
         if self._journal_suspended or self._batches_since_ckpt >= self.checkpoint_every:
@@ -552,12 +600,14 @@ class Supervisor:
 
     def _rewire(self) -> None:
         """Attach the supervisor's trace sink, flight recorder and clock to
-        a rebuilt processor (checkpoints and migrations carry none)."""
+        a rebuilt processor (checkpoints and migrations carry none), and
+        re-apply the pinned brownout level's actuators."""
         self.processor.trace = self.trace
         self.processor.flight = self.flight
         clock = self._proc_kwargs.get("clock")
         if clock is not None:
             self.processor.set_clock(clock)
+        self._overload_wire()
 
     def _restore_tail(self) -> int:
         """Restore the last checkpoint on the same device and replay the
@@ -580,6 +630,9 @@ class Supervisor:
             self.processor = CEPProcessor(self._pattern, self.processor.num_lanes,
                                           self.processor.batch.matcher.config,
                                           **self._proc_kwargs)
+            # Every journaled batch ran at the pinned level: the replay
+            # sheds under the same actuators.
+            self._overload_wire()
         replayed = 0
         for batch in self._journal:
             self.processor.process(batch)  # matches already emitted
@@ -639,6 +692,162 @@ class Supervisor:
                 self.flight.dump("slo_burn", corr=corr)
         elif burn <= 1.0 and self._slo_burning:
             self._slo_burning = False
+
+    # -- overload control (runtime/overload.py) -------------------------------
+
+    def attach_admission(self, admission) -> None:
+        """Register the caller's tenant admission front door
+        (``runtime/tenant.py: TenantAdmission``, or a bare
+        ``AdmissionLimiter``) for the L2 actuator to squeeze in proportion
+        to each tenant's measured cost.  Idempotent: the pinned pressure is
+        applied at once, so a caller re-attaches after its own restore."""
+        self._admission = admission
+        self._overload_wire()
+
+    def _overload_limiter(self):
+        adm = self._admission
+        if adm is None:
+            return None
+        return getattr(adm, "limiter", adm)
+
+    def _overload_wire(self) -> None:
+        """Re-apply the pinned level's actuators: a rebuilt or swapped
+        processor (restore, resume, migration, replan) carries the default
+        ones and must be re-wired before it processes or replays a batch."""
+        if self._overload is not None:
+            self._overload_apply()
+
+    def _overload_apply(self) -> None:
+        ctl = self._overload
+        proc = self.processor
+        base = max(int(ctl.base_drain), 1)
+        proc.drain_interval = max(1, base * ctl.drain_widen())
+        proc.telemetry_defer = ctl.telemetry_defer()
+        proc.overload_admit_fraction = ctl.admit_fraction()
+        lim = self._overload_limiter()
+        if lim is not None:
+            scale, shares = ctl.admission_pressure
+            lim.set_pressure(scale, shares)
+
+    def _overload_signals(self) -> dict:
+        """The pressure inputs, all on the host (no device read a batch): the
+        SLO burn rate, the reorder hold's depth and age, the queue segment's
+        p99 and the deferred drains (the host's view of the handle ring).
+        A processor without a guard or a ledger contributes nothing."""
+        sig: dict = {}
+        proc = self.processor
+        guard = getattr(proc, "_guard", None)
+        if guard is not None:
+            depth = guard.policy.reorder_depth
+            if depth:
+                sig["hold_frac"] = guard.held / depth
+            grace = guard.policy.grace_ms
+            if grace > 0:
+                sig["hold_age_frac"] = guard.hold_age_ms() / grace
+        ledger = getattr(proc, "ledger", None)
+        if ledger is not None:
+            if ledger.slo is not None:
+                sig["burn_rate"] = ledger.slo.burn_rate()
+            hist = ledger._hists.get("queue")
+            if hist is not None:
+                sig["queue_p99_s"] = hist.percentile(0.99)
+            sig["ring_depth"] = len(ledger._deferred)
+        return sig
+
+    def _overload_shares(self) -> dict:
+        """Each tenant's share of the cost, from the heavy-hitter attribution
+        (``per_key_cost``'s top keys) mapped through the admission policy's
+        key-to-tenant function: L2 squeezes by measured cost, not record
+        count.  One device read, on an L2+ transition only."""
+        adm = self._admission
+        if adm is None:
+            return {}
+        policy = getattr(adm, "policy", None)
+        key_tenant = getattr(policy, "key_tenant", None) or str
+        try:
+            top = self.processor.per_key_cost().get("top") or []
+        except Exception:
+            logger.exception("per-key cost attribution failed; squeezing all tenants "
+                             "uniformly")
+            return {}
+        shares: dict = {}
+        for row in top:
+            tenant = str(key_tenant(row["key"]))
+            shares[tenant] = shares.get(tenant, 0.0) + float(row["share"])
+        return shares
+
+    def _overload_replay_tick(self) -> None:
+        """The controller's observation of one replayed batch, taking no
+        transition.  The crashed process ticked once a journaled batch after
+        its last pin, and a resume restores the pinned streaks, so the
+        replay must repeat those ticks or the resumed ladder would trail the
+        uncrashed one by the journal window.  A committed transition pins a
+        snapshot that truncates the journal, so every replayed batch was a
+        no-transition tick; a proposal here (only from wall-clock signals)
+        keeps its streak at threshold and commits on the first live batch."""
+        ctl = self._overload
+        if ctl is None:
+            return
+        guard = getattr(self.processor, "_guard", None)
+        if guard is not None:
+            ctl.shed_total = guard.overload_shed
+        ctl.tick(self._overload_signals())
+
+    def _overload_tick(self, corr: str) -> None:
+        """One controller observation a batch (after _slo_tick); a proposal
+        runs the transition protocol."""
+        ctl = self._overload
+        if ctl is None:
+            return
+        guard = getattr(self.processor, "_guard", None)
+        if guard is not None:
+            ctl.shed_total = guard.overload_shed
+        proposal = ctl.tick(self._overload_signals())
+        if proposal is not None:
+            self._overload_transition(proposal[0], proposal[1], corr)
+
+    def _overload_transition(self, from_level: int, to_level: int, corr: str) -> None:
+        """The transition protocol: failpoint, tentative level, actuators,
+        pin checkpoint, commit.  Any failure (an armed failpoint, a failed
+        pin) reverts the level and the actuators, so the level in memory is
+        always the last pinned one and a recovery's replay never spans a
+        transition."""
+        ctl = self._overload
+        entering = to_level > from_level
+        site = "overload.enter" if entering else "overload.exit"
+        try:
+            with maybe_span(self.trace, "overload.transition", corr=corr,
+                            from_level=from_level, to_level=to_level,
+                            pressure=round(ctl.last_pressure, 4)):
+                # Fault site: before the actuators apply or the level pins; a
+                # crash here leaves the previous level live.
+                _failpoint(site)
+                ctl.begin(to_level)
+                scale = ctl.admission_scale(to_level)
+                ctl.admission_pressure = (
+                    float(scale), dict(self._overload_shares()) if scale < 1.0 else {})
+                self._overload_apply()
+                if entering and to_level >= _OVERLOAD_MAX_LEVEL:
+                    # Emergency entry: flush pinned drains into the pin
+                    # snapshot; their matches go out through _unclaimed.
+                    self._unclaimed.extend(self.processor.flush())
+                # The pin: the transition exists once snapshotted, so a
+                # replayed crash lands in the same level.
+                self._unclaimed.extend(self.checkpoint())
+        except Exception:
+            ctl.abort()
+            self._overload_apply()
+            logger.exception("overload transition L%d -> L%d failed; L%d stays "
+                             "authoritative", from_level, to_level, from_level)
+            return
+        ctl.commit()
+        if self.flight is not None:
+            self.flight.note(overload_level=to_level,
+                             overload_pressure=round(ctl.last_pressure, 4))
+            if entering and to_level >= 3:
+                # L3+ entry is the incident boundary: dump the last batches
+                # while the ring still holds the flood that forced the shed.
+                self.flight.dump("overload", corr=corr)
 
     # -- adaptive replanning --------------------------------------------------
 
@@ -897,7 +1106,8 @@ class Supervisor:
     def metrics_snapshot(self, per_lane: bool = True) -> dict:
         """The processor's snapshot plus the supervisor's lifecycle
         telemetry: the event counts and their latency histograms (``phases``
-        gains ``checkpoint``, ``recover``, ``escalate`` and ``replan``)."""
+        gains ``checkpoint``, ``recover``, ``escalate`` and ``replan``), and
+        the ``overload_*`` gauges under an ``overload_policy``."""
         out = self.processor.metrics_snapshot(per_lane=per_lane)
         out["recoveries"] = self.recoveries
         out["checkpoints"] = self.checkpoints
@@ -909,6 +1119,10 @@ class Supervisor:
         out["replan_failures"] = self.replan_failures
         if self.flight is not None:
             out["flight_dumps"] = self.flight.dumps
+        if self._overload is not None:
+            # The cep_overload_level, _pressure, _transitions and
+            # _transition_failures gauges.
+            out.update(self._overload.metrics())
         out["retry_backoff_ms_total"] = round(self.retry_backoff_ms_total, 3)
         phases = dict(out.get("phases") or {})
         phases.update({name[len("phase."):]: inst.snapshot()

@@ -73,8 +73,12 @@ class Metrics:
         self.registry = registry or MetricsRegistry()
         for n in COUNTER_ATTRS:
             self.registry.counter(n)
-        for n in SECONDS_ATTRS:  # seconds are floats from the start
-            self.registry.counter(n).value = 0.0
+        known = {n for n, _ in self.registry.items()}
+        for n in SECONDS_ATTRS:
+            # Seconds are floats from the start; a registry handed over (a
+            # bank's merged one) keeps its values.
+            if n not in known:
+                self.registry.counter(n).value = 0.0
         for n in PHASE_NAMES:
             self.registry.histogram(f"phase.{n}", LATENCY_EDGES_S)
 

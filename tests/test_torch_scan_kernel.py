@@ -378,6 +378,9 @@ def test_other_failures_propagate(monkeypatch, where):
     def boom(*args, **kwargs):
         raise RuntimeError("injected")
 
+    # A source an earlier matcher of the process generated comes from the
+    # built-program cache (utils/tracecache.py) without a call to generate.
+    monkeypatch.setenv("CEP_TRACE_CACHE", "0")
     tb = port_batch(monkeypatch, strict, 2, CFG)
     target = scan_codegen if where == "generate" else scan_kernel
     monkeypatch.setattr(target, where, boom)

@@ -10,7 +10,7 @@ the canonical state leaves.  A JAX checkpoint and journal resume on the
 port, and the port's on the JAX package.  The chaos schedules (device,
 journal and checkpoint faults, crashes with torn or corrupt journal tails,
 resumes) run on the port and end in the JAX package's fault-free state and
-stream.  The arguments the port does not serve yet raise
+stream.  The arguments the port does not serve yet (the mesh's) raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 """
 
@@ -544,7 +544,7 @@ def test_chaos_schedule_ends_in_the_jax_oracle(tmp_path, mode, seed):
     assert not any(sup.processor.counters().values())
 
 
-# -- the doors this slice leaves closed ----------------------------------------------
+# -- the doors left closed, and the one opened ---------------------------------------------
 
 
 @pytest.mark.parametrize("kwarg, item", [
@@ -552,6 +552,13 @@ def test_chaos_schedule_ends_in_the_jax_oracle(tmp_path, mode, seed):
     ("mesh", "item 8"),
 ])
 def test_unported_arguments_raise(tmp_path, kwarg, item):
+    if kwarg == "overload_policy":
+        # Item 6's brownout ladder is ported: the door is open, and the
+        # default policy builds a controller at L0
+        # (tests/test_torch_overload.py).
+        sup = sup_of(PKGS["torch"], tmp_path, "n", **{kwarg: True})
+        assert sup._overload.level == 0 and sup.metrics_snapshot()["overload_level"] == 0
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §A {item}"):
         sup_of(PKGS["torch"], tmp_path, "n", **{kwarg: True})
     if kwarg == "mesh":
