@@ -187,6 +187,17 @@ Phases (any failure exits non-zero before the final line):
               started together and run in turns, each printing one JSON
               object.
 
+16. mesh      — ``parallel/sharding.py``, ``parallel/seqpar.py`` and the mesh
+              halves of the processor, checkpoint, migration and supervisor,
+              four lane blocks on the card: (a) the headline through
+              ``ShardedMatcher`` per step (B1 on each shard) and as one
+              whole scan a shard (B2), equal to phase 4's unsharded run bit
+              for bit (and over distinct cards when several are visible);
+              (b) ``TimeShardedStencil`` at K=4096 x T=1024 equal to
+              ``StencilMatcher``; (c) phase 13's stream supervised on the
+              mesh, fault-free and with a shard lost (evacuated 4 -> 2,
+              then resumed onto the two shards), equal to phase 13's
+              unmeshed stream; (d) one loss-free hot-key rebalance.
 The last two lines of standard output are the kernel report (one JSON
 object) and the device line ``{"ok": true, "device": {...}}``; the card's
 name and power limit (nvidia-smi) come on the line before the report.  The
@@ -405,6 +416,14 @@ OVL_DEAD_CAP = 1 << 17  # the guard keeps every dead letter of the stream
 #: subcommand scans a ``[K, T]`` batch; ``latency`` makes its batch as
 #: K x T ``Record``s through the processor, at T=16 (65,536 records: at
 #: T=256 the host's record path took 59 s); the ablation at T=32.
+# Phase 16: the mesh, MESH_SHARDS lane blocks on the card.
+MESH_SHARDS = 4
+MESH_FAULT_BATCH = 3  # ShardLost(shard=1) at this batch's shard.dispatch
+MESH_CRASH_AFTER = 4  # the faulted supervisor is dropped after this batch
+MESH_SKEW_BATCHES = 6  # a warm-up batch of every key, then skewed batches
+MESH_SKEW_BATCH = 4096  # records a skewed batch: four a key of shard 0
+# (d)'s config: loss-free on its stream (the headline config truncates walks there).
+MESH_SKEW_CFG = dict(max_runs=32, slab_entries=64, slab_preds=8, dewey_depth=32, max_walk=16)
 PROFILE_RUNS = (
     ("step", ["--k", "4096", "--t", "256", "--reps", "1"], {}),
     ("phases", ["--k", "4096", "--t", "256", "--reps", "3"], {}),
@@ -2738,6 +2757,8 @@ def supervisor_phase(torch, dev, smi, report, scan_bound, scan_entry, walk_err, 
             return out, sup
 
         clean = run("fault-free", fault_free)
+        # Phase 16 holds its meshed streams against this one.
+        mesh_ref = (batches, runs["fault-free"], clean.processor.counters())
         fsup = run("faulted", faulted)
         rsup = run("resumed", resumed)
         if fsup.recoveries != 1 or clean.recoveries or rsup.recoveries:
@@ -2923,6 +2944,7 @@ def supervisor_phase(torch, dev, smi, report, scan_bound, scan_entry, walk_err, 
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"supervisor phase: {time.perf_counter() - t13:.1f} s")
+    return mesh_ref
 
 
 def planted_letters(rng, T: int, plant: float, body, noise):
@@ -3740,6 +3762,300 @@ def profile_busy(prof):
     return busy, hi - lo, kernels
 
 
+def host_tree(tree):
+    """A nested tuple of device tensors as CPU tensors (phase 16's
+    reference, kept off the card through phases 5-15)."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(host_tree(x) for x in tree))
+    return tree.cpu()
+
+
+def device_tree(torch, tree, dev):
+    """A nested tuple of numpy arrays or tensors as tensors on ``dev``."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(device_tree(torch, x, dev) for x in tree))
+    return torch.as_tensor(tree, device=dev)
+
+
+def skew_batches(Record, K: int, shards: int, n_batches: int, n: int):
+    """Phase 16 (d)'s stream: a warm-up batch gives key ``k`` lane ``k`` for
+    every key, then every record goes to a key of shard 0's lane block
+    (``K / shards`` keys); bench_resilience's values (seed 47)."""
+    rng = np.random.default_rng(47)
+    out, t = [], 0
+    for b in range(n_batches):
+        keys = np.arange(K) if b == 0 else rng.integers(0, K // shards, size=n)
+        prices = rng.integers(90, 131, size=keys.size)
+        vols = np.where(rng.random(keys.size) < 0.005, 1100,
+                        rng.integers(700, 1000, size=keys.size))
+        out.append([Record(int(keys[i]), {"price": int(prices[i]), "volume": int(vols[i])},
+                           t + i) for i in range(keys.size)])
+        t += keys.size
+    return out
+
+
+def runs_of(values) -> str:
+    """A lane-to-shard list as runs: ``0 x1024, 1 x1024``."""
+    out, i = [], 0
+    while i < len(values):
+        j = i
+        while j < len(values) and values[j] == values[i]:
+            j += 1
+        out.append(f"{values[i]} x{j - i}")
+        i = j
+    return ", ".join(out)
+
+
+def mesh_phase(torch, dev, smi, report, head, sup_ref):
+    """Phase 16: the mesh on the card (``parallel/sharding.py``,
+    ``parallel/seqpar.py`` and the mesh halves of the processor, checkpoint,
+    migration and supervisor), MESH_SHARDS lane blocks on this card.
+
+    (a) the headline (K=4096 x T=256, seed 42) through ``ShardedMatcher``:
+    per step (B1 on each shard's 1,024 lanes) and as one whole scan a shard
+    (B2), each equal to phase 4's unsharded per-step run bit for bit in
+    state leaves, outputs and counters, ``stats`` its summed counters; over
+    distinct cards too when several are visible; (b) ``TimeShardedStencil``
+    at the tiered cell's shape (K=4096 x T=1024) over MESH_SHARDS time
+    chunks, equal to ``StencilMatcher`` (hits everywhere, offsets where a
+    match completed); (c) phase 13's bench_resilience stream supervised on
+    the mesh: fault-free, and with ``ShardLost(shard=1)`` at
+    ``shard.dispatch`` on batch MESH_FAULT_BATCH (evacuated 4 -> 2
+    shards: 4,096 lanes do not split 3 ways), dropped after
+    MESH_CRASH_AFTER and resumed onto the two-shard mesh from the pinned
+    checkpoint; both equal phase 13's unmeshed fault-free stream and
+    counters, no match twice; (d) one hot-key rebalance under
+    ``ShardPolicy``'s defaults with every key after a warm-up on shard 0,
+    equal to the unmeshed processor's stream, loss-free (MESH_SKEW_CFG)."""
+    import shutil
+    import tempfile
+
+    from kafkastreams_cep_tpu_torch import CEPProcessor, EngineConfig, Query, Record
+    from kafkastreams_cep_tpu_torch.engine.stencil import StencilMatcher
+    from kafkastreams_cep_tpu_torch.ops import scan_kernel, walk_kernel
+    from kafkastreams_cep_tpu_torch.parallel import (
+        ShardedMatcher, ShardLost, TimeShardedStencil, key_mesh,
+    )
+    from kafkastreams_cep_tpu_torch.engine.matcher import EventBatch
+    from kafkastreams_cep_tpu_torch.runtime import ShardPolicy, Supervisor
+    from kafkastreams_cep_tpu_torch.runtime.checkpoint import load_checkpoint
+    from kafkastreams_cep_tpu_torch.utils import failpoints
+
+    kern, skern = walk_kernel.walk_pass_kernel, scan_kernel.scan_pass_kernel
+    t16 = time.perf_counter()
+    secs = {}
+    n = MESH_SHARDS
+    K, T = LANES, STEPS
+    pattern = stock_pattern(Query)
+    mesh = key_mesh([dev] * n)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def reset():
+        kern.reset_counts()
+        skern.reset_counts()
+
+    # (a) the headline on the mesh ---------------------------------------------
+    t0 = time.perf_counter()
+    events = head["events"]
+    want_out = device_tree(torch, head["out"], dev)
+
+    def sharded(on, scan, label):
+        """One timed sharded scan of the headline; returns its launches."""
+        if scan:
+            os.environ["CEP_SCAN_KERNEL"] = "1"
+        try:
+            sm = ShardedMatcher(pattern, K, on, EngineConfig(**HEADLINE))
+        finally:
+            os.environ.pop("CEP_SCAN_KERNEL", None)
+        if sm.uses_scan_kernel != scan:
+            fail(f"mesh (a) {label}: uses_scan_kernel {sm.uses_scan_kernel}, want {scan}")
+        st0 = sm.init_state()
+        torch.cuda.synchronize()
+        reset()
+        start.record()
+        st, out = sm.scan(st0, events)
+        hits = (out.count > 0).sum()  # a reduction of the outputs, consumed below
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        launched = (dict(kern.launches_by_mode), dict(skern.launches_by_mode))
+        err = max(max_abs_err(torch, out, want_out),
+                  max_abs_err(torch, device_tree(torch, sm.gather(st), "cpu"), head["state"]))
+        stats = sm.stats(st)
+        if err or int(hits) != head["n_hits"]:
+            fail(f"mesh (a) {label}: sharded != phase 4's per-step run (max_abs_err {err}, "
+                 f"{int(hits)} run-slot matches against {head['n_hits']})")
+        if stats != head["stats"]:
+            fail(f"mesh (a) {label}: stats {stats} != summed counters {head['stats']}")
+        if sm.counters(st) != {k: head["stats"][k] for k in sm.counters(st)}:
+            fail(f"mesh (a) {label}: counters differ from phase 4's")
+        base = head["scan_k_ms"] if scan else head["scan_ms"]
+        log(f"mesh (a) {label}: K={K} T={T} in {on.size} shards of {K // on.size} lanes on "
+            f"{sorted({str(d) for d in on.devices})}: {ms:.1f} ms "
+            f"({K * T / (ms / 1e3):.0f} events/s; unsharded {base:.1f} ms, "
+            f"{ms / base:.2f}x), equal to phase 4's run bit for bit in state, outputs and "
+            f"counters; stats {stats}; launches walk_pass {launched[0]}, "
+            f"scan_pass {launched[1]} [{smi}]")
+        del st, out
+        return launched
+
+    walk_l, scan_l = sharded(mesh, False, "per step")
+    if scan_l or walk_l != {"default": n * T}:
+        fail(f"mesh (a) per step launched walk_pass {walk_l}, scan_pass {scan_l}; want "
+             f"{n * T} default walk passes")
+    add_launches(report, "walk_pass", "mesh_headline", walk_l["default"])
+    walk_l, scan_l = sharded(mesh, True, "whole scans")
+    if walk_l or scan_l != {"default": n}:
+        fail(f"mesh (a) whole scans launched walk_pass {walk_l}, scan_pass {scan_l}; want "
+             f"{n} default whole scans")
+    add_launches(report, "scan_pass[default]", "mesh_headline", scan_l["default"])
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        walk_l, _ = sharded(key_mesh([torch.device("cuda", i % cards) for i in range(n)]),
+                            False, f"per step over {cards} cards")
+        add_launches(report, "walk_pass", "mesh_headline_cards", walk_l["default"])
+    else:
+        log(f"mesh (a): one card visible ({cards}): only logical shards on one card "
+            "were checked, not a mesh of distinct cards")
+    del want_out
+    torch.cuda.empty_cache()
+    secs["a"] = time.perf_counter() - t0
+
+    # (b) the time-sharded stencil ------------------------------------------
+    t0 = time.perf_counter()
+    KS, TS = LANES, TIER_STEPS
+    ev = make_batch(torch, EventBatch, KS, TS, 7, dev)
+    single = StencilMatcher(stencil_pattern(Query), KS, device=dev)
+    _, want = single.scan(single.init_state(), ev)
+    tss = TimeShardedStencil(stencil_pattern(Query), KS, key_mesh([dev] * n, axis="time"))
+    got = tss.match(ev)
+    hit = want.hit
+    if not torch.equal(got.hit, hit) or not torch.equal(got.offs[hit], want.offs[hit]):
+        fail("mesh (b): TimeShardedStencil != StencilMatcher")
+    n_hits = int(hit.sum())
+    tc = TS // n
+    edge = sum(int(hit[:, c * tc:c * tc + single.n - 1].sum()) for c in range(1, n))
+    if not n_hits or not edge:
+        fail(f"mesh (b): {n_hits} matches, {edge} across chunk edges: nothing held")
+    one_ms = cuda_ms(torch, lambda: single.scan(single.init_state(), ev), 5)
+    sh_ms = cuda_ms(torch, lambda: tss.match(ev), 5)
+    log(f"mesh (b): TimeShardedStencil K={KS} x T={TS} in {n} time chunks equal to "
+        f"StencilMatcher: {n_hits} matches ({edge} straddling a chunk edge), offsets equal "
+        f"where matched; {sh_ms:.3f} ms a batch against {one_ms:.3f} ms "
+        f"({KS * TS / (sh_ms / 1e3):.3e} events/s) [{smi}]")
+    del ev, want, got, hit
+    secs["b"] = time.perf_counter() - t0
+
+    # (c) the supervised stream on the mesh ----------------------------------
+    t0 = time.perf_counter()
+    batches, clean_stream, clean_counters = sup_ref
+    work = tempfile.mkdtemp(prefix="cep_mesh_")
+
+    KP = SUP_LANES
+
+    def supervised(tag, on, resume=False):
+        kw = dict(epoch=0, mesh=on, checkpoint_every=2,
+                  checkpoint_path=os.path.join(work, f"{tag}.ckpt"),
+                  journal_path=os.path.join(work, f"{tag}.jrnl"))
+        if resume:
+            return Supervisor.resume(pattern, KP, EngineConfig(**HEADLINE), **kw)
+        return Supervisor(pattern, KP, EngineConfig(**HEADLINE), **kw)
+
+    def held(label, out, sup):
+        torch.cuda.synchronize()
+        got = canon_stream(out)
+        keys = [repr(m) for m in got]
+        if got != clean_stream or len(set(keys)) != len(keys):
+            fail(f"mesh (c) {label}: the stream differs from phase 13's fault-free one "
+                 f"({len(got)} matches against {len(clean_stream)})")
+        if sup.processor.counters() != clean_counters:
+            fail(f"mesh (c) {label}: counters {sup.processor.counters()} != "
+                 f"{clean_counters}")
+
+    try:
+        reset()
+        tc0 = time.perf_counter()
+        sup = supervised("clean", mesh)
+        out = [m for b in batches for m in sup.process(b)]
+        held("fault-free", out, sup)
+        clean_l = kern.launches_by_mode.get("default", 0)
+        if not clean_l or skern.launches:
+            fail(f"mesh (c) fault-free launched walk_pass {kern.launches_by_mode}, "
+                 f"scan_pass {skern.launches_by_mode}")
+        add_launches(report, "walk_pass", "mesh_supervisor_fault-free", clean_l)
+        log(f"mesh (c) fault-free: {len(out)} matches on {n} shards, equal to phase 13's "
+            f"unmeshed stream in order, counters {clean_counters}; "
+            f"{time.perf_counter() - tc0:.2f} s; walk_pass launches {clean_l} [{smi}]")
+        del sup, out
+
+        reset()
+        tc0 = time.perf_counter()
+        sup = supervised("fault", mesh)
+        failpoints.FAILPOINTS.arm("shard.dispatch", hits=[MESH_FAULT_BATCH - 1],
+                                  exc=lambda: ShardLost("injected device loss", shard=1))
+        try:
+            out = [m for b in batches[:MESH_CRASH_AFTER] for m in sup.process(b)]
+        finally:
+            failpoints.FAILPOINTS.clear()
+        shrunk = sup._proc_kwargs["mesh"]
+        evac = sup.metrics_snapshot(per_lane=False)["phases"]["evacuate"]
+        if sup.evacuations != 1 or shrunk.size != 2 or sup.processor.mesh.size != 2:
+            fail(f"mesh (c): evacuations {sup.evacuations}, mesh {shrunk.size} shards, want "
+                 "one evacuation onto 2")
+        header = load_checkpoint(sup.checkpoint_path)["header"]
+        if header["mesh_size"] != 2 or header["lane_shards"] != sup.processor.lane_shards():
+            fail(f"mesh (c): the pinned checkpoint names mesh {header['mesh_size']}")
+        del sup  # the crash: only the files remain
+        sup = supervised("fault", shrunk, resume=True)
+        out += [m for b in batches[MESH_CRASH_AFTER:] for m in sup.process(b)]
+        held("faulted and resumed", out, sup)
+        fault_l = kern.launches_by_mode.get("default", 0)
+        add_launches(report, "walk_pass", "mesh_supervisor_evacuated", fault_l)
+        log(f"mesh (c) ShardLost(shard=1) at batch {MESH_FAULT_BATCH}: evacuated {n} -> "
+            f"{shrunk.size} shards in {evac['sum']:.3f} s; pinned checkpoint mesh_size "
+            f"{header['mesh_size']}, lane_shards [{runs_of(header['lane_shards'])}]; "
+            f"dropped after batch {MESH_CRASH_AFTER}, resumed onto {shrunk.size} shards: "
+            f"{len(out)} matches equal to phase 13's fault-free stream, none twice; "
+            f"{time.perf_counter() - tc0:.2f} s; walk_pass launches {fault_l} [{smi}]")
+        del sup, out
+        secs["c"] = time.perf_counter() - t0
+
+        # (d) one hot-key rebalance ----------------------------------------------
+        t0 = time.perf_counter()
+        skew = skew_batches(Record, KP, n, MESH_SKEW_BATCHES, MESH_SKEW_BATCH)
+        ref = CEPProcessor(pattern, KP, EngineConfig(**MESH_SKEW_CFG), epoch=0, device=dev)
+        want_s = canon_stream([m for b in skew for m in ref.process(b)])
+        reset()
+        sup = Supervisor(pattern, KP, EngineConfig(**MESH_SKEW_CFG), epoch=0, mesh=mesh,
+                         checkpoint_every=1, checkpoint_path=os.path.join(work, "skew.ckpt"))
+        if sup._shard_policy != ShardPolicy():
+            fail(f"mesh (d): the meshed supervisor's policy is {sup._shard_policy}")
+        got = canon_stream([m for b in skew for m in sup.process(b)])
+        torch.cuda.synchronize()
+        snap = sup.metrics_snapshot(per_lane=False)
+        if got != want_s or sup.processor.counters() != ref.counters():
+            fail(f"mesh (d): the rebalanced stream differs from the unmeshed one "
+                 f"({len(got)} against {len(want_s)} matches)")
+        if any(ref.counters().values()) or not got:
+            fail(f"mesh (d): the stream is not loss-free ({ref.counters()}) or empty")
+        if sup.rebalances < 1 or not sup.lanes_moved or sup.rebalance_failures:
+            fail(f"mesh (d): rebalances {sup.rebalances}, lanes moved {sup.lanes_moved}, "
+                 f"failures {sup.rebalance_failures}")
+        skew_l = kern.launches_by_mode.get("default", 0)
+        add_launches(report, "walk_pass", "mesh_rebalance", skew_l)
+        log(f"mesh (d): {MESH_SKEW_BATCHES} batches, every key after the warm-up on shard 0: "
+            f"{sup.rebalances} rebalance(s) moved {sup.lanes_moved} lanes in "
+            f"{snap['phases']['rebalance']['sum']:.3f} s; {len(got)} matches equal to the "
+            f"unmeshed processor's in order, counters {ref.counters()}; "
+            f"{time.perf_counter() - t0:.2f} s; walk_pass launches {skew_l} [{smi}]")
+        del sup, ref
+        secs["d"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"mesh phase: {time.perf_counter() - t16:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in secs.items()) + ")")
+
+
 def main() -> None:
     import torch
 
@@ -3927,6 +4243,12 @@ def main() -> None:
         f"{scan_ms:.1f} ms = {scan_ms / T:.3f} ms/step, "
         f"{K * T / (scan_ms / 1e3):.0f} events/s, {n_hits} run-slot matches, "
         f"counters {bm.counters(step_state)} [{smi}]")
+    # Phase 16 holds its meshed runs against this one: its state and outputs
+    # on the host, its summed counters, its time.
+    head = {"events": events, "scan_ms": scan_ms, "n_hits": n_hits,
+            "state": host_tree(step_state), "out": host_tree(step_out),
+            "stats": dict(bm.counters(step_state), alive_runs=int(step_state.alive.sum()),
+                          **bm.hot_counters(step_state), **bm.walk_counters(step_state))}
 
     mode_demo = {}
     for mode, extra in (("two_tier", dict(slab_hot_entries=16)),
@@ -4342,6 +4664,7 @@ def main() -> None:
     scan_err["default"] = max(scan_err["default"], err)
     if err or int(s_hits) != n_hits:
         fail(f"headline whole scan != per-step path (max_abs_err {err})")
+    head["scan_k_ms"] = scan_k_ms
     log(f"scan headline: K={K} T={T}: warm-up {warm_s:.2f} s; whole scan {scan_k_ms:.3f} ms "
         f"= {K * T / (scan_k_ms / 1e3):.0f} events/s, per-step path {scan_ms:.1f} ms: "
         f"{scan_ms / scan_k_ms:.1f}x; equal to the per-step path bit for bit "
@@ -4638,9 +4961,11 @@ def main() -> None:
     spike_phase(torch, dev, smi, report)
     ingest_phase(torch, dev, smi, report)
     surgery_phase(torch, dev, smi, report, records, name_of)
-    supervisor_phase(torch, dev, smi, report, scan_bound, scan_entry, max_err, scan_err)
+    mesh_ref = supervisor_phase(torch, dev, smi, report, scan_bound, scan_entry, max_err,
+                                scan_err)
     tenant_phase(torch, dev, smi, report)
     overload_phase(torch, dev, smi, report)
+    mesh_phase(torch, dev, smi, report, head, mesh_ref)
 
     log(f"total: {time.perf_counter() - t_start:.1f} s after the card check")
     log(smi)

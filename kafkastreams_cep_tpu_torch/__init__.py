@@ -13,7 +13,12 @@ from kafkastreams_cep_tpu_torch.engine.matcher import (
     TPUMatcher,
 )
 from kafkastreams_cep_tpu_torch.nfa.oracle import OracleNFA
-from kafkastreams_cep_tpu_torch.parallel.batch import BatchMatcher
+from kafkastreams_cep_tpu_torch.parallel import (
+    BatchMatcher,
+    ShardedMatcher,
+    TimeShardedStencil,
+    key_mesh,
+)
 from kafkastreams_cep_tpu_torch.pattern.query import Query
 from kafkastreams_cep_tpu_torch.runtime.processor import CEPProcessor, Record
 from kafkastreams_cep_tpu_torch.runtime.supervisor import Supervisor
@@ -26,6 +31,9 @@ __all__ = [
     "OracleNFA",
     "Query",
     "Record",
+    "ShardedMatcher",
     "Supervisor",
     "TPUMatcher",
+    "TimeShardedStencil",
+    "key_mesh",
 ]

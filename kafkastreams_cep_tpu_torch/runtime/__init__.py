@@ -27,6 +27,7 @@ from kafkastreams_cep_tpu_torch.runtime.processor import (
 from kafkastreams_cep_tpu_torch.runtime.supervisor import (
     AdaptPolicy,
     HealthReport,
+    ShardPolicy,
     Supervisor,
     check_health,
 )
@@ -57,6 +58,7 @@ __all__ = [
     "OverloadPolicy",
     "Record",
     "QuarantinePolicy",
+    "ShardPolicy",
     "Supervisor",
     "TenantCEP",
     "TenantMisbehave",

@@ -13,6 +13,11 @@ checkpoint.py``, format 3): one pickled ``{header, arrays}`` dict whose
 ``arrays`` is an ``.npz`` of the state leaves under the same names
 (``alive``, ..., ``slab/stage``, ...).  A snapshot written by either
 package restores into the other.
+
+Snapshots are mesh-agnostic: a meshed processor's lane rows are gathered in
+logical lane order, and the header records which mesh wrote them
+(``mesh_size``, ``lane_shards``), so a restore may place the lanes onto a
+mesh of another size, or onto one device.
 """
 
 from __future__ import annotations
@@ -25,8 +30,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-from kafkastreams_cep_tpu_torch.convert import state_arrays, state_from_arrays
+from kafkastreams_cep_tpu_torch.convert import state_arrays
 from kafkastreams_cep_tpu_torch.engine.matcher import EngineConfig
+from kafkastreams_cep_tpu_torch.runtime import migrate as migrate_mod
 from kafkastreams_cep_tpu_torch.runtime.ingest import DeadLetter, IngestGuard
 from kafkastreams_cep_tpu_torch.runtime.processor import CEPProcessor, Record
 from kafkastreams_cep_tpu_torch.utils.events import Event
@@ -96,8 +102,10 @@ def save_checkpoint(
         "pipeline": processor.pipeline,
         "drain_interval": processor.drain_interval,
         "lane_of": dict(processor._lane_of),
-        "mesh_size": None,
-        "lane_shards": None,
+        # Which mesh wrote this snapshot (None: one device); the rows are
+        # logical lanes whatever it was.
+        "mesh_size": processor.mesh.size if processor.mesh is not None else None,
+        "lane_shards": processor.lane_shards(),
         "next_offset": processor._next_offset.copy(),
         "off_base": processor._off_base.copy(),
         "events": [dict(d) for d in processor._events],
@@ -110,7 +118,7 @@ def save_checkpoint(
         "latency": processor.ledger.to_state() if processor.ledger is not None else None,
     }
     buf = io.BytesIO()
-    np.savez(buf, **state_arrays(processor.state))
+    np.savez(buf, **state_arrays(processor.host_state()))
     header["arrays_sha256"] = hashlib.sha256(buf.getvalue()).hexdigest()
     with open(path, "wb") as f:
         pickle.dump({"header": header, "arrays": buf.getvalue()}, f)
@@ -149,7 +157,7 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
 
 
 def restore_processor(
-    pattern, path: str, ckpt: Optional[Dict[str, Any]] = None, device="cuda"
+    pattern, path: str, ckpt: Optional[Dict[str, Any]] = None, device="cuda", mesh=None
 ) -> CEPProcessor:
     """Rebuild a processor from user code plus a checkpoint.
 
@@ -159,10 +167,24 @@ def restore_processor(
     (``engine/...`` and ``carry/...`` leaves) restores with its stencil
     carry; a snapshot with ingest-guard state restores the guard with its
     held records and dead letters, and one with a latency ledger the
-    ledger."""
+    ledger.
+
+    ``mesh`` may differ from the mesh (or one device) that wrote the
+    snapshot, the analog of restoring changelogged partitions onto a
+    resized consumer group; its size must divide the lane count.  A change
+    of device count routes the rows through the identity
+    ``runtime.migrate.repartition_state`` (the one audited re-assignment
+    point) and is logged."""
     if ckpt is None:
         ckpt = load_checkpoint(path)
     header = ckpt["header"]
+    target_devs = mesh.size if mesh is not None else 1
+    if int(header["num_lanes"]) % target_devs:
+        raise ValueError(
+            f"checkpoint holds {header['num_lanes']} lanes, not divisible "
+            f"by the {target_devs}-device restore mesh; pick a mesh whose "
+            "size divides the lane count (parallel/sharding.py contract)"
+        )
     proc = CEPProcessor(
         pattern,
         header["num_lanes"],
@@ -177,6 +199,7 @@ def restore_processor(
         pipeline=header.get("pipeline", False),
         drain_interval=header.get("drain_interval", 1),
         device=device,
+        mesh=mesh,
     )
     tables = proc.batch.matcher.tables
     if list(proc.batch.names) != list(header["stage_names"]):
@@ -192,10 +215,22 @@ def restore_processor(
             f"{tables.state_dtypes} vs checkpoint {header['state_dtypes']} "
             "(typed agg bit patterns are not translatable across dtypes)"
         )
-    proc.state = state_from_arrays(ckpt["arrays"], proc.state)
+    arrays = ckpt["arrays"]
+    written_devs = int(header.get("mesh_size") or 1)
+    if written_devs != target_devs:
+        # Rows are logical lanes, and every move this runtime makes
+        # (evacuation, rebalance: migrate.move_lanes) relabels lanes so the
+        # live assignment is the contiguous identity: a new device count
+        # is the identity repartition placed in new-sized blocks.
+        arrays = migrate_mod.repartition_state(arrays, np.arange(int(header["num_lanes"])))
+        logger.info(
+            "checkpoint written on %d device(s) restored onto %d: lanes "
+            "placed in %d-lane shard blocks",
+            written_devs, target_devs, int(header["num_lanes"]) // target_devs,
+        )
+    proc.state = proc.place_arrays(arrays)
     # step_seq is the per-lane step counter; a tiered state nests the
     # engine's leaves under "engine/".
-    arrays = ckpt["arrays"]
     proc._step_base = int(np.max(arrays.get("step_seq", arrays.get("engine/step_seq"))))
     proc._lane_of = dict(header["lane_of"])
     proc._key_of = {v: k for k, v in proc._lane_of.items()}

@@ -109,13 +109,19 @@ class FlightRecorder:
         guard = getattr(processor, "_guard", None)
         if guard is not None:
             flat.update(guard.loss_counters())
-        # Tiered processors wrap the engine state (engine/tiered.py).
-        state = getattr(processor.state, "engine", processor.state)
-        # Two tiny device reductions, read back in one copy (one host sync).
-        slab_live, ring_pending = torch.stack((
-            (state.slab.stage >= 0).sum(),
-            state.hr_count.sum(dtype=torch.int64),
-        )).tolist()
+        # Tiered processors wrap the engine state (engine/tiered.py); a
+        # meshed one holds one engine state a shard.
+        shards = getattr(processor.state, "shards", None) or (
+            getattr(processor.state, "engine", processor.state),)
+        # Two tiny device reductions a shard, read back in one copy each.
+        slab_live = ring_pending = 0
+        for state in shards:
+            live, pending = torch.stack((
+                (state.slab.stage >= 0).sum(),
+                state.hr_count.sum(dtype=torch.int64),
+            )).tolist()
+            slab_live += live
+            ring_pending += pending
         with self._lock:
             delta = positive_delta(flat, self._base)
             self._base = flat

@@ -21,9 +21,13 @@ permutation leaves matches, their order and every summed counter as they
 were.
 
 Every state function here returns host numpy trees; a processor puts one
-on its device with :meth:`CEPProcessor.place`.  Meshes are not part of the
-port yet: ``mesh=`` takes ``None`` (or, for :func:`move_lanes`, "keep the
-current one") only.
+on its device, or on its mesh's shards, with :meth:`CEPProcessor.place`,
+and reads its live state through :meth:`CEPProcessor.host_state` (a meshed
+one's shards gathered in logical lane order).  A mesh shards the lane axis
+into contiguous blocks (``parallel/sharding.py``), so moving lanes between
+shards is permuting logical lane indices and placing the result: a shard
+evacuation is :func:`move_lanes` onto a shrunk sub-mesh, a hot-key
+rebalance :func:`move_lanes` onto the same mesh.
 """
 
 from __future__ import annotations
@@ -58,14 +62,6 @@ _SEMANTIC_FLAGS = (
     # Shapes the state itself (the tiered state carries the prefix).
     "tiering",
 )
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None and mesh is not _KEEP_MESH:
-        raise NotImplementedError(
-            "meshes are not ported yet (ROADMAP.md §A item 8: the port's lane "
-            "and device partition); pass mesh=None"
-        )
 
 
 def tree_map(fn, tree):
@@ -249,9 +245,10 @@ def _refuse_pending(proc, what: str) -> None:
         )
 
 
-def _rebuild(pattern, proc, config: EngineConfig, **kw):
-    """A processor of ``pattern`` on ``config`` with ``proc``'s settings,
-    its stage names checked against the live one's."""
+def _rebuild(pattern, proc, config: EngineConfig, mesh=_KEEP_MESH, **kw):
+    """A processor of ``pattern`` on ``config`` with ``proc``'s settings
+    (its mesh unless ``mesh`` says otherwise), its stage names checked
+    against the live one's."""
     from kafkastreams_cep_tpu_torch.runtime.processor import CEPProcessor
 
     new = CEPProcessor(
@@ -259,7 +256,8 @@ def _rebuild(pattern, proc, config: EngineConfig, **kw):
         gc_events=proc.gc_events, dedup=proc.dedup, gc_interval=proc.gc_interval,
         gc_events_interval=proc.gc_events_interval, decode_budget=proc.decode_budget,
         pipeline=proc.pipeline, drain_interval=proc.drain_interval, name=proc.name,
-        clock=proc._clock, device=proc.device, **kw,
+        clock=proc._clock, device=proc.device,
+        mesh=proc.mesh if mesh is _KEEP_MESH else mesh, **kw,
     )
     if list(new.batch.names) != list(proc.batch.names):
         raise ValueError(
@@ -297,16 +295,16 @@ def migrate_processor(pattern, proc, new_config: EngineConfig, mesh=None):
     """Rebuild a live :class:`CEPProcessor` on a strictly wider config.
 
     ``pattern`` is compiled fresh (code never migrates, only state); the
-    widened state goes on the processor's device and the host bookkeeping
-    carries over as a checkpoint restore would, without touching disk.
-    The processor must hold no undecoded pipelined batch (``flush()``
-    first)."""
-    _no_mesh(mesh)
+    widened state goes on ``mesh`` (None keeps the processor's own mesh, or
+    its device) and the host bookkeeping carries over as a checkpoint
+    restore would, without touching disk.  The processor must hold no
+    undecoded pipelined batch (``flush()`` first)."""
     _refuse_pending(proc, "migrating")
     old_config = proc.batch.matcher.config
     check_widens(old_config, new_config)
-    new_proc = _rebuild(pattern, proc, new_config)
-    new_proc.state = new_proc.place(widen_state(proc.state, old_config, new_config))
+    new_proc = _rebuild(pattern, proc, new_config,
+                        mesh=mesh if mesh is not None else proc.mesh)
+    new_proc.state = new_proc.place(widen_state(proc.host_state(), old_config, new_config))
     _carry_host_state(new_proc, proc)
     logger.info(
         "migrated processor %s -> %s",
@@ -330,7 +328,7 @@ def replan_processor(pattern, proc, profile):
     # Fault site: a replan that dies here leaves the old processor intact.
     _failpoint("replan.swap")
     new_proc = _rebuild(pattern, proc, config, profile=profile)
-    new_proc.state = new_proc.place(to_numpy(proc.state))
+    new_proc.state = new_proc.place(proc.host_state())
     _carry_host_state(new_proc, proc)
     logger.info(
         "replanned processor: tier=%s lazy_order=%s",
@@ -395,9 +393,10 @@ def move_lanes(pattern, proc, perm=None, mesh=_KEEP_MESH):
     state rows permuted by ``perm`` (:func:`repartition_state`) and every
     lane-indexed host structure (key routing, offsets, the event mirror,
     queued column batches, the ingest guard's per-lane high-waters) by the
-    same permutation.  On one device; ``flush()`` a pipelined processor
-    first."""
-    _no_mesh(mesh)
+    same permutation, and placed onto ``mesh``: by default the processor's
+    own mesh (a hot-key rebalance), else a shrunk surviving sub-mesh (a
+    shard evacuation) or None (one device).  ``flush()`` a pipelined
+    processor first."""
     _refuse_pending(proc, "moving lanes")
     k = proc.num_lanes
     perm = (np.arange(k, dtype=np.int64) if perm is None
@@ -408,8 +407,8 @@ def move_lanes(pattern, proc, perm=None, mesh=_KEEP_MESH):
     _failpoint("rebalance.move")
     inv = np.empty(k, dtype=np.int64)
     inv[perm] = np.arange(k, dtype=np.int64)
-    new_proc = _rebuild(pattern, proc, proc.batch.matcher.config)
-    new_proc.state = new_proc.place(repartition_state(proc.state, perm))
+    new_proc = _rebuild(pattern, proc, proc.batch.matcher.config, mesh=mesh)
+    new_proc.state = new_proc.place(repartition_state(proc.host_state(), perm))
     _carry_host_state(new_proc, proc)
     # Old lane ``p`` becomes new lane ``inv[p]``.
     new_proc._lane_of = {key: int(inv[l]) for key, l in proc._lane_of.items()}
@@ -426,5 +425,6 @@ def move_lanes(pattern, proc, perm=None, mesh=_KEEP_MESH):
         new_proc._guard.source_hw = {
             int(inv[l]): hw for l, hw in new_proc._guard.source_hw.items()
         }
-    logger.info("moved %d/%d lanes", int((perm != np.arange(k)).sum()), k)
+    logger.info("moved %d/%d lanes onto %s", int((perm != np.arange(k)).sum()), k,
+                "one device" if new_proc.mesh is None else f"a {new_proc.mesh.size}-device mesh")
     return new_proc

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from kafkastreams_cep_tpu_torch import native
-from kafkastreams_cep_tpu_torch.convert import state_arrays, state_from_arrays
+from kafkastreams_cep_tpu_torch.convert import state_arrays, state_from_arrays, to_numpy
 from kafkastreams_cep_tpu_torch.engine.matcher import (
     OFFSET_LIMIT,
     TIER_COUNTER_NAMES,
@@ -38,6 +38,7 @@ from kafkastreams_cep_tpu_torch.engine.matcher import (
 from kafkastreams_cep_tpu_torch.engine.tiered import engine_view
 from kafkastreams_cep_tpu_torch.ops.decode import compact_drained, compact_matches
 from kafkastreams_cep_tpu_torch.parallel.batch import BatchMatcher
+from kafkastreams_cep_tpu_torch.parallel.sharding import ShardedMatcher
 from kafkastreams_cep_tpu_torch.parallel.tiered import TieredBatchMatcher
 from kafkastreams_cep_tpu_torch.runtime.ingest import (
     REASON_LANE_OVERFLOW,
@@ -204,6 +205,15 @@ class CEPProcessor:
 
     ``device`` is where the engine runs: ``"cuda"`` by default (raises when
     there is no GPU), ``"cpu"`` for the plain PyTorch path.
+
+    **Mesh** (``mesh=key_mesh(...)``, ``parallel/sharding.py``): the lane
+    axis splits into contiguous blocks, one a mesh device, each stepped by
+    its own shard of a :class:`~kafkastreams_cep_tpu_torch.parallel.sharding.
+    ShardedMatcher` (the mesh names the devices; ``device`` is then
+    unused).  Every lane's state lives on one shard for the processor's
+    lifetime (``CEPProcessor.java:117-134``); checkpoints gather it to host
+    arrays in logical lane order, so a restore may place it onto another
+    mesh.  A mesh refuses tiering, as in the JAX package.
     """
 
     def __init__(
@@ -230,10 +240,18 @@ class CEPProcessor:
         mesh=None,
         latency=None,
     ):
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: the sharded processor is not ported yet (ROADMAP.md §A item 8)")
-        if config is not None and config.tiering:
+            if config is not None and config.tiering:
+                # The tiered matcher's per-batch host gate is single-device;
+                # refusing beats restoring a tiered checkpoint into an
+                # untiered shape.
+                raise ValueError(
+                    "EngineConfig.tiering is single-chip: construct the "
+                    "processor without a mesh (or without tiering)"
+                )
+            self.batch = ShardedMatcher(pattern, num_lanes, mesh, config)
+        elif config is not None and config.tiering:
             self.batch = TieredBatchMatcher(pattern, num_lanes, config,
                                             profile=profile, device=device)
         else:
@@ -319,10 +337,50 @@ class CEPProcessor:
             self.ledger.clock = clock
 
     def place(self, state):
-        """A host tree of this processor's engine state (what
-        ``runtime/migrate.py`` returns) as tensors on its device, every
-        leaf checked against the engine's shape and dtype."""
-        return state_from_arrays(state_arrays(state), self.batch.init_state())
+        """A host tree of this processor's engine state in logical lane
+        order (what ``runtime/migrate.py`` returns) as tensors on its
+        device, or on its mesh's shards, every leaf checked against the
+        engine's shape and dtype."""
+        return self.place_arrays(state_arrays(state))
+
+    def place_arrays(self, arrays: Dict[str, np.ndarray]):
+        """:meth:`place` of ``state_arrays`` output (a checkpoint's
+        arrays)."""
+        if self.mesh is not None:
+            return self.batch.place_arrays(arrays, like=self.state)
+        return state_from_arrays(arrays, self.state)
+
+    def host_state(self):
+        """The engine state as one host tree (numpy leaves) in logical lane
+        order: a meshed processor's shards gathered
+        (``ShardedMatcher.gather``), else the state's leaves pulled to the
+        host.  Checkpoints and migrations read the state through it."""
+        if self.mesh is not None:
+            return self.batch.gather(self.state)
+        return to_numpy(self.state)
+
+    def engine_arrays(self, pick) -> Tuple[np.ndarray, ...]:
+        """``pick(engine_state)``'s tensors as host arrays in logical lane
+        order, without gathering the other leaves (a tiered state's engine
+        half; a meshed processor's shards concatenated)."""
+        if self.mesh is not None:
+            return self.batch.gather_leaves(self.state, pick)
+        return tuple(x.cpu().numpy() for x in pick(engine_view(self.state)))
+
+    def lane_shards(self) -> Optional[List[int]]:
+        """The live lane-to-shard assignment (contiguous blocks over the
+        mesh), or None unmeshed; checkpoint headers record it."""
+        if self.mesh is None:
+            return None
+        per = self.num_lanes // self.mesh.size
+        return [k // per for k in range(self.num_lanes)]
+
+    def _synchronize(self) -> None:
+        """Wait for the engine's CUDA work: its device, or every distinct
+        card of its mesh."""
+        devs = [self.device] if self.mesh is None else self.mesh.devices
+        for d in dict.fromkeys(d for d in devs if d.type == "cuda"):
+            torch.cuda.synchronize(d)
 
     @property
     def uses_scan_kernel(self) -> bool:
@@ -857,12 +915,20 @@ class CEPProcessor:
         # matches reach the caller, the window the supervisor's restore and
         # replay must cover.
         _failpoint("device.dispatch")
+        steps = int(events.ts.shape[1])
+        if self.mesh is not None:
+            # Shard fault site: the host-to-mesh transfer, where a dead
+            # device first surfaces on the sharded path; the state is
+            # untouched, so the supervisor's evacuation restores and
+            # replays onto the surviving sub-mesh (arm it with ShardLost).
+            _failpoint("shard.dispatch")
+            events = self.batch.shard_events(events)
         base = self._step_base
         if lat is not None:
             lat.dispatch = self._clock()
         with self._phase("dispatch"):
             self.state, out = self.batch.scan(self.state, events)
-            self._step_base += int(events.ts.shape[1])
+            self._step_base += steps
             if self.gc_interval and (self.metrics.batches + 1) % self.gc_interval == 0:
                 # Pending handles are sweep roots (parallel/batch.py).
                 self.state = self.batch.sweep(self.state)
@@ -873,7 +939,7 @@ class CEPProcessor:
         done = None
         with self._phase("device"):
             if not self.pipeline and self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+                self._synchronize()
             elif lat is not None and self.device.type == "cuda":
                 # Pipelined: the batch's outputs are waited for at its
                 # decode, one call later; this event marks their end.
@@ -1115,11 +1181,8 @@ class CEPProcessor:
         appear in a future match; under tiering, also the events of a
         partial prefix held in the stencil carry.  Live rows still in column
         batches materialize first; the batches then drop."""
-        st = engine_view(self.state)
-        slab_stage = st.slab.stage.cpu().numpy()
-        slab_off = st.slab.off.cpu().numpy()
-        run_alive = st.alive.cpu().numpy()
-        run_off = st.event_off.cpu().numpy()
+        slab_stage, slab_off, run_alive, run_off = self.engine_arrays(
+            lambda st: (st.slab.stage, st.slab.off, st.alive, st.event_off))
         carry = getattr(self.state, "carry", None)
         carry_off = None if carry is None else carry.offs.cpu().numpy()
         for k in range(self.num_lanes):

@@ -39,12 +39,22 @@ the ingest door's shed) and pins the level with a checkpoint; the level
 rides ``extra["overload"]``, so a recovery, a resume and a replay land in
 it.
 
+On a meshed processor (the ``mesh=`` processor keyword) the same
+machinery covers shard failure: a dead device (:class:`~kafkastreams_cep_tpu_torch.
+parallel.sharding.ShardLost` out of the dispatch, or a ``shard_probe``
+report beside any other dispatch error) triggers an evacuation: restore
+the last checkpoint and replay the journal onto the surviving sub-mesh
+(``parallel.sharding.surviving_mesh``), pin the new assignment with a
+snapshot and retry the batch, degraded but exactly once.  Straggler
+watermarks (:meth:`Supervisor.observe_shard_latency`) declare a lagging
+shard and evacuate it at the next batch boundary, and at checkpoint
+boundaries the per-lane hop counters drive hot-key rebalancing, a pure
+lane relabeling (``runtime.migrate.move_lanes``) with no dropped or
+duplicated match (:class:`ShardPolicy` keeps both from thrashing).
+
 This is the JAX package's supervisor (``kafkastreams_cep_tpu/runtime/
-supervisor.py``) without its mesh half (shard evacuation, straggler
-watermarks, hot-key rebalancing): ``shard_policy``, ``shard_probe`` and the
-processor's ``mesh`` raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item that ports them.  Checkpoints and journals are the JAX
-package's formats, so either package resumes the other's.
+supervisor.py``).  Checkpoints and journals are the JAX package's formats,
+so either package resumes the other's.
 """
 
 from __future__ import annotations
@@ -62,8 +72,8 @@ import numpy as np
 from kafkastreams_cep_tpu_torch.engine import sizing
 from kafkastreams_cep_tpu_torch.engine.matcher import EngineConfig
 from kafkastreams_cep_tpu_torch.engine.sizing import EscalationPolicy
-from kafkastreams_cep_tpu_torch.engine.tiered import engine_view
 from kafkastreams_cep_tpu_torch.native.journal import Journal
+from kafkastreams_cep_tpu_torch.parallel.sharding import ShardLost, surviving_mesh
 from kafkastreams_cep_tpu_torch.runtime import checkpoint as ckpt_mod
 from kafkastreams_cep_tpu_torch.runtime import migrate as migrate_mod
 from kafkastreams_cep_tpu_torch.runtime.overload import MAX_LEVEL as _OVERLOAD_MAX_LEVEL
@@ -80,14 +90,6 @@ from kafkastreams_cep_tpu_torch.utils.telemetry import (
 )
 
 logger = get_logger("runtime.supervisor")
-
-#: Arguments of the JAX package's supervisor (and processor) this package
-#: does not serve yet, with the ROADMAP.md item that ports each.
-_NOT_PORTED = {
-    "shard_policy": "§A item 8 (the mesh: shard evacuation and rebalancing)",
-    "shard_probe": "§A item 8 (the mesh: shard evacuation and rebalancing)",
-    "mesh": "§A item 8 (the mesh)",
-}
 
 
 @dataclass
@@ -113,16 +115,47 @@ def check_health(processor: CEPProcessor) -> HealthReport:
     errors = []
     # Fold state is typed-encoded int32 (float32 states as bit patterns);
     # only float-typed columns can hold NaN.
-    eng = engine_view(processor.state)
-    agg = eng.agg.cpu().numpy()
+    agg, refs = processor.engine_arrays(lambda eng: (eng.agg, eng.slab.refs))
     dtypes = processor.batch.matcher.tables.state_dtypes
     flt = [i for i, d in enumerate(dtypes) if d == "float32"]
     if flt and np.isnan(np.ascontiguousarray(agg[..., flt]).view(np.float32)).any():
         errors.append("NaN in fold-aggregate state")
-    if bool((eng.slab.refs < 0).any()):
+    if bool((refs < 0).any()):
         errors.append("negative slab refcount")
     return HealthReport(healthy=not errors, warnings=warnings, errors=errors,
                         counters=counters)
+
+
+@dataclass
+class ShardPolicy:
+    """When a meshed supervisor declares a shard sick and when it moves
+    lanes; both sides are hysteretic, because an evacuation or a move costs
+    a restore or a rebuild plus a pinning snapshot.
+
+    Stragglers (fed by :meth:`Supervisor.observe_shard_latency`): a shard
+    whose step-latency watermark (the max of its last ``straggler_window``
+    observations) exceeds ``straggler_factor`` times the median of the
+    other shards' watermarks on ``straggler_streak`` consecutive
+    observations is declared lagging; with ``evacuate_stragglers`` it is
+    evacuated at the next batch boundary, like a dead shard.
+
+    Skew (checked at checkpoint boundaries from the per-lane hop deltas
+    behind ``CEPProcessor.per_key_cost``): a boundary trips when the window
+    saw at least ``rebalance_min_hops`` hops and the hottest shard carried
+    more than ``rebalance_skew`` times the mean shard load.  After
+    ``rebalance_streak`` tripping boundaries in a row (and more than
+    ``rebalance_cooldown`` boundaries since the last move), hot lanes are
+    spread greedily (``runtime.migrate.plan_rebalance``) and moved with
+    ``runtime.migrate.move_lanes``."""
+
+    straggler_factor: float = 3.0
+    straggler_window: int = 8
+    straggler_streak: int = 3
+    evacuate_stragglers: bool = True
+    rebalance_skew: float = 2.0
+    rebalance_min_hops: int = 64
+    rebalance_streak: int = 2
+    rebalance_cooldown: int = 1
 
 
 @dataclass
@@ -184,7 +217,14 @@ class Supervisor:
       boundaries when its measured selectivity drifts (``replans``);
     * with ``overload_policy`` (``True`` for the default
       :class:`~kafkastreams_cep_tpu_torch.runtime.overload.OverloadPolicy`,
-      or a policy) the brownout ladder runs (module docstring).
+      or a policy) the brownout ladder runs (module docstring);
+    * with a ``mesh`` (a processor keyword), a :class:`ShardPolicy` is on
+      by default (``shard_policy=False`` turns it off): a lost shard is
+      evacuated (``evacuations``), a lagging one too (``stragglers``), and
+      hot lanes are rebalanced (``rebalances``, ``lanes_moved``,
+      ``rebalance_failures``); ``shard_probe``, a callable returning the
+      shard indices a deployment believes dead, turns a generic dispatch
+      error into an evacuation.
     """
 
     _instance_ids = itertools.count()
@@ -210,13 +250,6 @@ class Supervisor:
         _resuming: bool = False,
         **proc_kwargs,
     ):
-        given = dict(shard_policy=shard_policy, shard_probe=shard_probe,
-                     mesh=proc_kwargs.get("mesh"))
-        for name, value in given.items():
-            if value is not None and value is not False:
-                raise NotImplementedError(
-                    f"Supervisor({name}=...): not ported yet (ROADMAP.md {_NOT_PORTED[name]})")
-        proc_kwargs.pop("mesh", None)
         if auto_escalate is True:
             self._policy: Optional[EscalationPolicy] = EscalationPolicy()
         elif auto_escalate:
@@ -289,6 +322,35 @@ class Supervisor:
         # yet returned (drained at the end of process(); kept across a
         # failed snapshot so nothing is lost).
         self._unclaimed: List[Tuple[Hashable, Sequence]] = []
+        # Mesh fault tolerance: on whenever the processor is meshed (a dead
+        # shard with no policy would crash, which is worse than running
+        # degraded); ``shard_policy=False`` turns it off.
+        if shard_policy is False:
+            self._shard_policy: Optional[ShardPolicy] = None
+        elif shard_policy is not None:
+            self._shard_policy = shard_policy
+        else:
+            self._shard_policy = ShardPolicy() if self._mesh() is not None else None
+        # A zero-argument callable returning the shard indices an outside
+        # health source believes dead, consulted when a dispatch fails with
+        # a generic error (a ShardLost names its shard itself).
+        self._shard_probe = shard_probe
+        self.evacuations = 0
+        self.rebalances = 0
+        self.rebalance_failures = 0
+        self.lanes_moved = 0
+        self.stragglers = 0
+        # Straggler bookkeeping by shard index: recent step latencies,
+        # consecutive over-watermark counts and the shards declared lagging;
+        # all cleared by an evacuation, which renumbers the shards.
+        self._shard_lat: dict = {}
+        self._lag_streak: dict = {}
+        self._lagging: set = set()
+        # Rebalance hysteresis: the per-lane hop baseline of the windowed
+        # delta, tripping boundaries in a row, boundaries since the last move.
+        self._hops_base: Optional[np.ndarray] = None
+        self._rebalance_streak = 0
+        self._boundaries_since_move = 10**9  # no cooldown before the first
         if adapt_policy is True:
             self._adapt_policy: Optional[AdaptPolicy] = AdaptPolicy()
         elif adapt_policy:
@@ -309,10 +371,11 @@ class Supervisor:
         self._journal_suspended = False
         # Telemetry: the supervisor shares the processor's trace sink (the
         # ``trace_sink=`` processor keyword) and owns the lifecycle latency
-        # histograms (checkpoint, recover, escalate, replan).
+        # histograms (checkpoint, recover, escalate, evacuate, rebalance,
+        # replan).
         self.trace = self._proc_kwargs.get("trace_sink")
         self.telemetry = MetricsRegistry()
-        for n in ("checkpoint", "recover", "escalate", "replan"):
+        for n in ("checkpoint", "recover", "escalate", "evacuate", "rebalance", "replan"):
             self.telemetry.histogram(f"phase.{n}")
         # Flight recorder (the ``flight=`` processor keyword): the
         # supervisor dumps it on a crash, a recovery and an escalation, and
@@ -356,7 +419,9 @@ class Supervisor:
         """Rebuild a supervisor after a process crash.
 
         Restores ``checkpoint_path`` where it exists (else starts fresh) on
-        ``device`` (a keyword, ``"cuda"`` by default), then replays the
+        ``device`` (a keyword, ``"cuda"`` by default) or on ``mesh`` (a
+        keyword; it may differ from the mesh that wrote the snapshot), then
+        replays the
         on-disk journal chain's intact prefix, suppressing the replayed
         matches (the crashed process emitted them).  Frames at or below the
         checkpoint's sequence number are skipped, so a crash between a
@@ -375,7 +440,8 @@ class Supervisor:
             try:
                 ckpt = ckpt_mod.load_checkpoint(path)
                 proc = ckpt_mod.restore_processor(pattern, path, ckpt=ckpt,
-                                                  device=kwargs.get("device", "cuda"))
+                                                  device=kwargs.get("device", "cuda"),
+                                                  mesh=kwargs.get("mesh"))
                 extra = ckpt["header"].get("extra", {})
                 base_seq = int(extra.get("seq", 0))
                 overload_state = extra.get("overload")
@@ -519,6 +585,15 @@ class Supervisor:
 
     def _process_supervised(self, records: List[Record],
                             corr: str) -> List[Tuple[Hashable, Sequence]]:
+        # Shards declared lagging are evacuated at the batch boundary,
+        # before the dispatch: nothing is in flight there.
+        if (self._lagging and self._shard_policy is not None
+                and self._shard_policy.evacuate_stragglers):
+            mesh = self._mesh()
+            if mesh is not None and mesh.size > 1:
+                lagging = sorted(self._lagging)
+                logger.warning("evacuating lagging shard(s) %s at the batch boundary", lagging)
+                self._evacuate(lagging, corr)
         for attempt in range(self.max_retries + 1):
             try:
                 # Per attempt (a recovery resets the pipeline): whether the
@@ -531,15 +606,36 @@ class Supervisor:
                 # A bad batch, not a bad device: replay cannot help, and the
                 # processor's validation left the state untouched.
                 raise
+            except ShardLost as e:
+                # The device is gone: a recovery onto the same mesh would
+                # dispatch into it again, so evacuate onto the survivors.
+                # Unmeshed or on one device there is nowhere to go: crash.
+                mesh = self._mesh()
+                if mesh is None or mesh.size < 2 or attempt >= self.max_retries:
+                    if self.flight is not None:
+                        self.flight.dump("crash", corr=corr)
+                    raise
+                logger.exception("shard %d lost on a %d-record batch; evacuating onto the "
+                                 "surviving sub-mesh", e.shard, len(records))
+                self._evacuate([e.shard], corr)
+                self._backoff(attempt)
             except Exception:
                 if attempt >= self.max_retries:
                     # Retries exhausted: ship the last batches' context first.
                     if self.flight is not None:
                         self.flight.dump("crash", corr=corr)
                     raise
-                logger.exception("processor failed on a %d-record batch; recovering",
-                                 len(records))
-                self._recover(corr)
+                # A generic error does not say which device failed: ask the
+                # probe before recovering onto the same mesh.
+                dead = self._probe_dead_shards()
+                if dead:
+                    logger.exception("processor failed and the shard probe reports shard(s) "
+                                     "%s dead; evacuating", sorted(dead))
+                    self._evacuate(dead, corr)
+                else:
+                    logger.exception("processor failed on a %d-record batch; recovering",
+                                     len(records))
+                    self._recover(corr)
                 self._backoff(attempt)
         if self._policy is not None:
             matches = self._maybe_escalate(records, matches, had_pending, corr)
@@ -569,7 +665,10 @@ class Supervisor:
         # A suspended journal leaves acknowledged batches out of the crash
         # history: snapshot now rather than at the cadence.
         if self._journal_suspended or self._batches_since_ckpt >= self.checkpoint_every:
-            # A replan here is pinned by the snapshot right after it.
+            # A rebalance or a replan here is pinned by the snapshot right
+            # after it, so every recovery and resume replays under it.
+            if self._shard_policy is not None:
+                self._maybe_rebalance()
             if self._adapt_policy is not None:
                 self._maybe_replan(corr)
             # A failed snapshot must not lose the batch's matches: the
@@ -614,17 +713,19 @@ class Supervisor:
         journal since it, dropping the replayed matches (already emitted).
         With no checkpoint yet the journal is the whole history, replayed
         from a fresh processor.  Shared by recovery and escalation."""
+        mesh = self._proc_kwargs.get("mesh")
         if self._has_checkpoint:
             try:
                 self.processor = ckpt_mod.restore_processor(
-                    self._pattern, self.checkpoint_path, device=self.device)
+                    self._pattern, self.checkpoint_path, device=self.device, mesh=mesh)
             except ckpt_mod.CheckpointCorrupt:
                 # resume()'s fallback: the previous-good snapshot, whose
                 # journal the in-memory one then covers.
                 logger.exception("checkpoint %s is corrupt during recovery; restoring "
                                  "the previous-good snapshot", self.checkpoint_path)
                 self.processor = ckpt_mod.restore_processor(
-                    self._pattern, self.checkpoint_path + ".prev", device=self.device)
+                    self._pattern, self.checkpoint_path + ".prev", device=self.device,
+                    mesh=mesh)
             self._rewire()
         else:
             self.processor = CEPProcessor(self._pattern, self.processor.num_lanes,
@@ -666,6 +767,190 @@ class Supervisor:
             self._ingest_base = self._ingest_loss_counters()
         logger.info("recovered: checkpoint=%s, %d journaled records replayed",
                     self._has_checkpoint, replayed)
+        # The rebalance baseline indexes the live processor's lanes, and the
+        # rollback may precede the last move: measure it again.
+        self._hops_base = None
+
+    # -- mesh fault tolerance ------------------------------------------------
+
+    def _mesh(self):
+        """The mesh the next (re)built processor lands on: the ``mesh``
+        processor keyword, which an evacuation rewrites, else the live
+        processor's (a resumed one handed in)."""
+        mesh = self._proc_kwargs.get("mesh")
+        if mesh is None:
+            mesh = getattr(self.processor, "mesh", None)
+        return mesh
+
+    def _probe_dead_shards(self) -> set:
+        if self._shard_probe is None or self._shard_policy is None:
+            return set()
+        mesh = self._mesh()
+        if mesh is None or mesh.size < 2:
+            return set()
+        try:
+            return {int(s) for s in (self._shard_probe() or ())}
+        except Exception:
+            logger.exception("shard probe failed; treating as no report")
+            return set()
+
+    def _evacuate(self, dead, corr: Optional[str] = None) -> None:
+        """Move the lost shards' lanes onto the surviving sub-mesh.
+
+        The spine of :meth:`_recover` (restore the last checkpoint, replay
+        the journal, matches suppressed) onto ``surviving_mesh(mesh,
+        dead)``: the ``mesh`` keyword is rewritten first, so this and every
+        later rebuild lands there (``checkpoint.restore_processor`` places
+        the lanes in the new blocks).  An immediate snapshot pins the shrunk
+        assignment, so no recovery or resume places lanes on the dead
+        device again."""
+        mesh = self._mesh()
+        dead = sorted({int(d) for d in dead})
+        new_mesh = surviving_mesh(mesh, dead, self.processor.num_lanes)
+        if self.flight is not None:
+            self.flight.note(evacuation=self.evacuations + 1, dead_shards=dead)
+            self.flight.dump("evacuate", corr=corr)
+        t0 = time.perf_counter()
+        with maybe_span(self.trace, "evacuate", corr=corr, seq=self._seq, dead_shards=dead,
+                        survivors=new_mesh.size) as sp, \
+                timed_histogram(self.telemetry, "phase.evacuate"):
+            self._proc_kwargs["mesh"] = new_mesh
+            replayed = self._restore_tail()
+            sp["replayed_records"] = replayed
+            sp["from_checkpoint"] = self._has_checkpoint
+            try:
+                self._unclaimed.extend(self.checkpoint())
+            except Exception:
+                self.checkpoint_failures += 1
+                logger.exception("post-evacuation checkpoint failed; a resume before the "
+                                 "next good snapshot places the lanes itself "
+                                 "(restore_processor repartitions on a mesh-size change)")
+        self._observe_stall("evacuate", time.perf_counter() - t0, corr)
+        self.evacuations += 1
+        # The shrink renumbers the shards: the straggler and skew
+        # bookkeeping of the old numbering means nothing now.
+        self._shard_lat.clear()
+        self._lag_streak.clear()
+        self._lagging.clear()
+        self._hops_base = None
+        if self._policy is not None:
+            self._counter_base = self._capacity_counters()
+            self._ingest_base = self._ingest_loss_counters()
+        logger.warning("shard(s) %s evacuated: %d lanes now on %d device(s), %d journaled "
+                       "records replayed (degraded but exactly once)", dead,
+                       self.processor.num_lanes, new_mesh.size, replayed)
+
+    def observe_shard_latency(self, shard: int, seconds: float) -> bool:
+        """Feed one shard's step latency (a per-host heartbeat in a
+        deployment).  Returns True while ``shard`` is declared lagging (see
+        :class:`ShardPolicy`); with ``evacuate_stragglers`` a declared shard
+        is evacuated at the next batch boundary."""
+        policy = self._shard_policy
+        if policy is None:
+            return False
+        shard = int(shard)
+        lat = self._shard_lat.setdefault(shard, [])
+        lat.append(float(seconds))
+        del lat[: -int(policy.straggler_window)]
+        others = [max(v) for s, v in self._shard_lat.items() if s != shard and v]
+        if not others:
+            return shard in self._lagging
+        med = float(np.median(others))
+        if med > 0.0 and max(lat) > policy.straggler_factor * med:
+            self._lag_streak[shard] = self._lag_streak.get(shard, 0) + 1
+        else:
+            self._lag_streak[shard] = 0
+        if self._lag_streak[shard] >= policy.straggler_streak and shard not in self._lagging:
+            self._lagging.add(shard)
+            self.stragglers += 1
+            if self.trace is not None:
+                self.trace.event("straggler", shard=shard, watermark_s=max(lat),
+                                 peer_median_s=med)
+            logger.warning("shard %d declared lagging (watermark %.4fs vs peer median "
+                           "%.4fs); evacuation at the next batch boundary", shard, max(lat), med)
+        return shard in self._lagging
+
+    def _maybe_rebalance(self) -> None:
+        """Move hot lanes off a saturated shard at a checkpoint boundary.
+
+        The signal is the per-lane hop delta (walk + extract + drain, the
+        counters behind ``CEPProcessor.per_key_cost``) since the last
+        boundary; trip, streak and cooldown per :class:`ShardPolicy`.  The
+        move is ``migrate.move_lanes`` with ``plan_rebalance``'s
+        permutation, pinned by the snapshot that follows; a move that fails
+        (the ``rebalance.move`` fault site) leaves the old processor and
+        assignment intact."""
+        policy = self._shard_policy
+        mesh = self._mesh()
+        if policy is None or mesh is None:
+            return
+        n = mesh.size
+        k = self.processor.num_lanes
+        if n < 2 or k % n != 0:
+            return
+        self._boundaries_since_move += 1
+        arrays = {name: np.asarray(vals, dtype=np.int64).reshape(-1)
+                  for name, vals in self.processor.batch.per_lane_counters(
+                      self.processor.state).items()
+                  if name in ("walk_hops", "extract_hops", "drain_hops")}
+        if not arrays:
+            return
+        hops = sum(arrays.values())
+        base = self._hops_base
+        if base is None or base.shape != hops.shape:
+            self._hops_base = hops
+            self._rebalance_streak = 0
+            return
+        window = hops - base
+        self._hops_base = hops
+        total = int(window.sum())
+        shard_loads = window.reshape(n, k // n).sum(axis=1)
+        mean = total / n
+        if not (total >= policy.rebalance_min_hops
+                and float(shard_loads.max()) > policy.rebalance_skew * mean):
+            self._rebalance_streak = 0
+            return
+        self._rebalance_streak += 1
+        if (self._rebalance_streak < policy.rebalance_streak
+                or self._boundaries_since_move <= policy.rebalance_cooldown):
+            return
+        perm = migrate_mod.plan_rebalance(window, n)
+        if perm is None:
+            self._rebalance_streak = 0
+            return
+        # The heavy hitters of the same window name the keys being moved
+        # (span and log only: the decision is already made).
+        hot = self.processor.per_key_cost(top_k=4, per_lane_arrays={
+            "walk_hops": window, "extract_hops": np.zeros_like(window),
+            "drain_hops": np.zeros_like(window)})
+        moved = int(np.sum(perm != np.arange(k)))
+        with maybe_span(self.trace, "rebalance", seq=self._seq, lanes_moved=moved,
+                        hot_keys=[h["key"] for h in hot["top"]],
+                        shard_loads=[int(x) for x in shard_loads]), \
+                timed_histogram(self.telemetry, "phase.rebalance"):
+            if self.processor.pipeline:
+                # An undecoded batch cannot be permuted on the host; its
+                # matches go to the caller.
+                self._unclaimed.extend(self.processor.flush())
+            try:
+                self.processor = migrate_mod.move_lanes(self._pattern, self.processor, perm,
+                                                        mesh=mesh)
+            except Exception:
+                self.rebalance_failures += 1
+                # move_lanes changes nothing before it succeeds; the
+                # baseline still indexes the unmoved lanes.
+                logger.exception("lane rebalance failed; keeping the current assignment")
+                return
+            self._rewire()
+            self.rebalances += 1
+            self.lanes_moved += moved
+            # The baseline follows its lanes to their new positions.
+            self._hops_base = hops[perm]
+            self._rebalance_streak = 0
+            self._boundaries_since_move = 0
+        logger.warning("hot-key rebalance #%d: moved %d lanes (window loads per shard %s; "
+                       "hottest keys %s)", self.rebalances, moved,
+                       [int(x) for x in shard_loads], [h["key"] for h in hot["top"]])
 
     def _observe_stall(self, cause: str, seconds: float, corr: Optional[str]) -> None:
         """One lifecycle stall (recover or replan wall time) into the
@@ -1023,7 +1308,8 @@ class Supervisor:
                 # belongs to the lossy attempt and dies with it.
                 self._restore_tail()
                 self.processor = migrate_mod.migrate_processor(
-                    self._pattern, self.processor, new_cfg)
+                    self._pattern, self.processor, new_cfg,
+                    mesh=self._proc_kwargs.get("mesh"))
                 self._rewire()
                 self.escalations += 1
                 logger.warning("capacity escalation #%d: %s after counters %s; "
@@ -1106,7 +1392,10 @@ class Supervisor:
     def metrics_snapshot(self, per_lane: bool = True) -> dict:
         """The processor's snapshot plus the supervisor's lifecycle
         telemetry: the event counts and their latency histograms (``phases``
-        gains ``checkpoint``, ``recover``, ``escalate`` and ``replan``), and
+        gains ``checkpoint``, ``recover``, ``escalate``, ``evacuate``,
+        ``rebalance`` and ``replan``), the mesh's ``evacuations``,
+        ``stragglers``, ``rebalances``, ``rebalance_failures`` and
+        ``lanes_moved``, and
         the ``overload_*`` gauges under an ``overload_policy``."""
         out = self.processor.metrics_snapshot(per_lane=per_lane)
         out["recoveries"] = self.recoveries
@@ -1115,8 +1404,13 @@ class Supervisor:
         out["journal_failures"] = self.journal_failures
         out["escalations"] = self.escalations
         out["ingest_escalations"] = self.ingest_escalations
+        out["evacuations"] = self.evacuations
+        out["rebalances"] = self.rebalances
+        out["rebalance_failures"] = self.rebalance_failures
         out["replans"] = self.replans
         out["replan_failures"] = self.replan_failures
+        out["lanes_moved"] = self.lanes_moved
+        out["stragglers"] = self.stragglers
         if self.flight is not None:
             out["flight_dumps"] = self.flight.dumps
         if self._overload is not None:

@@ -55,7 +55,8 @@ def test_files_found():
                 "utils/telemetry.py", "utils/metrics.py", "nfa/__init__.py",
                 "nfa/dewey.py", "nfa/buffer.py", "nfa/oracle.py", "utils/latency.py",
                 "runtime/tenant.py", "runtime/overload.py", "utils/tracecache.py",
-                "profile/__init__.py", "profile/__main__.py"):
+                "profile/__init__.py", "profile/__main__.py", "parallel/sharding.py",
+                "parallel/seqpar.py"):
         assert f"kafkastreams_cep_tpu_torch/{mod}" in FILES
     for ex in EXAMPLES:
         assert f"examples/{ex}" in FILES

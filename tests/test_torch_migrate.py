@@ -19,7 +19,9 @@ package's, after ``tests/test_migrate.py`` and ``tests/test_shard_fault.py``.
   ``:250-281`` hold them;
 * a tenant bank's state (a plain tuple of group engines) widens as the JAX
   package widens it, and the JAX-widened state steps in the port;
-* a mesh raises ``NotImplementedError``.
+* ``mesh=`` migrates and moves lanes onto a mesh of CPU placements (the
+  mesh's own suites: ``tests/test_torch_sharding.py``,
+  ``test_torch_shard_fault.py``).
 """
 
 import dataclasses
@@ -39,6 +41,7 @@ from kafkastreams_cep_tpu.runtime import migrate as jmigrate
 from kafkastreams_cep_tpu_torch import BatchMatcher, CEPProcessor, EngineConfig, Record
 from kafkastreams_cep_tpu_torch.convert import state_arrays, to_numpy, to_torch
 from kafkastreams_cep_tpu_torch.engine.sizing import capacity_counters
+from kafkastreams_cep_tpu_torch.parallel import key_mesh
 from kafkastreams_cep_tpu_torch.runtime import (
     migrate_processor, move_lanes, plan_rebalance, repartition_state, widen_state,
 )
@@ -232,9 +235,13 @@ def test_migrate_refuses_pending_pipelined_batch():
     with pytest.raises(ValueError, match="flush"):
         migrate_processor(ts.strict3(ts.TQuery), proc, wide)
     proc.flush()
-    migrate_processor(ts.strict3(ts.TQuery), proc, wide)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        migrate_processor(ts.strict3(ts.TQuery), proc, wide, mesh=object())
+    flat = migrate_processor(ts.strict3(ts.TQuery), proc, wide)
+    meshed = migrate_processor(ts.strict3(ts.TQuery), proc, wide, mesh=key_mesh(["cpu"]))
+    assert meshed.mesh.size == 1 and meshed.batch.matcher.config == wide
+    assert_trees_equal(canonical_state(flat.host_state()), canonical_state(meshed.host_state()),
+                       "migrated onto a mesh")
+    rest = [Record("k", ts.B, 2, offset=1), Record("k", ts.C, 3, offset=2)]
+    assert canon(flat.process(rest)) == canon(meshed.process(rest))
 
 
 TIERED = dict(max_runs=32, slab_entries=96, slab_preds=12, dewey_depth=20, max_walk=12,
@@ -360,8 +367,18 @@ def test_move_lanes_processor_parity(tiered):
     assert_trees_equal(repartition_state(canonical_state(a.state), perm),
                        canonical_state(b.state), "move_lanes")
     assert a.counters() == b.counters() and not any(b.counters().values())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        move_lanes(ts.skip_till_any(ts.TQuery), b, perm, mesh=object())
+    mesh = key_mesh(["cpu"] * 2)
+    if tiered:
+        with pytest.raises(ValueError, match="single-chip"):
+            move_lanes(ts.skip_till_any(ts.TQuery), b, perm, mesh=mesh)
+        return
+    # Back to a's lane order, onto two shards: a's canonical state and stream.
+    c = move_lanes(ts.skip_till_any(ts.TQuery), b, np.argsort(perm), mesh=mesh)
+    assert c.mesh is mesh and c._lane_of == a._lane_of
+    assert_trees_equal(canonical_state(a.state), canonical_state(c.host_state()),
+                       "move_lanes onto a mesh")
+    more = letter_stream(keys, 16, 7, start=12)
+    assert canon(a.process(more) + a.flush()) == canon(c.process(more) + c.flush())
 
 
 def leaves(tree):

@@ -10,8 +10,8 @@ the canonical state leaves.  A JAX checkpoint and journal resume on the
 port, and the port's on the JAX package.  The chaos schedules (device,
 journal and checkpoint faults, crashes with torn or corrupt journal tails,
 resumes) run on the port and end in the JAX package's fault-free state and
-stream.  The arguments the port does not serve yet (the mesh's) raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+stream.  The arguments the port once refused (the brownout ladder's and
+the mesh's) are served.
 """
 
 import collections
@@ -37,10 +37,12 @@ from kafkastreams_cep_tpu_torch.engine.sizing import EscalationPolicy as TPolicy
 from kafkastreams_cep_tpu_torch.engine.sizing import capacity_counters
 from kafkastreams_cep_tpu_torch.runtime import CEPProcessor as TProcessor
 from kafkastreams_cep_tpu_torch.runtime import Record as TRecord
+from kafkastreams_cep_tpu_torch.runtime import ShardPolicy as TShardPolicy
 from kafkastreams_cep_tpu_torch.runtime import Supervisor as TSupervisor
 from kafkastreams_cep_tpu_torch.runtime import FlightRecorder, read_dump
 from kafkastreams_cep_tpu_torch.runtime.migrate import canonical_state as t_canonical
 from kafkastreams_cep_tpu_torch.native.journal import Journal
+from kafkastreams_cep_tpu_torch.parallel import key_mesh
 from kafkastreams_cep_tpu_torch.convert import state_arrays
 from kafkastreams_cep_tpu_torch.utils import failpoints as tfp
 
@@ -544,7 +546,7 @@ def test_chaos_schedule_ends_in_the_jax_oracle(tmp_path, mode, seed):
     assert not any(sup.processor.counters().values())
 
 
-# -- the doors left closed, and the one opened ---------------------------------------------
+# -- the doors once closed, all open now ---------------------------------------------
 
 
 @pytest.mark.parametrize("kwarg, item", [
@@ -552,19 +554,33 @@ def test_chaos_schedule_ends_in_the_jax_oracle(tmp_path, mode, seed):
     ("mesh", "item 8"),
 ])
 def test_unported_arguments_raise(tmp_path, kwarg, item):
+    """Every argument the port once refused is served now (the test keeps
+    its name and ids): the brownout ladder of ``ROADMAP.md`` §A item 6
+    (tests/test_torch_overload.py) and the mesh's three of item 8
+    (tests/test_torch_sharding.py, test_torch_shard_fault.py)."""
     if kwarg == "overload_policy":
-        # Item 6's brownout ladder is ported: the door is open, and the
-        # default policy builds a controller at L0
-        # (tests/test_torch_overload.py).
+        # The default policy builds a controller at L0.
         sup = sup_of(PKGS["torch"], tmp_path, "n", **{kwarg: True})
         assert sup._overload.level == 0 and sup.metrics_snapshot()["overload_level"] == 0
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §A {item}"):
-        sup_of(PKGS["torch"], tmp_path, "n", **{kwarg: True})
-    if kwarg == "mesh":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md §A {item}"):
-            TProcessor(ts.strict3(ts.TQuery), 1, TConfig(**DEFAULT), device="cpu",
-                       **{kwarg: object()})
+    p = PKGS["torch"]
+    mesh = key_mesh(["cpu"])
+    value = {"shard_policy": TShardPolicy(straggler_factor=2.0), "shard_probe": lambda: [0],
+             "mesh": mesh}[kwarg]
+    sup = sup_of(p, tmp_path, "n", **{kwarg: value})
+    out = sup.process([p.Record("k", v, i) for i, v in enumerate([ts.A, ts.B, ts.C])])
+    assert len(out) == 1, f"{kwarg} ({item}) is served"
+    snap = sup.metrics_snapshot()
+    assert (snap["evacuations"], snap["stragglers"], snap["rebalances"]) == (0, 0, 0)
+    if kwarg == "shard_policy":
+        assert sup._shard_policy.straggler_factor == 2.0
+    elif kwarg == "shard_probe":
+        # Unmeshed: no default policy, so the probe is never consulted.
+        assert sup._shard_policy is None and sup._shard_probe() == [0]
+    else:
+        assert sup._shard_policy == TShardPolicy() and sup.processor.lane_shards() == [0]
+        proc = TProcessor(ts.strict3(ts.TQuery), 1, TConfig(**DEFAULT), mesh=mesh)
+        assert proc.mesh is mesh and proc.batch.mesh is mesh
 
 
 def test_latency_builds_a_ledger_on_supervisor_and_processor(tmp_path):
