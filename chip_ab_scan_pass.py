@@ -13,12 +13,15 @@ through its own tree's wrapper (``ops/scan_kernel.py``), and fed
 two-tier, attribution, two-tier + attribution), the lazy path's second
 64-step chunk at E=96 (lazy, lazy + attribution, lazy + two-tier, lazy +
 two-tier + attribution) and the tiered cell's first planted 128-step batch
-(tiered, lazy + tiered, two-tier + attribution + tiered); and, for the
-placement rule of the slab's pointer rows, the headline scan in the default
-instance at smaller slabs (E in ``SWEEP_E``).  Each instance's
-state, frames and promotions must agree bit for bit between the two builds
-(this build in both placements of the slab's pointer rows); then each build is timed by CUDA events in ROUNDS rounds (default
-5) of this, other, other, this.  With ``--sass`` the script first holds
+(tiered, lazy + tiered, two-tier + attribution + tiered), and the wide
+instance over the next 64 steps of phase 13's escalated state
+(:func:`escalated`); and, for the placement rule of the slab's pointer
+rows, the headline scan in the default instance at smaller slabs (E in
+``SWEEP_E``).  Each instance's state, frames and promotions must agree bit
+for bit between the two builds (this build in both placements of the
+slab's pointer rows); then each build is timed by CUDA events in ROUNDS
+rounds (default 5) of this, other, other, this, and this build's other
+placement once a round.  With ``--sass`` the script first holds
 the machine code of each pair of libraries against each other
 (``cuobjdump -sass``, instructions and function names only) and prints
 whether they are identical.  Prints the card, one line per instance with
@@ -41,6 +44,93 @@ import chip_smoke as cs
 
 #: Slab sizes of the placement sweep (the headline config at E rows).
 SWEEP_E = (16, 24, 32, 40)
+#: The config ``chip_smoke.py`` phase 12 (a0)'s autosize reaches on
+#: ``bench_processor``'s columns from the headline config (it prints it):
+#: B1's two-tier + wide instance.
+AUTOSIZED = dict(max_runs=16, slab_entries=112, slab_hot_entries=24, slab_preds=16,
+                 dewey_depth=368, max_walk=44)
+
+
+def stream_columns(torch, EventBatch, dev, K: int, T: int, b: int, t0: int = 0):
+    """Batch ``b`` of ``bench_processor``'s stream (``chip_smoke.py:
+    processor_stream``, ``K x T`` records a batch) as the ``[K, T]`` columns
+    a processor hands its matcher: lane k takes record ``t * K + k`` at step
+    t, timestamps ``b * K * T`` on, offsets ``t0 + b * T`` on."""
+    import numpy as np
+
+    _, prices, volumes = cs.processor_stream(K, T)
+    rec = np.arange(T)[None, :] * K + np.arange(K)[:, None]
+    i32 = torch.int32
+    return EventBatch(
+        key=torch.arange(K, dtype=i32, device=dev)[:, None].expand(K, T).contiguous(),
+        value={"price": torch.as_tensor(prices[rec].astype(np.int32), device=dev),
+               "volume": torch.as_tensor(volumes[rec].astype(np.int32), device=dev)},
+        ts=torch.as_tensor((b * K * T + rec).astype(np.int32), device=dev),
+        off=(t0 + b * T + torch.arange(T, dtype=i32, device=dev))[None, :].expand(K, T)
+        .contiguous(),
+        valid=torch.ones((K, T), dtype=torch.bool, device=dev),
+    )
+
+
+def escalated(torch, dev):
+    """``chip_smoke.py`` phase 13 (b)'s escalated deployment, rebuilt
+    without the supervisor: ``bench_processor``'s stream (K=SUP_LANES,
+    ESC_STEPS steps a batch) from the headline config, batch by batch; a
+    batch that loses work escalates the config (``sizing.escalate`` under
+    ``EscalationPolicy(max_rounds=ESC_ROUNDS)``, the supervisor's rule) and
+    runs again from the earlier batches' state at the wider config, until a
+    batch has run wide after an escalation (phase 13's stop).  Returns
+    ``(config, matcher, state before the last batch, the last batch)``; the
+    phase's wide-from-start processor holds that state."""
+    from kafkastreams_cep_tpu_torch import BatchMatcher, EngineConfig, Query
+    from kafkastreams_cep_tpu_torch.engine.matcher import EventBatch
+    from kafkastreams_cep_tpu_torch.engine.sizing import (
+        EscalationPolicy, capacity_counters, escalate,
+    )
+
+    K, T = cs.SUP_LANES, cs.ESC_STEPS
+    pattern = cs.stock_pattern(Query)
+    policy = EscalationPolicy(max_rounds=cs.ESC_ROUNDS)
+    cfg, wide_at, shapes = EngineConfig(**cs.HEADLINE), None, []
+    for b in range(cs.ESC_BATCHES):
+        for _ in range(cs.ESC_ROUNDS + 1):
+            bm = BatchMatcher(pattern, K, cfg, device=dev)
+            st = bm.init_state()
+            for i in range(b):
+                st, _ = bm.scan(st, stream_columns(torch, EventBatch, dev, K, T, i))
+            before = capacity_counters(bm.counters(st))
+            after, _ = bm.scan(st, stream_columns(torch, EventBatch, dev, K, T, b))
+            tripped = {k: v - before[k] for k, v in capacity_counters(bm.counters(after)).items()
+                       if v > before[k]}
+            del after
+            new = escalate(cfg, tripped, policy) if tripped else None
+            if new is None:
+                break
+            cfg = new
+            shapes.append(cs.shape_of(cfg))
+        if wide_at is not None:
+            cs.log(f"escalated state: {len(shapes)} escalations ({', '.join(shapes)}), "
+                   f"{b + 1} batches of {K} x {T}")
+            return cfg, bm, st, stream_columns(torch, EventBatch, dev, K, T, b)
+        if cfg.dewey_depth > 32 or cfg.slab_preds > 32:
+            wide_at = b
+    cs.fail(f"no batch ran wide after an escalation in {cs.ESC_BATCHES} batches "
+            f"({cs.shape_of(cfg)})")
+
+
+def autosized(torch, dev):
+    """``chip_smoke.py`` phase 12 (a0)'s input to B1's two-tier + wide
+    instance: the :data:`AUTOSIZED` config over the first SURGERY_STEPS
+    steps of ``bench_processor``'s columns (K=SURGERY_LANES).  Returns
+    ``(config, matcher, state at that step, the step's batch)``."""
+    from kafkastreams_cep_tpu_torch import BatchMatcher, EngineConfig, Query
+    from kafkastreams_cep_tpu_torch.engine.matcher import EventBatch
+
+    K, T = cs.SURGERY_LANES, cs.SURGERY_STEPS
+    cfg = EngineConfig(**dict(cs.HEADLINE, **AUTOSIZED))
+    bm = BatchMatcher(cs.stock_pattern(Query), K, cfg, device=dev)
+    st, _ = bm.scan(bm.init_state(), stream_columns(torch, EventBatch, dev, K, T, 0))
+    return cfg, bm, st, stream_columns(torch, EventBatch, dev, K, T, 1, t0=0)
 
 
 def load_scan_module(root: Path, name: str):
@@ -134,6 +224,15 @@ def real_cases(torch, dev):
                       f"the tiered cell's batch at step {b0}, K={K}",
                       (src_of[id(tk)], tk.matcher.config, st.engine, ev_b),
                       (tk._promote, feed)))
+    # The wide instance: the escalated state's next batch (phase 13 (b)).
+    del heads, lazies, tiers
+    torch.cuda.empty_cache()
+    cfg, ebm, est, eev = escalated(torch, dev)
+    esrc = scan_codegen.generate(ebm.matcher.tables, eev.value)
+    scan_kernel.scan_pass_kernel.build((esrc, scan_kernel.mode_of(cfg)))
+    cases.append((scan_kernel.mode_name(cfg),
+                  f"the escalated state's next {eev.ts.shape[1]} steps ({cs.shape_of(cfg)}), "
+                  f"K={eev.ts.shape[0]}", (esrc, cfg, est, eev), None))
     return cases
 
 

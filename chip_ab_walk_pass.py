@@ -1,7 +1,7 @@
 """Time the walk-pass kernel built from this tree against the same kernel
 built from another tree, on one GPU, in turns.
 
-    python3 chip_ab_walk_pass.py OTHER_ROOT [ROUNDS] [--sweep] [--ablate]
+    python3 chip_ab_walk_pass.py OTHER_ROOT [ROUNDS] [--sweep] [--sweep-wide] [--ablate]
 
 OTHER_ROOT is another checkout of the repository, for example a parent
 commit unpacked with ``git archive`` into a directory ``.gitignore`` lists
@@ -10,9 +10,12 @@ nvcc, each through its own tree's wrapper (``ops/walk_kernel.py``), and fed
 ``chip_smoke.py``'s real inputs (:func:`real_cases`): the headline scan's
 step 128 for the default instance, the stacked cell's step 32 (16 queries
 x 6,400 lanes, the bank callers' instance), the lazy path's step 160 for
-the two-tier, attribution and two-tier + attribution instances, and its
+the two-tier, attribution and two-tier + attribution instances, its
 mid-chunk handle ring for the two drain instances, whose ring occupancy
-(``hr_count``) and busiest lane's hops the script prints first.  Each
+(``hr_count``) and busiest lane's hops the script prints first, and the
+wide instances' inputs (:func:`wide_cases`): phase 13's escalated state at
+the middle step of its last batch (wide) and phase 12's autosized config at
+step 128 of its sample (two-tier + wide).  Each
 instance's outputs must agree bit for bit between the two builds; then
 each build is timed by CUDA events (``chip_smoke.py: kernel_ms``, device
 time of launches queued back to back) in ROUNDS rounds (default 5) of
@@ -20,7 +23,8 @@ this, other, other, this.  The spike kernel (``ops/spike_kernel.py``) of
 both trees is held and timed the same way at ``spike_pallas.py`` main's
 inputs.  ``--sweep`` also times this build's instances with other block
 shapes and register caps (:data:`SHAPES`, the most lanes a block and blocks
-an SM, built from copies of ``csrc/`` under ``build/shapes/``), and
+an SM, built from copies of ``csrc/`` under ``build/shapes/``),
+``--sweep-wide`` the wide instances with :data:`WIDE_SHAPES`, and
 ``--ablate`` times :data:`ABLATIONS`, copies of this build with a part of
 the lanes' work cut out, to show what each part costs.  Prints the card,
 one line per instance with both medians, their ratio and this build's
@@ -46,6 +50,10 @@ import chip_smoke as cs
 #: ``__launch_bounds__`` must allow, so registers a thread <= 65536 /
 #: (32 * lanes * blocks)).  The first is the committed one.
 SHAPES = ((8, 4), (1, 16), (16, 2))
+#: Block shapes of ``--sweep-wide``, timed on the wide instances' inputs
+#: only: the same, with the blocks an SM the wide instances ask for
+#: (``kMinBlocksWide``).  The first is the committed one.
+WIDE_SHAPES = ((8, 2), (8, 4), (4, 8), (16, 2))
 
 
 def load_walk_module(root: Path, name: str, text_edits=()):
@@ -70,24 +78,27 @@ def load_walk_module(root: Path, name: str, text_edits=()):
     return mod
 
 
-def shape_module(root: Path, lanes: int, blocks: int):
+def shape_module(root: Path, lanes: int, blocks: int, wide: bool = False):
     """This tree's wrapper over a copy of its ``csrc/`` whose kernel serves
-    ``lanes`` lanes a block and asks for ``blocks`` blocks an SM."""
+    ``lanes`` lanes a block and asks for ``blocks`` blocks an SM (in the
+    wide instances with ``wide``)."""
     from kafkastreams_cep_tpu_torch.ops.walk_kernel import BUILD_DIR
 
-    csrc = BUILD_DIR / "shapes" / f"{lanes}x{blocks}"
+    name = f"{lanes}x{blocks}" + ("w" if wide else "")
+    csrc = BUILD_DIR / "shapes" / name
     shutil.rmtree(csrc, ignore_errors=True)
     shutil.copytree(root / "kafkastreams_cep_tpu_torch" / "csrc", csrc)
+    blocks_const = "kMinBlocksWide" if wide else "kMinBlocks"
     for f, pat, rep in (("walk_layout.cuh", r"constexpr int kWalkLanes = \d+;",
                          f"constexpr int kWalkLanes = {lanes};"),
-                        ("walk_pass.cu", r"constexpr int kMinBlocks = \d+;",
-                         f"constexpr int kMinBlocks = {blocks};")):
+                        ("walk_pass.cu", rf"constexpr int {blocks_const} = \d+;",
+                         f"constexpr int {blocks_const} = {blocks};")):
         text = (csrc / f).read_text()
         new, n = re.subn(pat, rep, text)
         if n != 1:
             raise RuntimeError(f"{f}: {pat} not found once")
         (csrc / f).write_text(new)
-    mod = load_walk_module(root, f"walk_kernel_{lanes}x{blocks}",
+    mod = load_walk_module(root, f"walk_kernel_{name}",
                            [("LANES_PER_BLOCK = 8\n", f"LANES_PER_BLOCK = {lanes}\n")])
     mod.SOURCE = csrc / "walk_pass.cu"
     return mod
@@ -208,17 +219,53 @@ def real_cases(torch, dev):
     ring_stats = dict(hr_count_max=int(hr.max()), hr_count_mean=float(hr.mean()),
                       drain_hops_max=int(hops.max()), drain_hops_mean=float(hops.float().mean()),
                       drain_hops_sum=int(hops.sum()))
+    del bm, stacked, lbm, s_mid, b_mid, l_mid, out
+    torch.cuda.empty_cache()
+    cases += wide_cases(torch, dev)
     return cases, ring_stats
+
+
+def wide_cases(torch, dev):
+    """The wide instances' real inputs: phase 13 (b)'s escalated state at
+    the middle step of its last batch (``wide``) and phase 12 (a0)'s
+    autosized config at step SURGERY_STEPS of its sample (``two_tier+wide``;
+    ``chip_ab_scan_pass.py: escalated, autosized``)."""
+    from kafkastreams_cep_tpu_torch.engine.matcher import EventBatch, step_events
+    from kafkastreams_cep_tpu_torch.ops import walk_kernel
+
+    cases = []
+    for make, what in ((ab.escalated, "the escalated state"),
+                       (ab.autosized, "the autosized config")):
+        cfg, wbm, st, ev = make(torch, dev)
+        T = ev.ts.shape[1]
+        if make is ab.escalated:
+            st, _ = wbm.scan(st, cs.window(EventBatch, ev, 0, T // 2))
+            ev, at = step_events(ev, T // 2), "the middle step of its last batch"
+        else:
+            ev, at = step_events(ev, 0), f"step {T} of its sample"
+        ph = wbm.phases
+        rec = ph.eval_chain(st, ev)
+        EH = int(cfg.slab_hot_entries)
+        mode = walk_kernel.mode_name(EH, st.slab.stage_hops.shape[1], False, True)
+        cases.append((mode, f"{what} ({cs.shape_of(cfg)}) at {at}, K={ev.off.shape[0]}",
+                      (st.slab, *ph.build_walkers(st, rec, ev), ph.max_walk, ph.out_base,
+                       ph.out_rows),
+                      dict(put_ops=ph.build_puts(st, rec), ev_off=ev.off, hot_entries=EH)))
+        del wbm
+        torch.cuda.empty_cache()
+    return cases
 
 
 def main() -> None:
     import torch
 
     if len(sys.argv) < 2 or not torch.cuda.is_available():
-        cs.fail("usage: chip_ab_walk_pass.py OTHER_ROOT [ROUNDS] [--sweep] [--ablate], "
+        cs.fail("usage: chip_ab_walk_pass.py OTHER_ROOT [ROUNDS] [--sweep] [--sweep-wide] "
+                "[--ablate], "
                 "on a CUDA machine")
     args_ = [a for a in sys.argv[1:] if not a.startswith("--")]
     sweep, ablate = "--sweep" in sys.argv, "--ablate" in sys.argv
+    sweep_wide = "--sweep-wide" in sys.argv
     other_root = Path(args_[0]).resolve()
     rounds = int(args_[1]) if len(args_) > 1 else 5
     from kafkastreams_cep_tpu_torch.ops import walk_kernel
@@ -231,6 +278,10 @@ def main() -> None:
     if sweep:
         here = Path(__file__).resolve().parent
         shapes = {s: shape_module(here, *s).WalkPassKernel() for s in SHAPES[1:]}
+    if sweep_wide:
+        here = Path(__file__).resolve().parent
+        shapes.update({(*s, "wide"): shape_module(here, *s, wide=True).WalkPassKernel()
+                       for s in WIDE_SHAPES[1:]})
     ablations = {}
     if ablate:
         here = Path(__file__).resolve().parent
@@ -246,7 +297,8 @@ def main() -> None:
             (f"{s[0]} lanes x {s[1]} blocks", k) for s, k in shapes.items()]:
         regs = [ln.split(":", 1)[-1].strip() for ln in kern.build_log.splitlines()
                 if "registers" in ln or "spill" in ln]
-        cs.log(f"build {name}: {kern._path.name}; ptxas {regs}")
+        paths = getattr(kern, "_paths", None) or {False: kern._path}  # an older wrapper: one
+        cs.log(f"build {name}: {', '.join(p.name for p in paths.values())}; ptxas {regs}")
 
     dev = torch.device(cs.DEVICE)
     cases, ring = real_cases(torch, dev)
@@ -267,10 +319,12 @@ def main() -> None:
                 kern = this if name == "this" else other
                 ms[name].append(cs.kernel_ms(torch, lambda: kern(*args, **kw), 10))
         for s, kern in shapes.items():
+            if len(s) > 2 and "wide" not in mode:
+                continue  # the wide shapes change only the wide instances
             if cs.max_abs_err(torch, kern(*args, **kw), ref):
                 cs.fail(f"{mode} on {on}: block shape {s} != other build")
-            ms[f"{s[0]}x{s[1]}"] = [cs.kernel_ms(torch, lambda: kern(*args, **kw), 10)
-                                    for _ in range(rounds)]
+            ms[f"{s[0]}x{s[1]}" + ("w" if len(s) > 2 else "")] = [
+                cs.kernel_ms(torch, lambda: kern(*args, **kw), 10) for _ in range(rounds)]
         for n, kern in ablations.items():
             ms[n] = [cs.kernel_ms(torch, lambda: kern(*args, **kw), 10) for _ in range(rounds)]
         med = {n: statistics.median(v) for n, v in ms.items() if v}

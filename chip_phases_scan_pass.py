@@ -12,10 +12,12 @@ tally that thread 0 of each lane adds to a device counter after the loop;
 the time before the loop counts as phase 0 (loading the lane).  Inside
 ``walk_pass.cuh: walk_one`` four more probes split the walkers' time into
 the row lookup (``warp_find``), the version check and ballot, the step to
-the chosen pointer, and the compaction of pruned rows after the walk.  The
-committed kernel carries no probe.  Each instrumented instance then runs on
-``chip_ab_scan_pass.py``'s real inputs (the headline scan in four
-instances, the lazy path's chunk in two, the tiered batch in one), through
+the chosen pointer, and the compaction of pruned rows after the walk (and
+the same four in ``walk_one_wide``, its check ending where the hop's
+writes begin).  The committed kernel carries no probe.  Each instrumented
+instance then runs on ``chip_ab_scan_pass.py``'s real inputs (the headline
+scan in four instances, the lazy path's chunk in two, the tiered batch in
+one, the escalated state's batch in the wide one), through
 its own tree's wrapper, once to warm up and once counted; the script prints
 each phase's share of the lane cycles, the cycles a lane spends on one step,
 the card, and one JSON object last.  Imports nothing of JAX.
@@ -39,7 +41,7 @@ PHASES = ("load", "frame", "chains", "puts", "walkers", "lazy ring", "compaction
           "promotion")
 WALK = ("find", "check", "step", "prune")
 INSTANCES = ("default", "two_tier", "attribution", "two_tier+attribution", "lazy",
-             "lazy+two_tier+attribution", "tiered")
+             "lazy+two_tier+attribution", "tiered", "wide")
 _DECL = ("unsigned long long cep_pa_[8] = {}; long long cep_pl_ = clock64(); "
          "int cep_pc_ = 0;\nif (threadIdx.x < 4) cep_wsub_[threadIdx.x] = 0;\n__syncwarp();\n")
 _PROBE = ("{ const long long n_ = clock64(); cep_pa_[cep_pc_] += n_ - cep_pl_; "
@@ -51,13 +53,18 @@ _FLUSH = ("  { const long long n_ = clock64(); cep_pa_[cep_pc_] += n_ - cep_pl_;
           "  }\n")
 _WPROBE = ("{ const long long n_ = clock64(); if (threadIdx.x == 0) "
            "cep_wsub_[cep_wi_] += n_ - cep_wl_; cep_wl_ = n_; cep_wi_ = %d; }\n")
-#: walk_one's probes: (anchor line, probe placed before (False) or after it).
+#: The walk functions' probes: (anchor line, probe placed after (True) or
+#: before (False) it, the sub-phase it starts), in ``walk_one`` and, with
+#: the check ending where the hop's writes begin, in ``walk_one_wide``.
 _WALK_PROBES = (
     ("  for (int h = 0; h < W && active; ++h) {", True, 0),
     ("    const int e = warp_find(st, of, E, cs, co);", True, 1),
     ("    const unsigned okm = __ballot_sync(kFull, ok);", True, 2),
     ("  c.trunc += active;", False, 3),
 )
+_WIDE_PROBES = _WALK_PROBES[:2] + (
+    ("    __syncwarp();\n    if (t == 0) {\n      rf[e] = newref;", False, 2),
+) + _WALK_PROBES[3:]
 _TAIL = """
 extern "C" int cep_phase_read(unsigned long long* out) {
   return (int)cudaMemcpyFromSymbol(out, cep_phase_acc, sizeof(cep_phase_acc));
@@ -100,19 +107,30 @@ def instrument(src: str) -> str:
     return text + _TAIL
 
 
-def instrument_walk(src: str) -> str:
-    """``walk_pass.cuh`` with walk_one's probes added."""
-    src = src.replace("namespace {\n", "namespace {\n\n__shared__ unsigned long long cep_wsub_[4];\n", 1)
-    for anchor, after, k in _WALK_PROBES:
-        if src.count(anchor + "\n") != 1:
+def _probe_walk(body: str, probes) -> str:
+    """One walk function's body with its probes added."""
+    for anchor, after, k in probes:
+        if body.count(anchor + "\n") != 1:
             raise RuntimeError(f"walk probe anchor not found once: {anchor!r}")
         probe = _WPROBE % k
-        src = src.replace(anchor + "\n", anchor + "\n" + probe if after else probe + anchor + "\n")
+        body = body.replace(anchor + "\n", anchor + "\n" + probe if after else probe + anchor + "\n")
     decl = "  bool active = true;\n"
-    src = src.replace(decl, decl + "  long long cep_wl_ = clock64(); int cep_wi_ = 0;\n", 1)
+    body = body.replace(decl, decl + "  long long cep_wl_ = clock64(); int cep_wi_ = 0;\n", 1)
     close = "  if (t == 0 && ocnt) *ocnt = cnt;\n"
-    return src.replace(close, "  if (threadIdx.x == 0) cep_wsub_[cep_wi_] += clock64() - cep_wl_;\n"
-                       + close, 1)
+    return body.replace(close, "  if (threadIdx.x == 0) cep_wsub_[cep_wi_] += clock64() - cep_wl_;\n"
+                        + close, 1)
+
+
+def instrument_walk(src: str) -> str:
+    """``walk_pass.cuh`` with the probes of ``walk_one`` and, where the
+    tree has it, ``walk_one_wide`` added."""
+    src = src.replace("namespace {\n", "namespace {\n\n__shared__ unsigned long long cep_wsub_[4];\n", 1)
+    narrow = src.index("__device__ __forceinline__ void walk_one(")
+    wide = src.find("__device__ __forceinline__ void walk_one_wide(")
+    if wide < 0:
+        return src[:narrow] + _probe_walk(src[narrow:], _WALK_PROBES)
+    return (src[:narrow] + _probe_walk(src[narrow:wide], _WALK_PROBES)
+            + _probe_walk(src[wide:], _WIDE_PROBES))
 
 
 def main() -> None:
@@ -146,7 +164,11 @@ def main() -> None:
         for ((mode, on, args, promo), (src, m)), kw in itertools.product(
                 list(zip(cases, items)), placements):
             lib = kern._libs[(src.tag, m)]
-            kern(*args, promo=promo, **kw)  # warm-up
+            try:
+                kern(*args, promo=promo, **kw)  # warm-up
+            except ValueError as e:  # a placement whose arena does not fit
+                cs.log(f"phases [{root.name}] scan_pass[{mode}]: {kw} refused: {e}")
+                continue
             torch.cuda.synchronize()
             lib.cep_phase_reset()
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)

@@ -16,9 +16,12 @@ walk_one`` four more probes split the walks into the row lookup
 pointer, and the compaction of pruned rows after the walk (the anchors of
 ``chip_phases_scan_pass.py``, each tallied per warp).  Thread 0 of each
 lane's warp adds its tallies to a device counter at the kernel's end.  The
-committed kernel carries no probe.  Each instrumented tree then runs
+committed kernel carries no probe; the wide instances' walk
+(``walk_one_wide``) takes the same four probes, its check ending where the
+hop's writes begin.  Each instrumented tree then runs
 ``chip_ab_walk_pass.py``'s real inputs (:data:`CASES`: the headline step,
-the stacked step, the lazy step in two-tier + attribution and the drain),
+the stacked step, the lazy step in two-tier + attribution, the drain, and
+the wide instances' escalated and autosized steps),
 through its own tree's wrapper, once to warm up and once counted; the
 script prints each phase's share of the lane cycles, the cycles a lane
 spends, the card, and one JSON object last.  Imports nothing of JAX.
@@ -43,7 +46,8 @@ WALK = phs.WALK
 #: The real inputs of chip_ab_walk_pass.py that are measured:
 #: (instance, the start of its input's description).
 CASES = (("default", "the headline"), ("default", "the stacked"),
-         ("two_tier+attribution", "the lazy path's step"), ("drain", "the lazy path's ring"))
+         ("two_tier+attribution", "the lazy path's step"), ("drain", "the lazy path's ring"),
+         ("wide", "the escalated"), ("two_tier+wide", "the autosized"))
 #: Probes of a kernel without numbered phases: (anchor line, phase).
 OLD_ANCHORS = (
     ("  for (int i = t; i < E; i += 32) {\n", 1),
@@ -131,10 +135,13 @@ def main() -> None:
             mod.HEADER = csrc / "walk_pass.cuh"
         kern = mod.WalkPassKernel()
         kern.build()
-        lib = kern._lib
-        lib.cep_phase_read.restype = ctypes.c_int
-        lib.cep_phase_reset.restype = ctypes.c_int
+        # This tree's libraries by width (an older wrapper has one library).
+        libs = getattr(kern, "_libs", None) or {False: kern._lib, True: kern._lib}
+        for lib in libs.values():
+            lib.cep_phase_read.restype = ctypes.c_int
+            lib.cep_phase_reset.restype = ctypes.c_int
         for mode, on, args, kw in cases:
+            lib = libs["wide" in mode]
             kern(*args, **kw)  # warm-up
             torch.cuda.synchronize()
             lib.cep_phase_reset()

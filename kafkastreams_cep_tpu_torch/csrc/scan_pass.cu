@@ -131,9 +131,30 @@
 // the wrapper checks, so there p has no fixed bound); unique
 // (stage, off) keys per lane among live entries; any MP and D whose arena
 // fits 227 KB.  Wide slabs (MP or D above 32) build the kWide instance
-// (-DCEP_WIDE=1): walk_pass.cuh's wide walk, with ceil(MP / 32) tombstone
-// words a row, the pointer slots checked in groups of 32 and the walker's
-// version in the arena's row q [D]; the narrow instances keep their code.
+// (-DCEP_WIDE=1): walk_pass.cuh's wide walk (ceil(MP / 32) tombstone words
+// a row, each slot's version check spread over the warp, the walker's
+// version read where it lies); the narrow instances keep their code.
+//
+// kWide's arena holds no array of D digits: the two run buffers' version
+// digits [2, R, D] and the put ops' versions [R*H, D] live in a device
+// scratch the wrapper allocates (scan_layout.cuh: scan_scratch_words), so
+// that at the escalated shape (R=24, E=96, MP=16, D=192) a lane takes 11 KB
+// of shared memory instead of 85 KB and an SM holds 16 lanes instead of 2.
+// Every move of D digits is by the whole warp
+// (walk_pass.cuh: warp_rows): the consumed ops' versions after the chains
+// (each chain thread notes only its op's bumped digit, p_bump), the puts'
+// appends, the next queue's rows after the compaction (each candidate
+// notes its source run and bumped digit, c_src/c_bump; rows the buffer
+// held past the placed ones are zeroed, hw_q/hw_nq), the lazy ring's
+// versions; and the lane's pointer versions are copied in 16-byte vectors
+// (walk_pass.cuh: group_copy).  What bounds it (chip_phases_scan_pass.py,
+// H100 80GB HBM3, 700 W, 64 steps of the escalated state) is that copy, 51 %
+// of a lane's cycles, then each lane's chain of round trips to device
+// memory: the compaction's rows 20 %, the chains 9 %, the walkers 7 %, the
+// puts 5 %.  The scan took 9.09 ms against the previous design's 69.63
+// and a 3.35 ms bytes bound (chip_ab_scan_pass.py, PERF.md section 6);
+// with the run digits in the arena (48 KB a lane, 4 lanes an SM) it took
+// 13.02 ms against 9.56 in one call, so that placement is gone.
 // Compile with -fmad=false: the folds and predicates round every float
 // operation, as the plain version does.
 
@@ -208,6 +229,9 @@ struct Args {
   int* o_promoted;
   // event value leaves [K, T], in cep_load_event's order
   const void* leaves[CEP_NUM_LEAVES > 0 ? CEP_NUM_LEAVES : 1];
+  // kWide (last, so that the narrow instances' parameters keep their
+  // offsets): the [K, scan_scratch_words] device scratch
+  int* scratch;
 };
 
 // One run-queue buffer in the arena.
@@ -248,10 +272,11 @@ __device__ __forceinline__ int warp_exclusive(int v, int* total) {
 // put queue, the walker queue and the candidate tables; under kAttr each
 // active frame's row of the stage tally at its stage.  Returns the run's
 // Dewey overflows.
-template <bool kLazy, bool kAttr>
+template <bool kLazy, bool kAttr, bool kWide = false>
 __device__ __forceinline__ int chain_run(const Args& a, const Runs& q,
                                          const Step& L, int r,
-                                         const CepEvent& ev, int ts, int off) {
+                                         const CepEvent& ev, int ts, int off,
+                                         int* p_bump = nullptr) {
   const int R = a.R, D = a.D, RH = R * H;
   const bool alive = q.alive[r] != 0;
   const int id = q.id[r], ev_pos = q.eval[r], vlen = q.vlen[r];
@@ -336,8 +361,11 @@ __device__ __forceinline__ int chain_run(const Args& a, const Runs& q,
     L.p_pvl[po] = vl;
     if (consumed) {
       const bool bump = take_m && branch_m;
-      for (int d = 0; d < D; ++d)
-        L.p_ver[(size_t)po * D + d] = vv[d] + (bump && d == vl - 1);
+      if constexpr (kWide)
+        p_bump[po] = bump ? vl - 1 : -1;  // the version row is written by the warp
+      else
+        for (int d = 0; d < D; ++d)
+          L.p_ver[(size_t)po * D + d] = vv[d] + (bump && d == vl - 1);
     }
     // Branch run (NFA.java:231-246): its refcount walk, deepest frame
     // first, and its queue candidate.
@@ -425,11 +453,15 @@ __device__ __forceinline__ int chain_run(const Args& a, const Runs& q,
   return ovf;
 }
 
-// A candidate into the next queue's slot j (phase 6).
+// A candidate into the next queue's slot j (phase 6); kWide: its version
+// row (run src's, plus one at digit bump) is noted in c_src/c_bump for the
+// warp's copy instead.
+template <bool kWide = false>
 __device__ __forceinline__ void place(const Runs& nq, int D, int j, int id,
                                       int eval, int vlen, int event, int start,
                                       int branching, const int* ver, int bump,
-                                      const int* agg) {
+                                      const int* agg, int src = 0,
+                                      int* c_src = nullptr, int* c_bump = nullptr) {
   nq.alive[j] = 1;
   nq.id[j] = id;
   nq.eval[j] = eval;
@@ -437,8 +469,13 @@ __device__ __forceinline__ void place(const Runs& nq, int D, int j, int id,
   nq.event[j] = event;
   nq.start[j] = start;
   nq.branching[j] = branching;
-  for (int d = 0; d < D; ++d)
-    nq.ver[(size_t)j * D + d] = ver[d] + (d == bump);
+  if constexpr (kWide) {  // the version row is written by the warp
+    c_src[j] = src;
+    c_bump[j] = bump;
+  } else {
+    for (int d = 0; d < D; ++d)
+      nq.ver[(size_t)j * D + d] = ver[d] + (d == bump);
+  }
   for (int n = 0; n < NS; ++n)
     nq.agg[(size_t)j * NS + n] = agg ? agg[n] : cep_state_init[n];
 }
@@ -453,6 +490,9 @@ __global__ void __launch_bounds__(32, kPromo ? 1 : kMinLanes) scan_pass(Args a) 
   const int HB = a.HB, RH = R * H, PW = RH + 2 * R;
   const ScanLayout ly = scan_layout_at(R, E, MP, D, H, NS, S, kAttr, kPvShared, kWide);
   auto at = [&](size_t b) { return reinterpret_cast<int*>(arena + b); };
+  // kWide: the lane's device scratch (scan_scratch_words): the run buffers'
+  // digits [2, R, D], then the put ops' versions [R*H, D].
+  int* scratch = kWide ? a.scratch + (size_t)k * scan_scratch_words(R, D, H, true) : nullptr;
   auto flag = [&](size_t b) { return reinterpret_cast<uint8_t*>(arena + b); };
 
   const size_t e1 = (size_t)k * E, e2 = e1 * MP, e3 = e2 * D;
@@ -465,10 +505,20 @@ __global__ void __launch_bounds__(32, kPromo ? 1 : kMinLanes) scan_pass(Args a) 
                    kPvShared ? at(ly.pv) : a.o_pver + e3, E, MP, D};
   unsigned* dead = reinterpret_cast<unsigned*>(arena + ly.dead);
   const int G = kWide ? walk_dead_words(MP) : 1;  // tombstone words a row
-  int* qs = at(ly.q);  // a walker's version (kWide)
   Runs q = runs_at(arena, ly.run[0]), nq = runs_at(arena, ly.run[1]);
+  if constexpr (kWide) {
+    q.ver = scratch;
+    nq.ver = scratch + (size_t)R * D;
+  }
+  int* p_bump = at(ly.p_bump);  // kWide: each op's bumped digit
+  int* c_src = at(ly.c_src);    // kWide: each next-queue row's source run
+  int* c_bump = at(ly.c_bump);  // kWide: and its bumped digit
+  // kWide: rows [hw, R) of each run buffer's digits are zero (the queue,
+  // the next one); both start as all rows.
+  int hw_q = R, hw_nq = R;
   const Step L{
-      at(ly.p_cur), at(ly.p_pst), at(ly.p_pof), at(ly.p_pvl), at(ly.p_ver),
+      at(ly.p_cur), at(ly.p_pst), at(ly.p_pof), at(ly.p_pvl),
+      kWide ? scratch + 2 * (size_t)R * D : at(ly.p_ver),
       at(ly.p_sc), at(ly.w_stage), at(ly.w_off), at(ly.w_vlen), at(ly.w_run),
       at(ly.w_list), at(ly.r_id), at(ly.r_eval), at(ly.r_vlen), at(ly.r_event),
       at(ly.r_start), at(ly.r_bits), at(ly.r_agg), at(ly.b_id), at(ly.b_eval),
@@ -509,7 +559,10 @@ __global__ void __launch_bounds__(32, kPromo ? 1 : kMinLanes) scan_pass(Args a) 
     s.po[i] = a.poff[e2 + i];
     s.pl[i] = a.pvlen[e2 + i];
   }
-  for (int i = t; i < E * MP * D; i += 32) s.pv[i] = a.pver[e3 + i];
+  if constexpr (kWide)
+    group_copy(s.pv, a.pver + e3, (size_t)E * MP * D, t, 32);
+  else
+    for (int i = t; i < E * MP * D; i += 32) s.pv[i] = a.pver[e3 + i];
   if constexpr (kLazy) {
     for (int i = t; i < HB; i += 32) {
       hr_stage[i] = a.hr_stage[h1 + i];
@@ -582,7 +635,7 @@ __global__ void __launch_bounds__(32, kPromo ? 1 : kMinLanes) scan_pass(Args a) 
     // listed in queue order.
     int ovf = 0;
     for (int r = t; r < R; r += 32)
-      ovf += chain_run<kLazy, kAttr>(a, q, L, r, ev, ts, off);
+      ovf += chain_run<kLazy, kAttr, kWide>(a, q, L, r, ev, ts, off, p_bump);
     ver_overflows += warp_sum(ovf);
     __syncwarp();
     int n_walk = 0;
@@ -596,12 +649,29 @@ __global__ void __launch_bounds__(32, kPromo ? 1 : kMinLanes) scan_pass(Args a) 
     __syncwarp();
 
     // 3. Consuming puts.
+    if constexpr (kWide) {
+      // The consumed ops' versions, their run's plus the bumped digit, by
+      // the warp (listed in p_list, which the closed-form puts list again).
+      int n_en = 0;
+      for (int q0 = 0; q0 < RH; q0 += 32) {
+        const int po = q0 + t;
+        const bool en = po < RH && L.p_en[po];
+        const unsigned m = __ballot_sync(kFull, en);
+        if (en) L.p_list[n_en + __popc(m & ((1u << t) - 1u))] = po;
+        n_en += __popc(m);
+      }
+      __syncwarp();
+      warp_rows(n_en, D, [&](int i) {
+        const int po = L.p_list[i];
+        return RowCopy{L.p_ver + (size_t)po * D, q.ver + (size_t)(po / H) * D, p_bump[po]};
+      });
+    }
     const PutLane p{L.p_en, L.p_first, L.p_cur, L.p_pst, L.p_pof, L.p_pvl,
                     L.p_ver, off, RH, L.p_sc};
     if constexpr (kTwoTier)
-      put_phase_two_tier(p, s, c);
+      put_phase_two_tier<kWide>(p, s, c);
     else
-      put_listed(p, s, c, L.p_list, L.p_free);
+      put_listed<kWide>(p, s, c, L.p_list, L.p_free);
 
     // 4. The listed walkers: branches, removals, extractions.
     for (int i = 0; i < n_walk; ++i) {
@@ -609,10 +679,9 @@ __global__ void __launch_bounds__(32, kPromo ? 1 : kMinLanes) scan_pass(Args a) 
       const int row = wq - (RH + R);
       const int run = L.w_run[wq];
       if constexpr (kWide) {
-        for (int d = t; d < D; d += 32) qs[d] = q.ver[(size_t)run * D + d];
-        __syncwarp();
         walk_one_wide<kTwoTier, kAttr, false>(
-            s, dead, L.w_stage[wq], L.w_off[wq], L.w_vlen[wq], qs, wq >= RH, row >= 0, W,
+            s, dead, L.w_stage[wq], L.w_off[wq], L.w_vlen[wq], q.ver + (size_t)run * D,
+            wq >= RH, row >= 0, W,
             row >= 0 ? ost + row * W : nullptr,
             row >= 0 ? oof + row * W : nullptr, row >= 0 ? ocnt + row : nullptr, c);
       } else {
@@ -638,8 +707,9 @@ __global__ void __launch_bounds__(32, kPromo ? 1 : kMinLanes) scan_pass(Args a) 
         if (fit) {
           hr_stage[dst] = L.r_id[r];
           hr_off[dst] = off;
-          for (int d = 0; d < D; ++d)
-            hr_ver[(size_t)dst * D + d] = q.ver[(size_t)r * D + d];
+          if constexpr (!kWide)
+            for (int d = 0; d < D; ++d)
+              hr_ver[(size_t)dst * D + d] = q.ver[(size_t)r * D + d];
           hr_vlen[dst] = L.r_vlen[r];
           hr_ts[dst] = ts;
           hr_seq[dst] = seq0 + tt;
@@ -650,6 +720,11 @@ __global__ void __launch_bounds__(32, kPromo ? 1 : kMinLanes) scan_pass(Args a) 
         // Each fitted match pins its root (stage r_id, this off): one lookup
         // a match, keys being unique among live entries.
         for (unsigned m = __ballot_sync(kFull, fit); m; m &= m - 1) {
+          if constexpr (kWide) {  // the match's version, by the warp
+            const int b = __ffs(m) - 1, to = __shfl_sync(kFull, dst, b);
+            for (int d = t; d < D; d += 32)
+              hr_ver[(size_t)to * D + d] = q.ver[(size_t)(r0 + b) * D + d];
+          }
           const int e = warp_find(s.st, s.of, E, L.r_id[r0 + __ffs(m) - 1], off);
           if (e >= 0 && t == 0) ++s.rf[e];
           __syncwarp();
@@ -670,7 +745,8 @@ __global__ void __launch_bounds__(32, kPromo ? 1 : kMinLanes) scan_pass(Args a) 
       nq.start[j] = -1;
       nq.branching[j] = 0;
     }
-    for (int i = t; i < R * D; i += 32) nq.ver[i] = 0;
+    if constexpr (!kWide)
+      for (int i = t; i < R * D; i += 32) nq.ver[i] = 0;
     for (int i = t; i < R * NS; i += 32) nq.agg[i] = 0;
     __syncwarp();
     int base = 0, dropped = 0;
@@ -691,9 +767,9 @@ __global__ void __launch_bounds__(32, kPromo ? 1 : kMinLanes) scan_pass(Args a) 
       const int* vv = q.ver + (size_t)r * D;
       if ((bits & kSurvAlive) && !(bits & kSurvFinal)) {
         if (j < R)
-          place(nq, D, j, L.r_id[r], L.r_eval[r], L.r_vlen[r], L.r_event[r],
-                L.r_start[r], (bits & kSurvBranching) != 0, vv, -1,
-                L.r_agg + (size_t)r * NS);
+          place<kWide>(nq, D, j, L.r_id[r], L.r_eval[r], L.r_vlen[r], L.r_event[r],
+                       L.r_start[r], (bits & kSurvBranching) != 0, vv, -1,
+                       L.r_agg + (size_t)r * NS, r, c_src, c_bump);
         else
           ++dropped;
         ++j;
@@ -702,22 +778,35 @@ __global__ void __launch_bounds__(32, kPromo ? 1 : kMinLanes) scan_pass(Args a) 
         const int b = r * H + h;
         if (!L.b_en[b]) continue;
         if (j < R)
-          place(nq, D, j, L.b_id[b], L.b_eval[b], L.b_vlen[b], L.b_event[b],
-                L.b_start[b], 1, vv, L.b_vlen[b] - 1,
-                L.b_agg + (size_t)b * NS);
+          place<kWide>(nq, D, j, L.b_id[b], L.b_eval[b], L.b_vlen[b], L.b_event[b],
+                       L.b_start[b], 1, vv, L.b_vlen[b] - 1,
+                       L.b_agg + (size_t)b * NS, r, c_src, c_bump);
         else
           ++dropped;
         ++j;
       }
       if (reseed) {
         if (j < R)
-          place(nq, D, j, -1, CEP_BEGIN_POS, q.vlen[r], -1, -1, 0, vv,
-                (bits & kHasSucc) ? q.vlen[r] - 1 : -1, nullptr);
+          place<kWide>(nq, D, j, -1, CEP_BEGIN_POS, q.vlen[r], -1, -1, 0, vv,
+                       (bits & kHasSucc) ? q.vlen[r] - 1 : -1, nullptr, r, c_src, c_bump);
         else
           ++dropped;
       }
     }
     run_drops += warp_sum(dropped);
+    if constexpr (kWide) {
+      // The placed rows' versions by the warp, and zeros over the rows the
+      // buffer held past them.
+      __syncwarp();
+      const int placed = min(base, R);
+      warp_rows(max(placed, hw_nq), D, [&](int j) {
+        return j < placed ? RowCopy{nq.ver + (size_t)j * D,
+                                    q.ver + (size_t)c_src[j] * D, c_bump[j]}
+                          : RowCopy{nq.ver + (size_t)j * D, nullptr, -1};
+      });
+      hw_nq = hw_q;
+      hw_q = placed;
+    }
     const Runs was = q;
     q = nq;
     nq = was;
@@ -740,9 +829,9 @@ __global__ void __launch_bounds__(32, kPromo ? 1 : kMinLanes) scan_pass(Args a) 
       for (int d = t; d < D; d += 32) L.p_ver[d] = d == 0 ? a.pr_sver[ek] : 0;
       __syncwarp();
       for (int j = 0; j < a.plen; ++j)
-        put_op(s, c, j == 0, kWide ? cep_ident[j] : a.promo_ident[j], po[j],
-               j ? (kWide ? cep_ident[j - 1] : a.promo_ident[j - 1]) : -1,
-               j ? po[j - 1] : -1, j + 1, L.p_ver, EHk);
+        put_op<kWide>(s, c, j == 0, kWide ? cep_ident[j] : a.promo_ident[j], po[j],
+                      j ? (kWide ? cep_ident[j - 1] : a.promo_ident[j - 1]) : -1,
+                      j ? po[j - 1] : -1, j + 1, L.p_ver, EHk);
       if (t == 0) {
         q.alive[cnt] = 1;
         q.id[cnt] = (kWide ? cep_ident : a.promo_ident)[a.plen - 1];
@@ -754,6 +843,7 @@ __global__ void __launch_bounds__(32, kPromo ? 1 : kMinLanes) scan_pass(Args a) 
       }
       for (int d = t; d < D; d += 32) q.ver[(size_t)cnt * D + d] = L.p_ver[d];
       for (int n = t; n < NS; n += 32) q.agg[(size_t)cnt * NS + n] = cep_state_init[n];
+      if constexpr (kWide) hw_q = max(hw_q, cnt + 1);
       ++promoted;
       __syncwarp();
     }
@@ -917,6 +1007,7 @@ extern "C" int cep_scan_pass(const int* dims, void* const* ptrs,
   P(o_stage_counts); P(o_stage_hops);
   P(out_stage); P(out_off); P(count);
   P(pr_fire); P(pr_offs); P(pr_anchor); P(pr_sver); P(o_promoted);
+  P(scratch);
 #undef P
   for (int l = 0; l < CEP_NUM_LEAVES; ++l) a.leaves[l] = ptrs[i++];
   void (*fn)(Args);

@@ -1,8 +1,8 @@
 // One block's shared-memory arena in the walk-pass kernel (walk_pass.cu):
-// where each array of its lanes' slab keys, tombstones, staged versions,
-// stage tallies, put ops and scratch and the block's copy tables lies, in
-// bytes from the arena's start, every array 16-byte aligned; and how many
-// lanes a block serves.  The slab's pointer rows (pstage, poff, pvlen,
+// where each array of its lanes' slab keys, tombstones, staged versions
+// (narrow instances), stage tallies, put ops and scratch and the block's
+// copy tables lies, in bytes from the arena's start, every array 16-byte
+// aligned; and how many lanes a block serves.  The slab's pointer rows (pstage, poff, pvlen,
 // pver) stay in device memory (walk_pass.cu's header says why).
 //
 // A block serves L adjacent lanes, and each array holds all L lanes' rows
@@ -34,8 +34,8 @@ CEP_LAYOUT_HD int walk_dead_words(int MP) { return MP > 32 ? (MP + 31) / 32 : 1;
 struct WalkLayout {
   size_t st, of, rf, np;        // slab keys, refs, npreds [L, E]
   size_t dead;                  // tombstones [L, E, ceil(MP / 32)]
-  size_t row;                   // a hop's versions [L, MP * D]
-  size_t q;                     // the walker's version [L, D] (wide; else 0)
+  size_t row;                   // a hop's versions [L, MP * D] (narrow; 0 bytes
+                                // wide)
   size_t sh;                    // stage tally [L, S] (attribution; else 0 bytes)
   size_t p_sc, p_list, p_free;  // closed-form put scratch [L, PP, kScanPutCols],
                                 // the enabled ops [L, PP], the free rows [L, E]
@@ -48,9 +48,10 @@ struct WalkLayout {
 // Dewey depth D, PP put ops (0 without puts; their versions stay in device
 // memory) and S stage tallies; puts: the ops run in closed form (the
 // two-tier slab needs no put scratch); wide: the kWide instances'
-// tombstone words and walker version row (walk_wide).  The kernel passes
-// its template flag, so that a narrow instance computes the layout it
-// always did.
+// tombstone words, and no staged row (a wide hop reads only the versions
+// of the slots it checks, in device memory).  The kernel passes its
+// template flag, so that a narrow instance computes the layout it always
+// did.
 CEP_LAYOUT_HD WalkLayout walk_layout_at(int L, int E, int MP, int D, int PP, int S,
                                         bool puts, bool wide) {
   const size_t I = 4, LE = (size_t)L * E;
@@ -62,8 +63,7 @@ CEP_LAYOUT_HD WalkLayout walk_layout_at(int L, int E, int MP, int D, int PP, int
   l.rf = cep_take(&o, I * LE);
   l.np = cep_take(&o, I * LE);
   l.dead = cep_take(&o, I * LE * (wide ? walk_dead_words(MP) : 1));
-  l.row = cep_take(&o, I * L * (size_t)MP * D);
-  if (wide) l.q = cep_take(&o, I * L * (size_t)D);  // a narrow layout is the one before it
+  l.row = cep_take(&o, wide ? 0 : I * L * (size_t)MP * D);
   l.sh = cep_take(&o, I * L * (size_t)S);
   l.p_sc = cep_take(&o, I * LPP * kScanPutCols);
   l.p_list = cep_take(&o, I * LPP);

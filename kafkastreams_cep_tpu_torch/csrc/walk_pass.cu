@@ -79,11 +79,31 @@
 // at or under the previous kernel on every input.
 //
 // Wide slabs (MP or D above 32, walk_layout.cuh: walk_wide) run the kWide
-// instances: a row's tombstones are ceil(MP / 32) words, the pointer slots
-// are checked in groups of 32 (the first live, compatible one in slot
-// order, group by group), and the walker's version sits in the lane's
-// shared row q [D] instead of one digit a thread (walk_pass.cuh: walk_one).
-// The narrow instances keep their code: kWide is a template flag.
+// instances: a row's tombstones are ceil(MP / 32) words; a hop reads its
+// entry's pointer rows one group of 32 slots at a time and checks the live
+// slots no longer than the walker's version one at a time in slot order,
+// each slot's digits spread over the warp (walk_pass.cuh: walk_one_wide,
+// compatible_warp), so a version row comes as whole 128-byte lines and the
+// walk stops at the first compatible slot; the walker's version is read
+// where it lies (its queue row, then the version row of the pointer
+// taken), and the puts' versions move as whole rows by the warp
+// (warp_rows).  No version row is staged in the arena, so the wide arena
+// is the narrow one without it: at the escalated shape (E=96, MP=16,
+// D=192, 48 put ops) eight lanes take 40 KB, where the staged [MP * D] row
+// a lane held an SM to one block of eight.  What bounds the wide instances
+// is the copy of pver, E*MP*D int32 a lane (1.2 MB at the escalated shape,
+// 4.8 GB each way at K=4096): 98 % of a lane's cycles
+// (chip_phases_walk_pass.py).  So pver moves by a plain strided loop
+// (walk_pass.cuh: group_copy) rather than the span tables, and an SM runs
+// 16 wide lanes (two blocks of eight at 128 registers; the previous design
+// ran eight, 256 threads copying).  Measured on an H100 80GB HBM3 at 700 W
+// (chip_ab_walk_pass.py, PERF.md section 6): the escalated step 3.60 ms
+// against the previous design's 7.36 and a 3.08 ms bytes bound (the copy
+// at 85 % of the card's 3.35 TB/s), the autosized two-tier step (E=112,
+// MP=16, D=368) 7.87 against 18.73 and 6.69; other block shapes for them,
+// 8 lanes x 4 blocks an SM (64 registers, spilling) 3.66 and 7.90 ms, 4 x 8
+// 3.67 and 7.95, 16 x 2 3.63 and 7.91: 8 x 2 is kept.  The narrow
+// instances keep their code: kWide is a template flag.
 //
 // Why the pointer rows stay in device memory: pver alone is E*MP*D int32
 // (18.4 KB of a headline lane), where the keys and scratch take 2-4 KB.
@@ -107,8 +127,11 @@ namespace {
 
 // Blocks of kWalkLanes lanes an SM must be able to hold: at most 64
 // registers a thread, so that the 512 blocks of a K=4096 pass run in one
-// wave on the H100's 132 SMs.
+// wave on the H100's 132 SMs.  The kWide instances ask for two (128
+// registers, no spills): the fastest block shape timed on their inputs
+// (the header gives the sweep).
 constexpr int kMinBlocks = 4;
+constexpr int kMinBlocksWide = 2;
 constexpr int kThreads = 32 * kWalkLanes;  // the most a block has
 constexpr int kUnroll = 4;  // 16-byte loads in flight a thread in a copy
 static_assert(kScanPutCols == kPutCols, "walk_layout.cuh sizes walk_pass.cuh's put scratch");
@@ -245,7 +268,8 @@ __device__ __forceinline__ void block_move(const SpanList<kCap>& L, int tid, int
 }
 
 template <bool kTwoTier, bool kAttr, bool kDrain, bool kWide>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) walk_pass(Args a) {
+__global__ void __launch_bounds__(kThreads, kWide ? kMinBlocksWide : kMinBlocks)
+    walk_pass(Args a) {
   extern __shared__ __align__(16) unsigned char arena[];
   const int t = threadIdx.x, w = threadIdx.y, tid = w * 32 + t;
   const int L = blockDim.y, nt = 32 * L;  // lanes a block, threads
@@ -277,7 +301,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) walk_pass(Args a) {
     in.add(a.o_pstage + b2, a.pstage + b2, n2);
     in.add(a.o_poff + b2, a.poff + b2, n2);
     in.add(a.o_pvlen + b2, a.pvlen + b2, n2);
-    in.add(a.o_pver + b3, a.pver + b3, n3);
+    if (!kWide) in.add(a.o_pver + b3, a.pver + b3, n3);
     if (kAttr) in.add(at(ly.sh), a.stage_hops + (size_t)k0 * S, (size_t)nl * S);
     in.add(a.out_stage + bo * W, nullptr, no * W, -1);
     in.add(a.out_off + bo * W, nullptr, no * W, -1);
@@ -291,6 +315,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) walk_pass(Args a) {
   }
   __syncthreads();
   block_move(in, tid, nt);
+  // kWide: pver, nearly all of the bytes (1.2 MB a lane at E=96, MP=16,
+  // D=192), by a plain strided loop (group_copy) rather than the span
+  // tables, whose per-vector search would set the pace.
+  if constexpr (kWide) group_copy(a.o_pver + b3, a.pver + b3, n3, tid, nt);
   __syncthreads();
 
   if (w < nl) {
@@ -300,8 +328,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) walk_pass(Args a) {
                      a.o_pstage + g2, a.o_poff + g2, a.o_pvlen + g2, a.o_pver + g3,
                      E, MP, D};
     unsigned* dead = reinterpret_cast<unsigned*>(at(ly.dead)) + e1 * G;
-    int* vrow = at(ly.row) + (size_t)w * MP * D;  // a hop's staged versions
-    int* qs = at(ly.q) + (size_t)w * D;  // the walker's version (kWide)
+    int* vrow = at(ly.row) + (size_t)w * MP * D;  // a hop's staged versions (narrow)
     Tally c;
     c.missing = a.missing[k];
     c.trunc = a.trunc[k];
@@ -346,9 +373,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) walk_pass(Args a) {
       const PutLane p{o_en, o_first, o_cur, o_pst, o_pof, o_pvl,
                       a.p_ver + pk * D, ev_off, PP, at(ly.p_sc) + pw * kPutCols};
       if constexpr (kTwoTier)
-        put_phase_two_tier(p, s, c);
+        put_phase_two_tier<kWide>(p, s, c);
       else
-        put_listed(p, s, c, at(ly.p_list) + pw, at(ly.p_free) + e1);
+        put_listed<kWide>(p, s, c, at(ly.p_list) + pw, at(ly.p_free) + e1);
     }
 
     const size_t wk = (size_t)k * PW;
@@ -370,27 +397,25 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) walk_pass(Args a) {
       unsigned m = __ballot_sync(kFull, en);
       if (!m) continue;
       int j = __ffs(m) - 1;
-      int qv = t < D ? q_ver[(base + j) * D + t] : 0;
+      int qv = !kWide && t < D ? q_ver[(base + j) * D + t] : 0;
       for (;;) {
         m &= m - 1;
         // 3. The next walker's version digits, read while this one walks.
         const int jn = __ffs(m) - 1;
-        const int qv_next = (m && t < D) ? q_ver[(base + jn) * D + t] : 0;
+        const int qv_next = (!kWide && m && t < D) ? q_ver[(base + jn) * D + t] : 0;
         // 4. Walk.
         const int f = __shfl_sync(kFull, wf, j);
         const int row = base + j - a.out_base;
         const bool emits = row >= 0 && row < OR;
         const size_t orow = emits ? (size_t)k * OR + row : 0;
         if constexpr (kWide) {
-          // The whole version into the lane's row qs (qv is unused).
-          for (int d = t; d < D; d += 32) qs[d] = q_ver[(size_t)(base + j) * D + d];
-          __syncwarp();
-          walk_one_wide<kTwoTier, kAttr, kDrain, true>(
+          // The walker's version is read where it lies (qv is unused).
+          walk_one_wide<kTwoTier, kAttr, kDrain>(
               s, dead, __shfl_sync(kFull, ws, j), __shfl_sync(kFull, wo, j),
-              __shfl_sync(kFull, wl, j), qs, (f & 1) != 0, (f & 2) != 0, W,
-              emits ? a.out_stage + orow * W : nullptr,
+              __shfl_sync(kFull, wl, j), q_ver + (size_t)(base + j) * D, (f & 1) != 0,
+              (f & 2) != 0, W, emits ? a.out_stage + orow * W : nullptr,
               emits ? a.out_off + orow * W : nullptr,
-              emits ? a.count + orow : nullptr, c, vrow);
+              emits ? a.count + orow : nullptr, c);
         } else {
           walk_one<kTwoTier, kAttr, kDrain, true>(
               s, dead, __shfl_sync(kFull, ws, j), __shfl_sync(kFull, wo, j),
@@ -430,19 +455,23 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) walk_pass(Args a) {
 
 using Kernel = void (*)(Args);
 
-// The instance for mode bits (two-tier 1, attribution 2, drain 4, wide 8),
+#ifndef CEP_WALK_WIDE
+#error "build one half of the instances: -DCEP_WALK_WIDE=0 (narrow) or -DCEP_WALK_WIDE=1 (wide)"
+#endif
+// This library's half of the instances: the narrow ones or the wide ones
+// (kWide).  The two halves are two nvcc runs of this file, started
+// together (ops/walk_kernel.py), so that neither is a long pole of a build.
+constexpr bool kInstWide = CEP_WALK_WIDE;
+
+// This half's instance for mode bits (two-tier 1, attribution 2, drain 4),
 // with its arena's size set as its dynamic shared memory.
 cudaError_t kernel_for(int mode, int arena_bytes, Kernel* fn) {
-  static const Kernel table[16] = {
-      walk_pass<false, false, false, false>, walk_pass<true, false, false, false>,
-      walk_pass<false, true, false, false>,  walk_pass<true, true, false, false>,
-      walk_pass<false, false, true, false>,  walk_pass<true, false, true, false>,
-      walk_pass<false, true, true, false>,   walk_pass<true, true, true, false>,
-      walk_pass<false, false, false, true>,  walk_pass<true, false, false, true>,
-      walk_pass<false, true, false, true>,   walk_pass<true, true, false, true>,
-      walk_pass<false, false, true, true>,   walk_pass<true, false, true, true>,
-      walk_pass<false, true, true, true>,    walk_pass<true, true, true, true>};
-  *fn = table[mode & 15];
+  static const Kernel table[8] = {
+      walk_pass<false, false, false, kInstWide>, walk_pass<true, false, false, kInstWide>,
+      walk_pass<false, true, false, kInstWide>,  walk_pass<true, true, false, kInstWide>,
+      walk_pass<false, false, true, kInstWide>,  walk_pass<true, false, true, kInstWide>,
+      walk_pass<false, true, true, kInstWide>,   walk_pass<true, true, true, kInstWide>};
+  *fn = table[mode & 7];
   return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               arena_bytes);
 }
@@ -452,11 +481,16 @@ cudaError_t kernel_for(int mode, int arena_bytes, Kernel* fn) {
 // Lanes a block serves at most (walk_layout.cuh: kWalkLanes).
 extern "C" int cep_walk_lanes() { return kWalkLanes; }
 
+// Whether this library holds the wide instances (CEP_WALK_WIDE).
+extern "C" int cep_walk_wide() { return kInstWide; }
+
 // The occupancy of the instance for mode bits (two-tier 1, attribution 2,
 // drain 4, wide 8) in blocks of `lanes` lanes with an arena_bytes arena: out[0]
 // lanes resident per SM, out[1] registers a thread, out[2] local memory
-// bytes a thread.  Returns a CUDA error.
+// bytes a thread.  Returns a CUDA error, or -1 when the mode's width is not
+// this library's.
 extern "C" int cep_walk_occupancy(int mode, int lanes, int arena_bytes, int* out) {
+  if (((mode >> 3) & 1) != (int)kInstWide) return -1;
   Kernel fn;
   cudaError_t e = kernel_for(mode, arena_bytes, &fn);
   if (e != cudaSuccess) return (int)e;
@@ -472,8 +506,9 @@ extern "C" int cep_walk_occupancy(int mode, int lanes, int arena_bytes, int* out
 
 // dims: K, E, MP, D, PP, PW, W, out_base, out_rows, with_puts, EH, S,
 // drain, lanes, arena_bytes.  Returns a CUDA error, or -1 when lanes is not
-// walk_lanes' count or arena_bytes not the arena's size, -2 when not even
-// one lane's arena fits a block's shared memory.
+// walk_lanes' count, arena_bytes not the arena's size or the slab's width
+// not this library's (walk_wide), -2 when not even one lane's arena fits a
+// block's shared memory.
 extern "C" int cep_walk_pass(const int* dims, void* const* ptrs,
                              void* stream) {
   Args a;
@@ -486,7 +521,8 @@ extern "C" int cep_walk_pass(const int* dims, void* const* ptrs,
   const int fit = walk_lanes(a.E, a.MP, a.D, a.PP, a.S, puts);
   if (!fit) return -2;
   if (lanes != fit ||
-      walk_layout(lanes, a.E, a.MP, a.D, a.PP, a.S, puts).bytes != (size_t)arena_bytes)
+      walk_layout(lanes, a.E, a.MP, a.D, a.PP, a.S, puts).bytes != (size_t)arena_bytes ||
+      walk_wide(a.MP, a.D) != kInstWide)
     return -1;
   int i = 0;
 #define IN(f) a.f = static_cast<decltype(a.f)>(ptrs[i++])
@@ -508,7 +544,7 @@ extern "C" int cep_walk_pass(const int* dims, void* const* ptrs,
   OUT(o_drain_hops); OUT(o_stage_hops);
 #undef IN
 #undef OUT
-  const int mode = (a.EH > 0) | (a.S > 0) << 1 | drain << 2 | walk_wide(a.MP, a.D) << 3;
+  const int mode = (a.EH > 0) | (a.S > 0) << 1 | drain << 2;
   Kernel fn;
   const cudaError_t e = kernel_for(mode, arena_bytes, &fn);
   if (e != cudaSuccess) return (int)e;

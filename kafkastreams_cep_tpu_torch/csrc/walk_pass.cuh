@@ -81,6 +81,78 @@ __device__ __forceinline__ int warp_find(const int* st, const int* of, int E,
   return -1;
 }
 
+// One row copy of warp_rows: D int32 to dst from src, plus one at digit
+// bump (none where bump < 0); zeros where src is null; nothing where dst is
+// null.
+struct RowCopy {
+  int* dst;
+  const int* src;
+  int bump;
+};
+
+// n rows of D int32, row(i) saying where row i goes, by the warp: the
+// rows' digits are spread over the warp one after another, and each thread
+// loads up to kBatch of them (from any rows) before it stores any, so that
+// 32 x kBatch loads are in flight and neighbouring threads read and write
+// neighbouring digits.  The wide instances move versions so: they may lie
+// in device memory, where one thread a row would wait for one round trip
+// after another.
+template <int kBatch = 4, class Row>
+__device__ __forceinline__ void warp_rows(int n, int D, Row row) {
+  const int total = n * D;
+  for (int f0 = (int)threadIdx.x; f0 < total; f0 += 32 * kBatch) {
+    int v[kBatch];
+    int* to[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int f = f0 + 32 * u;
+      to[u] = nullptr;
+      v[u] = 0;
+      if (f < total) {
+        const int i = f / D, d = f - i * D;
+        const RowCopy r = row(i);
+        if (r.dst) {
+          to[u] = r.dst + d;
+          v[u] = r.src ? r.src[d] + (d == r.bump) : 0;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (to[u]) *to[u] = v[u];
+  }
+  __syncwarp();
+}
+
+// n int32 from src to dst by nt threads (thread tid of them): the wide
+// instances' copy of the pointer versions, MBs a lane.  16-byte vectors,
+// kBatch of them loaded by a thread before it stores any, between a scalar
+// head and tail where both ends share their 16-byte alignment (rows of two
+// tensors at one offset do); scalars otherwise.  A loop with no span
+// tables to search, so that the copy is bound by device memory and not by
+// the instructions around each vector.
+__device__ __forceinline__ void group_copy(int* dst, const int* src, size_t n, int tid,
+                                           int nt) {
+  constexpr int kBatch = 8;
+  const bool vec = (((uintptr_t)src ^ (uintptr_t)dst) & 15) == 0;
+  const size_t head = vec ? min(n, (size_t)(((16 - ((uintptr_t)dst & 15)) & 15) / 4)) : n;
+  const size_t nv = (n - head) / 4;
+  for (size_t i = tid; i < head; i += nt) dst[i] = src[i];
+  const int4* s4 = reinterpret_cast<const int4*>(src + head);
+  int4* d4 = reinterpret_cast<int4*>(dst + head);
+  const size_t step = (size_t)nt * kBatch;
+  size_t i0 = tid;
+  for (; i0 + (kBatch - 1) * (size_t)nt < nv; i0 += step) {  // whole rounds
+    int4 v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) v[u] = s4[i0 + u * (size_t)nt];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) d4[i0 + u * (size_t)nt] = v[u];
+  }
+  for (; i0 < nv; i0 += nt) d4[i0] = s4[i0];  // the last round
+  for (size_t i = head + 4 * nv + tid; i < n; i += nt) dst[i] = src[i];
+}
+
 // puts_batched for one lane, in closed form over the enabled ops alone: an
 // op that is not enabled takes part in no group, so running the stages
 // over the enabled ops, listed in queue order, gives the same slab in O(n)
@@ -91,6 +163,7 @@ __device__ __forceinline__ int warp_find(const int* st, const int* of, int E,
 // separated by __syncwarp because later stages read what other threads
 // wrote to the scratch sc [n, kPutCols], indexed by list position; list
 // [PP] and free_rows [E] are scratch too.
+template <bool kWide = false>
 __device__ __forceinline__ void put_listed(const PutLane& p_, const SlabLane& s,
                                            Tally& c, int* list, int* free_rows) {
   const int t = threadIdx.x;
@@ -221,12 +294,24 @@ __device__ __forceinline__ void put_listed(const PutLane& p_, const SlabLane& s,
         ps[cc] = first[p] ? -1 : pst[p];
         po[cc] = first[p] ? -1 : pof[p];
         pl[cc] = p_.pvl[p];
-        for (int d = 0; d < D; ++d) pv[(size_t)cc * D + d] = p_.pvr[(size_t)p * D + d];
+        if constexpr (kWide)
+          SC(i, kAlloc) = cc;  // the row's versions move below, by the warp
+        else
+          for (int d = 0; d < D; ++d) pv[(size_t)cc * D + d] = p_.pvr[(size_t)p * D + d];
       }
     }
     SC(i, kFit) = fit;
   }
   __syncwarp();
+  if constexpr (kWide) {
+    // The appends' versions, D digits each, spread over the warp (kAlloc is
+    // read by no stage after D, so E keeps each append's slot there).
+    warp_rows(n, D, [&](int i) {
+      return SC(i, kFit) ? RowCopy{pv + (size_t)SC(i, kAlloc) * D,
+                                   p_.pvr + (size_t)list[i] * D, -1}
+                         : RowCopy{nullptr, nullptr, -1};
+    });
+  }
 
   // F: entry metadata (group-consistent, so repeated writes agree).
   for (int i = t; i < n; i += 32) {
@@ -296,7 +381,9 @@ __device__ __forceinline__ int warp_victim(const int* st, const int* of,
 // moves its whole row to the lowest free row in [EH, E) and its slot is
 // reused (_alloc_slot).  EH = E is the single tier.  Single values are
 // written by thread 0 and rows by all threads, with __syncwarp before
-// anything written is read.
+// anything written is read; kWide moves the versions by warp_rows (a
+// demoted row's MP * D digits with 8 loads in flight a thread).
+template <bool kWide = false>
 __device__ __forceinline__ void put_op(const SlabLane& s, Tally& c, bool fst,
                                        int cur, int off, int pst, int pof,
                                        int pvl, const int* pvr, int EH) {
@@ -332,8 +419,13 @@ __device__ __forceinline__ void put_op(const SlabLane& s, Tally& c, bool fst,
         po[fo * MP + i] = po[e * MP + i];
         pl[fo * MP + i] = pl[e * MP + i];
       }
-      for (int i = t; i < MP * D; i += 32)
-        pv[(size_t)fo * MP * D + i] = pv[(size_t)e * MP * D + i];
+      if constexpr (kWide)
+        warp_rows<8>(MP, D, [&](int i) {
+          return RowCopy{pv + ((size_t)fo * MP + i) * D, pv + ((size_t)e * MP + i) * D, -1};
+        });
+      else
+        for (int i = t; i < MP * D; i += 32)
+          pv[(size_t)fo * MP * D + i] = pv[(size_t)e * MP * D + i];
       __syncwarp();
       if (t == 0) {
         st[e] = -1;
@@ -363,19 +455,23 @@ __device__ __forceinline__ void put_op(const SlabLane& s, Tally& c, bool fst,
     pl[cc] = pvl;
     np[e] = n + 1;
   }
-  for (int d = t; d < D; d += 32) pv[(size_t)cc * D + d] = pvr[d];
+  if constexpr (kWide)
+    warp_rows(1, D, [&](int) { return RowCopy{pv + (size_t)cc * D, pvr, -1}; });
+  else
+    for (int d = t; d < D; d += 32) pv[(size_t)cc * D + d] = pvr[d];
   __syncwarp();
 }
 
 // _puts_sequential for one lane (two-tier slab): each op in queue order is
 // a put_first or a chained put (put_op with EH = c.EH hot rows).
+template <bool kWide = false>
 __device__ __forceinline__ void put_phase_two_tier(const PutLane& p_,
                                                    const SlabLane& s,
                                                    Tally& c) {
   for (int p = 0; p < p_.PP; ++p) {
     if (!p_.en[p]) continue;
-    put_op(s, c, p_.first[p] != 0, p_.cur[p], p_.off, p_.pst[p], p_.pof[p],
-           p_.pvl[p], p_.pvr + (size_t)p * s.D, c.EH);
+    put_op<kWide>(s, c, p_.first[p] != 0, p_.cur[p], p_.off, p_.pst[p], p_.pof[p],
+                  p_.pvl[p], p_.pvr + (size_t)p * s.D, c.EH);
   }
 }
 
@@ -421,10 +517,11 @@ __device__ __forceinline__ void stage_row(int* row, const int* src, int n) {
 
 // Wide slabs: MP or D above 32 (the kWide instances).  A row's tombstones
 // are G = ceil(MP / 32) words, slot i's bit in word i / 32; a warp takes
-// the pointer slots in groups of 32, thread t slot 32 g + t of group g; and
-// the query version sits in the lane's shared row qs [D], which each thread
-// reads whole, in place of one digit a thread.  The narrow instances
-// (MP, D <= 32) keep the one-word, one-digit-a-thread code.
+// the pointer slots in groups of 32, thread t slot 32 g + t of group g; a
+// version check spreads one slot's digits over the warp (compatible_warp)
+// and reads the query version where it lies, in place of one digit a
+// thread; versions move as whole rows by the warp (warp_rows).  The narrow
+// instances (MP, D <= 32) keep the one-word, one-digit-a-thread code.
 
 __device__ __forceinline__ int slot_groups(int MP) { return (MP + 31) >> 5; }
 
@@ -440,22 +537,38 @@ __device__ __forceinline__ unsigned kept_slots(const unsigned* dw, int n0, int g
   return slots_below(n0, g) & ~dw[g];
 }
 
-// compatible_live for one thread's pointer (p, plen) against the query
-// version q [D] of length qlen, reading the digits below min(plen, D): the
-// answer compatible_live gives that thread when its pointer is live.
-__device__ __forceinline__ bool compatible_one(const int* q, int qlen,
-                                               const int* p, int plen, int D) {
-  const int n = min(max(plen, 0), D);
-  bool full = true, butlast = true;
-  int last_q = 0, last_p = 0;
-  for (int d = 0; d < n; ++d) {
-    const int qd = q[d], pd = p[d];
-    const bool eq = qd == pd;
-    full = full && eq;
-    if (d < plen - 1) butlast = butlast && eq;
-    if (d == plen - 1) { last_q = qd; last_p = pd; }
+// dewey_ops.is_compatible of the query version q (qlen digits) against one
+// pointer version p (plen digits), by the whole warp: q longer than p and
+// every digit of p equal, or both as long, every digit but the last equal
+// and q's last not below p's, reading only the digits below D.  The digits
+// that must be equal are spread over the warp (thread t has digits t,
+// t + 32, ...), so each round reads 32 x kBatch consecutive digits of both
+// rows, as whole lines from device memory or without bank conflicts from
+// shared memory, and a ballot decides it; the warp stops after the first
+// round with a mismatch.  The last digit is read beside the first round.
+// Warp-uniform arguments and result.
+__device__ __forceinline__ bool compatible_warp(const int* q, int qlen, const int* p,
+                                                int plen, int D) {
+  if (qlen < plen) return false;  // neither rule can hold
+  const bool same = qlen == plen;
+  const int m = max(min(same ? plen - 1 : plen, D), 0);  // digits that must be equal
+  const bool last = same && plen >= 1 && plen - 1 < D;
+  int lq = 0, lp = 0;
+  if (last) {
+    lq = q[plen - 1];
+    lp = p[plen - 1];
   }
-  return (qlen > plen && full) || (qlen == plen && butlast && last_q >= last_p);
+  constexpr int kBatch = 4;
+  for (int b = 0; b < m; b += 32 * kBatch) {
+    bool eq = true;
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int d = b + 32 * u + (int)threadIdx.x;
+      if (d < m) eq &= q[d] == p[d];
+    }
+    if (!__all_sync(kFull, eq)) return false;
+  }
+  return lq >= lp;
 }
 
 // prune_row for G tombstone words a row: the survivors of each group move
@@ -700,18 +813,22 @@ __device__ __forceinline__ void walk_one(const SlabLane& s, unsigned* dead,
 }
 
 // walk_one for wide slabs (MP or D above 32, the kWide instances): the same
-// walk, with G = ceil(MP / 32) tombstone words a row, the pointer slots
-// checked group by group (the first group with a live, compatible slot
-// gives the pointer: the first in slot order, as the one-word ballot does)
-// and the query version in qs [D] in shared memory, which the walk
-// overwrites with each next version.  A separate function, so that the
-// narrow instances keep walk_one's code as it was.
-template <bool kTwoTier, bool kAttr, bool kDrain, bool kStageRow = false>
+// walk, with G = ceil(MP / 32) tombstone words a row and the query version
+// read where it lies (qv [D]: the walker's queue row, then the version row
+// of each pointer taken, which no hop writes), instead of one digit a
+// thread.  A hop's pointer rows come one group of 32 slots at a time
+// (thread t has slot 32 g + t); the live slots of the group whose version
+// is no longer than the walker's (the only ones is_compatible can accept)
+// are listed by a ballot and checked one at a time in slot order by the
+// whole warp (compatible_warp), and the first compatible one is taken: the
+// first in slot order, as the one-word ballot and the plain pass take it.
+// A separate function, so that the narrow instances keep walk_one's code
+// as it was.
+template <bool kTwoTier, bool kAttr, bool kDrain>
 __device__ __forceinline__ void walk_one_wide(const SlabLane& s, unsigned* dead,
-                                              int cs, int co, int ql, int* qs,
+                                              int cs, int co, int ql, const int* qv,
                                               bool rem, bool wot, int W, int* ost,
-                                              int* oof, int* ocnt, Tally& c,
-                                              int* row = nullptr) {
+                                              int* oof, int* ocnt, Tally& c) {
   const int t = threadIdx.x;
   const int E = s.E, MP = s.MP, D = s.D;
   int *st = s.st, *of = s.of, *rf = s.rf, *np = s.np;
@@ -747,21 +864,24 @@ __device__ __forceinline__ void walk_one_wide(const SlabLane& s, unsigned* dead,
     int nlive = 0;
     for (int g = 0; g < G; ++g) nlive += __popc(kept_slots(dw, n0, g));
     const bool del = rem && newref == 0 && nlive <= 1;
-    if constexpr (kStageRow) stage_row(row, pv + (size_t)e * MP * D, n0 * D);
-    // First live, version-compatible pointer, group by group; thread t
-    // holds slot 32 g + t's rows of the group last checked.
+    // First live, version-compatible pointer, group by group and, within
+    // a group, candidate by candidate.
     int j = -1, ps_m = 0, po_m = 0, pl_m = 0;
     for (int g = 0; g < G && j < 0; ++g) {
-      const int i = 32 * g + t, ic = i < MP ? i : 0;
+      const int i = 32 * g + t;
       const bool lv = i < MP && ((kept_slots(dw, n0, g) >> t) & 1u);
-      const int mine = e * MP + ic;
+      const int mine = e * MP + (i < MP ? i : 0);
       pl_m = pl[mine];
       ps_m = ps[mine];
       po_m = po[mine];
-      const bool ok = lv && compatible_one(
-          qs, ql, kStageRow ? row + (size_t)ic * D : pv + (size_t)mine * D, pl_m, D);
-      const unsigned okm = __ballot_sync(kFull, ok);
-      if (okm) j = 32 * g + __ffs(okm) - 1;
+      for (unsigned cand = __ballot_sync(kFull, lv && pl_m <= ql); cand; cand &= cand - 1) {
+        const int b = __ffs(cand) - 1;
+        const int plen = __shfl_sync(kFull, pl_m, b);
+        if (compatible_warp(qv, ql, pv + (size_t)(e * MP + 32 * g + b) * D, plen, D)) {
+          j = 32 * g + b;
+          break;
+        }
+      }
     }
     __syncwarp();
     if (t == 0) {
@@ -786,8 +906,7 @@ __device__ __forceinline__ void walk_one_wide(const SlabLane& s, unsigned* dead,
       cs = ns;
       co = ns_off;
       ql = ns_len;
-      const int* nv = kStageRow ? row + (size_t)j * D : pv + (size_t)(e * MP + j) * D;
-      for (int d = t; d < D; d += 32) qs[d] = nv[d];
+      qv = pv + (size_t)(e * MP + j) * D;
     }
     const bool budget_out = wot && cnt >= W;
     c.trunc += budget_out && nactive;

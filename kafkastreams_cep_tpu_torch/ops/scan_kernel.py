@@ -115,33 +115,44 @@ def lane_layout(R: int, E: int, MP: int, D: int, H: int, NS: int, S: int,
     each array's byte offset, every one 16-byte aligned, and ``"bytes"``,
     the arena's size.  The pointer rows (``ps``, ``po``, ``pl``, ``pv``)
     are in it only with ``pv_shared``; the stage tallies only under
-    ``attribution``; a walker's version ``q`` only in the wide instance
-    (``MP`` or ``D`` above 32), whose rows take :func:`dead_words`
-    tombstone words."""
+    ``attribution``.  The wide instance (``MP`` or ``D`` above 32) takes
+    :func:`dead_words` tombstone words a row, keeps its arrays of D digits
+    (the run buffers' ``run<b>.ver`` and the put ops' ``p_ver``) in device
+    scratch (:func:`scratch_words`), and adds each op's bumped digit
+    (``p_bump``) and each next-queue row's source (``c_src``, ``c_bump``)."""
     RH, PW, EMP = R * H, R * H + 2 * R, E * MP
     wide = is_wide(MP, D)
     ints = [("st", E), ("of", E), ("rf", E), ("np", E), ("dead", E * dead_words(MP))]
-    ints += [("q", D)] if wide else []
     if pv_shared:
         ints += [("ps", EMP), ("po", EMP), ("pl", EMP), ("pv", EMP * D)]
     for b in (0, 1):
         ints += [(f"run{b}.{f}", R) for f in _RUN_ARRAYS]
-        ints += [(f"run{b}.ver", R * D), (f"run{b}.agg", R * NS)]
+        ints += [(f"run{b}.ver", 0 if wide else R * D), (f"run{b}.agg", R * NS)]
     ints += [(f, RH) for f in ("p_cur", "p_pst", "p_pof", "p_pvl")]
-    ints += [("p_ver", RH * D), ("p_sc", RH * PUT_COLS), ("p_list", RH), ("p_free", E)]
+    ints += [("p_ver", 0 if wide else RH * D), ("p_sc", RH * PUT_COLS), ("p_list", RH),
+             ("p_free", E)]
     ints += [(f, PW) for f in ("w_stage", "w_off", "w_vlen", "w_run", "w_list")]
     ints += [(f, R) for f in ("r_id", "r_eval", "r_vlen", "r_event", "r_start", "r_bits")]
     ints += [("r_agg", R * NS)]
     ints += [(f, RH) for f in ("b_id", "b_eval", "b_vlen", "b_event", "b_start")]
     ints += [("b_agg", RH * NS), ("stc", 4 * S if attribution else 0),
              ("sh", S if attribution else 0)]
+    ints += [("p_bump", RH), ("c_src", R), ("c_bump", R)] if wide else []
     arrays = [(f, 4 * n) for f, n in ints]
     arrays += [("p_en", RH), ("p_first", RH), ("w_en", PW), ("b_en", RH)]
-    out, o = {"q": 0}, 0  # no q in a narrow arena
+    out, o = {"p_bump": 0, "c_src": 0, "c_bump": 0}, 0  # none in a narrow arena
     for f, n in arrays + [("bytes", 0)]:
         out[f] = o = (o + 15) & ~15
         o += n
     return out
+
+
+def scratch_words(R: int, D: int, H: int, wide: bool) -> int:
+    """A lane's device scratch in int32 (``scan_layout.cuh:
+    scan_scratch_words``): in the wide instance the run buffers' version
+    digits ``[2, R, D]``, then the put ops' versions ``[R*H, D]``; none in
+    a narrow one."""
+    return (2 * R + R * H) * D if wide else 0
 
 
 def pv_in_shared(R: int, E: int, MP: int, D: int, H: int, NS: int, S: int,
@@ -372,6 +383,8 @@ class ScanPassKernel:
         EH = int(config.slab_hot_entries)
         pv_shared, lane_bytes = self.arena(source, config, state, pv_shared,
                                            promo is not None)
+        nwords = scratch_words(R, D, source.hops, mode.wide)
+        scratch = torch.empty((K, nwords), dtype=I32, device=dev) if nwords else None
 
         def arg(x, shape, name, dtype=I32):
             if x.device != dev:
@@ -455,7 +468,7 @@ class ScanPassKernel:
         lib = self._libs[(source.tag, mode)]
         tensors = (
             ev + [ins[f] for f in _FIELDS] + [outs[f] for f in _FIELDS]
-            + [out_stage, out_off, count] + pr + ev_leaves
+            + [out_stage, out_off, count] + pr + [scratch] + ev_leaves
         )
         dims = [K, T, R, E, MP, D, W, HB, int(bool(config.enforce_windows)), EH, S,
                 *promo_dims[:2], int(pv_shared), lane_bytes, *promo_dims[2:]]

@@ -25,9 +25,10 @@ kernel or raises — it never falls back.  Both give the same result bit for
 bit; ``chip_smoke.py`` holds them against each other on the card.
 
 The kernel builds at first use with ``nvcc`` for ``sm_90a`` into
-``kafkastreams_cep_tpu_torch/build/``, keyed by a hash of the source, of
-every header it includes and of the flags, and is bound with ``ctypes`` (a
-plain C entry point, no PyTorch headers).
+``kafkastreams_cep_tpu_torch/build/``, as two libraries, its narrow and its
+wide instances (two nvcc runs started together), each keyed by a hash of the
+source, of every header it includes and of the flags, and is bound with
+``ctypes`` (a plain C entry point, no PyTorch headers).
 """
 
 from __future__ import annotations
@@ -101,19 +102,20 @@ def block_layout(E: int, MP: int, D: int, PP: int, S: int, puts: bool,
     each array's byte offset, every one 16-byte aligned, and ``"bytes"``,
     the arena's size.  Each array holds the block's ``lanes`` lanes one after
     another: the slab keys and tombstones (:func:`dead_words` a row), a
-    hop's staged versions (``row``), the walker's version (``q``, wide
-    instances only), the stage tally; the put scratch only with ``puts``
+    hop's staged versions (``row``, narrow instances only: a wide hop reads
+    the versions it checks in device memory), the stage tally; the put
+    scratch only with ``puts``
     (the closed-form puts, single tier); the ``PP`` put ops (0 without puts)
     always, without their versions; ``spans`` is the block's copy tables."""
     LE, LPP = lanes * E, (lanes * PP if puts else 0)
     ints = [("st", LE), ("of", LE), ("rf", LE), ("np", LE), ("dead", LE * dead_words(MP))]
-    ints += [("row", lanes * MP * D)] + ([("q", lanes * D)] if is_wide(MP, D) else [])
+    ints += [("row", 0 if is_wide(MP, D) else lanes * MP * D)]
     ints += [("sh", lanes * S),
              ("p_sc", LPP * PUT_COLS), ("p_list", LPP), ("p_free", LE if puts else 0)]
     ints += [(f, lanes * PP) for f in ("p_cur", "p_pst", "p_pof", "p_pvl")]
     arrays = [(f, 4 * n) for f, n in ints]
     arrays += [("p_en", lanes * PP), ("p_first", lanes * PP), ("spans", SPAN_BYTES)]
-    out, o = {"q": 0}, 0  # no q in a narrow arena
+    out, o = {}, 0
     for f, n in arrays + [("bytes", 0)]:
         out[f] = o = (o + 15) & ~15
         o += n
@@ -219,46 +221,64 @@ class WalkPassKernel:
         self.launches_by_mode: Dict[str, int] = {}
         self.build_log = ""
         self.build_seconds = 0.0
-        self._lib = None
+        self._libs: Dict[bool, ctypes.CDLL] = {}
+        self._paths: Dict[bool, Path] = {}
 
     def build(self) -> Path:
-        """Compile the source (once per source hash) and load it."""
-        if self._lib is not None:
-            return self._path
+        """Compile the source's two halves, the narrow instances and the wide
+        ones (``-DCEP_WALK_WIDE``; one nvcc each, started together, once per
+        source hash), and load them.  Returns the narrow half's path."""
+        if self._libs:
+            return self._paths[False]
         blob = b"".join(p.read_bytes() for p in includes(SOURCE))
-        tag = hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        out = BUILD_DIR / f"libwalkpass-{tag}.so"
-        if not out.exists():
-            t0 = time.perf_counter()
-            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        outs = {}
+        for wide in (False, True):
+            flags = NVCC_FLAGS + (f"-DCEP_WALK_WIDE={int(wide)}",)
+            tag = hashlib.sha256(blob + " ".join(flags).encode()).hexdigest()[:16]
+            outs[wide] = (BUILD_DIR / f"libwalkpass-{tag}.so", flags)
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            jobs = []
+            for out, flags in outs.values():
+                if out.exists():
+                    continue
                 tmp_out = Path(tmp) / out.name
-                cmd = [_nvcc(), *NVCC_FLAGS, str(SOURCE), "-o", str(tmp_out)]
-                res = subprocess.run(cmd, capture_output=True, text=True)
-                self.build_log = res.stdout + res.stderr
-                if res.returncode:
-                    raise RuntimeError(
-                        f"nvcc failed ({res.returncode}):\n{self.build_log}"
-                    )
+                cmd = [_nvcc(), *flags, str(SOURCE), "-o", str(tmp_out)]
+                jobs.append((out, tmp_out, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            logs = []
+            for out, tmp_out, proc in jobs:
+                log, _ = proc.communicate()
+                logs.append(log)
+                if proc.returncode:
+                    raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
                 os.replace(tmp_out, out)  # atomic publish
+        if jobs:
+            self.build_log = "".join(logs)
             self.build_seconds = time.perf_counter() - t0
-            logger.info("built %s in %.1f s", out.name, self.build_seconds)
-        lib = ctypes.CDLL(str(out))
-        lib.cep_walk_pass.argtypes = [
-            ctypes.POINTER(ctypes.c_int),
-            ctypes.POINTER(ctypes.c_void_p),
-            ctypes.c_void_p,
-        ]
-        lib.cep_walk_pass.restype = ctypes.c_int
-        lib.cep_walk_occupancy.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-        ]
-        lib.cep_walk_occupancy.restype = ctypes.c_int
-        if lib.cep_walk_lanes() != LANES_PER_BLOCK:
-            raise RuntimeError(f"{out.name} serves up to {lib.cep_walk_lanes()} lanes "
-                               f"a block, the wrapper {LANES_PER_BLOCK}")
-        self._lib, self._path = lib, out
-        return out
+            logger.info("built %s in %.1f s", ", ".join(j[0].name for j in jobs),
+                        self.build_seconds)
+        libs = {}
+        for wide, (out, _) in outs.items():
+            lib = ctypes.CDLL(str(out))
+            lib.cep_walk_pass.argtypes = [
+                ctypes.POINTER(ctypes.c_int),
+                ctypes.POINTER(ctypes.c_void_p),
+                ctypes.c_void_p,
+            ]
+            lib.cep_walk_pass.restype = ctypes.c_int
+            lib.cep_walk_occupancy.argtypes = [
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+            ]
+            lib.cep_walk_occupancy.restype = ctypes.c_int
+            if lib.cep_walk_lanes() != LANES_PER_BLOCK or lib.cep_walk_wide() != wide:
+                raise RuntimeError(f"{out.name} serves up to {lib.cep_walk_lanes()} lanes "
+                                   f"a block and wide={lib.cep_walk_wide()}, the wrapper "
+                                   f"{LANES_PER_BLOCK} and wide={int(wide)}")
+            libs[wide] = lib
+        self._libs, self._paths = libs, {w: o for w, (o, _) in outs.items()}
+        return self._paths[False]
 
     @staticmethod
     def arena(slab: SlabState, PP: int, hot_entries: int = 0) -> Tuple[int, int]:
@@ -288,7 +308,7 @@ class WalkPassKernel:
         mode = (int(bool(hot_entries)) | int(slab.stage_hops.shape[1] > 0) << 1
                 | int(drain) << 2 | int(is_wide(*slab.pver.shape[2:])) << 3)
         occ = (ctypes.c_int * 3)()
-        err = self._lib.cep_walk_occupancy(mode, lanes, nbytes, occ)
+        err = self._libs[bool(mode >> 3)].cep_walk_occupancy(mode, lanes, nbytes, occ)
         if err:
             raise RuntimeError(f"occupancy query failed: error {err}")
         return dict(lanes_a_block=lanes, arena_bytes=nbytes, lanes_per_sm=occ[0],
@@ -384,7 +404,8 @@ class WalkPassKernel:
         ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
         if K:
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = self._lib.cep_walk_pass(dims, ptrs, ctypes.c_void_p(stream))
+            lib = self._libs[is_wide(MP, D)]
+            err = lib.cep_walk_pass(dims, ptrs, ctypes.c_void_p(stream))
             if err:
                 raise RuntimeError(f"walk-pass kernel launch failed: CUDA error {err}")
             self.launches += 1

@@ -18,7 +18,10 @@ for the generated pattern header, and checks, for every configuration
 
 and that the widest pointer rows the kernel takes (E=96, MP=32, D=32) stay
 in device memory without raising, while a lane too large for any
-placement raises ``ValueError`` before a launch.
+placement raises ``ValueError`` before a launch; and that the wide
+instance's lane keeps no array of D digits in its arena (the run digits
+and the put ops' versions in device scratch, ``scan_scratch_words``), so
+that at the escalated shape an SM's shared memory holds many lanes.
 """
 
 import ctypes
@@ -41,14 +44,14 @@ import chip_smoke as cs  # noqa: E402
 #: The fields of ``ScanLayout`` in the order the shim writes them (the
 #: Python mirror's names; ``run<b>.<f>`` for the two run buffers).
 FIELDS = (
-    ["st", "of", "rf", "np", "dead", "q", "ps", "po", "pl", "pv"]
+    ["st", "of", "rf", "np", "dead", "ps", "po", "pl", "pv"]
     + [f"run{b}.{f}" for b in (0, 1)
        for f in scan_kernel._RUN_ARRAYS + ("ver", "agg")]
     + ["p_cur", "p_pst", "p_pof", "p_pvl", "p_ver", "p_sc", "p_list", "p_free",
        "w_stage", "w_off", "w_vlen", "w_run", "w_list",
        "r_id", "r_eval", "r_vlen", "r_event", "r_start", "r_bits", "r_agg",
        "b_id", "b_eval", "b_vlen", "b_event", "b_start", "b_agg", "stc", "sh",
-       "p_en", "p_first", "w_en", "b_en", "bytes"]
+       "p_bump", "c_src", "c_bump", "p_en", "p_first", "w_en", "b_en", "bytes"]
 )
 
 SHIM = r"""
@@ -58,18 +61,21 @@ extern "C" void layout(const int* d, long long* out) {
   const ScanLayout l = scan_layout(d[0], d[1], d[2], d[3], d[4], d[5], d[6],
                                    d[7] != 0, d[8] != 0);
   const size_t v[] = {
-      l.st, l.of, l.rf, l.np, l.dead, l.q, l.ps, l.po, l.pl, l.pv, RUN(l.run[0]),
+      l.st, l.of, l.rf, l.np, l.dead, l.ps, l.po, l.pl, l.pv, RUN(l.run[0]),
       RUN(l.run[1]), l.p_cur, l.p_pst, l.p_pof, l.p_pvl, l.p_ver, l.p_sc,
       l.p_list, l.p_free,
       l.w_stage, l.w_off, l.w_vlen, l.w_run, l.w_list, l.r_id, l.r_eval,
       l.r_vlen, l.r_event, l.r_start, l.r_bits, l.r_agg, l.b_id, l.b_eval,
-      l.b_vlen, l.b_event, l.b_start, l.b_agg, l.stc, l.sh, l.p_en, l.p_first,
-      l.w_en, l.b_en, l.bytes};
+      l.b_vlen, l.b_event, l.b_start, l.b_agg, l.stc, l.sh, l.p_bump, l.c_src,
+      l.c_bump, l.p_en, l.p_first, l.w_en, l.b_en, l.bytes};
   for (size_t i = 0; i < sizeof(v) / sizeof(v[0]); ++i) out[i] = (long long)v[i];
 }
 extern "C" int pv_rule(const int* d) {
   return scan_pv_shared(d[0], d[1], d[2], d[3], d[4], d[5], d[6], d[7] != 0,
                         d[8] != 0);
+}
+extern "C" long long scratch_words(int R, int D, int H, int wide) {
+  return (long long)scan_scratch_words(R, D, H, wide != 0);
 }
 extern "C" long long smem_per_block() { return (long long)kSmemPerBlock; }
 extern "C" long long pv_shared_max() { return (long long)kPvSharedMaxBytes; }
@@ -91,6 +97,8 @@ CONFIGS = {
     "WIDE_SCAN": ("stock", False, False),
     "WIDE_TIER": ("hybrid", True, False),
     "ESCALATED": ("stock", False, False),
+    "ESCALATED_D192": ("stock", False, False),
+    "AUTOSIZED": ("stock", False, False),
 }
 
 
@@ -133,6 +141,11 @@ EXTRA = {
     "WIDE_SCAN": dict(cs.HEADLINE, **cs.WIDE),
     "WIDE_TIER": dict(cs.TIER_PARITY, **cs.WIDE),
     "ESCALATED": dict(cs.HEADLINE, slab_entries=96, slab_preds=16, dewey_depth=48),
+    # Phase 13's escalated state (E=96, MP=16, D=192) and phase 12's
+    # autosized config (chip_ab_scan_pass.py: AUTOSIZED).
+    "ESCALATED_D192": dict(cs.HEADLINE, slab_entries=96, slab_preds=16, dewey_depth=192),
+    "AUTOSIZED": dict(cs.HEADLINE, max_runs=16, slab_entries=112, slab_hot_entries=24,
+                      slab_preds=16, dewey_depth=368, max_walk=44),
 }
 
 
@@ -206,3 +219,41 @@ def test_lane_too_large_for_shared_memory_raises():
     with pytest.raises(ValueError, match="shared memory"):
         _arena(dict(max_runs=512, slab_entries=96, slab_preds=8, dewey_depth=32,
                     max_walk=12))
+
+
+#: An H100 SM's shared memory (228 KB) and what the runtime reserves of it
+#: for each resident block (1 KB).
+SMEM_PER_SM = 233472
+SMEM_RESERVED_PER_BLOCK = 1024
+
+
+@pytest.mark.parametrize("MP, D", [(8, 12), (32, 32), (40, 48), (16, 192), (16, 368)])
+def test_scratch_matches_mirror(lib, MP, D):
+    """The wide instance keeps its run digits and put versions in device
+    scratch; a narrow one keeps them in the arena and takes none."""
+    wide = MP > 32 or D > 32
+    lib.scratch_words.restype = ctypes.c_longlong
+    want = scan_kernel.scratch_words(24, D, 3, wide)
+    assert lib.scratch_words(24, D, 3, int(wide)) == want
+    assert want == ((2 * 24 + 24 * 3) * D if wide else 0)
+
+
+@pytest.mark.parametrize("name, at_most, lanes", [("ESCALATED_D192", 16 * 1024, 16),
+                                                  ("AUTOSIZED", 16 * 1024, 16)])
+def test_wide_lane_arena_is_small(name, at_most, lanes):
+    """At the escalated shape (R=24, E=96, MP=16, D=192) the previous wide
+    lane held both run buffers' digits and the put ops' versions in its
+    arena, 85 KB or more, and an SM two lanes; with them in device scratch a
+    lane takes under 16 KB and an SM's shared memory holds at least the 16
+    lanes the kernel's register cap (kMinLanes) allows."""
+    dims = dims_of(name)
+    attr = bool(conf_of(name).get("stage_attribution", False))
+    R, D, H = dims[0], dims[3], dims[4]
+    assert not scan_kernel.pv_in_shared(*dims, attr, False)
+    layout = scan_kernel.lane_layout(*dims, attr, False)
+    assert layout["bytes"] <= at_most
+    assert SMEM_PER_SM // (layout["bytes"] + SMEM_RESERVED_PER_BLOCK) >= lanes
+    assert layout["run0.ver"] == layout["run0.agg"]  # no digits in the arena
+    digits = (2 * R + R * H) * D * 4  # what the previous arena held besides
+    assert digits == 4 * scan_kernel.scratch_words(R, D, H, True)
+    assert SMEM_PER_SM // (layout["bytes"] + digits + SMEM_RESERVED_PER_BLOCK) <= 2

@@ -20,7 +20,9 @@ checks, for every configuration ``chip_smoke.py`` runs the walk pass with
 and that the widest lane the kernel takes (E=96, MP=32, D=32) is served
 eight a block, that slabs past what eight lanes' arena holds are served in
 smaller blocks down to one lane, while a lane too large for a block raises
-``ValueError`` before a launch.
+``ValueError`` before a launch; and that the wide instances' arena (no
+staged version row) lets an SM's shared memory hold four blocks of eight lanes at the
+escalated and autosized shapes, where a staged row held one.
 """
 
 import ctypes
@@ -39,14 +41,14 @@ from kafkastreams_cep_tpu_torch.ops.slab import SlabState
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import chip_smoke as cs  # noqa: E402
 
-FIELDS = ("st", "of", "rf", "np", "dead", "row", "q", "sh", "p_sc", "p_list", "p_free",
+FIELDS = ("st", "of", "rf", "np", "dead", "row", "sh", "p_sc", "p_list", "p_free",
           "p_cur", "p_pst", "p_pof", "p_pvl", "p_en", "p_first", "spans", "bytes")
 
 SHIM = r"""
 #include "walk_layout.cuh"
 extern "C" void layout(const int* d, long long* out) {
   const WalkLayout l = walk_layout(d[0], d[1], d[2], d[3], d[4], d[5], d[6] != 0);
-  const size_t v[] = {l.st, l.of, l.rf, l.np, l.dead, l.row, l.q, l.sh, l.p_sc,
+  const size_t v[] = {l.st, l.of, l.rf, l.np, l.dead, l.row, l.sh, l.p_sc,
                       l.p_list, l.p_free, l.p_cur, l.p_pst, l.p_pof, l.p_pvl,
                       l.p_en, l.p_first, l.spans, l.bytes};
   for (size_t i = 0; i < sizeof(v) / sizeof(v[0]); ++i) out[i] = (long long)v[i];
@@ -124,6 +126,14 @@ CONFIGS = {
     # The headline config escalated to D=48 (EscalationPolicy's doubling)
     # and its pointer lists to 16.
     "escalated headline": ((96, 16, 48, 72, 0, True), 8),
+    # The wide instances' real shapes: phase 13's escalated state (E=96,
+    # MP=16, D=192) with 48 to 96 put ops, and phase 12's autosized
+    # two-tier config (R=16, E=112, MP=16, D=368: no closed-form puts).
+    "escalated D=192": ((96, 16, 192, 72, 0, True), 8),
+    "escalated D=192 PP=48": ((96, 16, 192, 48, 0, True), 8),
+    "escalated D=192 PP=96": ((96, 16, 192, 96, 0, True), 8),
+    "autosized two_tier+wide": ((112, 16, 368, 48, 0, False), 8),
+    "autosized two_tier+wide drain": ((112, 16, 368, 0, 0, False), 8),
 }
 
 
@@ -220,8 +230,8 @@ def test_slab_past_eight_lanes_is_served_in_smaller_blocks(lib, E, lanes):
 
 def test_escalated_headline_fits_eight_lanes_a_block():
     """At the escalated headline shape (E=96, MP=16, D=48) a lane's keys,
-    tombstones, staged row and query version take KBs while its pver
-    (96 x 16 x 48 int32, 295 KB) stays in device memory."""
+    tombstones and put ops take KBs while its pver (96 x 16 x 48 int32,
+    295 KB) stays in device memory."""
     slab = _slab(96, 16, 48)
     lanes, nbytes = walk_kernel.WalkPassKernel.arena(slab, 72)
     assert lanes == walk_kernel.LANES_PER_BLOCK
@@ -237,3 +247,29 @@ def test_arena_too_large_for_a_block_raises(lib):
     slab = _slab(96, 32, 32)
     with pytest.raises(ValueError, match="a block holds"):
         walk_kernel.WalkPassKernel.arena(slab, 8192)
+
+
+#: An H100 SM's shared memory (228 KB) and what the runtime reserves of it
+#: for each resident block (1 KB).
+SMEM_PER_SM = 233472
+SMEM_RESERVED_PER_BLOCK = 1024
+
+
+@pytest.mark.parametrize("name, blocks", [("escalated D=192", 4), ("escalated D=192 PP=96", 3),
+                                          ("autosized two_tier+wide", 8)])
+def test_wide_arena_holds_blocks_an_sm(lib, name, blocks):
+    """The wide arena holds the lanes' keys, tombstones and put ops only: at
+    the escalated shape an SM's shared memory takes four blocks of eight
+    lanes (the wide instances' register cap asks for two), where a staged
+    [MP * D] version row a lane (98,304 B of eight lanes at D=192, 164,864 B
+    of seven at D=368) left room for one block of 7-8 lanes."""
+    dims, lanes = CONFIGS[name]
+    E, MP, D = dims[:3]
+    assert lanes == walk_kernel.LANES_PER_BLOCK == c_lanes(lib, dims)
+    nbytes = walk_kernel.block_layout(*dims, lanes=lanes)["bytes"]
+    assert nbytes == c_layout(lib, dims, lanes)["bytes"]
+    assert SMEM_PER_SM // (nbytes + SMEM_RESERVED_PER_BLOCK) == blocks
+    staged = lanes * MP * D * 4  # the row a lane the previous wide arena held
+    assert SMEM_PER_SM // (nbytes + staged + SMEM_RESERVED_PER_BLOCK) <= 1
+    layout = walk_kernel.block_layout(*dims, lanes=lanes)
+    assert layout["sh"] == layout["row"]  # the row takes no bytes
