@@ -198,21 +198,36 @@ Phases (any failure exits non-zero before the final line):
               mesh, fault-free and with a shard lost (evacuated 4 -> 2,
               then resumed onto the two shards), equal to phase 13's
               unmeshed stream; (d) one loss-free hot-key rebalance.
-The last two lines of standard output are the kernel report (one JSON
-object) and the device line ``{"ok": true, "device": {...}}``; the card's
-name and power limit (nvidia-smi) come on the line before the report.  The
-script imports nothing of JAX or of the JAX package.
+Host work runs beside the card's where no kernel is timed for the report:
+phase 2's random inputs are made in worker processes while phase 1's nvcc
+runs go; after phase 12 (a0), phases 11, 12 (a)-(h), 13 (a), (c), 14,
+15 (a), (b) and 16 (c), (d) run in four processes of their own (a fresh
+interpreter each, counting its own launches from 0 and sending them back)
+beside 13 (b) in this one, whose wide instances are timed once they have
+ended; every log line meanwhile carries the label ``run side by side``.
+Phase 15 (c)'s profiler processes set themselves up meanwhile and measure
+in turns after.  Each input stream is built once per process (``inputs``).
+
+The last lines of standard output are the total, each phase's seconds and
+share of it, the card's name and power limit (nvidia-smi), the kernel
+report (one JSON object) and the device line ``{"ok": true, "device":
+{...}}``.  The script imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import atexit
 import collections
+import concurrent.futures
 import gc
 import json
 import logging
+import multiprocessing
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -277,6 +292,7 @@ WALK_PARITY_LANES = {"wide": (1, 37)}
 # Random lanes generated for a wide config (numpy's per-slot generation takes
 # about 20 s at 4,096 lanes), tiled to the lane count it runs at.
 WALK_PARITY_TILE = {"d48_mp40": 512, "d96_mp64": 512}
+PARITY_WORKERS = 6  # processes making them beside phase 1's nvcc runs
 SOURCE = "kafkastreams_cep_tpu_torch/csrc/walk_pass.cu"
 REPLACES = "kafkastreams_cep_tpu/ops/walk_kernel.py:734"
 SCAN_SOURCE = "kafkastreams_cep_tpu_torch/csrc/scan_pass.cu"
@@ -434,13 +450,146 @@ PROFILE_RUNS = (
 )
 
 
+#: Seconds of each phase, in the order they ended: {"1 build": s, ...}.
+PHASE_SECONDS: dict = {}
+#: While phases run side by side (``beside``), the label every log line of
+#: every process then carries: its figures were taken with other work on
+#: the host and the card.
+BESIDE = ""
+#: In a process ``beside`` started: each ``add_launches`` call, replayed by
+#: the main process into its kernel report.
+LAUNCH_LOG = None
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    # One write a line: the processes of ``beside`` share the stream.
+    sys.stdout.write(f"{msg} [{BESIDE}]\n" if BESIDE else msg + "\n")
+    sys.stdout.flush()
 
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def phase_done(name: str, t0: float) -> float:
+    """Record phase ``name``'s seconds since ``t0``; returns them."""
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    return PHASE_SECONDS[name]
+
+
+#: The phases ``side_by_side`` runs beside phase 13 (b) in the main process.
+SIDE_BY_SIDE = "11, 12 (a)-(h), 13 (a), (c), 14, 15 (a), (b) and 16 (c), (d)"
+
+
+def side_by_side(smi, report, records, name_of):
+    """Start the phases of SIDE_BY_SIDE in four processes of their own
+    (:func:`beside`), labelling every log line of every process from now
+    until :func:`join_beside`.  None of them times a kernel for the report;
+    their host figures are labelled."""
+    global BESIDE
+    BESIDE = f"run side by side: phases {SIDE_BY_SIDE} and 13 (b)"
+    return [beside(BESIDE, "ingest_phase", smi, report),
+            beside(BESIDE, "surgery_phase", smi, report, records, name_of),
+            beside(BESIDE, "recovery_and_mesh_streams", smi, report),
+            beside(BESIDE, "tenant_and_overload", smi, report)]
+
+
+def recovery_and_mesh_streams(torch, dev, smi, report):
+    """Phase 13 (a), (c), then 16 (c), (d), which holds its meshed streams
+    against 13 (a)'s."""
+    mesh_stream_phase(torch, dev, smi, report, recovery_phase(torch, dev, smi, report))
+
+
+def tenant_and_overload(torch, dev, smi, report):
+    """Phase 14, then 15 (a), (b)."""
+    tenant_phase(torch, dev, smi, report)
+    overload_phase(torch, dev, smi, report)
+
+
+def phase_summary(total: float) -> str:
+    """Each phase's seconds and share of ``total``, in phase order."""
+    order = sorted(enumerate(PHASE_SECONDS.items()),
+                   key=lambda item: (int(item[1][0].split()[0]), item[0]))
+    return (f"phase seconds (share of the total; {SIDE_BY_SIDE} ran beside 13 (b)): "
+            + ", ".join(f"{name} {secs:.1f} s ({100 * secs / total:.1f} %)"
+                        for _, (name, secs) in order))
+
+
+def beside(label: str, phase: str, *args):
+    """Start phase function ``phase(torch, dev, *args)`` (``args`` begin
+    with ``smi`` and the kernel report) in a process of its own, a fresh
+    interpreter on the same card, and return at once: ``(process, its end of
+    the result pipe, phase)``; :func:`join_beside` collects it.  Launch
+    counts are per process, so each phase still counts its own launches
+    from 0; the kernels are loaded from the libraries phase 1 built."""
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=run_beside, args=(send, label, phase, args), daemon=True)
+    proc.start()
+    send.close()  # the child's end: its exit then ends our recv
+    return proc, recv, phase
+
+
+def run_beside(send, label: str, phase: str, args) -> None:
+    """The body of a ``beside`` process: run the phase on the card with
+    every log line labelled, then send its ``add_launches`` calls and phase
+    seconds back.  A failed check exits non-zero, as in the main process."""
+    global BESIDE, LAUNCH_LOG
+    import torch
+
+    BESIDE, LAUNCH_LOG = label, []
+    report = args[1]
+    entries = len(report)
+    globals()[phase](torch, torch.device(DEVICE), *args)
+    if len(report) != entries:
+        fail(f"{phase} added a kernel report entry in a process beside the main one")
+    send.send({"launches": LAUNCH_LOG, "seconds": PHASE_SECONDS})
+    send.close()
+
+
+def join_beside(started, report) -> float:
+    """Wait for every ``beside`` process, fail if one failed, and replay
+    its launches into ``report``; returns the seconds waited."""
+    global BESIDE
+    t0 = time.perf_counter()
+    for proc, recv, phase in started:
+        try:
+            got = recv.recv()
+        except EOFError:
+            got = None
+        proc.join()
+        if got is None or proc.exitcode:
+            fail(f"{phase}, run beside the main process, failed (exit code {proc.exitcode})")
+        for name, path, n in got["launches"]:
+            add_launches(report, name, path, n)
+        PHASE_SECONDS.update(got["seconds"])
+    BESIDE = ""
+    return time.perf_counter() - t0
+
+
+#: Every input stream built so far in this process: {(builder, args): value}.
+INPUTS: dict = {}
+
+
+def inputs(builder, *args):
+    """``builder(*args)``, built once per process and handed out fresh: each
+    call gets its own lists (and numpy arrays), so a phase that consumes,
+    slices or reorders what it was given leaves the stream as built for the
+    next.  The records themselves are shared; no processor changes one
+    (``tests/test_torch_chip_smoke_inputs.py``)."""
+    key = (builder.__name__, args)
+    if key not in INPUTS:
+        INPUTS[key] = builder(*args)
+    return _fresh(INPUTS[key])
+
+
+def _fresh(x):
+    if type(x) in (list, tuple):
+        return type(x)(_fresh(v) for v in x)
+    if isinstance(x, np.ndarray):
+        return x.copy()
+    return x
 
 
 def stock_pattern(Query):
@@ -953,19 +1102,37 @@ def placement_text(alt) -> str:
             False: "pointer rows in device memory too"}[alt]
 
 
-def walk_parity_arrays(walk_inputs, made: dict, name: str, hot: int):
+def random_parity_arrays(name: str, hot: int):
     """The random walk-pass inputs of ``WALK_PARITY[name]`` with ``hot`` hot
-    rows, at the config's most lanes, as numpy arrays: made once (seeded by
-    the lane count) and kept in ``made``, so that every mode and lane count
-    that reads them shares them."""
-    if (name, hot) not in made:
-        E, MP, D, _, R, H, _ = WALK_PARITY[name]
+    rows, seeded by the config's most lanes, before tiling (host work only:
+    phase 1 has them made in worker processes while nvcc runs)."""
+    from kafkastreams_cep_tpu_torch.ops import walk_inputs
+
+    E, MP, D, _, R, H, _ = WALK_PARITY[name]
+    K = max(WALK_PARITY_LANES.get(name, PARITY_LANES))
+    n = min(K, WALK_PARITY_TILE.get(name, K))
+    return walk_inputs.random_inputs(K, n, E, MP, D, R, H, hot_entries=hot)
+
+
+def parity_arrays_started(pool) -> dict:
+    """Every ``(name, hot)`` input set the walk-pass parity cases read,
+    submitted to ``pool``: ``{(name, hot): future}``."""
+    return {(name, hot): pool.submit(random_parity_arrays, name, hot)
+            for name, cfg in WALK_PARITY.items() for hot in (0, cfg[-1])}
+
+
+def walk_parity_arrays(made: dict, name: str, hot: int):
+    """The random walk-pass inputs of ``WALK_PARITY[name]`` with ``hot`` hot
+    rows, at the config's most lanes, as numpy arrays: ``made`` holds each
+    as its worker's future until first read, then tiled, so that every mode
+    and lane count that reads them shares them."""
+    arrs = made[name, hot]
+    if not isinstance(arrs, dict):
         K = max(WALK_PARITY_LANES.get(name, PARITY_LANES))
-        n = min(K, WALK_PARITY_TILE.get(name, K))
-        arrs = walk_inputs.random_inputs(K, n, E, MP, D, R, H, hot_entries=hot)
-        reps = -(-K // n)
-        made[name, hot] = {f: np.concatenate([a] * reps)[:K] for f, a in arrs.items()}
-    return made[name, hot]
+        reps = -(-K // min(K, WALK_PARITY_TILE.get(name, K)))
+        made[name, hot] = arrs = {f: np.concatenate([a] * reps)[:K]
+                                  for f, a in arrs.result().items()}
+    return arrs
 
 
 def first_lanes(x, K: int):
@@ -1027,7 +1194,7 @@ def mode_parity(torch, kern, walk_kernel, walk_inputs, dev, max_err, made):
                     mode = walk_kernel.mode_name(hot, S, drain, walk_kernel.is_wide(MP, D))
                     Ks = WALK_PARITY_LANES.get(name, PARITY_LANES)
                     slab, wk, puts, ev_off = walk_inputs.as_tensors(
-                        walk_parity_arrays(walk_inputs, made, name, hot), dev, stage_hops=S)
+                        walk_parity_arrays(made, name, hot), dev, stage_hops=S)
                     PW = wk[0].shape[1]
                     kw = dict(put_ops=puts, ev_off=ev_off, hot_entries=hot, drain=drain)
                     rows = (PW - R, R)
@@ -1329,7 +1496,7 @@ def tiered_phase(torch, dev, smi, log_entry, scan_bound, hybrid_src, tier_src,
                   tier_err.get(mode, 0),
                   skern.geometry(tier_src, tk.matcher.config, st.engine, tiered=True))
         del tk, st, eng_out, out
-    log(f"tiered phase: {time.perf_counter() - t8:.1f} s")
+    log(f"tiered phase: {phase_done('8 tiered', t8):.1f} s")
 
 
 def bank_phase(torch, dev, smi, report, records, name_of):
@@ -1638,7 +1805,7 @@ def bank_phase(torch, dev, smi, report, records, name_of):
         "timed_on": f"the stacked cell's step {T // 2}, {N} queries x {Kq} lanes",
         "geometry": bank_geo,
     })
-    log(f"bank phase: {time.perf_counter() - t9:.1f} s")
+    log(f"bank phase: {phase_done('9 banks', t9):.1f} s")
 
 
 def spike_inputs(torch, seed, dev, shape=(32, 128, 16, 4, 6)):
@@ -1657,6 +1824,7 @@ def spike_phase(torch, dev, smi, report):
     seeds 0, 1 and 2 and timed beside its bound."""
     from kafkastreams_cep_tpu_torch.ops import spike_kernel as sk
 
+    t10 = time.perf_counter()
     kern = sk.spike_kernel
     ev, stage, pver = spike_inputs(torch, 0, dev)
     kern.launches = 0
@@ -1695,6 +1863,7 @@ def spike_phase(torch, dev, smi, report):
         "bound_by": bound_by, "library_ms": None,
         "timed_on": "spike_pallas.py: main's inputs (seed 0), T=32, L=128",
     })
+    log(f"spike phase: {phase_done('10 spike', t10):.1f} s")
 
 
 def canon_stream(matches):
@@ -1719,6 +1888,15 @@ def processor_stream(K: int, T: int):
     return keys, prices, volumes
 
 
+def processor_records(Record, K: int, T: int, b: int):
+    """``processor_stream(K, T)``'s columns as batch ``b`` of ``Record``s:
+    timestamps ``b * K * T + i``."""
+    keys, prices, volumes = processor_stream(K, T)
+    t0 = b * K * T
+    return [Record(k, {"price": p, "volume": v}, t0 + i) for i, (k, p, v) in
+            enumerate(zip(keys.tolist(), prices.tolist(), volumes.tolist()))]
+
+
 def ooo_trace(Record, K: int, n_batches: int):
     """``bench.py: bench_ooo``'s trace (bench.py:2528): seed 17, distinct
     event times 2 ms apart, stock values; in order and as its bounded-skew
@@ -1735,6 +1913,27 @@ def ooo_trace(Record, K: int, n_batches: int):
     return recs, [recs[i] for i in np.argsort(skew, kind="stable")]
 
 
+def kernels():
+    """The walk-pass (B1) and whole-scan (B2, B3) kernel wrappers, whose
+    launch counts every phase reads."""
+    from kafkastreams_cep_tpu_torch.ops import scan_kernel, walk_kernel
+
+    return walk_kernel.walk_pass_kernel, scan_kernel.scan_pass_kernel
+
+
+def reset_counts() -> None:
+    for k in kernels():
+        k.reset_counts()
+
+
+def launched() -> dict:
+    """The launches since ``reset_counts``, by report entry name."""
+    kern, skern = kernels()
+    return ({(f"walk_pass[{m}]" if m != "default" else "walk_pass"): c
+             for m, c in kern.launches_by_mode.items() if c}
+            | {f"scan_pass[{m}]": c for m, c in skern.launches_by_mode.items() if c})
+
+
 #: Main-path launches of the wide instances made before phase 13, which
 #: times them and writes their report entries: {name: {path: launches}}.
 WIDE_LAUNCHES: dict = {}
@@ -1743,6 +1942,8 @@ WIDE_LAUNCHES: dict = {}
 def add_launches(report, name: str, path: str, n: int) -> None:
     """Add a new path's launches of one kernel instance to its report entry
     (a wide instance's wait for phase 13's entry)."""
+    if LAUNCH_LOG is not None:
+        LAUNCH_LOG.append((name, path, n))
     entry = next((e for e in report if e["name"] == name), None)
     if entry is None and "wide" in name:
         by = WIDE_LAUNCHES.setdefault(name, {})
@@ -1903,8 +2104,7 @@ def ingest_phase(torch, dev, smi, report):
     if not first or not rest:
         fail("ingest: the columnar headline found no match")
     rec_proc = processor(stock_pattern(Query), HEADLINE, epoch=0)
-    records = [Record(k, {"price": p, "volume": v}, t) for k, p, v, t in
-               zip(keys.tolist(), prices.tolist(), volumes.tolist(), range(N))]
+    records = inputs(processor_records, Record, K, T, 0)
     kern.reset_counts()
     t0 = time.perf_counter()
     rec_first = canon_stream(rec_proc.process(records))
@@ -2030,7 +2230,7 @@ def ingest_phase(torch, dev, smi, report):
     # (e) the ingest guard -----------------------------------------------------
     policy = IngestPolicy(grace_ms=OOO_GRACE)
     for keys_n, n_batches in OOO_CELLS:
-        in_order, shuffled = ooo_trace(Record, keys_n, n_batches)
+        in_order, shuffled = inputs(ooo_trace, Record, keys_n, n_batches)
         B = OOO_BATCH
 
         def guarded(recs, pol, upto=None, proc=None, start=0):
@@ -2087,7 +2287,7 @@ def ingest_phase(torch, dev, smi, report):
             + ", ".join(f"{n} {r:,.0f}" for n, r in rates.items())
             + f"; checkpoint after batch {half} with {held} records held, restored on the "
             f"card, finishes equal; {guard_l} B1 launches [{smi}]")
-    log(f"ingest phase: {time.perf_counter() - t11:.1f} s")
+    log(f"ingest phase: {phase_done('11 ingest', t11):.1f} s")
 
 
 def staircase_columns(K: int, cycles: int, cyc_len: int = 24):
@@ -2151,77 +2351,25 @@ def shape_of(cfg) -> str:
             f"MP={cfg.slab_preds} D={cfg.dewey_depth} W={cfg.max_walk} HB={cfg.handle_ring}")
 
 
-def surgery_phase(torch, dev, smi, report, records, name_of):
-    """Phase 12: capacity, state surgery and the last engine switches.
-
-    (a0) ``autosize`` from the headline config on bench_processor's first two
-    column batches, with no kernel-bound error: the config it reaches, whose
-    probe shows every capacity counter 0, or autosize's own ceiling, logged; (a) ``autosize`` on bench_lossfree's
-    sample (the staircase, 128 lanes x 768 steps) from the headline config,
-    then ``probe`` of the config it reached, every capacity counter 0 (B1 on
-    every probe step); (b) a processor on that config over two 128-step
-    batches of the staircase at K=4096, loss-free, migrated to a config with
-    R, E, MP, D and W grown, two more batches: its stream and counters equal
-    a processor on the wide config from the start, whose state at the
-    migration point equals the widened one through ``canonical_state``; per
-    step (B1) and with ``CEP_SCAN_KERNEL=1`` (B2); (c) a processor on the
-    capacity-bound headline config keeps its counters across a migration;
-    (d) ``plan_rebalance`` of that processor's per-lane hops over 4 blocks
-    and ``move_lanes``: the same matches, counters and permuted canonical
-    state one batch on; (e) ``replan_processor`` of the tiered cell's
-    processor under ``CEP_SCAN_KERNEL=1`` (B3): the same stream; (f)
-    ``walker_budget=4`` equal to budget 1 bit for bit on the headline per
-    step and the lazy path with a drain, no collisions, the same B1
-    launches; (g) ``sequential_slab`` on the stock demo and a K=37 random
-    batch: no kernel launched, matches and counters (but ``slab_missing``)
-    equal the batched path; then the lazy sequential matcher on that batch,
-    whose steps launch nothing and whose drain is one B1 launch equal to the
-    plain drain and to the batched path's drain; (h) ``StencilMatcher`` at bench_stencil's shape
-    equal to one B2 whole scan of the same query, with its events/s."""
-    from kafkastreams_cep_tpu_torch import BatchMatcher, CEPProcessor, EngineConfig, Query
+def autosize_phase(torch, dev, smi, report):
+    """Phase 12 (a0): ``autosize`` from the headline config on
+    bench_processor's first two column batches, with no kernel-bound error:
+    the config it reaches, whose probe shows every capacity counter 0, or
+    autosize's own ceiling, logged; the wide instance the reached config
+    runs, timed on the sample's real inputs (its report entry)."""
+    from kafkastreams_cep_tpu_torch import BatchMatcher, EngineConfig, Query
     from kafkastreams_cep_tpu_torch.engine import EventBatch, capacity_counters, sizing
-    from kafkastreams_cep_tpu_torch.engine.matcher import build_drain, step_events
-    from kafkastreams_cep_tpu_torch.engine.stencil import StencilMatcher
-    from kafkastreams_cep_tpu_torch.ops import scan_kernel, walk_kernel
-    from kafkastreams_cep_tpu_torch.runtime import (
-        migrate_processor, move_lanes, plan_rebalance, repartition_state, widen_state,
-    )
-    from kafkastreams_cep_tpu_torch.runtime.migrate import canonical_state, replan_processor
+    from kafkastreams_cep_tpu_torch.engine.matcher import step_events
 
-    kern, skern = walk_kernel.walk_pass_kernel, scan_kernel.scan_pass_kernel
-    t12 = time.perf_counter()
+    t0_phase = time.perf_counter()
     K, T, N = SURGERY_LANES, SURGERY_STEPS, SURGERY_LANES * SURGERY_STEPS
-    keys, prices, volumes = processor_stream(K, T)
-    values = {"price": prices, "volume": volumes}
+    _, prices, volumes = processor_stream(K, T)
     pattern = stock_pattern(Query)
     i32 = torch.int32
-
-    def reset():
-        kern.reset_counts()
-        skern.reset_counts()
-
-    def launched():
-        return ({(f"walk_pass[{m}]" if m != "default" else "walk_pass"): c
-                 for m, c in kern.launches_by_mode.items() if c}
-                | {f"scan_pass[{m}]": c for m, c in skern.launches_by_mode.items() if c})
 
     def record(path, launches):
         for name, n in launches.items():
             add_launches(report, name, path, n)
-
-    def lossless(counters):
-        return not any(capacity_counters(counters).values()) and not counters["walk_collisions"]
-
-    def feed(proc, b):
-        return proc.process_columns(keys, values, b * N + np.arange(N, dtype=np.int64))
-
-    def with_scan(scan, fn):
-        if scan:
-            os.environ["CEP_SCAN_KERNEL"] = "1"
-        try:
-            return fn()
-        finally:
-            os.environ.pop("CEP_SCAN_KERNEL", None)
 
     # (a0) bench_processor's columns: autosize, whatever it reaches -----------
     S = SURGERY_SAMPLE
@@ -2243,7 +2391,7 @@ def surgery_phase(torch, dev, smi, report, records, name_of):
         return real_probe(*a, **kw)
 
     sizing.probe = counting_probe
-    reset()
+    reset_counts()
     t0 = time.perf_counter()
     stopped, reached = None, None
     try:
@@ -2281,12 +2429,81 @@ def surgery_phase(torch, dev, smi, report, records, name_of):
                         f"the autosized config ({shape_of(reached)}) at step {T} of its "
                         f"sample, K={K}", {}, {}, smi)
         del abm, mid
+    log(f"surgery phase (a0): {phase_done('12 surgery (a0)', t0_phase):.1f} s")
+
+
+def surgery_phase(torch, dev, smi, report, records, name_of):
+    """Phase 12 (a)-(h): capacity, state surgery and the last engine switches
+    (phase 12 (a0), with its timed wide instance, is :func:`autosize_phase`).
+
+    (a) ``autosize`` on bench_lossfree's
+    sample (the staircase, 128 lanes x 768 steps) from the headline config,
+    then ``probe`` of the config it reached, every capacity counter 0 (B1 on
+    every probe step); (b) a processor on that config over two 128-step
+    batches of the staircase at K=4096, loss-free, migrated to a config with
+    R, E, MP, D and W grown, two more batches: its stream and counters equal
+    a processor on the wide config from the start, whose state at the
+    migration point equals the widened one through ``canonical_state``; per
+    step (B1) and with ``CEP_SCAN_KERNEL=1`` (B2); (c) a processor on the
+    capacity-bound headline config keeps its counters across a migration;
+    (d) ``plan_rebalance`` of that processor's per-lane hops over 4 blocks
+    and ``move_lanes``: the same matches, counters and permuted canonical
+    state one batch on; (e) ``replan_processor`` of the tiered cell's
+    processor under ``CEP_SCAN_KERNEL=1`` (B3): the same stream; (f)
+    ``walker_budget=4`` equal to budget 1 bit for bit on the headline per
+    step and the lazy path with a drain, no collisions, the same B1
+    launches; (g) ``sequential_slab`` on the stock demo and a K=37 random
+    batch: no kernel launched, matches and counters (but ``slab_missing``)
+    equal the batched path; then the lazy sequential matcher on that batch,
+    whose steps launch nothing and whose drain is one B1 launch equal to the
+    plain drain and to the batched path's drain; (h) ``StencilMatcher`` at bench_stencil's shape
+    equal to one B2 whole scan of the same query, with its events/s."""
+    from kafkastreams_cep_tpu_torch import BatchMatcher, CEPProcessor, EngineConfig, Query
+    from kafkastreams_cep_tpu_torch.engine import EventBatch, capacity_counters, sizing
+    from kafkastreams_cep_tpu_torch.engine.matcher import build_drain
+    from kafkastreams_cep_tpu_torch.engine.stencil import StencilMatcher
+    from kafkastreams_cep_tpu_torch.ops import walk_kernel
+    from kafkastreams_cep_tpu_torch.runtime import (
+        migrate_processor, move_lanes, plan_rebalance, repartition_state, widen_state,
+    )
+    from kafkastreams_cep_tpu_torch.runtime.migrate import canonical_state, replan_processor
+
+    t12 = time.perf_counter()
+    K, T, N = SURGERY_LANES, SURGERY_STEPS, SURGERY_LANES * SURGERY_STEPS
+    keys, prices, volumes = processor_stream(K, T)
+    values = {"price": prices, "volume": volumes}
+    pattern = stock_pattern(Query)
+    i32 = torch.int32
+
+    def record(path, launches):
+        for name, n in launches.items():
+            add_launches(report, name, path, n)
+
+    def lossless(counters):
+        return not any(capacity_counters(counters).values()) and not counters["walk_collisions"]
+
+    def feed(proc, b):
+        return proc.process_columns(keys, values, b * N + np.arange(N, dtype=np.int64))
+
+    def with_scan(scan, fn):
+        if scan:
+            os.environ["CEP_SCAN_KERNEL"] = "1"
+        try:
+            return fn()
+        finally:
+            os.environ.pop("CEP_SCAN_KERNEL", None)
+
+    probes = []
+    real_probe = sizing.probe
+
+    def counting_probe(*a, **kw):
+        probes.append(a[2] if len(a) > 2 else kw["config"])
+        return real_probe(*a, **kw)
 
     # (a) bench_lossfree's autosize: the staircase sample, from the headline config
     stair = staircase_batch(torch, EventBatch, STAIR_SAMPLE_LANES, STAIR_CYCLES, dev)
-    probes.clear()
     sizing.probe = counting_probe
-    reset()
+    reset_counts()
     t0 = time.perf_counter()
     try:
         cfg = sizing.autosize(pattern, stair, start=EngineConfig(**HEADLINE), device=dev)
@@ -2295,7 +2512,7 @@ def surgery_phase(torch, dev, smi, report, records, name_of):
     torch.cuda.synchronize()
     auto_s = time.perf_counter() - t0
     auto_l = launched()
-    reset()
+    reset_counts()
     t0 = time.perf_counter()
     rep = sizing.probe(pattern, stair, cfg, device=dev)
     probe_s = time.perf_counter() - t0
@@ -2334,7 +2551,7 @@ def surgery_phase(torch, dev, smi, report, records, name_of):
 
     def live(scan):
         label = "whole scan" if scan else "per step"
-        reset()
+        reset_counts()
         narrow = proc_on(cfg, scan)
         head = stair_feed(narrow, 0) + stair_feed(narrow, 1) + narrow.flush()
         if not lossless(narrow.counters()) or not head:
@@ -2347,10 +2564,10 @@ def surgery_phase(torch, dev, smi, report, records, name_of):
         mig = with_scan(scan, lambda: migrate_processor(pattern, narrow, wide))
         torch.cuda.synchronize()
         mig_s = time.perf_counter() - t0
-        reset()
+        reset_counts()
         tail = stair_feed(mig, 2) + stair_feed(mig, 3) + mig.flush()
         l_mig = launched()
-        reset()
+        reset_counts()
         wp = proc_on(wide, scan)
         w_head = stair_feed(wp, 0) + stair_feed(wp, 1) + wp.flush()
         at_migration = trees_equal(canonical_state(wp.state), widened)
@@ -2379,7 +2596,7 @@ def surgery_phase(torch, dev, smi, report, records, name_of):
     live(True)
 
     # (c) no forgiveness: the capacity-bound headline processor -----------------
-    reset()
+    reset_counts()
     hp = CEPProcessor(pattern, K, EngineConfig(**HEADLINE), epoch=0, device=dev)
     feed(hp, 0)
     before = hp.counters()
@@ -2408,10 +2625,10 @@ def surgery_phase(torch, dev, smi, report, records, name_of):
     moved = move_lanes(pattern, hm, perm)
     torch.cuda.synchronize()
     move_s = time.perf_counter() - t0
-    reset()
+    reset_counts()
     out_a = feed(hm, 1) + hm.flush()
     la = launched()
-    reset()
+    reset_counts()
     out_b = feed(moved, 1) + moved.flush()
     lb = launched()
     if canon_sorted(out_a) != canon_sorted(out_b) or hm.counters() != moved.counters():
@@ -2439,10 +2656,10 @@ def surgery_phase(torch, dev, smi, report, records, name_of):
     n_chunks = INGEST_TIER_STEPS // TIER_CHUNK
     a, b = (with_scan(True, lambda: CEPProcessor(tpat, K, tconf, gc_events_interval=1,
                                                  device=dev)) for _ in range(2))
-    reset()
+    reset_counts()
     out_a = [m for c in range(n_chunks) for m in tier_feed(a, c)]
     la = launched()
-    reset()
+    reset_counts()
     out_b = tier_feed(b, 0)
     profile = b.metrics_snapshot()["per_stage"]
     t0 = time.perf_counter()
@@ -2468,7 +2685,7 @@ def surgery_phase(torch, dev, smi, report, records, name_of):
         runs = {}
         for B in (1, 4):
             bm = BatchMatcher(pattern, K, EngineConfig(**conf, walker_budget=B), device=dev)
-            reset()
+            reset_counts()
             st, out = bm.scan(bm.init_state(), ev)
             if drain:
                 st, dout = bm.drain(st)
@@ -2488,7 +2705,7 @@ def surgery_phase(torch, dev, smi, report, records, name_of):
             f"walk_collisions 0); launches {runs[4][3]} each")
 
     # (g) sequential_slab: no kernel in the step, the batched path's matches ---
-    reset()
+    reset_counts()
     proc = CEPProcessor(pattern, num_lanes=1, config=EngineConfig(**DEMO, sequential_slab=True),
                         topic="StockEvents", device=dev)
     t0 = time.perf_counter()
@@ -2504,10 +2721,10 @@ def surgery_phase(torch, dev, smi, report, records, name_of):
     bat = BatchMatcher(skip_till_any_pattern(Query), SEQ_LANES, EngineConfig(**sconf), device=dev)
     seq = BatchMatcher(skip_till_any_pattern(Query), SEQ_LANES,
                        EngineConfig(**sconf, sequential_slab=True), device=dev)
-    reset()
+    reset_counts()
     (sb, ob), bat_ms = once_ms(torch, lambda: bat.scan(bat.init_state(), sev))
     lb = launched()
-    reset()
+    reset_counts()
     (sq, oq), seq_ms = once_ms(torch, lambda: seq.scan(seq.init_state(), sev))
     lq = launched()
     cb, cq = bat.counters(sb), seq.counters(sq)
@@ -2525,10 +2742,10 @@ def surgery_phase(torch, dev, smi, report, records, name_of):
                         EngineConfig(**lconf, sequential_slab=True), device=dev)
     lbs, _ = lbat.scan(lbat.init_state(), sev)
     lbd = lbat.drain(lbs)
-    reset()
+    reset_counts()
     lqs, _ = lseq.scan(lseq.init_state(), sev)
     l_scan = launched()
-    reset()
+    reset_counts()
     lqd = lseq.drain(lqs)
     torch.cuda.synchronize()
     l_drain = launched()
@@ -2561,7 +2778,7 @@ def surgery_phase(torch, dev, smi, report, records, name_of):
     _, sout = sm.scan(s0, stev)
     nb = with_scan(True, lambda: BatchMatcher(stencil_pattern(Query), KS,
                                               EngineConfig(**STENCIL_NFA), device=dev))
-    reset()
+    reset_counts()
     (nst, nout), nfa_ms = once_ms(torch, lambda: nb.scan(nb.init_state(), stev))
     nl = launched()
     if nl != {"scan_pass[default]": 1} or not lossless(nb.counters(nst)):
@@ -2583,7 +2800,7 @@ def surgery_phase(torch, dev, smi, report, records, name_of):
         f"query ({nfa_ms:.1f} ms, loss-free at {STENCIL_NFA}); stencil {st_ms:.3f} ms a "
         f"scan = {KS * TS / st_ms * 1e3:,.0f} events/s (CUDA events, hit reduction consumed) "
         f"[{smi}]")
-    log(f"surgery phase: {time.perf_counter() - t12:.1f} s")
+    log(f"surgery phase (a)-(h): {phase_done('12 surgery (a)-(h)', t12):.1f} s")
 
 
 def wide_walk_entry(torch, report, phases, state, ev, cfg, timed_on, paths, walk_err, smi):
@@ -2649,8 +2866,9 @@ def resilience_batches(Record, K: int, n: int, n_batches: int):
     return out
 
 
-def supervisor_phase(torch, dev, smi, report, scan_bound, scan_entry, walk_err, scan_err):
-    """Phase 13: the supervisor on the card.
+def recovery_phase(torch, dev, smi, report):
+    """Phase 13 (a) and (c): the supervisor on the card, recovering; (b) is
+    :func:`escalation_phase`.
 
     (a) recovery, exactly once: bench_resilience's generator at K=4096, the
     headline config, SUP_BATCHES batches of SUP_BATCH records,
@@ -2658,48 +2876,23 @@ def supervisor_phase(torch, dev, smi, report, scan_bound, scan_entry, walk_err, 
     ``device.dispatch`` failing once at batch SUP_FAULT_BATCH (one recovery,
     a ``recover`` flight dump read back), and a supervisor dropped after
     batch SUP_CRASH_AFTER and continued by ``Supervisor.resume``: the same
-    matches in the same order, none twice; (b) escalation past 32:
-    ``auto_escalate=EscalationPolicy(max_rounds=8)`` from the headline
-    config over bench_processor's stream as ``Record``s (K=4096, ESC_STEPS
-    steps a batch, at most ESC_BATCHES batches) until an escalation grew
-    ``dewey_depth`` or ``slab_preds`` past 32 and a later batch ran at that
-    width; every batch after the last escalation ends with its capacity
-    counters at 0; a processor at the final config from the start gives
-    the same stream, and its last batch as one whole scan (B2's wide
-    instance) gives the per-step stream; the wide instances timed beside
-    their bound; (c) a ``JsonlTraceSink`` on (a)'s faulted run, the
-    Prometheus text of its supervisor, and one ``torch.profiler`` trace of
-    two supervised batches (kernels seen, the device's busy share)."""
+    matches in the same order, none twice; (c) a ``JsonlTraceSink`` on
+    (a)'s faulted run, the Prometheus text of its supervisor, and one
+    ``torch.profiler`` trace of two supervised batches (kernels seen, the
+    device's busy share).  Returns phase 16's reference: (a)'s batches,
+    fault-free stream and counters."""
     import shutil
     import tempfile
 
-    from kafkastreams_cep_tpu_torch import CEPProcessor, EngineConfig, Query, Record
-    from kafkastreams_cep_tpu_torch.engine import EventBatch, capacity_counters
-    from kafkastreams_cep_tpu_torch.engine.matcher import step_events
-    from kafkastreams_cep_tpu_torch.engine.sizing import EscalationPolicy
-    from kafkastreams_cep_tpu_torch.ops import scan_codegen, scan_kernel, walk_kernel
-    from kafkastreams_cep_tpu_torch.runtime import (
-        FlightRecorder, Supervisor, move_lanes, read_dump,
-    )
+    from kafkastreams_cep_tpu_torch import EngineConfig, Query, Record
+    from kafkastreams_cep_tpu_torch.runtime import FlightRecorder, Supervisor, read_dump
     from kafkastreams_cep_tpu_torch.utils import failpoints, metrics
-    from kafkastreams_cep_tpu_torch.utils.telemetry import (
-        InMemoryTraceSink, JsonlTraceSink, render_prometheus,
-    )
+    from kafkastreams_cep_tpu_torch.utils.telemetry import JsonlTraceSink, render_prometheus
 
-    kern, skern = walk_kernel.walk_pass_kernel, scan_kernel.scan_pass_kernel
     t13 = time.perf_counter()
     work = tempfile.mkdtemp(prefix="cep_supervisor_")
     pattern = stock_pattern(Query)
     K = SUP_LANES
-
-    def reset():
-        kern.reset_counts()
-        skern.reset_counts()
-
-    def launched():
-        return ({(f"walk_pass[{m}]" if m != "default" else "walk_pass"): c
-                 for m, c in kern.launches_by_mode.items() if c}
-                | {f"scan_pass[{m}]": c for m, c in skern.launches_by_mode.items() if c})
 
     def supervised(tag, **kw):
         return Supervisor(pattern, K, EngineConfig(**HEADLINE), epoch=0, device=dev,
@@ -2708,11 +2901,13 @@ def supervisor_phase(torch, dev, smi, report, scan_bound, scan_entry, walk_err, 
 
     try:
         # (a) recovery, exactly once ----------------------------------------
-        batches = resilience_batches(Record, K, SUP_BATCH, SUP_BATCHES)
+        # (c)'s two profiled batches come after these: one stream of
+        # SUP_BATCHES + 2 batches.
+        batches = inputs(resilience_batches, Record, K, SUP_BATCH, SUP_BATCHES + 2)[:SUP_BATCHES]
         runs, a_launches = {}, {}
 
         def run(label, fn):
-            reset()
+            reset_counts()
             t0 = time.perf_counter()
             out, sup = fn()
             torch.cuda.synchronize()
@@ -2802,7 +2997,7 @@ def supervisor_phase(torch, dev, smi, report, scan_bound, scan_entry, walk_err, 
             f"recover {phases['recover']['sum']:.3f} s [{smi}]")
 
         # (c) one torch.profiler trace of two supervised batches.
-        extra = resilience_batches(Record, K, SUP_BATCH, SUP_BATCHES + 2)[SUP_BATCHES:]
+        extra = inputs(resilience_batches, Record, K, SUP_BATCH, SUP_BATCHES + 2)[SUP_BATCHES:]
         torch.cuda.synchronize()
         with metrics.profile(os.path.join(work, "profile")) as prof:
             for b in extra:
@@ -2816,23 +3011,62 @@ def supervisor_phase(torch, dev, smi, report, scan_bound, scan_entry, walk_err, 
                 f"({100 * busy / span_us:.1f} %)" if span_us and kernels else
                 "no device time in the trace") + f" [{smi}]")
         del clean, fsup, rsup, batches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"supervisor phase (a), (c): {phase_done('13 supervisor (a), (c)', t13):.1f} s")
+    return mesh_ref
 
+
+def escalation_phase(torch, dev, smi, report, scan_bound, scan_entry, walk_err, scan_err,
+                     before_timing=None):
+    """Phase 13 (b): escalation past 32 on the card.
+
+    ``auto_escalate=EscalationPolicy(max_rounds=8)`` from the headline
+    config over bench_processor's stream as ``Record``s (K=4096, ESC_STEPS
+    steps a batch, at most ESC_BATCHES batches) until an escalation grew
+    ``dewey_depth`` or ``slab_preds`` past 32 and a later batch ran at that
+    width; every batch after the last escalation ends with its capacity
+    counters at 0; a processor at the final config from the start gives
+    the same stream, and its last batch as one whole scan (B2's wide
+    instance) gives the per-step stream; the wide instances timed beside
+    their bound.  ``before_timing()``, when given, runs just before the wide
+    instances are timed and returns the seconds it waited (the phases
+    beside this one end there), which the phase's seconds leave out."""
+    import shutil
+    import tempfile
+
+    from kafkastreams_cep_tpu_torch import CEPProcessor, EngineConfig, Query, Record
+    from kafkastreams_cep_tpu_torch.engine import EventBatch, capacity_counters
+    from kafkastreams_cep_tpu_torch.engine.matcher import step_events
+    from kafkastreams_cep_tpu_torch.engine.sizing import EscalationPolicy
+    from kafkastreams_cep_tpu_torch.ops import scan_codegen, scan_kernel, walk_kernel
+    from kafkastreams_cep_tpu_torch.runtime import Supervisor, move_lanes
+    from kafkastreams_cep_tpu_torch.utils.telemetry import InMemoryTraceSink
+
+    skern = scan_kernel.scan_pass_kernel
+    t13 = time.perf_counter()
+    waited = 0.0
+    work = tempfile.mkdtemp(prefix="cep_escalation_")
+    pattern = stock_pattern(Query)
+    K = SUP_LANES
+
+    def supervised(tag, **kw):
+        return Supervisor(pattern, K, EngineConfig(**HEADLINE), epoch=0, device=dev,
+                          checkpoint_path=os.path.join(work, f"{tag}.ckpt"),
+                          journal_path=os.path.join(work, f"{tag}.jrnl"), **kw)
+
+    try:
         # (b) escalation past 32 --------------------------------------------
         T, N = ESC_STEPS, K * ESC_STEPS
-        ckeys, prices, volumes = processor_stream(K, T)
-
-        def esc_batch(b):
-            return [Record(int(ckeys[i]), {"price": int(prices[i]), "volume": int(volumes[i])},
-                           b * N + i) for i in range(N)]
-
+        _, prices, volumes = processor_stream(K, T)
         sink = InMemoryTraceSink()
-        reset()
+        reset_counts()
         sup = supervised("esc", checkpoint_every=16, trace_sink=sink,
                          auto_escalate=EscalationPolicy(max_rounds=ESC_ROUNDS))
         streams, after_counters, wide_at, b_batches, escalated = [], [], None, [], []
         t0 = time.perf_counter()
         for b in range(ESC_BATCHES):
-            recs = esc_batch(b)
+            recs = inputs(processor_records, Record, K, T, b)
             b_batches.append(recs)
             before = sup.escalations
             streams.append(canon_stream(sup.process(recs)))
@@ -2884,7 +3118,7 @@ def supervisor_phase(torch, dev, smi, report, scan_bound, scan_entry, walk_err, 
         if not sproc.uses_scan_kernel:
             fail("supervisor (b): CEP_SCAN_KERNEL=1 but the rebuilt processor does not scan")
         state_before = wproc.state
-        reset()
+        reset_counts()
         scanned = canon_stream(sproc.process(b_batches[-1]))
         torch.cuda.synchronize()
         rescan = launched()
@@ -2902,7 +3136,9 @@ def supervisor_phase(torch, dev, smi, report, scan_bound, scan_entry, walk_err, 
             f"supervised stream ({sum(map(len, want))} matches), and its last batch as one "
             f"whole scan (scan_pass[{scan_mode}]) the per-step one [{smi}]")
 
-        # The wide instances on this stream's real inputs, beside their bound.
+        # The wide instances on this stream's real inputs, beside their bound,
+        # timed with the card to this process alone.
+        waited = before_timing() if before_timing is not None else 0.0
         ph = wproc.batch.phases
         nb = len(b_batches)
         i32 = torch.int32
@@ -2943,8 +3179,8 @@ def supervisor_phase(torch, dev, smi, report, scan_bound, scan_entry, walk_err, 
                  f"{WIDE_LAUNCHES}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    log(f"supervisor phase: {time.perf_counter() - t13:.1f} s")
-    return mesh_ref
+    log(f"supervisor phase (b): {phase_done('13 supervisor (b)', t13 + waited):.1f} s, and "
+        f"{waited:.1f} s waiting for the phases beside it")
 
 
 def planted_letters(rng, T: int, plant: float, body, noise):
@@ -3033,7 +3269,6 @@ def tenant_phase(torch, dev, smi, report):
 
     from kafkastreams_cep_tpu_torch import CEPProcessor, EngineConfig, OracleNFA, Query, Record
     from kafkastreams_cep_tpu_torch.engine import capacity_counters
-    from kafkastreams_cep_tpu_torch.ops import scan_kernel, walk_kernel
     from kafkastreams_cep_tpu_torch.runtime import (
         AdmissionPolicy, CEPBank, TenantCEP, TenantSupervisor, restore_tenant,
         save_tenant_checkpoint,
@@ -3041,19 +3276,9 @@ def tenant_phase(torch, dev, smi, report):
     from kafkastreams_cep_tpu_torch.utils import failpoints
     from kafkastreams_cep_tpu_torch.utils.latency import SEGMENTS, LatencyLedger
 
-    kern, skern = walk_kernel.walk_pass_kernel, scan_kernel.scan_pass_kernel
     t14 = time.perf_counter()
     work = tempfile.mkdtemp(prefix="cep_tenant_")
     section = {}
-
-    def reset():
-        kern.reset_counts()
-        skern.reset_counts()
-
-    def launched():
-        return ({(f"walk_pass[{m}]" if m != "default" else "walk_pass"): c
-                 for m, c in kern.launches_by_mode.items() if c}
-                | {f"scan_pass[{m}]": c for m, c in skern.launches_by_mode.items() if c})
 
     def record(path, launches, bank=False):
         """Add one path's launches to the kernel report; a bank caller's
@@ -3078,7 +3303,7 @@ def tenant_phase(torch, dev, smi, report):
             recs = [Record(k, vals[k][t], 3 * t) for t in range(T) for k in range(K)]
             proc = CEPProcessor(build(Query), K, EngineConfig(**ORACLE_CFG), epoch=0,
                                 device=dev)
-            reset()
+            reset_counts()
             got = proc.process(recs)
             torch.cuda.synchronize()
             for path_name, n in launched().items():
@@ -3113,7 +3338,7 @@ def tenant_phase(torch, dev, smi, report):
 
         hb = BatchMatcher(stock_pattern(Query), LANES, EngineConfig(**HEADLINE), device=dev)
         events = make_batch(torch, EventBatch, LANES, STEPS, 42, dev)
-        reset()
+        reset_counts()
         _, hout = hb.scan(hb.init_state(), events)
         torch.cuda.synchronize()
         record("oracle_recall_headline", launched())
@@ -3181,7 +3406,7 @@ def tenant_phase(torch, dev, smi, report):
                 os.environ.pop("CEP_SCAN_KERNEL", None)
             if proc.uses_scan_kernel != scan:
                 fail(f"tenant (b): uses_scan_kernel {proc.uses_scan_kernel}, want {scan}")
-            reset()
+            reset_counts()
             out, ledgers = [], []
             for b in range(2):
                 out += proc.process_columns(keys, values, b * N + np.arange(N, dtype=np.int64))
@@ -3241,13 +3466,13 @@ def tenant_phase(torch, dev, smi, report):
 
         cfg = EngineConfig(**MIXED_CFG)
         bank = CEPBank(patterns(), K, cfg, device=dev)
-        reset()
+        reset_counts()
         want = [sorted(tstream(bank.process(b)), key=lambda m: names.index(m[0]))
                 for b in batches]
         torch.cuda.synchronize()
         record("tenant_cepbank", launched())
         tenant = TenantCEP(patterns(), K, cfg, device=dev)
-        reset()
+        reset_counts()
         t1 = time.perf_counter()
         got = [tstream(tenant.process(b)) for b in batches]
         torch.cuda.synchronize()
@@ -3276,7 +3501,7 @@ def tenant_phase(torch, dev, smi, report):
             f"host wall), launches {c1_l} [{smi}]")
         # (c2) checkpoint after batch 1, restore on the card.
         t2 = TenantCEP(patterns(), K, cfg, device=dev)
-        reset()
+        reset_counts()
         t2.process(batches[0])
         path = os.path.join(work, "tenant.ckpt")
         t1 = time.perf_counter()
@@ -3296,7 +3521,7 @@ def tenant_phase(torch, dev, smi, report):
         # (c3) the supervisor with a device.dispatch fault at batch 2.
         sup = TenantSupervisor(patterns(), K, cfg, checkpoint_path=os.path.join(work, "sup.ckpt"),
                                retry_backoff_ms=0.0, device=dev)
-        reset()
+        reset_counts()
         failpoints.FAILPOINTS.arm("device.dispatch", hits=[1])
         try:
             t1 = time.perf_counter()
@@ -3313,7 +3538,7 @@ def tenant_phase(torch, dev, smi, report):
         del sup
         # (c4) quarantine hybrid q1 after batch 1; admission on one flooder.
         qt = TenantCEP(patterns(), K, cfg, device=dev)
-        reset()
+        reset_counts()
         qgot = [tstream(qt.process(batches[0]))]
         qt.quarantine("q1", "manual")
         qgot += [tstream(qt.process(b)) for b in batches[1:]]
@@ -3349,7 +3574,7 @@ def tenant_phase(torch, dev, smi, report):
         t1 = time.perf_counter()
         ct = TenantCEP(cell, Kc, EngineConfig(**TENANT_CFG), device=dev)
         build_s = time.perf_counter() - t1
-        reset()
+        reset_counts()
         rates = []
         for b in range(CELL_BATCHES):
             recs = [Record(k, int(codes[k, t]), b * Tc + t) for t in range(Tc) for k in range(Kc)]
@@ -3383,7 +3608,7 @@ def tenant_phase(torch, dev, smi, report):
                           ("resilient", torch_resilient_pipeline),
                           ("highrate", torch_highrate_pipeline)):
             buf = io.StringIO()
-            reset()
+            reset_counts()
             t1 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
                 ok = mod.main(device=dev)
@@ -3398,12 +3623,9 @@ def tenant_phase(torch, dev, smi, report):
         record("examples", d_launches)
         log(f"tenant (d): the four port examples ran on the card; launches {d_launches}")
         timed_section("d", t0)
-        if WIDE_LAUNCHES:
-            fail(f"wide instances launched on a phase 14 path with no report entry: "
-                 f"{WIDE_LAUNCHES}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    log(f"tenant phase: {time.perf_counter() - t14:.1f} s (" + ", ".join(
+    log(f"tenant phase: {phase_done('14 tenant', t14):.1f} s (" + ", ".join(
         f"({k}) {v:.1f} s" for k, v in section.items()) + ")")
 
 
@@ -3435,7 +3657,8 @@ def start_profilers(work):
     """Every PROFILE_RUNS command as ``python -m
     kafkastreams_cep_tpu_torch.profile name argv --device DEVICE --wait-go``
     from the script's directory, started together and returned at once:
-    each sets itself up and waits for its turn (``profile.start_waiting``)."""
+    each sets itself up and waits for its turn (``profile.start_waiting``),
+    its files under ``work``."""
     from kafkastreams_cep_tpu_torch import profile
 
     return profile.start_waiting(
@@ -3469,8 +3692,8 @@ def finish_profilers(started, smi):
 
 
 def overload_phase(torch, dev, smi, report):
-    """Phase 15: the brownout ladder, the built-program cache and the
-    profiler CLI on the card.
+    """Phase 15 (a) and (b): the brownout ladder and the built-program cache
+    on the card ((c), the profiler CLI, is :func:`profile_phase`).
 
     (a) a ``Supervisor`` with the event-time OVL_POLICY, an ingest guard
     (grace OVL_GRACE ms, depth OVL_DEPTH), a journal and a checkpoint path
@@ -3483,23 +3706,17 @@ def overload_phase(torch, dev, smi, report):
     records on the card, every offered record admitted, shed or
     dead-lettered, every capacity counter 0; (b) the whole-scan processor
     restored from its checkpoint as a recovery does, cold
-    (``CEP_TRACE_CACHE=0``) and warm, with the first whole scan after it;
-    (c) ``python -m kafkastreams_cep_tpu_torch.profile`` PROFILE_RUNS,
-    started together at the phase's start (their set-up overlaps (a) and
-    (b)) and run in turns after (b), each one JSON object, ``phases`` naming
-    B1 and ``latency`` B2 beside their bounds."""
+    (``CEP_TRACE_CACHE=0``) and warm, with the first whole scan after it."""
     import shutil
     import tempfile
 
     from kafkastreams_cep_tpu_torch import CEPProcessor, EngineConfig, Query, Record
     from kafkastreams_cep_tpu_torch.engine import capacity_counters
-    from kafkastreams_cep_tpu_torch.ops import scan_kernel, walk_kernel
     from kafkastreams_cep_tpu_torch.runtime import (
         IngestPolicy, OverloadPolicy, Supervisor, restore_processor,
     )
     from kafkastreams_cep_tpu_torch.utils import tracecache
 
-    kern, skern = walk_kernel.walk_pass_kernel, scan_kernel.scan_pass_kernel
     t15 = time.perf_counter()
     work = tempfile.mkdtemp(prefix="cep_overload_")
     K, cfg = OVL_LANES, EngineConfig(**OVL_CFG)
@@ -3508,15 +3725,6 @@ def overload_phase(torch, dev, smi, report):
     ingest_log = logging.getLogger("kafkastreams_cep_tpu_torch.runtime.ingest")
     ingest_level = ingest_log.level
     ingest_log.setLevel(logging.ERROR)
-
-    def reset():
-        kern.reset_counts()
-        skern.reset_counts()
-
-    def launched():
-        return ({(f"walk_pass[{m}]" if m != "default" else "walk_pass"): c
-                 for m, c in kern.launches_by_mode.items() if c}
-                | {f"scan_pass[{m}]": c for m, c in skern.launches_by_mode.items() if c})
 
     def ingest():
         return IngestPolicy(grace_ms=OVL_GRACE, reorder_depth=OVL_DEPTH,
@@ -3530,15 +3738,10 @@ def overload_phase(torch, dev, smi, report):
         args = (strict3_pattern(Query), K, cfg)
         return Supervisor.resume(*args, **kw) if resume else Supervisor(*args, **kw)
 
-    started = []
     try:
-        # (c)'s profiler processes start now and set themselves up (imports,
-        # the device's context) beside (a) and (b); they wait to measure
-        # until (c) gives each its turn.
-        started = start_profilers(work)
         # (a) the ladder at real size --------------------------------------------
         t0 = time.perf_counter()
-        batches = overload_batches(Record, K, OVL_BATCH)
+        batches = inputs(overload_batches, Record, K, OVL_BATCH)
         offered = sum(len(b) for b in batches)
         log(f"overload (a): {OVL_FLOOD} flood batches of {OVL_BATCH} records and "
             f"{OVL_SUBSIDE} tail records over {K} keys made in "
@@ -3549,7 +3752,7 @@ def overload_phase(torch, dev, smi, report):
             if scan:
                 os.environ["CEP_SCAN_KERNEL"] = "1"
             try:
-                reset()
+                reset_counts()
                 t1 = time.perf_counter()
                 sup = supervised(label)
                 out, levels, secs, crashed = [], [], [], False
@@ -3624,7 +3827,7 @@ def overload_phase(torch, dev, smi, report):
                 add_launches(report, name, f"overload_{label}", n)
         # The admitted subset through an unsupervised processor on the card.
         dead = {(k, o) for k, o, _ in step["dead"]}
-        reset()
+        reset_counts()
         proc = CEPProcessor(strict3_pattern(Query), K, cfg, gc_interval=0, ingest=ingest(),
                             device=dev)
         want = []
@@ -3684,11 +3887,23 @@ def overload_phase(torch, dev, smi, report):
             fail("overload (b): the cold rebuild touched the cache")
         section["b"] = time.perf_counter() - t0
 
-        # (c) the profiler CLI ----------------------------------------------------
+    finally:
+        ingest_log.setLevel(ingest_level)
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"overload phase (a), (b): {phase_done('15 overload (a), (b)', t15):.1f} s (" + ", ".join(
+        f"({k}) {v:.1f} s" for k, v in section.items()) + ")")
+
+
+def profile_phase(torch, smi, report, started):
+    """Phase 15 (c): ``python -m kafkastreams_cep_tpu_torch.profile``
+    PROFILE_RUNS, ``started`` together before phases 11-16 (d) (their set-up
+    overlaps those phases) and run here in turns, with the card to
+    themselves, each one JSON object, ``phases`` naming B1 and ``latency``
+    B2 beside their bounds."""
+    t0 = time.perf_counter()
+    try:
         # Its processes share the card with this one: hand this process's
         # cached blocks back first.
-        t0 = time.perf_counter()
-        del runs, step, whole, proc, want, rproc
         gc.collect()
         torch.cuda.empty_cache()
         log(f"overload (c): this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
@@ -3721,16 +3936,20 @@ def overload_phase(torch, dev, smi, report):
         log(f"profile ablate: {abl['total_ms_per_step']} ms a step; " + ", ".join(
             f"{n} {v['ms_per_step']} ms ({v['share']})" for n, v in abl["breakdown"].items())
             + f" [{smi}]")
-        section["c"] = time.perf_counter() - t0
     finally:
-        for proc, _ in started:  # a failure before (c)'s end leaves them waiting
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
-        ingest_log.setLevel(ingest_level)
-        shutil.rmtree(work, ignore_errors=True)
-    log(f"overload phase: {time.perf_counter() - t15:.1f} s (" + ", ".join(
-        f"({k}) {v:.1f} s" for k, v in section.items()) + ")")
+        stop_profilers(started)
+    log(f"overload phase (c): {phase_done('15 overload (c)', t0):.1f} s")
+
+
+def stop_profilers(started) -> None:
+    """Kill every profiler process still waiting for its turn (after a
+    failure, or ``atexit``) and remove its directory."""
+    for proc, _ in started:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if started:
+        shutil.rmtree(os.path.dirname(started[0][1]), ignore_errors=True)
 
 
 def profile_busy(prof):
@@ -3806,10 +4025,11 @@ def runs_of(values) -> str:
     return ", ".join(out)
 
 
-def mesh_phase(torch, dev, smi, report, head, sup_ref):
-    """Phase 16: the mesh on the card (``parallel/sharding.py``,
-    ``parallel/seqpar.py`` and the mesh halves of the processor, checkpoint,
-    migration and supervisor), MESH_SHARDS lane blocks on this card.
+def mesh_phase(torch, dev, smi, report, head):
+    """Phase 16 (a) and (b): the mesh on the card (``parallel/sharding.py``,
+    ``parallel/seqpar.py``), MESH_SHARDS lane blocks on this card; (c) and
+    (d), the mesh halves of the processor, checkpoint, migration and
+    supervisor, are :func:`mesh_stream_phase`.
 
     (a) the headline (K=4096 x T=256, seed 42) through ``ShardedMatcher``:
     per step (B1 on each shard's 1,024 lanes) and as one whole scan a shard
@@ -3818,30 +4038,13 @@ def mesh_phase(torch, dev, smi, report, head, sup_ref):
     distinct cards too when several are visible; (b) ``TimeShardedStencil``
     at the tiered cell's shape (K=4096 x T=1024) over MESH_SHARDS time
     chunks, equal to ``StencilMatcher`` (hits everywhere, offsets where a
-    match completed); (c) phase 13's bench_resilience stream supervised on
-    the mesh: fault-free, and with ``ShardLost(shard=1)`` at
-    ``shard.dispatch`` on batch MESH_FAULT_BATCH (evacuated 4 -> 2
-    shards: 4,096 lanes do not split 3 ways), dropped after
-    MESH_CRASH_AFTER and resumed onto the two-shard mesh from the pinned
-    checkpoint; both equal phase 13's unmeshed fault-free stream and
-    counters, no match twice; (d) one hot-key rebalance under
-    ``ShardPolicy``'s defaults with every key after a warm-up on shard 0,
-    equal to the unmeshed processor's stream, loss-free (MESH_SKEW_CFG)."""
-    import shutil
-    import tempfile
-
-    from kafkastreams_cep_tpu_torch import CEPProcessor, EngineConfig, Query, Record
-    from kafkastreams_cep_tpu_torch.engine.stencil import StencilMatcher
-    from kafkastreams_cep_tpu_torch.ops import scan_kernel, walk_kernel
-    from kafkastreams_cep_tpu_torch.parallel import (
-        ShardedMatcher, ShardLost, TimeShardedStencil, key_mesh,
-    )
+    match completed)."""
+    from kafkastreams_cep_tpu_torch import EngineConfig, Query
     from kafkastreams_cep_tpu_torch.engine.matcher import EventBatch
-    from kafkastreams_cep_tpu_torch.runtime import ShardPolicy, Supervisor
-    from kafkastreams_cep_tpu_torch.runtime.checkpoint import load_checkpoint
-    from kafkastreams_cep_tpu_torch.utils import failpoints
+    from kafkastreams_cep_tpu_torch.engine.stencil import StencilMatcher
+    from kafkastreams_cep_tpu_torch.parallel import ShardedMatcher, TimeShardedStencil, key_mesh
 
-    kern, skern = walk_kernel.walk_pass_kernel, scan_kernel.scan_pass_kernel
+    kern, skern = kernels()
     t16 = time.perf_counter()
     secs = {}
     n = MESH_SHARDS
@@ -3849,10 +4052,6 @@ def mesh_phase(torch, dev, smi, report, head, sup_ref):
     pattern = stock_pattern(Query)
     mesh = key_mesh([dev] * n)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-
-    def reset():
-        kern.reset_counts()
-        skern.reset_counts()
 
     # (a) the headline on the mesh ---------------------------------------------
     t0 = time.perf_counter()
@@ -3871,7 +4070,7 @@ def mesh_phase(torch, dev, smi, report, head, sup_ref):
             fail(f"mesh (a) {label}: uses_scan_kernel {sm.uses_scan_kernel}, want {scan}")
         st0 = sm.init_state()
         torch.cuda.synchronize()
-        reset()
+        reset_counts()
         start.record()
         st, out = sm.scan(st0, events)
         hits = (out.count > 0).sum()  # a reduction of the outputs, consumed below
@@ -3945,6 +4144,39 @@ def mesh_phase(torch, dev, smi, report, head, sup_ref):
         f"({KS * TS / (sh_ms / 1e3):.3e} events/s) [{smi}]")
     del ev, want, got, hit
     secs["b"] = time.perf_counter() - t0
+    log(f"mesh phase (a), (b): {phase_done('16 mesh (a), (b)', t16):.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in secs.items()) + ")")
+
+
+def mesh_stream_phase(torch, dev, smi, report, sup_ref):
+    """Phase 16 (c) and (d): the mesh halves of the processor, checkpoint,
+    migration and supervisor, MESH_SHARDS lane blocks on this card.
+
+    (c) phase 13's bench_resilience stream (``sup_ref``: its batches,
+    fault-free stream and counters) supervised on the mesh: fault-free, and
+    with ``ShardLost(shard=1)`` at ``shard.dispatch`` on batch
+    MESH_FAULT_BATCH (evacuated 4 -> 2 shards: 4,096 lanes do not split 3
+    ways), dropped after MESH_CRASH_AFTER and resumed onto the two-shard
+    mesh from the pinned checkpoint; both equal phase 13's unmeshed
+    fault-free stream and counters, no match twice; (d) one hot-key
+    rebalance under ``ShardPolicy``'s defaults with every key after a
+    warm-up on shard 0, equal to the unmeshed processor's stream, loss-free
+    (MESH_SKEW_CFG)."""
+    import shutil
+    import tempfile
+
+    from kafkastreams_cep_tpu_torch import CEPProcessor, EngineConfig, Query, Record
+    from kafkastreams_cep_tpu_torch.parallel import ShardLost, key_mesh
+    from kafkastreams_cep_tpu_torch.runtime import ShardPolicy, Supervisor
+    from kafkastreams_cep_tpu_torch.runtime.checkpoint import load_checkpoint
+    from kafkastreams_cep_tpu_torch.utils import failpoints
+
+    kern, skern = kernels()
+    t16 = time.perf_counter()
+    secs = {}
+    n = MESH_SHARDS
+    pattern = stock_pattern(Query)
+    mesh = key_mesh([dev] * n)
 
     # (c) the supervised stream on the mesh ----------------------------------
     t0 = time.perf_counter()
@@ -3973,7 +4205,7 @@ def mesh_phase(torch, dev, smi, report, head, sup_ref):
                  f"{clean_counters}")
 
     try:
-        reset()
+        reset_counts()
         tc0 = time.perf_counter()
         sup = supervised("clean", mesh)
         out = [m for b in batches for m in sup.process(b)]
@@ -3988,7 +4220,7 @@ def mesh_phase(torch, dev, smi, report, head, sup_ref):
             f"{time.perf_counter() - tc0:.2f} s; walk_pass launches {clean_l} [{smi}]")
         del sup, out
 
-        reset()
+        reset_counts()
         tc0 = time.perf_counter()
         sup = supervised("fault", mesh)
         failpoints.FAILPOINTS.arm("shard.dispatch", hits=[MESH_FAULT_BATCH - 1],
@@ -4022,10 +4254,10 @@ def mesh_phase(torch, dev, smi, report, head, sup_ref):
 
         # (d) one hot-key rebalance ----------------------------------------------
         t0 = time.perf_counter()
-        skew = skew_batches(Record, KP, n, MESH_SKEW_BATCHES, MESH_SKEW_BATCH)
+        skew = inputs(skew_batches, Record, KP, n, MESH_SKEW_BATCHES, MESH_SKEW_BATCH)
         ref = CEPProcessor(pattern, KP, EngineConfig(**MESH_SKEW_CFG), epoch=0, device=dev)
         want_s = canon_stream([m for b in skew for m in ref.process(b)])
-        reset()
+        reset_counts()
         sup = Supervisor(pattern, KP, EngineConfig(**MESH_SKEW_CFG), epoch=0, mesh=mesh,
                          checkpoint_every=1, checkpoint_path=os.path.join(work, "skew.ckpt"))
         if sup._shard_policy != ShardPolicy():
@@ -4052,7 +4284,7 @@ def mesh_phase(torch, dev, smi, report, head, sup_ref):
         secs["d"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    log(f"mesh phase: {time.perf_counter() - t16:.1f} s (" + ", ".join(
+    log(f"mesh phase (c), (d): {phase_done('16 mesh (c), (d)', t16):.1f} s (" + ", ".join(
         f"{k} {v:.1f} s" for k, v in secs.items()) + ")")
 
 
@@ -4079,6 +4311,11 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t_start = time.perf_counter()
+    # Phase 2's random inputs are host work: worker processes make them
+    # while phase 1's nvcc runs go.
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=PARITY_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    made = parity_arrays_started(pool)
 
     # 1. build: the walk-pass kernel and one whole-scan library per pattern,
     # every nvcc started together ---------------------------------------------
@@ -4153,14 +4390,17 @@ def main() -> None:
             + (f" in {secs:.2f} s" if secs is not None else " (shared)")
             + (f"; ptxas {ptxas}" if ptxas else ""))
 
+    phase_done("1 build", t_start)
+
     # 2. parity on random inputs --------------------------------------------
+    t2 = time.perf_counter()
     max_err = {"default": 0}
-    t0, made = time.perf_counter(), {}
+    t0 = time.perf_counter()
     for name, (E, MP, D, W, R, H, _) in WALK_PARITY.items():
         Ks = WALK_PARITY_LANES.get(name, PARITY_LANES)
         mode = walk_kernel.mode_name(0, 0, False, walk_kernel.is_wide(MP, D))
         slab, wk, puts, ev_off = walk_inputs.as_tensors(
-            walk_parity_arrays(walk_inputs, made, name, 0), dev)
+            walk_parity_arrays(made, name, 0), dev)
         PW = wk[0].shape[1]
         for with_puts in (False, True):
             kw = dict(put_ops=puts, ev_off=ev_off) if with_puts else {}
@@ -4173,9 +4413,12 @@ def main() -> None:
     t0 = time.perf_counter()
     mode_parity(torch, kern, walk_kernel, walk_inputs, dev, max_err, made)
     del made
+    pool.shutdown()
     log(f"parity: mode cases took {time.perf_counter() - t0:.1f} s")
+    phase_done("2 parity", t2)
 
     # 3. headline: kernel vs plain path, step by step -----------------------
+    t3 = time.perf_counter()
     K, T, T_CMP = LANES, STEPS, CMP_STEPS
     cfg = EngineConfig(**HEADLINE)
     bm = BatchMatcher(stock_pattern(Query), K, cfg, device=dev)
@@ -4195,7 +4438,10 @@ def main() -> None:
     log(f"headline: {T_CMP} steps kernel path == plain path, bit for bit "
         f"({time.perf_counter() - t0:.1f} s); counters {bm.counters(s_k)}")
 
+    phase_done("3 headline", t3)
+
     # 4. the main paths, with launch counts from 0 ---------------------------
+    t4 = time.perf_counter()
     name_of = {i: ev["name"] for i, ev in enumerate(STOCK_EVENTS)}
     records = [
         Record("stocks", {"price": ev["price"], "volume": ev["volume"]}, 1000 + i)
@@ -4294,7 +4540,10 @@ def main() -> None:
         for m in lazy_demo:
             lazy_demo[m] += runs.get(m, 0)
 
+    phase_done("4 main paths", t4)
+
     # 5. the full-width lazy path --------------------------------------------
+    t5 = time.perf_counter()
     lcfg = EngineConfig(**LAZY_PATH)
     lbm = BatchMatcher(stock_pattern(Query), K, lcfg, device=dev)
     step_mode = walk_kernel.mode_name(lcfg.slab_hot_entries, 1, False)
@@ -4391,7 +4640,10 @@ def main() -> None:
         "in both runs")
     del e_state, ebm
 
+    phase_done("5 lazy path", t5)
+
     # 6. kernel timing on real mid-scan inputs -------------------------------
+    t6 = time.perf_counter()
     report = []
 
     def entry(mode, launches, timing, bnd, by_path, timed_on):
@@ -4519,6 +4771,8 @@ def main() -> None:
             launches, by_path = lazy_runs[drain_mode], {"lazy_path": lazy_runs[drain_mode]}
             on = f"the lazy path's mid-chunk ring, K={K}"
         entry(mode, launches, timing, bnd, by_path, on)
+
+    phase_done("6 kernel timing", t6)
 
     # 7. the whole-scan kernel ---------------------------------------------------
     t7 = time.perf_counter()
@@ -4952,22 +5206,39 @@ def main() -> None:
                {"lazy_path": lazy_whole_launches},
                f"the lazy path's second {LAZY_CHUNK}-step chunk, K={K}, E=96, E_hot=16, "
                "attribution", scan_err.get(lw_mode, 0), lw_geo)
-    log(f"whole scan phase: {time.perf_counter() - t7:.1f} s")
+    log(f"whole scan phase: {phase_done('7 whole scan', t7):.1f} s")
 
     tiered_phase(torch, dev, smi, log_entry=scan_entry, scan_bound=scan_bound,
                  hybrid_src=hybrid_src, tier_src=tier_src, records=records,
                  name_of=name_of)
     bank_phase(torch, dev, smi, report, records, name_of)
     spike_phase(torch, dev, smi, report)
-    ingest_phase(torch, dev, smi, report)
-    surgery_phase(torch, dev, smi, report, records, name_of)
-    mesh_ref = supervisor_phase(torch, dev, smi, report, scan_bound, scan_entry, max_err,
-                                scan_err)
-    tenant_phase(torch, dev, smi, report)
-    overload_phase(torch, dev, smi, report)
-    mesh_phase(torch, dev, smi, report, head, mesh_ref)
+    autosize_phase(torch, dev, smi, report)
+    torch.cuda.empty_cache()  # the phases beside share the card
+    # Phase 15 (c)'s profiler processes set themselves up (imports, the
+    # device's context) now and wait until it gives each its turn.
+    profilers = start_profilers(tempfile.mkdtemp(prefix="cep_profile_"))
+    atexit.register(stop_profilers, profilers)
+    # The host-bound phases, with no kernel timed for the report, in
+    # processes of their own beside phase 13 (b) until its wide instances
+    # are timed; every log line meanwhile says so.
+    t_side = time.perf_counter()
+    started = side_by_side(smi, report, records, name_of)
 
-    log(f"total: {time.perf_counter() - t_start:.1f} s after the card check")
+    def end_beside():
+        waited = join_beside(started, report)
+        log(f"side by side: phases {SIDE_BY_SIDE} and 13 (b) up to its timing took "
+            f"{time.perf_counter() - t_side:.1f} s of wall")
+        return waited
+
+    escalation_phase(torch, dev, smi, report, scan_bound, scan_entry, max_err, scan_err,
+                     before_timing=end_beside)
+    profile_phase(torch, smi, report, profilers)
+    mesh_phase(torch, dev, smi, report, head)
+
+    total = time.perf_counter() - t_start
+    log(f"total: {total:.1f} s after the card check")
+    log(phase_summary(total))
     log(smi)
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1069,8 +1069,8 @@ def make_sequential_step(phases: StepPhases, cfg: EngineConfig, qids=None):
     frame, its branch walks deepest first, then its removal walk if it
     died; after every run, each completed match's extraction walk in queue
     order (none under lazy extraction: ``finish`` appends handles).  Every
-    op is masked by its enable flag, so a step reads nothing back to the
-    host; no walk kernel runs."""
+    op is masked by its enable flag, and a walk stops once no lane's walker
+    is active (``ops/slab.py: _all_done``); no walk kernel runs."""
     ph = phases
     R, W, EH = cfg.max_runs, cfg.max_walk, cfg.slab_hot_entries
 

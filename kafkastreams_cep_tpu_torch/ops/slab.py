@@ -135,10 +135,10 @@ def find(slab: SlabState, stage, off):
 
 
 def _all_done(active: torch.Tensor) -> bool:
-    """Whether no lane's walker is still active, read only for CPU tensors
-    (the remaining hops would change nothing); on the card the walk runs
-    its fixed hop count and reads nothing back to the host."""
-    return not active.is_cuda and not bool(active.any())
+    """Whether no lane's walker is still active (the remaining hops would
+    change nothing): one read back to the host, on the card too, where it
+    saves the launches of every remaining hop."""
+    return not bool(active.any())
 
 
 def _lanes(slab: SlabState) -> torch.Tensor:

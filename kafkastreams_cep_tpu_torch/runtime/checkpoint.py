@@ -119,9 +119,10 @@ def save_checkpoint(
     }
     buf = io.BytesIO()
     np.savez(buf, **state_arrays(processor.host_state()))
-    header["arrays_sha256"] = hashlib.sha256(buf.getvalue()).hexdigest()
+    arrays = buf.getvalue()  # one copy of what may be gigabytes
+    header["arrays_sha256"] = hashlib.sha256(arrays).hexdigest()
     with open(path, "wb") as f:
-        pickle.dump({"header": header, "arrays": buf.getvalue()}, f)
+        pickle.dump({"header": header, "arrays": arrays}, f)
     logger.info(
         "checkpoint saved to %s: %d lanes, stages %s",
         path, header["num_lanes"], header["stage_names"],

@@ -95,21 +95,28 @@ def tree_flatten(value) -> Tuple[list, Any]:
     """An event value's leaves and structure (dict keys sorted, like the
     JAX package's pytrees, so schemas and checkpoints agree)."""
     if isinstance(value, dict):
-        leaves, defs = [], []
         keys = sorted(value)
-        for k in keys:
-            sub, d = tree_flatten(value[k])
-            leaves += sub
-            defs.append(d)
-        return leaves, ("dict", tuple(keys), tuple(defs))
+        leaves, defs = _flatten_items([value[k] for k in keys])
+        return leaves, ("dict", tuple(keys), defs)
     if isinstance(value, (list, tuple)):
-        leaves, defs = [], []
-        for v in value:
+        leaves, defs = _flatten_items(value)
+        return leaves, (type(value).__name__, len(value), defs)
+    return [value], None
+
+
+def _flatten_items(items) -> Tuple[list, tuple]:
+    """``tree_flatten`` of each item, concatenated: ``(leaves, defs)``
+    (a leaf, the common case of a record's value, without a call)."""
+    leaves, defs = [], []
+    for v in items:
+        if isinstance(v, (dict, list, tuple)):
             sub, d = tree_flatten(v)
             leaves += sub
             defs.append(d)
-        return leaves, (type(value).__name__, len(value), tuple(defs))
-    return [value], None
+        else:
+            leaves.append(v)
+            defs.append(None)
+    return leaves, tuple(defs)
 
 
 def tree_unflatten(treedef, leaves):
@@ -125,6 +132,17 @@ def tree_unflatten(treedef, leaves):
         return tuple(items) if kind == "tuple" else items
 
     return build(treedef)
+
+
+def _is_float(leaf) -> bool:
+    """Whether a value leaf is a float as numpy types it (``int`` and
+    ``float`` leaves, the common case, without an array)."""
+    t = type(leaf)
+    if t is int or t is bool:
+        return False
+    if t is float:
+        return True
+    return bool(np.issubdtype(np.asarray(leaf).dtype, np.floating))
 
 
 def _schema_dtype(leaf) -> np.dtype:
@@ -540,7 +558,7 @@ class CEPProcessor:
                 f"{treedef_str(treedef)} fixed by the first record",
             )
         for field_i, (leaf, dt) in enumerate(zip(leaves, dtypes)):
-            if np.issubdtype(np.asarray(leaf).dtype, np.floating) and not np.issubdtype(dt, np.floating):
+            if not np.issubdtype(dt, np.floating) and _is_float(leaf):
                 return Defect(
                     REASON_SCHEMA,
                     f"field #{field_i}: float value {leaf!r} in a field the "
@@ -639,6 +657,7 @@ class CEPProcessor:
         base_sim = self._off_base.copy()
         offsets: List[Optional[int]] = []
         batch_leaves = []
+        int_fields = [i for i, dt in enumerate(dtypes) if not np.issubdtype(dt, np.floating)]
         for rank, rec in enumerate(records):
             leaves, rec_def = tree_flatten(rec.value)
             if rec_def != treedef:
@@ -646,8 +665,9 @@ class CEPProcessor:
                     f"record {rank} (key {rec.key!r}): value structure "
                     "differs from the schema fixed by the first record"
                 )
-            for field_i, (leaf, dt) in enumerate(zip(leaves, dtypes)):
-                if np.issubdtype(np.asarray(leaf).dtype, np.floating) and not np.issubdtype(dt, np.floating):
+            for field_i in int_fields:
+                leaf = leaves[field_i]
+                if _is_float(leaf):
                     raise InputRejected(
                         f"record {rank} (key {rec.key!r}): field #{field_i} "
                         f"float value {leaf!r} in a field the schema (fixed "
@@ -683,6 +703,9 @@ class CEPProcessor:
         # Host-event mirror: events keep their source offsets, keyed by
         # device offset.
         self._off_base = base_sim
+        # The simulated high-water marks are the kept records' maxima.
+        self._next_offset[:] = next_sim
+        base = base_sim.tolist()
         dropped = 0
         for rank, rec in enumerate(records):
             off = offsets[rank]
@@ -690,9 +713,8 @@ class CEPProcessor:
                 dropped += 1
                 continue
             lane = lanes[rank]
-            self._next_offset[lane] = max(self._next_offset[lane], off + 1)
             event = Event(rec.key, rec.value, int(rec.timestamp), self.topic, lane, off)
-            self._events[lane][off - int(self._off_base[lane])] = event
+            self._events[lane][off - base[lane]] = event
         self.metrics.duplicates_dropped += dropped
         if dropped:
             logger.info("dropped %d replayed records (high-water mark)", dropped)
@@ -712,7 +734,7 @@ class CEPProcessor:
         )
         off_col = np.fromiter(
             (
-                o - int(self._off_base[lanes[r]]) if o is not None else 0
+                o - base[lanes[r]] if o is not None else 0
                 for r, o in enumerate(offsets)
             ),
             dtype=np.int32, count=n,

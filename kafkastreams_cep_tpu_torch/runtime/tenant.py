@@ -575,9 +575,10 @@ def save_tenant_checkpoint(tenant: TenantCEP, path: str,
     }
     buf = io.BytesIO()
     np.savez(buf, **state_arrays(tenant.state))
-    header["arrays_sha256"] = hashlib.sha256(buf.getvalue()).hexdigest()
+    arrays = buf.getvalue()  # one copy of what may be gigabytes
+    header["arrays_sha256"] = hashlib.sha256(arrays).hexdigest()
     with open(path, "wb") as f:
-        pickle.dump({"header": header, "arrays": buf.getvalue()}, f)
+        pickle.dump({"header": header, "arrays": arrays}, f)
     logger.info("tenant checkpoint saved to %s: %d queries, %d lanes",
                 path, len(tenant.query_names), tenant.num_lanes)
 

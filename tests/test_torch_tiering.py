@@ -27,6 +27,7 @@ import dataclasses
 import logging
 import zlib
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -198,6 +199,46 @@ def corpus_trace(name):
     return ragged_batches(codes, rng, 12)
 
 
+def host(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module")
+def jax_corpus_run():
+    """JAX's tiered matcher over a corpus trace, K=6, each batch a scan then
+    a sweep, on the jnp path with an empty trace cache (``jnp_path``), run
+    once a pattern for every test that holds the port to it:
+    ``run(name) -> {plan, init, scans: [(state, output, swept state)],
+    counters, tier_counters, scan_calls, gate_chunks, nfa_dispatches}``,
+    leaves on the host."""
+    from kafkastreams_cep_tpu.utils import tracecache
+
+    runs = {}
+
+    def run(name):
+        if name not in runs:
+            make_pattern = dict((c[0], c[1]) for c in CORPUS)[name]
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setenv("CEP_WALK_KERNEL", "0")
+                mp.delenv("CEP_SCAN_KERNEL", raising=False)
+                tracecache.clear()
+                jt = JTiered(make_pattern(ts.JQuery), 6, JConfig(**TCFG))
+                js = jt.init_state()
+                got = dict(plan=jt.plan.describe(), init=host(js), scans=[])
+                for ev in corpus_trace(name):
+                    js, jo = jt.scan(js, ts.to_jax(ev))
+                    scanned, jo = host(js), host(jo)
+                    js = jt.sweep(js)
+                    got["scans"].append((scanned, jo, host(js)))
+                got.update(counters=jt.counters(js), tier_counters=jt.tier_counters(js),
+                           scan_calls=jt.scan_calls, gate_chunks=jt.gate_chunks,
+                           nfa_dispatches=jt.nfa_dispatches)
+            runs[name] = got
+        return runs[name]
+
+    return run
+
+
 # -- plans ---------------------------------------------------------------------
 
 @pytest.mark.parametrize("name,make_pattern,tier,p", CORPUS, ids=IDS)
@@ -228,33 +269,34 @@ def test_no_prune_refuses_windowed_prefix():
 # -- the matcher ---------------------------------------------------------------
 
 @pytest.mark.parametrize("name,make_pattern,tier,p", CORPUS, ids=IDS)
-def test_tiered_matcher_equals_jax(jnp_path, name, make_pattern, tier, p):
+def test_tiered_matcher_equals_jax(jnp_path, jax_corpus_run, name, make_pattern, tier, p):
     """Ragged multi-batch scans with a sweep after each: every state leaf
     equals JAX's tiered matcher, the grids and counters equal the untiered
     engine's, and the tier counters add up."""
     K = 6
-    jt = JTiered(make_pattern(ts.JQuery), K, JConfig(**TCFG))
+    jt = jax_corpus_run(name)
     tt = TieredBatchMatcher(make_pattern(ts.TQuery), K, EngineConfig(**TCFG), device="cpu")
     ub = BatchMatcher(make_pattern(ts.TQuery), K, EngineConfig(**CFG), device="cpu")
-    assert tt.plan.describe() == jt.plan.describe() and tt.plan.tier == tier
-    js, tst, us = jt.init_state(), tt.init_state(), ub.init_state()
-    ts.assert_states_equal(js, tst, f"{name} init")
+    assert tt.plan.describe() == jt["plan"] and tt.plan.tier == tier
+    tst, us = tt.init_state(), ub.init_state()
+    ts.assert_states_equal(jt["init"], tst, f"{name} init")
     n = 0
-    for i, ev in enumerate(corpus_trace(name)):
-        js, jo = jt.scan(js, ts.to_jax(ev))
+    batches = corpus_trace(name)
+    assert len(batches) == len(jt["scans"])
+    for i, (ev, (js, jo, swept)) in enumerate(zip(batches, jt["scans"])):
         tst, to = tt.scan(tst, ev)
         us, uo = ub.scan(us, ev)
         ts.assert_states_equal(js, tst, f"{name} scan {i}")
         for f in to._fields:
-            np.testing.assert_array_equal(np.asarray(getattr(jo, f)), getattr(to, f).numpy())
+            np.testing.assert_array_equal(getattr(jo, f), getattr(to, f).numpy())
         assert grid(to) == grid(uo), f"{name} scan {i}"
         n += sum(len(v) for v in grid(to).values())
-        js, tst, us = jt.sweep(js), tt.sweep(tst), ub.sweep(us)
-        ts.assert_states_equal(js, tst, f"{name} sweep {i}")
-    assert tt.counters(tst) == ub.counters(us) == jt.counters(js)
+        tst, us = tt.sweep(tst), ub.sweep(us)
+        ts.assert_states_equal(swept, tst, f"{name} sweep {i}")
+    assert tt.counters(tst) == ub.counters(us) == jt["counters"]
     assert all(tt.counters(tst)[c] == 0 for c in DROP_COUNTERS)
     tc = tt.tier_counters(tst)
-    assert tc == jt.tier_counters(js)
+    assert tc == jt["tier_counters"]
     if tier == TIER_NFA:
         assert tc == {c: 0 for c in TIER_COUNTER_NAMES}
     elif tier == TIER_STENCIL:
@@ -262,30 +304,44 @@ def test_tiered_matcher_equals_jax(jnp_path, name, make_pattern, tier, p):
     else:
         assert tc["prefix_events_screened"] > 0
         assert tc["prefix_fires"] == tc["tier_promotions"]
-    assert (tt.scan_calls, tt.gate_chunks) == (jt.scan_calls, jt.gate_chunks)
-    assert tt.nfa_dispatches == jt.nfa_dispatches
+    assert (tt.scan_calls, tt.gate_chunks) == (jt["scan_calls"], jt["gate_chunks"])
+    assert tt.nfa_dispatches == jt["nfa_dispatches"]
 
 
-@pytest.mark.parametrize("chunk", [1, 3, 64])
-def test_gate_chunk_is_pure_scheduling(jnp_path, chunk):
-    """Any gate_chunk gives the untiered engine's matches and counters;
-    only the gate telemetry differs (ceil(T/C) chunks offered a scan)."""
+@pytest.fixture(scope="module")
+def gate_trace():
+    """The gate-chunk cases' batches (skip_till_any, K=6) and the untiered
+    engine's run over them, once for every ``gate_chunk``: ``(batches,
+    per-batch grids, counters)``."""
     K = 6
     codes, rng = random_codes(K, 24, seed=23)
     batches = ragged_batches(codes, rng, 16)
     ref = BatchMatcher(ts.skip_till_any(ts.TQuery), K, EngineConfig(**CFG), device="cpu")
+    sr, grids = ref.init_state(), []
+    for ev in batches:
+        sr, o_r = ref.scan(sr, ev)
+        grids.append(grid(o_r))
+        sr = ref.sweep(sr)
+    return batches, grids, ref.counters(sr)
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 64])
+def test_gate_chunk_is_pure_scheduling(jnp_path, gate_trace, chunk):
+    """Any gate_chunk gives the untiered engine's matches and counters;
+    only the gate telemetry differs (ceil(T/C) chunks offered a scan)."""
+    K = 6
+    batches, grids, ref_counters = gate_trace
     tt = TieredBatchMatcher(ts.skip_till_any(ts.TQuery), K,
                             EngineConfig(**dict(TCFG, gate_chunk=chunk)), device="cpu")
     jt = JTiered(ts.skip_till_any(ts.JQuery), K, JConfig(**dict(TCFG, gate_chunk=chunk)))
-    sr, st, sj = ref.init_state(), tt.init_state(), jt.init_state()
-    for ev in batches:
-        sr, o_r = ref.scan(sr, ev)
+    st, sj = tt.init_state(), jt.init_state()
+    for ev, g in zip(batches, grids):
         st, o_t = tt.scan(st, ev)
         sj, _ = jt.scan(sj, ts.to_jax(ev))
-        assert grid(o_t) == grid(o_r)
-        sr, st, sj = ref.sweep(sr), tt.sweep(st), jt.sweep(sj)
+        assert grid(o_t) == g
+        st, sj = tt.sweep(st), jt.sweep(sj)
     ts.assert_states_equal(sj, st, f"gate_chunk={chunk}")
-    assert tt.counters(st) == ref.counters(sr)
+    assert tt.counters(st) == ref_counters
     assert tt.gate_chunks == len(batches) * -(-16 // chunk) == jt.gate_chunks
     assert tt.nfa_dispatches == jt.nfa_dispatches <= tt.gate_chunks
 
@@ -325,7 +381,7 @@ def test_chunk_gate_reads_one_flag_per_chunk(jnp_path, monkeypatch):
 
 @pytest.mark.parametrize("name", ["p1_skip_next", "p2_skip_any", "p3_kleene",
                                   "pn1_strict3_skip"])
-def test_scan_kernel_path_equals_jax_chunked(jnp_path, monkeypatch, name):
+def test_scan_kernel_path_equals_jax_chunked(jnp_path, jax_corpus_run, monkeypatch, name):
     """``CEP_SCAN_KERNEL=1`` on the hybrid corpus: each batch is one tiered
     whole scan (the plain version of the kernel on the CPU, after the
     pattern was traced to C++), with the grids, counters and tier counters
@@ -340,20 +396,19 @@ def test_scan_kernel_path_equals_jax_chunked(jnp_path, monkeypatch, name):
         calls.append(kwargs.get("promo") is not None)
         return real(*args, **kwargs)
 
+    jt = jax_corpus_run(name)
     monkeypatch.setattr(scan_kernel, "scan_pass", spy)
-    jt = JTiered(make_pattern(ts.JQuery), K, JConfig(**TCFG))
     monkeypatch.setenv("CEP_SCAN_KERNEL", "1")
     tk = TieredBatchMatcher(make_pattern(ts.TQuery), K, EngineConfig(**TCFG), device="cpu")
     assert tk.uses_scan_kernel
-    js, sk = jt.init_state(), tk.init_state()
+    sk = tk.init_state()
     batches = corpus_trace(name)
-    for ev in batches:
-        js, jo = jt.scan(js, ts.to_jax(ev))
+    for ev, (_, jo, _) in zip(batches, jt["scans"]):
         sk, ko = tk.scan(sk, ev)
         assert grid(ko) == grid(jo)
-        js, sk = jt.sweep(js), tk.sweep(sk)
-    assert tk.counters(sk) == jt.counters(js)
-    assert tk.tier_counters(sk) == jt.tier_counters(js)
+        sk = tk.sweep(sk)
+    assert tk.counters(sk) == jt["counters"]
+    assert tk.tier_counters(sk) == jt["tier_counters"]
     assert tk.tier_counters(sk)["tier_promotions"] > 0
     assert calls == [True] * len(batches) and tk.uses_scan_kernel
     assert tk.nfa_dispatches == len(batches) and tk.gate_chunks == 0
