@@ -288,6 +288,9 @@ class CEPProcessor:
         self.decode_budget = int(decode_budget)
         self.pipeline = bool(pipeline)
         self._pending: Optional[tuple] = None
+        # (start, end) CUDA timing events of the batches whose card time is
+        # not yet read (_read_card_times).
+        self._card_times: List[tuple] = []
         self.lazy = bool(self.batch.matcher.config.lazy_extraction)
         self.drain_interval = max(int(drain_interval), 1)
         self.state = self.batch.init_state()
@@ -443,19 +446,39 @@ class CEPProcessor:
     # -- the per-batch hot path --------------------------------------------
 
     @contextlib.contextmanager
+    def _traced(self, label: str, **attrs):
+        """A nested trace span named ``label`` and, while a profiler runs, a
+        ``record_function`` range of the same name, which puts it on the
+        profiler's timeline beside the card's work (the span's ``ts_ms``
+        and the trace's ``baseTimeNanoseconds + ts`` are both Unix time).
+        Yields the span's attribute dict."""
+        rng = (torch.profiler.record_function(label) if torch.autograd._profiler_enabled()
+               else contextlib.nullcontext())
+        with rng, maybe_span(self.trace, label, **attrs) as sp:
+            yield sp
+
+    @contextlib.contextmanager
     def _phase(self, name: str):
-        """One batch phase: a nested trace span, the ``{name}_seconds``
-        accumulator and the ``phases[name]`` latency histogram."""
-        with maybe_span(self.trace, f"phase.{name}"):
-            with self.metrics.timed(f"{name}_seconds"):
-                yield
+        """One batch phase: a nested trace span and profiler range
+        ``phase.{name}``, the ``{name}_seconds`` accumulator and the
+        ``phases[name]`` latency histogram."""
+        with self._traced(f"phase.{name}"), self.metrics.timed(f"{name}_seconds"):
+            yield
+
+    @contextlib.contextmanager
+    def _layer(self, name: str):
+        """A child span inside a phase (``utils/metrics.py: LAYER_SPANS``):
+        a nested trace span and profiler range ``name`` and the
+        ``layers["spans"][name]`` latency histogram."""
+        with self._traced(name), self.metrics.timed_span(name):
+            yield
 
     def process(self, records: Seq[Record]) -> List[Tuple[Hashable, Sequence]]:
         if not records:
             return []
         self._batch_seq += 1
-        with maybe_span(self.trace, "batch", path="records", batch=self._batch_seq,
-                        records=len(records)) as sp:
+        with self._traced("batch", path="records", batch=self._batch_seq,
+                          records=len(records)) as sp:
             # The ledger's release stamp: batch entry (the guard releases
             # mid-pack, so validation counts as queue time).
             lat_t0 = self._clock() if self.ledger is not None else None
@@ -610,8 +633,8 @@ class CEPProcessor:
         released = [r._replace(offset=None) if r.offset is not None else r
                     for r in released]
         self._batch_seq += 1
-        with maybe_span(self.trace, "batch", path="ingest-drain", batch=self._batch_seq,
-                        records=len(released)) as sp:
+        with self._traced("batch", path="ingest-drain", batch=self._batch_seq,
+                          records=len(released)) as sp:
             with self._phase("pack"):
                 packed = self._pack_records(released)
             if packed is None:
@@ -764,13 +787,14 @@ class CEPProcessor:
         def dev(a):
             return torch.as_tensor(a, device=self.device)
 
-        return EventBatch(
-            key=dev(key_arr),
-            value=tree_unflatten(treedef, [dev(v) for v in val_leaves]),
-            ts=dev(ts),
-            off=dev(off),
-            valid=dev(valid),
-        )
+        with self._layer("pack.copy"):
+            return EventBatch(
+                key=dev(key_arr),
+                value=tree_unflatten(treedef, [dev(v) for v in val_leaves]),
+                ts=dev(ts),
+                off=dev(off),
+                valid=dev(valid),
+            )
 
     def process_columns(self, keys, values, timestamps) -> List[Tuple[Hashable, Sequence]]:
         """Columnar ingestion: ``[N]`` arrays instead of :class:`Record`
@@ -796,7 +820,7 @@ class CEPProcessor:
                 "to use the columnar path)"
             )
         self._batch_seq += 1
-        with maybe_span(self.trace, "batch", path="columns", batch=self._batch_seq) as sp:
+        with self._traced("batch", path="columns", batch=self._batch_seq) as sp:
             lat_t0 = self._clock() if self.ledger is not None else None
             with self._phase("pack"):
                 packed = self._pack_columns(keys, values, timestamps)
@@ -846,28 +870,29 @@ class CEPProcessor:
                 )
 
         # Lane mapping, committed only after the overflow check.
-        if keys_arr.dtype == object:
-            uniq = list(dict.fromkeys(keys_arr.tolist()))
-        else:
-            vals, first = np.unique(keys_arr, return_index=True)
-            uniq = [v.item() for v in vals[np.argsort(first)]]
-        new = [k for k in uniq if k not in self._lane_of]
-        if len(self._lane_of) + len(new) > K:
-            raise InputRejected(
-                f"more than num_lanes={K} distinct keys (first overflowing key: "
-                f"{new[K - len(self._lane_of)]!r}); size the processor for the "
-                "key cardinality it serves"
-            )
-        for k in new:
-            self.lane(k)
-        if keys_arr.dtype == object:
-            lanes_arr = np.fromiter((self._lane_of[k] for k in keys_arr.tolist()),
-                                    dtype=np.int32, count=n)
-        else:
-            ku = np.fromiter(self._lane_of.keys(), dtype=keys_arr.dtype)
-            lv = np.fromiter(self._lane_of.values(), dtype=np.int32)
-            order = np.argsort(ku)
-            lanes_arr = lv[order][np.searchsorted(ku[order], keys_arr)].astype(np.int32)
+        with self._layer("pack.lanes"):
+            if keys_arr.dtype == object:
+                uniq = list(dict.fromkeys(keys_arr.tolist()))
+            else:
+                vals, first = np.unique(keys_arr, return_index=True)
+                uniq = [v.item() for v in vals[np.argsort(first)]]
+            new = [k for k in uniq if k not in self._lane_of]
+            if len(self._lane_of) + len(new) > K:
+                raise InputRejected(
+                    f"more than num_lanes={K} distinct keys (first overflowing key: "
+                    f"{new[K - len(self._lane_of)]!r}); size the processor for the "
+                    "key cardinality it serves"
+                )
+            for k in new:
+                self.lane(k)
+            if keys_arr.dtype == object:
+                lanes_arr = np.fromiter((self._lane_of[k] for k in keys_arr.tolist()),
+                                        dtype=np.int32, count=n)
+            else:
+                ku = np.fromiter(self._lane_of.keys(), dtype=keys_arr.dtype)
+                lv = np.fromiter(self._lane_of.values(), dtype=np.int32)
+                order = np.argsort(ku)
+                lanes_arr = lv[order][np.searchsorted(ku[order], keys_arr)].astype(np.int32)
 
         rel = ts_arr - self.epoch
         if rel.min() < _I32.min or rel.max() > _I32.max:
@@ -879,55 +904,57 @@ class CEPProcessor:
         wm = int(ts_arr.max())
         self._watermark = wm if self._watermark is None else max(self._watermark, wm)
 
-        keep = np.ones(n, dtype=np.uint8)
-        pos, qlen, max_len = native.queue_positions(lanes_arr, keep, K)
-        # Auto offsets: a lane's rows take consecutive log positions from
-        # its high-water mark; a fresh lane's base pins to it.
-        fresh = (self._off_base < 0) & (qlen > 0)
-        self._off_base[fresh] = self._next_offset[fresh]
-        start_dev = self._next_offset - self._off_base  # [K] first device offset
-        dev_off = (start_dev[lanes_arr] + pos).astype(np.int64)
-        if dev_off.max() >= OFFSET_LIMIT:
-            raise InputRejected(
-                "per-lane log positions past 2^24 (the slab's f32 pointer "
-                "packing); rotate the processor through checkpoint/restore"
-            )
-        self._next_offset += qlen
+        with self._layer("pack.columns"):
+            keep = np.ones(n, dtype=np.uint8)
+            pos, qlen, max_len = native.queue_positions(lanes_arr, keep, K)
+            # Auto offsets: a lane's rows take consecutive log positions from
+            # its high-water mark; a fresh lane's base pins to it.
+            fresh = (self._off_base < 0) & (qlen > 0)
+            self._off_base[fresh] = self._next_offset[fresh]
+            start_dev = self._next_offset - self._off_base  # [K] first device offset
+            dev_off = (start_dev[lanes_arr] + pos).astype(np.int64)
+            if dev_off.max() >= OFFSET_LIMIT:
+                raise InputRejected(
+                    "per-lane log positions past 2^24 (the slab's f32 pointer "
+                    "packing); rotate the processor through checkpoint/restore"
+                )
+            self._next_offset += qlen
 
-        T = _bucket(max_len)
-        # Key codes as _key_code gives them on the record path: an int32
-        # integer key passes through, anything else is its lane index.
-        if np.issubdtype(keys_arr.dtype, np.integer):
-            in_range = (keys_arr >= _I32.min) & (keys_arr <= _I32.max)
-            key_codes = np.where(in_range, keys_arr.astype(np.int64),
-                                 lanes_arr.astype(np.int64)).astype(np.int32)
-        elif keys_arr.dtype == object:
-            key_codes = np.fromiter(
-                (self._key_code(k, int(lanes_arr[i])) for i, k in enumerate(keys_arr.tolist())),
-                dtype=np.int32, count=n,
-            )
-        else:
-            key_codes = lanes_arr.astype(np.int32)
-        key_arr = np.zeros((K, T), dtype=np.int32)
-        ts = np.zeros((K, T), dtype=np.int32)
-        off = np.zeros((K, T), dtype=np.int32)
-        valid = np.zeros((K, T), dtype=bool)
-        rank_of = np.full((K, T), -1, dtype=np.int64)
-        abs_ts = np.zeros((K, T), dtype=np.int64)
-        native.pack_column(key_arr, key_codes, lanes_arr, pos, keep)
-        native.pack_column(ts, rel.astype(np.int32), lanes_arr, pos, keep)
-        native.pack_column(off, dev_off.astype(np.int32), lanes_arr, pos, keep)
-        native.pack_column(rank_of, np.arange(n, dtype=np.int64), lanes_arr, pos, keep)
-        native.pack_column(abs_ts, ts_arr, lanes_arr, pos, keep)
-        native.pack_valid(valid, lanes_arr, pos, keep)
-        val_leaves = [np.zeros((K, T), dtype=dt) for dt in dtypes]
-        for i, dt in enumerate(dtypes):
-            native.pack_column(val_leaves[i], leaves_in[i].astype(dt), lanes_arr, pos, keep)
+            T = _bucket(max_len)
+            # Key codes as _key_code gives them on the record path: an int32
+            # integer key passes through, anything else is its lane index.
+            if np.issubdtype(keys_arr.dtype, np.integer):
+                in_range = (keys_arr >= _I32.min) & (keys_arr <= _I32.max)
+                key_codes = np.where(in_range, keys_arr.astype(np.int64),
+                                     lanes_arr.astype(np.int64)).astype(np.int32)
+            elif keys_arr.dtype == object:
+                key_codes = np.fromiter(
+                    (self._key_code(k, int(lanes_arr[i]))
+                     for i, k in enumerate(keys_arr.tolist())),
+                    dtype=np.int32, count=n,
+                )
+            else:
+                key_codes = lanes_arr.astype(np.int32)
+            key_arr = np.zeros((K, T), dtype=np.int32)
+            ts = np.zeros((K, T), dtype=np.int32)
+            off = np.zeros((K, T), dtype=np.int32)
+            valid = np.zeros((K, T), dtype=bool)
+            rank_of = np.full((K, T), -1, dtype=np.int64)
+            abs_ts = np.zeros((K, T), dtype=np.int64)
+            native.pack_column(key_arr, key_codes, lanes_arr, pos, keep)
+            native.pack_column(ts, rel.astype(np.int32), lanes_arr, pos, keep)
+            native.pack_column(off, dev_off.astype(np.int32), lanes_arr, pos, keep)
+            native.pack_column(rank_of, np.arange(n, dtype=np.int64), lanes_arr, pos, keep)
+            native.pack_column(abs_ts, ts_arr, lanes_arr, pos, keep)
+            native.pack_valid(valid, lanes_arr, pos, keep)
+            val_leaves = [np.zeros((K, T), dtype=dt) for dt in dtypes]
+            for i, dt in enumerate(dtypes):
+                native.pack_column(val_leaves[i], leaves_in[i].astype(dt), lanes_arr, pos, keep)
 
-        # The packed columns are the event mirror until a match or the GC
-        # touches a row.
-        col_start = np.where(qlen > 0, start_dev, -1).astype(np.int64)
-        self._col_batches.append((col_start, qlen.astype(np.int64), abs_ts, val_leaves))
+            # The packed columns are the event mirror until a match or the GC
+            # touches a row.
+            col_start = np.where(qlen > 0, start_dev, -1).astype(np.int64)
+            self._col_batches.append((col_start, qlen.astype(np.int64), abs_ts, val_leaves))
         return self._device_batch(key_arr, val_leaves, treedef, ts, off, valid), rank_of, n
 
     def _dispatch(self, events, rank_of, n_records, lat=None):
@@ -948,29 +975,43 @@ class CEPProcessor:
         base = self._step_base
         if lat is not None:
             lat.dispatch = self._clock()
+        start = self._card_event()
         with self._phase("dispatch"):
             self.state, out = self.batch.scan(self.state, events)
             self._step_base += steps
+            self.metrics.steps += steps
             if self.gc_interval and (self.metrics.batches + 1) % self.gc_interval == 0:
                 # Pending handles are sweep roots (parallel/batch.py).
-                self.state = self.batch.sweep(self.state)
+                with self._layer("dispatch.sweep"):
+                    self.state = self.batch.sweep(self.state)
         drain_out = None
         if self.lazy and (self.metrics.batches + 1) % self.drain_interval == 0:
             with self._phase("drain"):
                 self.state, drain_out = self.batch.drain(self.state)
+        # On the card the device phase's seconds are the card's: from an event
+        # before the batch's first launch to one after its last, read once a
+        # wait has covered them (_read_card_times).  The end event is also
+        # the ledger's: a pipelined batch takes its complete stamp there.
         done = None
-        with self._phase("device"):
-            if not self.pipeline and self.device.type == "cuda":
-                self._synchronize()
-            elif lat is not None and self.device.type == "cuda":
-                # Pipelined: the batch's outputs are waited for at its
-                # decode, one call later; this event marks their end.
+        if start is not None:
+            done = self._card_event()
+            self._card_times.append((start, done))
+        cuda = self.device.type == "cuda"
+        with self._traced("phase.device") if done is not None else self._phase("device"):
+            if not self.pipeline and cuda:
+                with self._layer("device.wait"):
+                    self._synchronize()
+            elif lat is not None and cuda and done is None:
+                # Pipelined on a mesh: the batch's outputs are waited for at
+                # its decode, one call later; this event marks their end.
                 done = torch.cuda.Event()
                 done.record()
-        if lat is not None and not self.pipeline:
-            # Serial mode just synchronized: the device is done.  A
-            # pipelined batch takes its stamp at its decode (_decode_pending).
-            lat.complete = self._clock()
+        if not self.pipeline:
+            self._read_card_times()
+            if lat is not None:
+                # Serial mode just synchronized: the device is done.  A
+                # pipelined batch takes its stamp at its decode (_decode).
+                lat.complete = self._clock()
         _failpoint("device.result")
         gc_due = self.gc_events and (
             (self.metrics.batches + 1) % self.gc_events_interval == 0
@@ -997,18 +1038,30 @@ class CEPProcessor:
         self._flight_tick()
         return matches
 
+    def _card_event(self) -> Optional[torch.cuda.Event]:
+        """A timing event recorded on the engine's card (None off a card
+        and on a mesh, whose device phase keeps the host's wall time)."""
+        if self.mesh is not None or self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def _read_card_times(self) -> None:
+        """Add the card time of each batch whose end event has completed,
+        oldest first, to ``device_seconds`` and ``phases["device"]``.
+        Called after a wait, so the query never waits itself: a batch not
+        yet waited for (lazy, no drain due) is read after a later one."""
+        times = self._card_times
+        while times and times[0][1].query():
+            start, end = times.pop(0)
+            self.metrics.observe("device_seconds", start.elapsed_time(end) * 1e-3)
+
     def _decode_pending(self, pend) -> List[Tuple[Hashable, Sequence]]:
         """Decode a pipelined batch ``(out, rank_of, drain_out, base, lat,
-        done)``: its latency bundle takes the complete stamp once its
-        outputs are ready (``done``, the CUDA event recorded after its
-        kernels; on the CPU the scan ran synchronously), then commits or
-        parks at the decode's end."""
+        done)``; its latency bundle commits or parks at the decode's end."""
         out, rank_of, drain_out, base, lat, done = pend
-        if lat is not None:
-            if done is not None:
-                done.synchronize()
-            lat.complete = self._clock()
-        matches = self._decode(out, rank_of, drain_out, base)
+        matches = self._decode(out, rank_of, drain_out, base, lat, done)
         self._lat_finish(lat, (not self.lazy) or drain_out is not None)
         return matches
 
@@ -1061,48 +1114,76 @@ class CEPProcessor:
             with self._phase("decode"):
                 # Everything pending predates "now": ordered by (completion
                 # step, lane, run row).
-                matches += self._decode_drained(dout, None, self._step_base)
+                matches += self._decode(None, None, dout, self._step_base)
             if self.ledger is not None:
                 # This drain emitted every parked batch's matches.
                 self.ledger.commit_deferred(self._clock())
         self.metrics.matches_out += len(matches)
         return matches
 
-    def _decode(self, out, rank_of, drain_out,
-                base: int) -> List[Tuple[Hashable, Sequence]]:
-        """One batch's matches: the eager ``StepOutput`` grid (empty under
-        lazy extraction) plus, when a drain ran, the drained handles."""
-        matches = [] if self.lazy else self._decode_eager(out, rank_of)
-        if drain_out is not None:
-            matches += self._decode_drained(drain_out, rank_of, base)
-        return matches
+    def _decode(self, out, rank_of, drain_out, base: int, lat=None,
+                done=None) -> List[Tuple[Hashable, Sequence]]:
+        """One batch's matches: the eager ``StepOutput`` grid, or under lazy
+        extraction the drained handles when a drain ran.
 
-    def _decode_drained(self, dout, rank_of, base: int):
+        ``decode.wait`` runs from the decode's start to the hit count on
+        the host: a pipelined batch's ledger bundle ``lat`` takes its
+        complete stamp once its outputs are ready (``done``, the end event
+        of its launches; on the CPU the scan ran synchronously), then the
+        hit rows compact on the device and their count is read, which waits
+        for the card.  The rows then come to the host and ``decode.build``
+        makes their Events."""
+        with self._layer("decode.wait"):
+            if lat is not None:
+                if done is not None:
+                    done.synchronize()
+                lat.complete = self._clock()
+            if not self.lazy:
+                hits = self._hits(out, compact_matches)
+            elif drain_out is not None:
+                hits = self._hits(drain_out, compact_drained)
+        self._read_card_times()
+        if not self.lazy:
+            return self._decode_eager(out, hits, rank_of)
+        if drain_out is None:
+            return []
+        return self._decode_drained(drain_out, hits, rank_of, base)
+
+    def _hits(self, grid, compact):
+        """``(n, rows)``: the hit rows of ``grid`` (a ``StepOutput``, or a
+        drain's output) compacted on the device into ``decode_budget`` rows
+        by ``compact`` (``ops/decode.py``) and their number, so the host
+        pulls rows in proportion to the match count; past the budget
+        (counted in ``decode_fallbacks``) ``(None, count)``, the raw count
+        grid on the host."""
+        if self.decode_budget:
+            rows = compact(grid, self.decode_budget)
+            n = int(rows[6])
+            if n <= min(self.decode_budget, grid.count.numel()):
+                return n, rows
+            self.metrics.decode_fallbacks += 1
+        return None, grid.count.cpu().numpy()
+
+    def _decode_drained(self, dout, hits, rank_of, base: int):
         """Drained handles -> (key, Sequence) in the eager emission order.
 
         Handles completed in this batch (``seq >= base``) order as the
         eager decode does: by arrival rank of the completing record, then
         run-queue row.  Handles deferred from earlier batches (a
         ``drain_interval > 1``, or a restore) come first, by (completion
-        step, lane, run row).  The hit rows compact on the device first
-        (``ops/decode.py: compact_drained``)."""
-        K, HB = dout.count.shape
-        if self.decode_budget:
-            c_stage, c_off, c_count, c_seq, c_row, c_k, c_n, _ovf = compact_drained(
-                dout, self.decode_budget
+        step, lane, run row)."""
+        n, rows = hits
+        if n is not None:
+            if n == 0:
+                return []
+            c_stage, c_off, c_count, c_seq, c_row, c_k = rows[:6]
+            cnts, stages, offs, seqs, rows, ks = (
+                x[:n].cpu().numpy()
+                for x in (c_count, c_stage, c_off, c_seq, c_row, c_k)
             )
-            n = int(c_n)
-            if n <= min(self.decode_budget, K * HB):
-                if n == 0:
-                    return []
-                cnts, stages, offs, seqs, rows, ks = (
-                    x[:n].cpu().numpy()
-                    for x in (c_count, c_stage, c_off, c_seq, c_row, c_k)
-                )
-                return self._emit_drained(ks, cnts, stages, offs, seqs, rows,
-                                          rank_of, base)
-            self.metrics.decode_fallbacks += 1
-        count = dout.count.cpu().numpy()
+            return self._emit_drained(ks, cnts, stages, offs, seqs, rows,
+                                      rank_of, base)
+        count = rows
         ks, hs = np.nonzero(count)
         if ks.size == 0:
             return []
@@ -1123,29 +1204,20 @@ class CEPProcessor:
         order = np.lexsort((rows, np.where(cur, 0, ks), key2, cur.astype(np.int8)))
         return self._build_matches(ks[order], cnts[order], stages[order], offs[order])
 
-    def _decode_eager(self, out, rank_of) -> List[Tuple[Hashable, Sequence]]:
-        """Device walk outputs -> (key, Sequence), in arrival order.
-
-        The batch's match rows compact on the device into ``decode_budget``
-        rows (``ops/decode.py``), so the host pulls rows in proportion to
-        the match count; a batch with more matches falls back to the full
-        pull (counted in ``decode_fallbacks``)."""
-        K, T, R = out.count.shape
-        if self.decode_budget:
-            c_stage, c_off, c_count, c_k, c_t, c_r, c_n, _ovf = compact_matches(
-                out, self.decode_budget
+    def _decode_eager(self, out, hits, rank_of) -> List[Tuple[Hashable, Sequence]]:
+        """Device walk outputs -> (key, Sequence), in arrival order, from
+        their :meth:`_hits`."""
+        n, rows = hits
+        if n is not None:
+            if n == 0:
+                return []
+            c_stage, c_off, c_count, c_k, c_t, c_r = rows[:6]
+            count, stage, off, k_arr, t_arr, r_arr = (
+                x[:n].cpu().numpy()
+                for x in (c_count, c_stage, c_off, c_k, c_t, c_r)
             )
-            n = int(c_n)
-            if n <= min(self.decode_budget, K * T * R):
-                if n == 0:
-                    return []
-                count, stage, off, k_arr, t_arr, r_arr = (
-                    x[:n].cpu().numpy()
-                    for x in (c_count, c_stage, c_off, c_k, c_t, c_r)
-                )
-                return self._emit(k_arr, t_arr, r_arr, count, stage, off, rank_of)
-            self.metrics.decode_fallbacks += 1
-        count = out.count.cpu().numpy()
+            return self._emit(k_arr, t_arr, r_arr, count, stage, off, rank_of)
+        count = rows
         ks, ts, rs = np.nonzero(count)
         if ks.size == 0:
             return []
@@ -1163,23 +1235,30 @@ class CEPProcessor:
         return self._build_matches(ks[order], cnts[order], stages[order], offs[order])
 
     def _build_matches(self, ks, cnts, stages, offs):
-        """Ordered hit rows -> ``(key, Sequence)`` pairs."""
-        names = self.batch.names
+        """Ordered hit rows -> ``(key, Sequence)`` pairs, each Event from
+        the materialized mirror or else built from its column row (counted
+        in ``decode_events_materialized``)."""
+        names, mirror = self.batch.names, self._events
         matches: List[Tuple[Hashable, Sequence]] = []
-        for k, n, st, of in zip(ks, cnts, stages, offs):
-            k = int(k)
-            seq = Sequence()
-            for w in range(int(n)):
-                seq.add(names[int(st[w])], self._event_at(k, int(of[w])))
-            matches.append((self._key_of[k], seq))
+        built = 0
+        with self._layer("decode.build"):
+            for k, n, st, of in zip(ks, cnts, stages, offs):
+                k = int(k)
+                seq = Sequence()
+                for w in range(int(n)):
+                    off = int(of[w])
+                    ev = mirror[k].get(off)
+                    if ev is None:
+                        ev = self._column_event(k, off)
+                        built += 1
+                    seq.add(names[int(st[w])], ev)
+                matches.append((self._key_of[k], seq))
+        self.metrics.decode_events_materialized += built
         return matches
 
-    def _event_at(self, lane: int, off: int) -> Event:
-        """The event at (lane, device offset): the materialized mirror
-        first, then the column batches (newest first), kept on a hit."""
-        ev = self._events[lane].get(off)
-        if ev is not None:
-            return ev
+    def _column_event(self, lane: int, off: int) -> Event:
+        """The event at (lane, device offset) from the column batches
+        (newest first), kept in the materialized mirror."""
         for start, cnt, abs_ts, leaves in reversed(self._col_batches):
             s = int(start[lane])
             if s >= 0 and s <= off < s + int(cnt[lane]):
@@ -1202,28 +1281,41 @@ class CEPProcessor:
         events still in a lane's slab or pointed at by a live run can
         appear in a future match; under tiering, also the events of a
         partial prefix held in the stencil carry.  Live rows still in column
-        batches materialize first; the batches then drop."""
-        slab_stage, slab_off, run_alive, run_off = self.engine_arrays(
-            lambda st: (st.slab.stage, st.slab.off, st.alive, st.event_off))
-        carry = getattr(self.state, "carry", None)
-        carry_off = None if carry is None else carry.offs.cpu().numpy()
-        for k in range(self.num_lanes):
-            live = set(slab_off[k][slab_stage[k] >= 0].tolist())
-            live.update(run_off[k][run_alive[k]].tolist())
-            if carry_off is not None:
-                live.update(carry_off[k][carry_off[k] >= 0].tolist())
-            store = self._events[k]
-            for start, cnt, abs_ts, leaves in self._col_batches:
-                s = int(start[k])
-                if s < 0:
-                    continue
-                hi = s + int(cnt[k])
-                for o in live:
-                    if s <= o < hi and o not in store:
-                        store[o] = self._materialize(k, o, s, abs_ts, leaves)
-            for o in [o for o in store if o not in live]:
-                del store[o]
-        self._col_batches.clear()
+        batches materialize first; the batches then drop.  ``gc.read`` is
+        the device state's read to the host, ``gc.sweep`` the loop over the
+        lanes; the Events built and dropped and the mirror's size after are
+        counted in ``layers``."""
+        with self._layer("gc.read"):
+            slab_stage, slab_off, run_alive, run_off = self.engine_arrays(
+                lambda st: (st.slab.stage, st.slab.off, st.alive, st.event_off))
+            carry = getattr(self.state, "carry", None)
+            carry_off = None if carry is None else carry.offs.cpu().numpy()
+        built = dropped = held = 0
+        with self._layer("gc.sweep"):
+            for k in range(self.num_lanes):
+                live = set(slab_off[k][slab_stage[k] >= 0].tolist())
+                live.update(run_off[k][run_alive[k]].tolist())
+                if carry_off is not None:
+                    live.update(carry_off[k][carry_off[k] >= 0].tolist())
+                store = self._events[k]
+                for start, cnt, abs_ts, leaves in self._col_batches:
+                    s = int(start[k])
+                    if s < 0:
+                        continue
+                    hi = s + int(cnt[k])
+                    for o in live:
+                        if s <= o < hi and o not in store:
+                            store[o] = self._materialize(k, o, s, abs_ts, leaves)
+                            built += 1
+                dead = [o for o in store if o not in live]
+                for o in dead:
+                    del store[o]
+                dropped += len(dead)
+                held += len(store)
+            self._col_batches.clear()
+        self.metrics.gc_events_materialized += built
+        self.metrics.gc_events_dropped += dropped
+        self.metrics.host_events = held
 
     # -- diagnostics --------------------------------------------------------
 

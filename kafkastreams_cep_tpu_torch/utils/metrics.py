@@ -7,9 +7,13 @@ merge across bank members (``registry.merge``).
 
 The processor reads and writes them as attributes
 (``metrics.records_in += n``) and times its phases with
-``with metrics.timed("decode_seconds"):``.  :func:`profile` captures a
-``torch.profiler`` trace of a window (host spans and, on the card, its
-kernels) and :func:`annotate` names a host region inside one.
+``with metrics.timed("decode_seconds"):``; the child spans inside its
+phases (``pack.lanes``, ``decode.wait``, ...), timed with
+``with metrics.timed_span("decode.wait"):``, and their work counts
+(``metrics.steps += T``) land in ``snapshot()["layers"]``.
+:func:`profile` captures a ``torch.profiler`` trace of a window (host
+spans and, on the card, its kernels) and :func:`annotate` names a host
+region inside one.
 """
 
 from __future__ import annotations
@@ -24,8 +28,8 @@ from kafkastreams_cep_tpu_torch.utils.telemetry import (
     merge_counter_dicts,
 )
 
-__all__ = ["COUNTER_ATTRS", "SECONDS_ATTRS", "PHASE_NAMES", "Metrics", "profile",
-           "annotate", "device_memory_stats", "merge_counter_dicts"]
+__all__ = ["COUNTER_ATTRS", "SECONDS_ATTRS", "PHASE_NAMES", "LAYER_SPANS", "LAYER_COUNTERS",
+           "Metrics", "profile", "annotate", "device_memory_stats", "merge_counter_dicts"]
 
 #: Integer runtime counters, in snapshot order.
 COUNTER_ATTRS = (
@@ -37,7 +41,8 @@ COUNTER_ATTRS = (
 )
 
 #: Wall-time accumulators; each also feeds the phase histogram of the same
-#: stem ("device_seconds" -> phases["device"]).
+#: stem ("device_seconds" -> phases["device"]).  On a CUDA processor without
+#: a mesh, ``device_seconds`` is the card's time, read from CUDA events.
 SECONDS_ATTRS = (
     "device_seconds",
     "decode_seconds",
@@ -50,6 +55,20 @@ SECONDS_ATTRS = (
 #: The batch phases every processor pre-registers, so snapshots of runs
 #: that never hit a phase (gc off, eager extraction) carry the same keys.
 PHASE_NAMES = ("pack", "dispatch", "drain", "device", "decode", "gc")
+
+#: The child spans inside the batch phases, each inside the phase its name
+#: begins with; each a ``span.<name>`` histogram whose ``sum`` is its seconds
+#: total (``snapshot()["layers"]["spans"]``).
+LAYER_SPANS = ("pack.lanes", "pack.columns", "pack.copy", "dispatch.sweep", "device.wait",
+               "decode.wait", "decode.build", "gc.read", "gc.sweep")
+
+#: Work counts at the same boundaries, ``layer.<name>`` in the registry
+#: (``snapshot()["layers"]["counters"]``): engine steps dispatched (each
+#: batch's ``T``), Events the decode and the event GC built from column rows,
+#: host events the GC dropped, and ``host_events``, the host mirror's size
+#: after the last GC (a level, set there; summed across bank members).
+LAYER_COUNTERS = ("steps", "decode_events_materialized", "gc_events_materialized",
+                  "gc_events_dropped", "host_events")
 
 
 def _counter_property(name: str) -> property:
@@ -81,12 +100,17 @@ class Metrics:
                 self.registry.counter(n).value = 0.0
         for n in PHASE_NAMES:
             self.registry.histogram(f"phase.{n}", LATENCY_EDGES_S)
+        for n in LAYER_SPANS:
+            self.registry.histogram(f"span.{n}", LATENCY_EDGES_S)
+        for n in LAYER_COUNTERS:
+            self.registry.counter(f"layer.{n}")
 
     def snapshot(self, engine_counters: Dict[str, int]) -> Dict[str, float]:
         """One flat dict: the runtime counters, the phase seconds (rounded
         to the microsecond), ``events_per_second_device`` once a device
-        phase was timed, ``engine_counters`` and the per-phase latency
-        histograms (``"phases"``)."""
+        phase was timed, ``engine_counters``, the per-phase latency
+        histograms (``"phases"``) and the child spans and work counts
+        (``"layers"``)."""
         out: Dict[str, float] = {n: self.registry.counter(n).value for n in COUNTER_ATTRS}
         for n in SECONDS_ATTRS:
             out[n] = round(self.registry.counter(n).value, 6)
@@ -95,6 +119,7 @@ class Metrics:
                 out["records_in"] / out["device_seconds"], 1)
         out.update(engine_counters)
         out["phases"] = self.phases()
+        out["layers"] = self.layers()
         return out
 
     def phases(self) -> Dict[str, dict]:
@@ -105,6 +130,24 @@ class Metrics:
             if name.startswith("phase.")
         }
 
+    def layers(self) -> Dict[str, dict]:
+        """The child spans' histogram snapshots (count, sum, p50, p99) under
+        ``"spans"`` and the work counts under ``"counters"``."""
+        items = self.registry.items()
+        return {
+            "spans": {name[len("span."):]: inst.snapshot()
+                      for name, inst in items if name.startswith("span.")},
+            "counters": {name[len("layer."):]: inst.value
+                         for name, inst in items if name.startswith("layer.")},
+        }
+
+    def observe(self, attr: str, seconds: float) -> None:
+        """Add ``seconds`` to ``attr`` and observe them in the phase's
+        histogram."""
+        self.registry.counter(attr).value += seconds
+        phase = attr[:-8] if attr.endswith("_seconds") else attr
+        self.registry.histogram(f"phase.{phase}", LATENCY_EDGES_S).observe(seconds)
+
     @contextlib.contextmanager
     def timed(self, attr: str) -> Iterator[None]:
         """Add the wall seconds of the ``with`` body to ``attr`` and observe
@@ -113,14 +156,24 @@ class Metrics:
         try:
             yield
         finally:
-            dt = time.perf_counter() - t0
-            self.registry.counter(attr).value += dt
-            phase = attr[:-8] if attr.endswith("_seconds") else attr
-            self.registry.histogram(f"phase.{phase}", LATENCY_EDGES_S).observe(dt)
+            self.observe(attr, time.perf_counter() - t0)
+
+    @contextlib.contextmanager
+    def timed_span(self, name: str) -> Iterator[None]:
+        """Observe the wall seconds of the ``with`` body in the child span
+        ``name``'s histogram."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.registry.histogram(f"span.{name}", LATENCY_EDGES_S).observe(
+                time.perf_counter() - t0)
 
 
 for _n in COUNTER_ATTRS + SECONDS_ATTRS:
     setattr(Metrics, _n, _counter_property(_n))
+for _n in LAYER_COUNTERS:
+    setattr(Metrics, _n, _counter_property(f"layer.{_n}"))
 del _n
 
 

@@ -18,7 +18,8 @@ Four pillars, each mapped to its Kafka Streams analog:
   analog of Kafka Streams' per-node ``process-latency`` sensors, but as
   correlated JSON-lines events: one ``batch`` span per micro-batch (batch
   id, journal seq, lane count) with nested phase spans for
-  ``pack → dispatch → device → decode → gc``, plus supervisor lifecycle
+  ``pack → dispatch → device → decode → gc`` and child spans inside them
+  (``pack.lanes``, ``decode.wait``, ``gc.sweep``, ...), plus supervisor lifecycle
   spans (``checkpoint`` / ``recover`` / ``escalate``) and armed failpoint
   hits.  A recovery span carries the ``corr`` id of the batch span it
   rolled back, so an operator can walk from a recovery straight to the
@@ -571,6 +572,9 @@ def _is_hist_snap(v) -> bool:
     return isinstance(v, dict) and {"count", "sum", "buckets"} <= set(v)
 
 
+#: Entries of ``layers["counters"]`` that are levels, rendered as gauges.
+LAYER_LEVELS = ("host_events",)
+
 #: Curated HELP text by unprefixed metric family name.  Families not
 #: listed fall back to a deterministic pointer at the README reference —
 #: the metrics-guard test (tests/test_metrics_guard.py) only requires that
@@ -624,6 +628,22 @@ METRIC_HELP: Dict[str, str] = {
         "Aborted ladder transition protocols (failpoint or pin-snapshot "
         "failure); the previous level stayed authoritative"
     ),
+    "layer_span_seconds": (
+        "Host wall time per child span inside a batch phase (pack.lanes/"
+        "pack.columns/pack.copy, dispatch.sweep, device.wait, decode.wait/"
+        "decode.build, gc.read/gc.sweep)"
+    ),
+    "layer_steps_total": "Engine steps dispatched (each batch's padded length)",
+    "layer_decode_events_materialized_total": (
+        "Events the decode built from packed column rows"
+    ),
+    "layer_gc_events_materialized_total": (
+        "Events the event GC built from packed column rows (still live)"
+    ),
+    "layer_gc_events_dropped_total": (
+        "Host events the event GC dropped (unreachable from device state)"
+    ),
+    "layer_host_events": "Events the host mirror held after the last event GC",
     "overload_shed": (
         "Admissible records shed at the ingest door under brownout "
         "(L3+), each a typed overload_shed dead letter — offered == "
@@ -647,7 +667,10 @@ def render_prometheus(
     plus stall/per-query histograms and the ``<prefix>_slo_burn`` gauge
     (the latency-attribution ledger, utils/latency.py),
     ``dead_letters`` -> ``<prefix>_dead_letters_total{reason="late"}``,
-    ``hbm``       -> ``<prefix>_hbm_<stat>`` gauges.  Histogram snapshots
+    ``hbm``       -> ``<prefix>_hbm_<stat>`` gauges,
+    ``layers``    -> ``<prefix>_layer_span_seconds{span="name"}`` histograms
+    plus ``<prefix>_layer_<count>_total`` counters (``host_events``, a
+    level, as the gauge ``<prefix>_layer_host_events``).  Histogram snapshots
     render as cumulative ``_bucket{le=...}`` series plus ``_sum``/``_count``.
     ``None`` values are skipped (absent, not zero).
 
@@ -828,6 +851,18 @@ def render_prometheus(
                 f"{prefix}_latency_deferred_batches",
                 val.get("deferred_batches"),
             )
+        elif key == "layers" and isinstance(val, dict):
+            # The port's child spans inside the batch phases and the work
+            # counts at their boundaries (utils/metrics.py: LAYER_SPANS,
+            # LAYER_COUNTERS).
+            spans = val.get("spans", {})
+            for span in sorted(spans):
+                if _is_hist_snap(spans[span]):
+                    hist(f"{prefix}_layer_span_seconds", spans[span], {"span": span})
+            counts = val.get("counters", {})
+            for cname in sorted(counts):
+                suffix = "" if cname in LAYER_LEVELS else "_total"
+                scalar(f"{prefix}_layer_{_sanitize(cname)}{suffix}", counts[cname])
         elif key == "hbm" and isinstance(val, dict):
             for stat in sorted(val):
                 scalar(f"{prefix}_hbm_{_sanitize(stat)}", val[stat])

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of ``kafkastreams_cep_tpu_torch``,
 none of its scripts (``chip_smoke.py``, ``chip_ab_walk_pass.py``,
-``chip_ab_scan_pass.py``, ``chip_phases_*.py``, ``chip_sample.py``) and none of its
+``chip_ab_scan_pass.py``, ``chip_phases_*.py``, ``chip_sample.py``,
+``chip_tracing_cost.py``) and none of its
 examples (``examples/torch_*.py``) imports ``jax`` or anything of the JAX
 package ``kafkastreams_cep_tpu`` (the port keeps its own copies of what it
 needs).  Only the tests import both."""
@@ -13,7 +14,8 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "kafkastreams_cep_tpu_torch"
 SCRIPTS = ("chip_smoke.py", "chip_ab_walk_pass.py", "chip_ab_scan_pass.py",
-           "chip_phases_scan_pass.py", "chip_phases_walk_pass.py", "chip_sample.py")
+           "chip_phases_scan_pass.py", "chip_phases_walk_pass.py", "chip_sample.py",
+           "chip_tracing_cost.py")
 EXAMPLES = ("torch_stock_demo.py", "torch_ooo_pipeline.py", "torch_resilient_pipeline.py",
             "torch_highrate_pipeline.py")
 FILES = sorted(

@@ -396,11 +396,14 @@ def assert_snapshots_equal(jsnap, tsnap):
     """Every key JAX reports but ``hbm`` is in both, and equal (the
     ``latency`` ledger too, on the pinned clock) but the wall-clock keys and
     ``trace_cache`` (each package's own cache: the same stats keys);
-    ``phases`` has the same phases, each observed as many times."""
+    ``phases`` has the same phases, each observed as many times.  The port
+    adds one key of its own, ``layers`` (the child spans inside the phases
+    and their work counts, which the JAX package does not time)."""
     skip = {"phases", "hbm"}
+    assert "layers" in tsnap and "layers" not in jsnap
     assert {k: v["count"] for k, v in tsnap["phases"].items()} == {
         k: v["count"] for k, v in jsnap["phases"].items()}
-    tsnap = {k: v for k, v in tsnap.items() if k != "phases"}
+    tsnap = {k: v for k, v in tsnap.items() if k not in ("phases", "layers")}
     jkeys = set(jsnap) - skip
     if "events_per_second_device" in jkeys and "events_per_second_device" not in tsnap:
         assert tsnap["device_seconds"] == 0.0  # rounded away on a fast CPU run
